@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch port (src/repro_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+  1. build the CUDA kernels from src/repro_torch/csrc (one nvcc each, in
+     parallel);
+  2. print the card's name and power limit (nvidia-smi);
+  3. hold each kernel against its plain PyTorch version on the card, at
+     small ragged shapes and at the shapes full dlrm-rm1 gives it, and time
+     kernel, plain version and one library call beside the kernel's bound;
+  4. train full-width dlrm-rm1 (bf16, 20 x 1M x 32 tables) at batch 128:
+     5 relaxed steps then 2 strict ones, with both kernels' launch counts
+     read around that run; repeat 3 relaxed steps from the same seed and
+     require bitwise-equal losses;
+  5. train dlrm-rm1 smoke on the card and on the CPU from the same params
+     and require the loss curves to agree.
+
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
+F32_OPS_PER_S = 67e12        # H100 SXM f32 rate outside the tensor cores
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms, CUDA events around each call, with
+    the 50 MB L2 flushed before each so the gathered rows start cold."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def bound(nbytes: float, nops: float):
+    """Least time in ms for the work, and which of bytes or operations sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main():
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import embedding_ops
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import DLRMBatches, zipf_indices
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import scatter_update as su
+    from repro_torch.models.registry import get_api
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 matmuls
+    dev = torch.device("cuda")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    # -- 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build()
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+    print(f"[build] {len(logs)} built, {len(_build.KERNELS) - len(logs)} cached, "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    # -- 2. the card -----------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip(), f"nvidia-smi: {smi.stderr}")
+    print(smi.stdout.strip().splitlines()[0])
+
+    # -- 3. kernels against their plain versions ---------------------------------
+    rng = np.random.default_rng(0)
+    err = {"embedding_bag": 0.0, "scatter_update": 0.0}
+
+    def check_bag(table, idx, seg, num_bags, what):
+        got = ops.embedding_bag(table, idx, seg, num_bags)
+        want = ref.embedding_bag_ref(table, idx, seg, num_bags)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32 and got.shape == want.shape,
+              f"embedding_bag {what}: shape/dtype")
+        diff = (got - want).abs()
+        check(bool((diff <= 1e-5 + 1e-5 * want.abs()).all()),
+              f"embedding_bag {what}: max abs err {diff.max().item():.3g}")
+        empty = torch.ones(num_bags, dtype=torch.bool, device=dev)
+        empty[seg.long()] = False
+        check(not got[empty].any().item(), f"embedding_bag {what}: empty bag not 0")
+        err["embedding_bag"] = max(err["embedding_bag"], diff.max().item()
+                                   if diff.numel() else 0.0)
+
+    def check_update(table, idx, delta, what):
+        want = ref.scatter_update_ref(table.clone(), idx, delta)
+        ops.scatter_update(table, idx, delta)
+        torch.cuda.synchronize()
+        check(torch.equal(table, want), f"scatter_update {what}: not bitwise equal")
+        err["scatter_update"] = max(err["scatter_update"],
+                                    (table.float() - want.float()).abs().max().item())
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for R, D, B, N in ((1000, 32, 64, 700), (500, 45, 40, 90), (64, 100, 7, 0)):
+            table = torch.randn((R, D), device=dev).to(dtype)
+            idx = torch.from_numpy(zipf_indices(rng, (N,), R)).to(dev)
+            # only every third bag gets items; the others stay empty
+            seg_np = np.sort(rng.choice(np.arange(0, B, 3) + 1, N) % B)
+            seg = torch.from_numpy(seg_np.astype(np.int32)).to(dev)
+            check_bag(table, idx, seg, B, f"{dtype} R={R} D={D} N={N}")
+    for dtype in (torch.float32, torch.bfloat16):
+        # zipf ids with heavy duplicates, row 0 real, pads (-1) trailing
+        ids = np.concatenate([[0, 0], zipf_indices(rng, (400,), 300)])
+        uniq, comb = ops.combine_duplicates(
+            torch.from_numpy(ids.astype(np.int32)).to(dev),
+            torch.randn((402, 32), device=dev))
+        check(uniq[0].item() == 0 and (uniq < 0).any().item(), "combine: no pads")
+        table = torch.randn((300, 32), device=dev).to(dtype)
+        before = table[0].float() + comb[0]
+        check_update(table, uniq, comb, f"{dtype} zipf")
+        check(torch.equal(table[0], before.to(dtype)), "scatter_update: row 0 lost")
+    # combine on the card vs on the CPU: same slots, same sums (row 0 real)
+    ids = np.concatenate([[0], zipf_indices(rng, (999,), 500)]).astype(np.int32)
+    delta = rng.standard_normal((1000, 32)).astype(np.float32)
+    cu, cc = ops.combine_duplicates(torch.from_numpy(ids).to(dev),
+                                    torch.from_numpy(delta).to(dev))
+    hu, hc = ops.combine_duplicates(torch.from_numpy(ids), torch.from_numpy(delta))
+    check(torch.equal(cu.cpu(), hu), "combine_duplicates: slots differ from CPU")
+    torch.testing.assert_close(cc.cpu(), hc, rtol=1e-5, atol=1e-5)
+    err["embedding_bag"] = max(err["embedding_bag"], (cc.cpu() - hc).abs().max().item())
+    print("[kernels] small ragged cases: ok")
+
+    # the shapes full dlrm-rm1 at batch 128 gives the kernels
+    cfg = get_arch("dlrm-rm1").model
+    T, R, d = cfg.dlrm_num_tables, cfg.dlrm_rows_per_table, cfg.dlrm_bottom_mlp[-1]
+    Bsz = 128
+    batch = DLRMBatches(cfg, Bsz, seed=0, device=dev).next(0)
+    flat, seg = embedding_ops.bag_items(batch["sparse"], R)
+    N, nb = flat.numel(), Bsz * T
+    n_rows = torch.unique(flat).numel()
+    tables = (torch.randn((T * R, d), device=dev) / math.sqrt(d)).to(torch.bfloat16)
+    g_rows = (torch.randn((nb, d), device=dev) * 1e-3).to(torch.bfloat16)
+    uniq, g_comb = ops.combine_duplicates(flat, g_rows, item_rows=seg)
+    upd = -0.05 * g_comb
+    scratch = torch.zeros((T * R, d), dtype=torch.float32, device=dev)
+    sorted_items = torch.sort(flat, stable=True)[1]
+    comb_src = seg[sorted_items].contiguous()
+    comb_seg = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                                       flat[sorted_items][1:] != flat[sorted_items][:-1]]),
+                            0, dtype=torch.int32) - 1
+    check_bag(tables, flat, seg, nb, "rm1 forward bag (bf16 table)")
+    check_bag(g_rows, comb_src, comb_seg, N, "rm1 duplicate combine")
+    check_update(tables.clone(), uniq, upd, "rm1 bf16 table")
+    check_update(scratch, uniq, upd, "rm1 f32 scratch")
+    check_bag(scratch, flat, seg, nb, "rm1 correction bag (f32 scratch)")
+    ops.scatter_update(scratch, uniq, -upd)
+    check(not scratch.any().item(), "scratch not cleared by u + (-u)")
+    print(f"[kernels] rm1 shapes: ok ({N} items, {nb} bags, {n_rows} distinct rows)")
+
+    # times at the rm1 shapes (ms), plain version and one library call beside
+    offsets = torch.arange(nb + 1, device=dev, dtype=torch.int32) * cfg.dlrm_num_sparse
+    real = uniq[uniq >= 0].long()
+    upd_real_bf16 = upd[: real.numel()].to(torch.bfloat16)
+    t_tab = tables.clone()
+    rows_b = 2   # bf16
+
+    def bag_bytes(n_bags, rows_read, row_bytes):
+        # idx once, the (n_bags + 1) CSR offsets the kernel reads (it never
+        # reads seg itself), each distinct row once, the f32 output
+        return N * 4 + (n_bags + 1) * 4 + rows_read * row_bytes + n_bags * d * 4
+
+    shapes = {
+        "bag_fwd": (lambda: ops.embedding_bag(tables, flat, seg, nb),
+                    lambda: ref.embedding_bag_ref(tables, flat, seg, nb),
+                    lambda: torch.nn.functional.embedding_bag(
+                        flat, tables, offsets, mode="sum"),
+                    bound(bag_bytes(nb, n_rows, d * rows_b), N * d)),
+        "bag_combine": (lambda: ops.embedding_bag(g_rows, comb_src, comb_seg, N),
+                        lambda: ref.embedding_bag_ref(g_rows, comb_src, comb_seg, N),
+                        None,
+                        bound(bag_bytes(N, nb, d * rows_b), N * d)),
+        "bag_corr_f32": (lambda: ops.embedding_bag(scratch, flat, seg, nb),
+                         lambda: ref.embedding_bag_ref(scratch, flat, seg, nb),
+                         lambda: torch.nn.functional.embedding_bag(
+                             flat, scratch, offsets, mode="sum"),
+                         bound(bag_bytes(nb, n_rows, d * 4), N * d)),
+        "update_bf16": (lambda: ops.scatter_update(t_tab, uniq, upd),
+                        lambda: ref.scatter_update_ref(t_tab, uniq, upd),
+                        lambda: t_tab.index_add_(0, real, upd_real_bf16),
+                        bound(N * 4 + n_rows * d * (4 + 2 * rows_b), n_rows * d)),
+        "update_f32": (lambda: ops.scatter_update(scratch, uniq, upd),
+                       lambda: ref.scatter_update_ref(scratch, uniq, upd),
+                       None,
+                       bound(N * 4 + n_rows * d * 12, n_rows * d)),
+    }
+    timing = {}
+    for name, (kern, plain, lib, (b_ms, b_by)) in shapes.items():
+        timing[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                        "library_ms": None if lib is None else time_ms(torch, lib),
+                        "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[kernels] {name}: " + json.dumps(timing[name]))
+    del tables, t_tab, scratch, g_rows, g_comb, upd, upd_real_bf16
+    torch.cuda.empty_cache()
+
+    # -- 4. full-width dlrm-rm1 through the port's train -------------------------
+    tc = TrainConfig(learning_rate=1e-3, embed_learning_rate=0.05)
+
+    def fresh_state():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(tc.seed)
+        init_fn = train_loop.make_step_fns(cfg, tc)[0]
+        state = init_fn(get_api(cfg).init(gen, cfg))
+        torch.cuda.synchronize()
+        return state
+
+    def run(state, steps, relaxed, start=0):
+        # every batch of the run is made first (set-up, on the host), so
+        # the step times below are the training path's alone
+        t = time.perf_counter()
+        batches = LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev),
+                                    cfg, depth=steps + 1, start_step=start)
+        print(f"[train] host batch generation: "
+              f"{1e3 * (time.perf_counter() - t) / (steps + 1):.1f} ms per batch")
+        stamps = [time.perf_counter()]
+
+        def on_metrics(n, m):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        state, losses = train_loop.train(cfg, tc, batches, steps, relaxed=relaxed,
+                                         state=state, start_step=start,
+                                         on_metrics=on_metrics)
+        step_ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:], strict=True)]
+        return state, losses, step_ms
+
+    t0 = time.perf_counter()
+    state = fresh_state()
+    print(f"[train] full dlrm-rm1 init on the card: {time.perf_counter() - t0:.1f}s, "
+          f"tables {tuple(state['embed']['emb_tables'].shape)} "
+          f"{state['embed']['emb_tables'].dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    eb.launches = su.launches = 0
+    state, rl, rt = run(state, 5, relaxed=True)
+    state, sl, stt = run(state, 2, relaxed=False, start=5)
+    launches = {"embedding_bag": eb.launches, "scatter_update": su.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] relaxed losses {rl} step ms {rt}")
+    print(f"[train] strict losses {sl} step ms {stt}")
+    print(f"[train] launches {launches}; peak device memory {peak_gb:.2f} GB")
+    check(all(math.isfinite(x) for x in rl + sl), "non-finite loss")
+    # warmup bag + per relaxed step 3 bags (stale, combine, correction) and
+    # 3 updates (table, scratch set, scratch clear); per strict step 2 + 1
+    check(launches == {"embedding_bag": 1 + 5 * 3 + 2 * 2,
+                       "scatter_update": 5 * 3 + 2 * 1},
+          f"unexpected launch counts {launches}")
+    check(not state["prefetch"]["scratch"].any().item(), "scratch not zero after run")
+    del state
+    torch.cuda.empty_cache()
+    state2, rl2, _ = run(fresh_state(), 3, relaxed=True)
+    check(rl2 == rl[:3], f"relaxed losses not repeatable: {rl2} vs {rl[:3]}")
+    del state2
+    torch.cuda.empty_cache()
+    print("[train] repeat run: bitwise-equal losses")
+
+    # -- 5. the card against the CPU at the smoke size ---------------------------
+    scfg = get_arch("dlrm-rm1", smoke=True).model
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = get_api(scfg).init(gen, scfg)
+    init_fn = train_loop.make_step_fns(scfg, tc)[0]
+    curves = {}
+    for name, where, relaxed in (("cuda", dev, True), ("cpu", torch.device("cpu"), True),
+                                 ("cuda_strict", dev, False)):
+        st = init_fn(tree_map(lambda p, w=where: p.clone().to(w), params))
+        _, curves[name] = train_loop.train(
+            scfg, tc, DLRMBatches(scfg, 4, seed=0, device=where), 5,
+            relaxed=relaxed, state=st, device=where)
+    print(f"[smoke] losses {curves}")
+    # AdamW's first steps amplify float-order differences (as in the tests)
+    np.testing.assert_allclose(curves["cuda"], curves["cpu"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(curves["cuda"], curves["cuda_strict"],
+                               rtol=2e-5, atol=2e-5)
+
+    kernels = []
+    for name, main_shape, src, replaces in (
+            ("embedding_bag", "bag_fwd", "src/repro_torch/csrc/embedding_bag.cu",
+             "src/repro/kernels/embedding_bag.py:40"),
+            ("scatter_update", "update_bf16", "src/repro_torch/csrc/scatter_update.cu",
+             "src/repro/kernels/scatter_update.py:24")):
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": err[name], **timing[main_shape]})
+    step = {"relaxed_ms_median": statistics.median(rt[1:]),
+            "strict_ms_median": statistics.median(stt)}
+    print(f"[train] full dlrm-rm1 batch {Bsz}: {json.dumps(step)}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

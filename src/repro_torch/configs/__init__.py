@@ -1,0 +1,29 @@
+"""Config registry: ``get_arch("<id>")`` / ``get_arch("<id>", smoke=True)``.
+
+Only the DLRM ids are registered; the LM ids come with the slices that port
+their models.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (DTYPES, ArchBundle, CheckpointConfig,
+                                      MambaConfig, ModelConfig, MoEConfig,
+                                      TrainConfig)
+
+__all__ = [
+    "ARCH_IDS", "ArchBundle", "CheckpointConfig", "DLRM_IDS", "DTYPES",
+    "MambaConfig", "ModelConfig", "MoEConfig", "TrainConfig", "get_arch",
+]
+
+DLRM_IDS = ["dlrm-rm1", "dlrm-rm2", "dlrm-rm3", "dlrm-rm4"]
+ARCH_IDS = list(DLRM_IDS)
+
+_MOD = {i: "repro_torch.configs." + i.replace("-", "_") for i in ARCH_IDS}
+
+
+def get_arch(arch_id: str, smoke: bool = False) -> ArchBundle:
+    if arch_id not in _MOD:
+        raise KeyError(f"unknown arch {arch_id!r}; the port registers {ARCH_IDS}")
+    mod = importlib.import_module(_MOD[arch_id])
+    return mod.smoke() if smoke else mod.full()

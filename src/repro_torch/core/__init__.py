@@ -1,0 +1,1 @@
+"""core layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""kernels layer of the PyTorch port (see the package docstring)."""

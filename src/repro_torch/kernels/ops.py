@@ -1,0 +1,61 @@
+"""Kernel dispatch by device (counterpart of ``repro.kernels.ops``).
+
+A CUDA tensor goes to the hand-written kernel, a CPU tensor to its plain
+version in ``ref``; any other device raises. There is no switch that could
+send a CUDA tensor to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import embedding_bag as eb
+from repro_torch.kernels import ref
+from repro_torch.kernels import scatter_update as su
+
+
+def _plain_ok(t, op: str) -> None:
+    if t.device.type != "cpu":
+        raise RuntimeError(f"{op}: no kernel for device {t.device}")
+
+
+def embedding_bag(table, idx, seg, num_bags: int):
+    """Fused gather + segment sum -> (num_bags, D) f32. idx/seg (N,) int32,
+    seg non-decreasing; empty bags are zero."""
+    if table.is_cuda:
+        return eb.embedding_bag_cuda(table, idx, seg, num_bags)
+    _plain_ok(table, "embedding_bag")
+    return ref.embedding_bag_ref(table, idx, seg, num_bags)
+
+
+def scatter_update(table, idx, delta):
+    """table rows at unique idx += delta (f32), in place; idx -1 is skipped."""
+    if table.is_cuda:
+        return su.scatter_update_cuda(table, idx, delta)
+    _plain_ok(table, "scatter_update")
+    return ref.scatter_update_ref(table, idx, delta)
+
+
+def combine_duplicates(idx, delta, item_rows=None):
+    """Sum the deltas of duplicate indices, in a fixed order.
+
+    idx: (N,) int32. Item i's delta is ``delta[item_rows[i]]``, or
+    ``delta[i]`` when ``item_rows`` is None (the DLRM adjoint passes the
+    bag of each item, so the (N, D) repeat is never built).
+
+    Returns ``(uniq_idx, combined)`` of static shape (N,) int32 and (N, D)
+    f32: slot s holds the s-th smallest distinct index and the sum of its
+    deltas in item order. Slots past the last distinct index hold -1 and a
+    zero delta; the update kernels skip them. (The JAX version pads with row
+    0 instead, which only a sequential update tolerates.) The sum is the
+    embedding-bag kernel over the sorted items, so it is the same on every
+    run, where ``index_add_`` on the card is not.
+    """
+    n = idx.shape[0]
+    sorted_idx, order = torch.sort(idx, stable=True)
+    first = torch.ones(n, dtype=torch.bool, device=idx.device)
+    first[1:] = sorted_idx[1:] != sorted_idx[:-1]
+    seg = torch.cumsum(first, 0, dtype=torch.int32) - 1
+    uniq = torch.full((n,), -1, dtype=torch.int32, device=idx.device)
+    uniq.scatter_(0, seg.long(), sorted_idx)
+    src = order if item_rows is None else item_rows[order]
+    return uniq, embedding_bag(delta, src.to(torch.int32), seg, n)

@@ -1,0 +1,37 @@
+"""Plain PyTorch versions of the port's kernels (counterpart of ``repro.kernels.ref``).
+
+They run wherever torch runs. The CPU path uses them, and the kernels are
+held against them on the card. They compute with the port's arithmetic,
+which is where they differ from the JAX oracles (see each docstring).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def embedding_bag_ref(table, idx, seg, num_bags: int):
+    """table: (R, D); idx, seg: (N,), seg non-decreasing bag ids.
+
+    Returns (num_bags, D) f32 with out[b] = sum_{i: seg[i] == b} table[idx[i]],
+    the rows converted to f32 before they are summed (the JAX oracle sums in
+    the table's dtype).
+    """
+    rows = table.index_select(0, idx.long()).float()
+    out = torch.zeros((num_bags, table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    return out.index_add_(0, seg.long(), rows)
+
+
+def scatter_update_ref(table, idx, delta):
+    """In place: table[idx[i]] = round(f32(table[idx[i]]) + f32(delta[i])).
+
+    idx: (N,) with each row at most once; slots holding -1 are pads and are
+    skipped. Returns ``table``. This is the trainer's update arithmetic
+    (``repro/core/relaxed.py:91-95``). The JAX oracle instead casts delta to
+    the table's dtype before the add; the two agree for f32 tables and
+    differ in the last bit for bf16 and f16 ones.
+    """
+    keep = idx >= 0
+    rows = idx[keep].long()
+    table[rows] = (table[rows].float() + delta[keep].float()).to(table.dtype)
+    return table

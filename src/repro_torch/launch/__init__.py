@@ -1,0 +1,1 @@
+"""launch layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""optim layer of the PyTorch port (see the package docstring)."""

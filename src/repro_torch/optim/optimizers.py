@@ -1,0 +1,125 @@
+"""Functional optimizers over param trees (counterpart of ``repro.optim.optimizers``).
+
+Two tiers, matching the paper:
+  * dense tier (MLP/backbone): AdamW / SGD-momentum
+  * sparse tier (embedding pool): plain SGD or row-wise Adagrad, *additive*
+    update rules, which is what makes the relaxed embedding lookup exact.
+
+``update(grads, state, params) -> (updates, state)`` returns f32 updates;
+the caller adds them as ``(p.f32 + u).to(p.dtype)``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Any], Any]                # params -> state
+    update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (updates, state)
+
+
+def _zeros_f32(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+    def init(params):
+        if momentum == 0.0:
+            return ()
+        return tree_map(_zeros_f32, params)
+
+    def update(grads, state, params):
+        if momentum == 0.0:
+            return tree_map(lambda g: -lr * g, grads), state
+        new_m = tree_map(lambda m, g: momentum * m + g.float(), state, grads)
+        return tree_map(lambda m: -lr * m, new_m), new_m
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    def init(params):
+        dev = tree_leaves(params)[0].device
+        return {"m": tree_map(_zeros_f32, params),
+                "v": tree_map(_zeros_f32, params),
+                "t": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def update(grads, state, params):
+        t = state["t"] + 1
+        m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
+                     state["m"], grads)
+        v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
+                     state["v"], grads)
+        bc1 = 1 - b1 ** t.float()
+        bc2 = 1 - b2 ** t.float()
+
+        def upd(m, v, p):
+            u = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if weight_decay:
+                u = u - lr * weight_decay * p.float()
+            return u
+
+        return tree_map(upd, m, v, params), {"m": m, "v": v, "t": t}
+
+    return Optimizer(init, update)
+
+
+def rowwise_adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
+    """Row-wise Adagrad for embedding tables (one accumulator per row).
+
+    The row delta uses the accumulator read before the batch plus this
+    batch's mean squared gradient, as the JAX package does.
+    """
+    def init(params):
+        return tree_map(
+            lambda p: torch.zeros(p.shape[:1] + (1,) * (p.dim() - 1),
+                                  dtype=torch.float32, device=p.device)
+            if p.dim() >= 2 else torch.zeros((), dtype=torch.float32,
+                                             device=p.device), params)
+
+    def mean_sq(g):
+        g32 = g.float()
+        if g.dim() < 2:
+            return torch.square(g32)
+        return torch.mean(torch.square(g32), dim=tuple(range(1, g.dim())),
+                          keepdim=True)
+
+    def update(grads, state, params):
+        new_a = tree_map(lambda a, g: a + mean_sq(g), state, grads)
+        ups = tree_map(lambda g, a: -lr * g.float() / (torch.sqrt(a) + eps),
+                       grads, new_a)
+        return ups, new_a
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, lr: float, cfg=None) -> Optimizer:
+    if name == "sgd":
+        return sgd(lr)
+    if name == "sgdm":
+        return sgd(lr, 0.9)
+    if name == "adamw":
+        return adamw(lr,
+                     b1=getattr(cfg, "beta1", 0.9),
+                     b2=getattr(cfg, "beta2", 0.95),
+                     weight_decay=getattr(cfg, "weight_decay", 0.0))
+    if name == "rowwise_adagrad":
+        return rowwise_adagrad(lr)
+    raise ValueError(name)
+
+
+def global_norm_clip(grads, max_norm: float):
+    """Scale grads so their global f32 L2 norm is at most ``max_norm``.
+
+    Returns (clipped grads, norm); the scale is cast to each grad's dtype
+    before the multiply, as the JAX package does.
+    """
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads)))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm

@@ -1,0 +1,1 @@
+"""training layer of the PyTorch port (see the package docstring)."""

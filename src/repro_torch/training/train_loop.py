@@ -1,0 +1,157 @@
+"""Training steps: strict (dependent) and relaxed (paper) schedules.
+
+Counterpart of ``repro.training.train_loop`` for DLRM, with
+``torch.autograd`` in place of ``jax.value_and_grad``.
+
+strict_step:
+    lookup_N -> fwd/bwd_N -> update_dense -> update_pool
+relaxed_step (TrainingCXL):
+    fwd/bwd on the bags prefetched at step N-1, the stale lookup of batch
+    N+1 on the pre-update tables, the pool update, then the correction
+    bag(U, idx_{N+1}) added to the stale bags.
+
+Both steps take the loss's gradient with respect to the bag vectors, spread
+it over the touched rows with duplicates combined in a fixed order, and
+update the tables in place at those rows only (``core.relaxed``). No
+table-sized gradient or update is ever built. The embedding tier therefore
+takes the additive SGD rule only; other embedding optimizers raise.
+
+The tables are updated in place, so a step returns a state that shares
+them with the state it was given.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import relaxed as rx
+from repro_torch.models.registry import get_api
+from repro_torch.optim import optimizers as opt
+from repro_torch.training import state as st
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _add_updates(params, updates):
+    return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params, updates)
+
+
+def make_step_fns(cfg, train_cfg):
+    """Returns (init_fn, strict_step, relaxed_step, warmup_fn).
+
+    ``init_fn(params)`` builds the train state from a param tree (the JAX
+    package's takes a PRNG key; torch cannot reproduce its draws).
+    """
+    api = get_api(cfg)
+    if train_cfg.embed_optimizer != "sgd":
+        raise NotImplementedError(
+            f"embed_optimizer={train_cfg.embed_optimizer!r}: the sparse "
+            "embedding update supports 'sgd' only so far")
+    dense_opt = opt.make_optimizer(train_cfg.optimizer, train_cfg.learning_rate,
+                                   train_cfg)
+    embed_opt = opt.make_optimizer("sgd", train_cfg.embed_learning_rate)
+
+    def init_fn(params):
+        return st.make_state(params, dense_opt, embed_opt)
+
+    def loss_and_grads(state, rows, batch):
+        """Loss, dense-param grads and the grad w.r.t. the bag vectors."""
+        dense = tree_map(lambda p: p.detach().requires_grad_(), state["dense"])
+        rows = rows.detach().requires_grad_()
+        loss = api.loss(st.merge_params(dense, state["embed"]), cfg,
+                        {**batch, "embed_rows": rows})
+        leaves = tree_leaves(dense)
+        grads = torch.autograd.grad(loss, leaves + [rows])
+        it = iter(grads[:-1])
+        return loss.detach(), tree_map(lambda _: next(it), dense), grads[-1]
+
+    def update_dense(state, g_dense):
+        if train_cfg.grad_clip:
+            g_dense, gnorm = opt.global_norm_clip(g_dense, train_cfg.grad_clip)
+        else:
+            gnorm = torch.zeros(())
+        upd_d, od = dense_opt.update(g_dense, state["opt_dense"], state["dense"])
+        return _add_updates(state["dense"], upd_d), od, gnorm
+
+    def sparse_update(state, batch, g_rows):
+        """SGD at the touched rows: (uniq row ids, f32 row updates, opt state)."""
+        uniq, g_emb = rx.sparse_rows_grad(state["embed"], cfg, batch, g_rows)
+        upd, oe = embed_opt.update({"emb_tables": g_emb}, state["opt_embed"],
+                                   None)
+        return uniq, upd["emb_tables"], oe
+
+    # -- strict ------------------------------------------------------------
+    @torch.no_grad()
+    def strict_step(state, batch):
+        rows = rx.lookup_rows(state["embed"], cfg, batch)
+        with torch.enable_grad():
+            loss, g_dense, g_rows = loss_and_grads(state, rows, batch)
+        dense, od, gnorm = update_dense(state, g_dense)
+        uniq, upd, oe = sparse_update(state, batch, g_rows)
+        rx.apply_embed_update(state["embed"], uniq, upd)
+        new_state = {**state, "dense": dense, "opt_dense": od, "opt_embed": oe,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss, "grad_norm": gnorm}
+
+    # -- relaxed -----------------------------------------------------------
+    @torch.no_grad()
+    def warmup(state, batch0):
+        """Fill the prefetch carry for step 0 and allocate the correction's
+        zeroed f32 scratch of the tables' shape."""
+        tables = state["embed"]["emb_tables"]
+        return {**state, "prefetch": {
+            "rows": rx.lookup_rows(state["embed"], cfg, batch0),
+            "scratch": torch.zeros(tables.shape, dtype=torch.float32,
+                                   device=tables.device)}}
+
+    @torch.no_grad()
+    def relaxed_step(state, batch, next_batch):
+        carry = state["prefetch"]
+        with torch.enable_grad():
+            loss, g_dense, g_rows = loss_and_grads(state, carry["rows"], batch)
+        # batch N+1's stale bags, read before the in-place update below
+        stale = rx.lookup_rows(state["embed"], cfg, next_batch)
+        dense, od, gnorm = update_dense(state, g_dense)
+        uniq, upd, oe = sparse_update(state, batch, g_rows)
+        rx.apply_embed_update(state["embed"], uniq, upd)
+        rows_next = rx.prefetch_corrected(stale, carry["scratch"], uniq, upd,
+                                          cfg, next_batch)
+        new_state = {**state, "dense": dense, "opt_dense": od, "opt_embed": oe,
+                     "step": state["step"] + 1,
+                     "prefetch": {**carry, "rows": rows_next}}
+        return new_state, {"loss": loss, "grad_norm": gnorm}
+
+    return init_fn, strict_step, relaxed_step, warmup
+
+
+def train(cfg, train_cfg, batches, num_steps: int, *, relaxed: bool = True,
+          state=None, start_step: int = 0,
+          on_metrics: Optional[Callable] = None, device="cuda"):
+    """Host-side loop. Returns (state, losses).
+
+    Without ``state`` the params are drawn from ``train_cfg.seed`` on
+    ``device`` (default ``cuda``; raises when there is no card, unless the
+    caller passes ``device="cpu"``). ``batches`` must emit tensors on the
+    same device.
+    """
+    # full-f32 matmuls on the card, as the JAX reference computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_fn, strict_step, relaxed_step, warmup = make_step_fns(cfg, train_cfg)
+    if state is None:
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(train_cfg.seed)
+        state = init_fn(get_api(cfg).init(gen, cfg))
+    losses = []
+    if relaxed and state.get("prefetch") is None:
+        state = warmup(state, batches.next(start_step))
+    for n in range(start_step, start_step + num_steps):
+        batch = batches.next(n)
+        if relaxed:
+            state, metrics = relaxed_step(state, batch, batches.next(n + 1))
+        else:
+            state, metrics = strict_step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if on_metrics is not None:
+            on_metrics(n, metrics)
+    return state, losses

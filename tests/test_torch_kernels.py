@@ -1,0 +1,116 @@
+"""The port's embedding kernels against the JAX package's Pallas kernels.
+
+On the CPU the port runs each kernel's plain version (``repro_torch.kernels.ref``);
+the Pallas kernels run in interpret mode. The CUDA kernels themselves are
+held against the plain versions in ``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.embedding_bag import embedding_bag_pallas
+from repro.kernels.scatter_update import scatter_update_pallas
+from repro_torch.kernels import ops, ref
+
+
+def _bag_case(rng, R, D, N, B, dtype):
+    table = rng.standard_normal((R, D)).astype(dtype)
+    idx = rng.integers(0, R, N).astype(np.int32)
+    seg = np.sort(rng.integers(0, B, N)).astype(np.int32)
+    return table, idx, seg
+
+
+# B well above N / few items leave bags empty; D=128 is the Pallas lane width
+@pytest.mark.parametrize("R,D,N,B", [(32, 128, 17, 4), (64, 128, 5, 12),
+                                     (128, 256, 100, 16), (16, 128, 1, 3)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_embedding_bag_matches_pallas(rng, R, D, N, B, dtype):
+    table, idx, seg = _bag_case(rng, R, D, N, B, dtype)
+    got = ops.embedding_bag(torch.from_numpy(table), torch.from_numpy(idx),
+                            torch.from_numpy(seg), B)
+    assert got.dtype == torch.float32 and got.shape == (B, D)
+    pallas = embedding_bag_pallas(jnp.asarray(table), jnp.asarray(idx),
+                                  jnp.asarray(seg), B, interpret=True)
+    oracle = jref.embedding_bag_ref(jnp.asarray(table, jnp.float32),
+                                    jnp.asarray(idx), jnp.asarray(seg), B)
+    plain = ref.embedding_bag_ref(torch.from_numpy(table), torch.from_numpy(idx),
+                                  torch.from_numpy(seg), B)
+    for want in (np.asarray(pallas), np.asarray(oracle), plain.numpy()):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    empty = np.setdiff1d(np.arange(B), seg)
+    assert not got.numpy()[empty].any()
+
+
+@pytest.mark.parametrize("R,D,N", [(64, 128, 16), (128, 256, 48)])
+def test_scatter_update_matches_pallas(rng, R, D, N):
+    table = rng.standard_normal((R, D)).astype(np.float32)
+    idx = rng.permutation(R)[:N].astype(np.int32)
+    delta = rng.standard_normal((N, D)).astype(np.float32)
+    want = scatter_update_pallas(jnp.asarray(table), jnp.asarray(idx),
+                                 jnp.asarray(delta), interpret=True)
+    t = torch.from_numpy(table.copy())
+    out = ops.scatter_update(t, torch.from_numpy(idx), torch.from_numpy(delta))
+    assert out is t     # in place
+    np.testing.assert_allclose(t.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_update_skips_pads_and_keeps_row0(rng, dtype):
+    """Row 0 is real and pads (-1) follow it: row 0 is updated exactly once,
+    with the trainer's round(f32(t) + f32(u)) arithmetic."""
+    R, D = 16, 8
+    table = torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32)).to(dtype)
+    idx = torch.tensor([0, 5, 3, -1, -1, -1], dtype=torch.int32)
+    delta = torch.from_numpy(rng.standard_normal((6, D)).astype(np.float32))
+    want = table.clone()
+    for s in range(3):
+        r = int(idx[s])
+        want[r] = (want[r].float() + delta[s]).to(dtype)
+    ops.scatter_update(table, idx, delta)
+    assert torch.equal(table, want)
+
+
+@pytest.mark.parametrize("n,rmax,seed", [(2, 4, 0), (17, 8, 1), (40, 64, 2),
+                                         (64, 5, 3)])
+def test_combine_duplicates_matches_jax(n, rmax, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, rmax, n).astype(np.int32)
+    delta = rng.standard_normal((n, 8)).astype(np.float32)
+    ui, cd = jops.combine_duplicates(jnp.asarray(idx), jnp.asarray(delta), rmax)
+    dense_jax = np.asarray(jnp.zeros((rmax, 8)).at[ui].add(cd))
+    uniq, comb = ops.combine_duplicates(torch.from_numpy(idx),
+                                        torch.from_numpy(delta))
+    uniq, comb = uniq.numpy(), comb.numpy()
+    real = uniq >= 0
+    n_uniq = len(np.unique(idx))
+    assert real.sum() == n_uniq and real[:n_uniq].all()   # pads trail
+    assert np.array_equal(uniq[:n_uniq], np.unique(idx))
+    assert not comb[~real].any()
+    dense_port = np.zeros((rmax, 8), np.float32)
+    np.add.at(dense_port, uniq[real], comb[real])
+    np.testing.assert_allclose(dense_port, dense_jax, rtol=1e-5, atol=1e-5)
+
+
+def test_combine_duplicates_item_rows(rng):
+    """item_rows indexes the delta rows without building the (N, D) repeat."""
+    idx = rng.integers(0, 6, 30).astype(np.int32)
+    rows = rng.standard_normal((10, 4)).astype(np.float32)
+    item_rows = rng.integers(0, 10, 30)
+    a_idx, a = ops.combine_duplicates(torch.from_numpy(idx),
+                                      torch.from_numpy(rows[item_rows]))
+    b_idx, b = ops.combine_duplicates(torch.from_numpy(idx), torch.from_numpy(rows),
+                                      item_rows=torch.from_numpy(item_rows))
+    assert torch.equal(a_idx, b_idx) and torch.equal(a, b)
+
+
+def test_dispatch_refuses_other_devices():
+    """A tensor that is neither on the CPU nor on a card has no plain path."""
+    table = torch.empty((4, 8), device="meta")
+    idx = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.embedding_bag(table, idx, idx, 1)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.scatter_update(table, idx, torch.empty((2, 8), device="meta"))
