@@ -11,11 +11,19 @@ Phases, each of which exits non-zero on failure:
      small ragged shapes and at the shapes full dlrm-rm1 gives it, and time
      kernel, plain version and one library call beside the kernel's bound;
   4. train full-width dlrm-rm1 (bf16, 20 x 1M x 32 tables) at batch 128:
-     5 relaxed steps then 2 strict ones, with both kernels' launch counts
+     5 relaxed steps then 2 strict ones, with the kernels' launch counts
      read around that run; repeat 3 relaxed steps from the same seed and
      require bitwise-equal losses;
   5. train dlrm-rm1 smoke on the card and on the CPU from the same params
-     and require the loss curves to agree.
+     and require the loss curves to agree;
+  6. checkpointed training at full rm1 on a pmem pool (in a temporary
+     directory under build/, removed at the end): run A checkpoints 4
+     relaxed steps and recovers a mirror equal to its tables; run B
+     crashes between the undo COMMIT and the mirror apply of step 2,
+     recovers the step-1 mirror bitwise, and resumes with losses equal to
+     those of run A's state after step 1 with its relaxed carry rebuilt
+     (and within 1e-2 of run A's own). The launch counts are read around
+     run A.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -30,8 +38,10 @@ import subprocess
 import sys
 import time
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM f32 rate outside the tensor cores
+SPIN_CYCLES = 2_000_000      # about 1 ms at the H100's clock
 
 
 def fail(msg: str):
@@ -44,15 +54,23 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
-def time_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of fn() in ms, CUDA events around each call, with
-    the 50 MB L2 flushed before each so the gathered rows start cold."""
+def time_ms(torch, fn, iters=20, warmup=3, hide_host=False):
+    """Mean time of fn() in ms, CUDA events around each call, with the 50 MB
+    L2 flushed before each so the gathered rows start cold.
+
+    The card reaches the start event before the host has enqueued fn's
+    kernels, so the time includes the host's launch overhead (the way the
+    kernel rows of PERF.md have been timed). With ``hide_host`` the card
+    first spins for about 1 ms, long enough for the host to enqueue fn,
+    and the time is the device's alone."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -69,13 +87,235 @@ def bound(nbytes: float, nops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
+                     plain_step_ms):
+    """Phase 6. Returns the launch counts of run A, the checkpointed path."""
+    import contextlib
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.core.checkpoint import recovery
+    from repro_torch.core.checkpoint.manager import CheckpointManager, touched_rows
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import DLRMBatches
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import scatter_update as su
+    from repro_torch.pool import FaultSchedule, InjectedCrash
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_map
+
+    T, R, d = cfg.dlrm_num_tables, cfg.dlrm_rows_per_table, cfg.dlrm_bottom_mlp[-1]
+    mirror_gb = T * R * d * 4 / 1e9
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with open("/proc/meminfo") as f:
+        avail_gb = next(int(ln.split()[1]) for ln in f
+                        if ln.startswith("MemAvailable:")) / 1e6
+    disk_gb = shutil.disk_usage(build).free / 1e9
+    print(f"[ckpt] before: host RAM available {avail_gb:.1f} GB, disk free "
+          f"{disk_gb:.1f} GB under build/; f32 mirror {mirror_gb:.2f} GB, "
+          f"pool image {2 * mirror_gb:.2f} GB")
+    # RAM: the pool's cache (2 x mirror) of a run and of its recovery, the
+    # host copies of the tables it compares, the recovered mirror. Disk: one
+    # pool image at a time (run A's is removed before run B)
+    check(avail_gb >= 8 * mirror_gb, f"checkpoint phase needs {8 * mirror_gb:.0f} "
+          f"GB of free host RAM, {avail_gb:.1f} GB available")
+    check(disk_gb >= 2 * mirror_gb, f"checkpoint phase needs {2 * mirror_gb:.0f} "
+          f"GB of free disk under {build}, {disk_gb:.1f} GB free")
+
+    # every batch made first (set-up), as in phase 4; runs A and B share them
+    batches = LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev), cfg,
+                                depth=5)
+    work = tempfile.mkdtemp(prefix="ckpt-smoke-", dir=build)
+    try:
+        def config(name):
+            cc = dataclasses.replace(tc.checkpoint, directory=os.path.join(work, name),
+                                     dense_interval=1, pool_backend="pmem")
+            return dataclasses.replace(tc, checkpoint=cc)
+
+        def host_tables(state):
+            t = state["embed"]["emb_tables"]   # updated in place: copy
+            return t.to("cpu", torch.float32, copy=True).numpy().reshape(-1, d)
+
+        def timed(mgr, times):
+            # the writer's two items too: the wrappers shadow the methods the
+            # writer thread looks up on the instance
+            for name in ("on_step", "flush", "_do_tier_e", "_do_tier_m"):
+                fn = getattr(mgr, name)
+
+                def wrapper(*a, _fn=fn, _name=name):
+                    t = time.perf_counter()
+                    try:
+                        return _fn(*a)
+                    finally:
+                        times.setdefault(_name, []).append(
+                            1e3 * (time.perf_counter() - t))
+                setattr(mgr, name, wrapper)
+
+        # run A: 4 relaxed steps, every step checkpointed, dense_interval=1
+        tca = config("A")
+        state = fresh_state()
+        t = time.perf_counter()
+        mgr = CheckpointManager(cfg, tca.checkpoint, embed_init=state["embed"])
+        load_s = time.perf_counter() - t
+        print(f"[ckpt] manager start + mirror load (2.56 GB f32 written and "
+              f"fsynced): {load_s:.2f}s")
+        times, after1, stamps = {}, {"s": 0.0}, [time.perf_counter()]
+        timed(mgr, times)
+        timed_on_step = mgr.on_step
+
+        def on_step(step, st, feed):
+            timed_on_step(step, st, feed)
+            if step == 1:
+                # run A after step 1: the tables on the host in f32, and a
+                # twin state on the card with its relaxed carry dropped, as
+                # a resume rebuilds it (dense leaves are never updated in
+                # place, so references keep them)
+                t = time.perf_counter()
+                after1["rows"] = host_tables(st)
+                after1["state"] = {**st, "prefetch": None, "embed": {
+                    "emb_tables": st["embed"]["emb_tables"].clone()}}
+                after1["s"] = time.perf_counter() - t   # not the step's time
+        mgr.on_step = on_step
+
+        def on_metrics(n, m):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter() - after1["s"])
+            after1["feed"] = m["ckpt_feed"]
+
+        eb.launches = su.launches = gr.launches = 0
+        _, la = train_loop.train(cfg, tca, batches, 4, relaxed=True, state=state,
+                                 ckpt_manager=mgr, on_metrics=on_metrics)
+        launches = {"embedding_bag": eb.launches, "scatter_update": su.launches,
+                    "gather_rows": gr.launches}
+        step_ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:], strict=True)]
+        print(f"[ckpt] run A losses {la} step ms (with on_step) {step_ms}; "
+              f"plain relaxed step (phase 4 median) {plain_step_ms:.2f} ms")
+        print(f"[ckpt] on_step ms {times['on_step']}; flush ms {times['flush']}; "
+              f"writer tier-E ms {times['_do_tier_e']}, tier-M ms {times['_do_tier_m']}")
+        # on_step's two halves again, with the writer idle: the touched rows
+        # (gather, widen, to the host) and the dense tree to the host
+        flat_tab = state["embed"]["emb_tables"].view(-1, d)
+        parts = {"rows": [], "dense": []}
+        for _ in range(3):
+            t = time.perf_counter()
+            ids, _ = touched_rows(after1["feed"])
+            ops.gather_rows(flat_tab, ids).float().cpu().numpy()
+            parts["rows"].append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            tree_map(lambda x: x.detach().to("cpu", copy=True),
+                     {k: state[k] for k in ("dense", "opt_dense", "opt_embed")})
+            parts["dense"].append(1e3 * (time.perf_counter() - t))
+        del after1["feed"]
+        print(f"[ckpt] on_step parts with the writer idle, ms: touched rows "
+              f"{parts['rows']}, dense tree {parts['dense']}")
+        print(f"[ckpt] stats {json.dumps(mgr.stats)}")
+        print(f"[ckpt] pool image {os.path.getsize(os.path.join(work, 'A', 'pool.img'))} "
+              f"bytes; launches {launches}")
+        check(launches == {"embedding_bag": 1 + 4 * 3, "scatter_update": 4 * 3,
+                           "gather_rows": 4},
+              f"checkpoint run: unexpected launch counts {launches}")
+        print(mgr.pool.metrics.report())
+        mgr.close()
+        final = host_tables(state)
+        del mgr, state
+        gc.collect()                      # frees the pool's 5 GB cache now
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rec = recovery.recover(os.path.join(work, "A"))
+        print(f"[ckpt] run A recover: {time.perf_counter() - t:.2f}s")
+        check(rec.mirror_step == 3 and rec.dense_step == 3 and not rec.rolled_back,
+              f"run A recovered mirror@{rec.mirror_step} dense@{rec.dense_step}")
+        check(np.array_equal(rec.embed_rows, final),
+              "run A: recovered mirror differs from the final tables")
+        rec.pool.close()
+        del rec, final
+        shutil.rmtree(os.path.join(work, "A"))
+        # the twin: run A's state after step 1, carry rebuilt, 2 relaxed steps
+        _, lt = train_loop.train(cfg, tca, batches, 2, relaxed=True,
+                                 state=after1.pop("state"), start_step=2)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # run B: the same seed and batches, power loss between the COMMIT
+        # and the mirror apply of step 2 (the third tier-E)
+        tcb = config("B")
+        state = fresh_state()
+        mgr = CheckpointManager(cfg, tcb.checkpoint, embed_init=state["embed"],
+                                faults=FaultSchedule.crash_at(
+                                    "tier_e.between-commit-and-apply", occurrence=3))
+        crashed = False
+        try:
+            train_loop.train(cfg, tcb, batches, 4, relaxed=True, state=state,
+                             ckpt_manager=mgr)
+        except InjectedCrash:
+            crashed = True
+        check(crashed, "run B: no InjectedCrash")
+        with contextlib.suppress(InjectedCrash):
+            mgr.close()                   # process death: the pool file stays
+        del mgr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rec = recovery.recover(os.path.join(work, "B"))
+        print(f"[ckpt] run B recover: {time.perf_counter() - t:.2f}s, "
+              f"mirror@{rec.mirror_step} dense@{rec.dense_step} "
+              f"rolled_back={rec.rolled_back}")
+        check(rec.mirror_step == 1 and rec.dense_step == 1 and rec.rolled_back,
+              "run B: expected mirror@1, dense@1 with a rollback")
+        check(np.array_equal(rec.embed_rows, after1["rows"]),
+              "run B: recovered mirror differs from run A's tables after step 1")
+        del after1["rows"]
+
+        # resume as the CLI does: a manager on the recovered pool, 2 relaxed
+        # steps (losses against run A's steps 2-3), then 1 strict step
+        state, start = recovery.resume_train_state(rec, fresh_state())
+        check(start == 2, f"resume step {start}")
+        mgr = CheckpointManager(cfg, tcb.checkpoint, pool=rec.pool)
+        mgr.init_mirror(state["embed"], step=rec.mirror_step)
+        del rec
+        gr.launches = 0
+        state, lb = train_loop.train(cfg, tcb, batches, 2, relaxed=True,
+                                     state=state, start_step=start, ckpt_manager=mgr)
+        relaxed_gathers = gr.launches
+        train_loop.train(cfg, tcb, batches, 1, relaxed=False, state=state,
+                         start_step=start + 2, ckpt_manager=mgr)
+        mgr.close()
+        rel = max(abs(x - y) / abs(y) for x, y in zip(lb, la[2:], strict=True))
+        print(f"[ckpt] resumed losses {lb}; run A's twin (state after step 1, "
+              f"carry rebuilt) {lt}; run A {la[2:]} (max relative difference "
+              f"{rel:.3g}); gather launches {relaxed_gathers} for 2 relaxed "
+              f"steps, {gr.launches} after 1 strict")
+        # The recovered state is run A's after step 1 bit for bit, so the
+        # resumed losses equal the twin's exactly.
+        check(lb == lt, "resumed losses differ from run A's twin")
+        # Against run A itself they differ by the carry: run A's bags for
+        # step 2 were rounded to bf16 twice (the stale bag, then with the
+        # correction added), the resumed ones once, from the updated
+        # tables. bf16 keeps 8 bits, so a bag moves by up to 2^-9 of itself
+        # and the loss by about 1e-3; 1e-2 bounds it.
+        check(rel <= 1e-2, f"resumed losses differ from run A's by {rel:.3g}")
+        check(relaxed_gathers == 2 and gr.launches == 2,
+              "gather_rows: want 1 launch per relaxed step, 0 per strict step")
+        del mgr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("[ckpt] crash, bitwise recovery and resume: ok")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "src"))
+    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import embedding_ops
@@ -83,6 +323,7 @@ def main():
     from repro_torch.data.synthetic import DLRMBatches, zipf_indices
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import gather_rows as gr
     from repro_torch.kernels import scatter_update as su
     from repro_torch.models.registry import get_api
     from repro_torch.training import train_loop
@@ -112,7 +353,7 @@ def main():
 
     # -- 3. kernels against their plain versions ---------------------------------
     rng = np.random.default_rng(0)
-    err = {"embedding_bag": 0.0, "scatter_update": 0.0}
+    err = {"embedding_bag": 0.0, "scatter_update": 0.0, "gather_rows": 0.0}
 
     def check_bag(table, idx, seg, num_bags, what):
         got = ops.embedding_bag(table, idx, seg, num_bags)
@@ -137,7 +378,21 @@ def main():
         err["scatter_update"] = max(err["scatter_update"],
                                     (table.float() - want.float()).abs().max().item())
 
+    def check_gather(table, idx, what):
+        got = ops.gather_rows(table, idx)
+        want = ref.gather_rows_ref(table, idx)
+        torch.cuda.synchronize()
+        check(got.dtype == table.dtype and torch.equal(got, want),
+              f"gather_rows {what}: not bitwise equal")
+        err["gather_rows"] = max(err["gather_rows"], (got.float() - want.float())
+                                 .abs().max().item() if got.numel() else 0.0)
+
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        # D=45 in f16/bf16 gives 90-byte rows: the 2-byte chunk path
+        for R, D, N in ((1000, 32, 700), (500, 45, 91), (64, 1, 5), (10, 8, 0)):
+            table = torch.randn((R, D), device=dev).to(dtype)
+            idx = torch.from_numpy(zipf_indices(rng, (N,), R)).to(dev)
+            check_gather(table, idx, f"{dtype} R={R} D={D} N={N}")
         for R, D, B, N in ((1000, 32, 64, 700), (500, 45, 40, 90), (64, 100, 7, 0)):
             table = torch.randn((R, D), device=dev).to(dtype)
             idx = torch.from_numpy(zipf_indices(rng, (N,), R)).to(dev)
@@ -189,6 +444,8 @@ def main():
     check_bag(g_rows, comb_src, comb_seg, N, "rm1 duplicate combine")
     check_update(tables.clone(), uniq, upd, "rm1 bf16 table")
     check_update(scratch, uniq, upd, "rm1 f32 scratch")
+    real_ids = uniq[: (uniq >= 0).sum().item()]   # the checkpoint's gather
+    check_gather(tables, real_ids, "rm1 touched rows (bf16 table)")
     check_bag(scratch, flat, seg, nb, "rm1 correction bag (f32 scratch)")
     ops.scatter_update(scratch, uniq, -upd)
     check(not scratch.any().item(), "scratch not cleared by u + (-u)")
@@ -229,14 +486,24 @@ def main():
                        lambda: ref.scatter_update_ref(scratch, uniq, upd),
                        None,
                        bound(N * 4 + n_rows * d * 12, n_rows * d)),
+        # the ids once, each touched row read once and written once; no ops
+        "gather_bf16": (lambda: ops.gather_rows(tables, real_ids),
+                        lambda: ref.gather_rows_ref(tables, real_ids),
+                        lambda: torch.index_select(tables, 0, real_ids),
+                        bound(n_rows * 4 + 2 * n_rows * d * rows_b, 0)),
     }
     timing = {}
     for name, (kern, plain, lib, (b_ms, b_by)) in shapes.items():
         timing[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
                         "library_ms": None if lib is None else time_ms(torch, lib),
                         "bound_ms": b_ms, "bound_by": b_by}
-        print(f"[kernels] {name}: " + json.dumps(timing[name]))
-    del tables, t_tab, scratch, g_rows, g_comb, upd, upd_real_bf16
+        device_only = {"ms": time_ms(torch, kern, hide_host=True),
+                       "plain_ms": time_ms(torch, plain, hide_host=True),
+                       "library_ms": None if lib is None
+                       else time_ms(torch, lib, hide_host=True)}
+        print(f"[kernels] {name}: " + json.dumps(timing[name])
+              + "; device only: " + json.dumps(device_only))
+    del tables, t_tab, scratch, g_rows, g_comb, upd, upd_real_bf16, real_ids
     torch.cuda.empty_cache()
 
     # -- 4. full-width dlrm-rm1 through the port's train -------------------------
@@ -275,10 +542,11 @@ def main():
           f"tables {tuple(state['embed']['emb_tables'].shape)} "
           f"{state['embed']['emb_tables'].dtype}")
     torch.cuda.reset_peak_memory_stats()
-    eb.launches = su.launches = 0
+    eb.launches = su.launches = gr.launches = 0
     state, rl, rt = run(state, 5, relaxed=True)
     state, sl, stt = run(state, 2, relaxed=False, start=5)
-    launches = {"embedding_bag": eb.launches, "scatter_update": su.launches}
+    launches = {"embedding_bag": eb.launches, "scatter_update": su.launches,
+                "gather_rows": gr.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[train] relaxed losses {rl} step ms {rt}")
     print(f"[train] strict losses {sl} step ms {stt}")
@@ -286,8 +554,9 @@ def main():
     check(all(math.isfinite(x) for x in rl + sl), "non-finite loss")
     # warmup bag + per relaxed step 3 bags (stale, combine, correction) and
     # 3 updates (table, scratch set, scratch clear); per strict step 2 + 1
+    # no checkpoint manager here, so no gather
     check(launches == {"embedding_bag": 1 + 5 * 3 + 2 * 2,
-                       "scatter_update": 5 * 3 + 2 * 1},
+                       "scatter_update": 5 * 3 + 2 * 1, "gather_rows": 0},
           f"unexpected launch counts {launches}")
     check(not state["prefetch"]["scratch"].any().item(), "scratch not zero after run")
     del state
@@ -317,17 +586,26 @@ def main():
     np.testing.assert_allclose(curves["cuda"], curves["cuda_strict"],
                                rtol=2e-5, atol=2e-5)
 
+    # -- 6. checkpointed training, crash, recovery and resume ---------------------
+    step = {"relaxed_ms_median": statistics.median(rt[1:]),
+            "strict_ms_median": statistics.median(stt)}
+    ck_launches = checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
+                                   step["relaxed_ms_median"])
+    # the checkpoint path's count for the kernel only it runs; phase 4's for
+    # the training kernels
+    launches["gather_rows"] = ck_launches["gather_rows"]
+
     kernels = []
     for name, main_shape, src, replaces in (
             ("embedding_bag", "bag_fwd", "src/repro_torch/csrc/embedding_bag.cu",
              "src/repro/kernels/embedding_bag.py:40"),
+            ("gather_rows", "gather_bf16", "src/repro_torch/csrc/gather_rows.cu",
+             "src/repro/kernels/embedding_bag.py:73"),
             ("scatter_update", "update_bf16", "src/repro_torch/csrc/scatter_update.cu",
              "src/repro/kernels/scatter_update.py:24")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err[name], **timing[main_shape]})
-    step = {"relaxed_ms_median": statistics.median(rt[1:]),
-            "strict_ms_median": statistics.median(stt)}
     print(f"[train] full dlrm-rm1 batch {Bsz}: {json.dumps(step)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,236 @@
+"""Per-step sparse undo logs in the pool's *log region* (paper Fig. 6/7);
+counterpart of ``repro.core.checkpoint.undo_log``, with the same layout.
+
+The ring lives in the ``undo-log`` persistence domain of a ``PoolDevice``:
+
+    meta (JsonRegion)   {gen, nslots, slot_bytes}
+    ring<gen> (Region)  nslots fixed-size slots
+
+Slot layout (``repro_torch.pool.undo_codec``) for step N (slot = N mod nslots):
+
+    header  step i64 | n i64 | d i64 | flags i64 | stored_len i64
+            | payload-crc u32 | commit u32
+    payload idx int64[n] | old_rows f32[n,d], possibly compressed pool-side
+
+The writer persists the payload first (``undo-payload`` barrier), then sets
+the COMMIT word and persists it separately (``undo-commit``, the paper's
+persistent flag). The CRC covers the *stored* bytes, so a torn payload or a
+dropped commit flush both invalidate the entry. GC clears COMMIT words once
+both tiers are durable.
+
+The hot path is ``log_and_apply``: ONE near-memory op (``undo_log_append``)
+captures the pre-update image, logs and commits it, and applies the new
+rows, all inside the memory node.
+
+Ring growth is crash-safe by ordering: the new ring is allocated and every
+still-committed entry is carried over FIRST; the meta flip, the only
+durable commit point of the grow, happens LAST, and the old ring's COMMIT
+words are never touched. Once the flip is durable the outgrown generation
+is freed; a generation leaked by a crash in that window is reclaimed by the
+open-time sweep, which frees by name and so can never double-free.
+
+The JAX package's host-driven ``append``, the readers for the serving tier
+(``read_many``, ``committed_after``) and the replication unit
+(``slot_image``) are not ported.
+"""
+from __future__ import annotations
+
+import zlib
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.pool import undo_codec as uc
+from repro_torch.pool.allocator import Domain, JsonRegion, PoolAllocator, Region
+from repro_torch.pool.device import PoolDevice
+from repro_torch.pool.nmp import NmpQueue
+
+_ALIGN = 64
+
+DOMAIN = "undo-log"
+
+
+class UndoRing:
+    def __init__(self, alloc: PoolAllocator, max_logs: int,
+                 compress: str = "zlib"):
+        self.alloc = alloc
+        self.device: PoolDevice = alloc.device
+        self.domain: Domain = alloc.domain(DOMAIN)
+        self.nslots = max(2, int(max_logs) + 1)
+        self.compress = compress
+        self.nmp = NmpQueue(self.device)
+        self.meta = JsonRegion.create(self.domain, "meta", nbytes=4 << 10)
+        m = self.meta.read()
+        self.ring: Optional[Region] = None
+        # writer-tracked liveness (slot -> step of the entry it holds):
+        # None = unknown (attached to a pre-existing ring), rebuilt by the
+        # first gc with ONE header scan
+        self._live: Optional[dict[int, int]] = None
+        if m is not None:
+            self.nslots = m["nslots"]
+            self.slot_bytes = m["slot_bytes"]
+            self.gen = m["gen"]
+            self.ring = self.domain.get(f"ring{self.gen}")
+        else:
+            self.slot_bytes = 0
+            self.gen = -1
+        self._sweep_stale_rings()
+
+    # -- layout --------------------------------------------------------------
+    def _sweep_stale_rings(self):
+        """Reclaim superseded ring generations (gen < live), which a crash
+        between meta flip and free leaked. Half-built future generations are
+        left in place: the next grow reuses and scrubs them."""
+        for name in sorted(self.domain.regions().keys()):
+            if not name.startswith("ring"):
+                continue
+            gen = name[4:]
+            if gen.lstrip("-").isdigit() and int(gen) < self.gen:
+                self.domain.free_region(name, point="undo-grow-free")
+
+    def _alloc_ring(self, gen: int, need: int) -> tuple[Region, int]:
+        """Allocate ring<gen> sized for `need`-byte entries. Does NOT touch
+        meta. A ring<gen> left behind by a grow that crashed before its
+        meta flip is scrubbed (COMMIT words cleared) before reuse."""
+        slot_bytes = -(-int(need * 1.5) // _ALIGN) * _ALIGN
+        name = f"ring{gen}"
+        stale = self.domain.get(name) is not None
+        ring = self.domain.alloc(
+            name, shape=(self.nslots * slot_bytes,),
+            dtype="uint8", point="undo-grow-alloc" if gen else "superblock")
+        if stale:
+            self.nmp.slot_clear(ring, list(range(self.nslots)), slot_bytes,
+                                point="undo-grow-scrub")
+        return ring, slot_bytes
+
+    def _flip_meta(self):
+        """The durable commit point for ring creation/growth."""
+        self.meta.write({"gen": self.gen, "nslots": self.nslots,
+                         "slot_bytes": self.slot_bytes}, point="undo-meta")
+
+    def _make_ring(self, need: int):
+        """First ring (nothing to carry over): alloc, then flip."""
+        self.gen += 1
+        self.ring, self.slot_bytes = self._alloc_ring(self.gen, need)
+        self._flip_meta()
+        self._live = {}
+
+    def _slot_off(self, step: int) -> int:
+        return self.ring.off + (step % self.nslots) * self.slot_bytes
+
+    def _ensure_capacity(self, raw_need: int):
+        if self.ring is None:
+            self._make_ring(raw_need)
+        elif raw_need > self.slot_bytes:
+            self._grow(raw_need)
+
+    # -- write path ----------------------------------------------------------
+    def log_and_apply(self, step: int, mirror: Region, idx: np.ndarray,
+                      new_rows: np.ndarray) -> dict:
+        """Tier-E hot path: capture + log + COMMIT + apply in one
+        near-memory op. Returns the op's {"stored", "raw"} byte counts."""
+        idx = np.asarray(idx).reshape(-1)
+        new_rows = np.asarray(new_rows, np.float32).reshape(idx.size, -1)
+        self._ensure_capacity(uc.slot_nbytes(idx.size, new_rows.shape[-1],
+                                             False))
+        stats = self.nmp.undo_log_append(
+            mirror, self.ring, step=step, slot_off=self._slot_off(step),
+            slot_bytes=self.slot_bytes, idx=idx, new_rows=new_rows,
+            compress=self.compress)
+        self._note_live(step)
+        return stats
+
+    def _read_slot_verbatim(self, step: int) -> Optional[bytes]:
+        """CRC-checked copy of a committed slot's stored bytes, COMMIT word
+        cleared, ready for ``uc.write_slot`` into another ring (no re-encode,
+        so lossy int8 payloads carry over bit-identically)."""
+        hdr = self._read_header(step % self.nslots) if self.ring else None
+        if hdr is None or hdr[0] != step:
+            return None
+        _, n, d, flags, stored_len, crc = hdr
+        off = self._slot_off(step)
+        stored = bytes(self.device.view(off + uc.HDR.size, stored_len))
+        if zlib.crc32(stored) != crc:
+            return None
+        return uc.HDR.pack(step, n, d, flags, stored_len, crc, 0) + stored
+
+    def _grow(self, need: int):
+        """Entry outgrew the slot: allocate a bigger ring, carry the
+        still-committed entries over verbatim, flip meta, and only then
+        free the outgrown generation. Until the flip persists, recovery
+        still reads the old ring, so a crash anywhere mid-grow loses
+        nothing."""
+        entries = [(s, buf) for s in self.committed_steps()
+                   if (buf := self._read_slot_verbatim(s)) is not None]
+        old_gen = self.gen
+        new_gen = self.gen + 1
+        new_ring, new_slot_bytes = self._alloc_ring(new_gen, need)
+        self.ring, self.gen, self.slot_bytes = (new_ring, new_gen,
+                                                new_slot_bytes)
+        for step, buf in entries:
+            uc.write_slot(self.device, self._slot_off(step), buf)
+        self._flip_meta()
+        self._live = {step % self.nslots: step for step, _ in entries}
+        if old_gen >= 0:
+            self.domain.free_region(f"ring{old_gen}",
+                                    point="undo-grow-free")
+
+    # -- read path -----------------------------------------------------------
+    def _read_header(self, step_slot: int):
+        """Single-slot header probe (no payload copy / CRC)."""
+        if self.ring is None:
+            return None
+        off = self.ring.off + step_slot * self.slot_bytes
+        raw = bytes(self.device.view(off, uc.HDR.size))
+        return uc.parse_header(raw, self.slot_bytes)
+
+    def _scan_headers(self) -> list:
+        """All committed slot headers in ONE strided near-memory read.
+        Returns [(slot, (step, n, d, flags, stored_len, crc)), ...]."""
+        if self.ring is None:
+            return []
+        hdrs = self.nmp.slot_headers(self.ring, self.nslots,
+                                     self.slot_bytes, uc.HDR.size)
+        out = []
+        for i in range(self.nslots):
+            got = uc.parse_header(bytes(hdrs[i]), self.slot_bytes)
+            if got is not None:
+                out.append((i, got))
+        return out
+
+    def read(self, step: int):
+        """(idx, old_rows, None) of a committed step, or None when its slot
+        is gone or fails its CRC."""
+        hdr = self._read_header(step % self.nslots) if self.ring else None
+        if hdr is None or hdr[0] != step:
+            return None
+        _, n, d, flags, stored_len, crc = hdr
+        off = self._slot_off(step)
+        stored = bytes(self.device.view(off + uc.HDR.size, stored_len))
+        if zlib.crc32(stored) != crc:
+            return None
+        return uc.decode_payload(stored, n, d, flags)
+
+    def committed_steps(self) -> list[int]:
+        return sorted(hdr[0] for _, hdr in self._scan_headers())
+
+    def _note_live(self, step: int):
+        if self._live is not None:
+            self._live[step % self.nslots] = step
+
+    def gc(self, keep_from: int):
+        """Invalidate committed entries older than keep_from (both tiers
+        durable, paper step 4) in one batched ``slot_clear``. Only the first
+        gc after attaching to a pre-existing ring pays a header scan."""
+        if self.ring is None:
+            return
+        if self._live is None:
+            self._live = {slot: hdr[0]
+                          for slot, hdr in self._scan_headers()}
+        expired = sorted(slot for slot, step in self._live.items()
+                         if step < keep_from)
+        if expired:
+            self.nmp.slot_clear(self.ring, expired, self.slot_bytes,
+                                point="undo-gc")
+            for slot in expired:
+                del self._live[slot]

@@ -42,9 +42,24 @@ class LookaheadIterator:
         self.window.append(self.batches.next(self.step + self.depth - 1))
         return out
 
-    # train_loop compatibility
     def next(self, step: int) -> dict:
+        """Batch ``step``, the train loop's accessor. A step past the window
+        slides it forward, keeping the batches the two windows share, so a
+        loop that asks for N and N+1 at step N makes one batch per step.
+        A step before the window is made afresh."""
         offset = step - self.step
-        if 0 <= offset < self.depth:
+        if offset >= self.depth:
+            self._slide(step - self.depth + 1)
+            offset = self.depth - 1
+        if 0 <= offset:
             return self.window[offset]
         return self.batches.next(step)
+
+    def _slide(self, start: int) -> None:
+        """Re-seat the window at ``start`` (> self.step)."""
+        while self.window and self.step < start:
+            self.window.popleft()
+            self.step += 1
+        self.step = start
+        while len(self.window) < self.depth:
+            self.window.append(self.batches.next(self.step + len(self.window)))

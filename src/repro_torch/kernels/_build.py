@@ -25,13 +25,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # name -> (C symbol, argtypes); every entry returns an int status (0 = ok)
 KERNELS = {
     # table, dtype, idx, offsets, out, num_bags, dim, stream
     "embedding_bag": ("embedding_bag_launch", [_P, _I, _P, _P, _P, _I, _I, _P]),
     # table, dtype, idx, delta, n, dim, stream
     "scatter_update": ("scatter_update_launch", [_P, _I, _P, _P, _I, _I, _P]),
+    # table, idx, out, n, row bytes, stream
+    "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I64, _I64, _P]),
 }
 
 _lock = threading.Lock()

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import embedding_bag as eb
+from repro_torch.kernels import gather_rows as gr
 from repro_torch.kernels import ref
 from repro_torch.kernels import scatter_update as su
 
@@ -25,6 +26,15 @@ def embedding_bag(table, idx, seg, num_bags: int):
         return eb.embedding_bag_cuda(table, idx, seg, num_bags)
     _plain_ok(table, "embedding_bag")
     return ref.embedding_bag_ref(table, idx, seg, num_bags)
+
+
+def gather_rows(table, idx):
+    """out[i] = table[idx[i]] -> (N, D) in the table's dtype, bitwise;
+    idx (N,) int32 in [0, R), no pads."""
+    if table.is_cuda:
+        return gr.gather_rows_cuda(table, idx)
+    _plain_ok(table, "gather_rows")
+    return ref.gather_rows_ref(table, idx)
 
 
 def scatter_update(table, idx, delta):

@@ -35,3 +35,10 @@ def scatter_update_ref(table, idx, delta):
     rows = idx[keep].long()
     table[rows] = (table[rows].float() + delta[keep].float()).to(table.dtype)
     return table
+
+
+def gather_rows_ref(table, idx):
+    """table: (R, D); idx: (N,) ints in [0, R). Returns (N, D) in the
+    table's dtype with out[i] = table[idx[i]], bitwise (as the Pallas
+    kernel and the JAX oracle ``jnp.take``)."""
+    return table.index_select(0, idx.long())

@@ -1,0 +1,247 @@
+"""Named persistence domains + region allocation over a ``PoolDevice``
+(counterpart of ``repro.pool.allocator``, single tenant, local device).
+
+Layout:
+
+    [superblock slot A | superblock slot B | data ...]
+
+The superblock is the recovery-time directory: a JSON map of
+``domain -> region -> (offset, nbytes, dtype, shape)`` plus the bump
+allocation pointer, written alternately to two CRC'd slots with a sequence
+number (classic A/B update), so a crash mid-directory-write always leaves one
+valid slot. ``PoolAllocator(device)`` opens an existing directory if the
+magic is present, else formats a fresh one: the same constructor serves
+cold start and post-crash recovery. The bytes are the JAX package's.
+
+Domains are the paper's persistent regions: the embedding *data region*
+(mirror), the *log region* (undo ring), the manifest, and dense snapshot
+slots all live in separate domains of one pool.
+
+``JsonRegion`` layers the same A/B trick inside a single region for small,
+frequently-rewritten metadata (the manifest).
+
+The JAX package's tenants, quotas, read-only openers and remote proxy mode
+serve its memory-node server and are not ported.
+"""
+from __future__ import annotations
+
+import json
+import struct
+import zlib
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.pool.device import PoolDevice, PoolError
+
+_MAGIC = b"RPPL"
+SUPER_SLOT = 32 << 10
+DATA_START = 2 * SUPER_SLOT
+_ALIGN = 64
+_HDR = struct.Struct("<4sQII")     # magic, seq, len, crc
+
+
+def _crc(seq: int, payload: bytes) -> int:
+    # the CRC binds payload AND seq: a torn header that mixes a new seq with
+    # an old payload/CRC must not elect as the newest valid slot
+    return zlib.crc32(payload + struct.pack("<Q", seq))
+
+
+def _pack(seq: int, payload: bytes) -> bytes:
+    return _HDR.pack(_MAGIC, seq, len(payload), _crc(seq, payload)) + payload
+
+
+def _unpack(buf: np.ndarray) -> Optional[tuple[int, bytes]]:
+    raw = bytes(buf[:_HDR.size])
+    magic, seq, length, crc = _HDR.unpack(raw)
+    if magic != _MAGIC or length > buf.size - _HDR.size:
+        return None
+    payload = bytes(buf[_HDR.size:_HDR.size + length])
+    if _crc(seq, payload) != crc:
+        return None
+    return seq, payload
+
+
+@dataclass
+class Region:
+    device: PoolDevice
+    domain: str
+    name: str
+    off: int
+    nbytes: int
+    dtype: str
+    shape: tuple
+
+    def write_array(self, arr: np.ndarray, tag: str = "write"):
+        arr = np.ascontiguousarray(arr, dtype=self.dtype)
+        if arr.nbytes > self.nbytes:
+            raise PoolError(f"{self.domain}/{self.name}: write {arr.nbytes}B "
+                            f"> region {self.nbytes}B")
+        self.device.write(self.off, arr, tag=tag)
+
+    def view_array(self) -> np.ndarray:
+        """Writable zero-copy view of the region cache, shaped. The caller
+        must ``mark_dirty`` mutated rows (the nmp layer does)."""
+        return self.device.view(self.off, self.nbytes) \
+            .view(self.dtype).reshape(self.shape)
+
+    def mark_dirty(self, rel_off: int = 0, nbytes: Optional[int] = None):
+        self.device.mark_dirty(self.off + rel_off,
+                               self.nbytes - rel_off if nbytes is None
+                               else nbytes)
+
+    def persist(self, point: str = "persist"):
+        self.device.persist(self.off, self.nbytes, point=point)
+
+
+class Domain:
+    def __init__(self, alloc: "PoolAllocator", name: str):
+        self._alloc = alloc
+        self.name = name
+
+    def alloc(self, name: str, *, shape, dtype="float32",
+              point: str = "superblock") -> Region:
+        return self._alloc._alloc(self.name, name, shape, dtype, point)
+
+    def get(self, name: str) -> Optional[Region]:
+        return self._alloc._get(self.name, name)
+
+    def regions(self) -> dict[str, Region]:
+        return self._alloc._regions(self.name)
+
+    def free_region(self, name: str, point: str = "superblock") -> bool:
+        return self._alloc._free_region(self.name, name, point)
+
+
+class PoolAllocator:
+    def __init__(self, device: PoolDevice):
+        self.device = device
+        found = self._read_directory()
+        if found is None:
+            self.seq = 0
+            self.directory = {"alloc_ptr": DATA_START, "domains": {}}
+            device.ensure(DATA_START)
+            self._write_directory()
+        else:
+            self.seq, self.directory = found
+
+    # -- directory persistence ----------------------------------------------
+    def _read_directory(self):
+        if self.device.capacity < DATA_START:
+            return None
+        best = None
+        for slot in range(2):
+            buf = self.device.view(slot * SUPER_SLOT, SUPER_SLOT)
+            got = _unpack(buf)
+            if got and (best is None or got[0] > best[0]):
+                best = got
+        if best is None:
+            return None
+        return best[0], json.loads(best[1].decode())
+
+    def _sync(self):
+        """Re-read the on-device directory if it advanced: several live
+        allocator handles over one device (checkpoint manager, undo ring,
+        recovery) must not hand out overlapping regions from stale copies."""
+        found = self._read_directory()
+        if found is not None and found[0] > self.seq:
+            self.seq, self.directory = found
+
+    def _write_directory(self, point: str = "superblock"):
+        self.seq += 1
+        blob = _pack(self.seq, json.dumps(self.directory).encode())
+        if len(blob) > SUPER_SLOT:
+            raise PoolError("directory overflows superblock")
+        slot = self.seq % 2
+        self.device.write(slot * SUPER_SLOT, blob, tag="superblock")
+        self.device.persist(slot * SUPER_SLOT, SUPER_SLOT, point=point)
+
+    # -- regions -------------------------------------------------------------
+    def _region(self, dname: str, rname: str, ent: dict) -> Region:
+        return Region(self.device, dname, rname, ent["off"], ent["nbytes"],
+                      ent["dtype"], tuple(ent["shape"]))
+
+    def _alloc(self, dname: str, rname: str, shape, dtype: str,
+               point: str) -> Region:
+        shape = tuple(int(s) for s in np.atleast_1d(np.asarray(shape, int)))
+        self._sync()
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        dom = self.directory["domains"].setdefault(dname, {})
+        ent = dom.get(rname)
+        if ent and ent["dtype"] == dtype and tuple(ent["shape"]) == shape:
+            return self._region(dname, rname, ent)   # idempotent reopen
+        off = -(-self.directory["alloc_ptr"] // _ALIGN) * _ALIGN
+        self.device.ensure(off + nbytes)
+        dom[rname] = {"off": off, "nbytes": nbytes, "dtype": dtype,
+                      "shape": list(shape)}
+        self.directory["alloc_ptr"] = off + nbytes
+        self._write_directory(point)
+        return self._region(dname, rname, dom[rname])
+
+    def _get(self, dname: str, rname: str) -> Optional[Region]:
+        self._sync()
+        ent = self.directory["domains"].get(dname, {}).get(rname)
+        return self._region(dname, rname, ent) if ent else None
+
+    def _regions(self, dname: str) -> dict[str, Region]:
+        self._sync()
+        ents = self.directory["domains"].get(dname, {})
+        return {n: self._region(dname, n, e) for n, e in ents.items()}
+
+    def _free_region(self, dname: str, rname: str, point: str) -> bool:
+        """Drop ONE region's directory entry (its bytes are leaked, as in
+        the emulator): a caller that outgrows a region frees, then
+        allocates, so the directory never silently orphans the old entry."""
+        self._sync()
+        dom = self.directory["domains"].get(dname, {})
+        if dom.pop(rname, None) is None:
+            return False
+        self._write_directory(point)
+        return True
+
+    def domain(self, name: str) -> Domain:
+        return Domain(self, name)
+
+
+class JsonRegion:
+    """Crash-atomic small-JSON store inside one region (A/B halves): each
+    update lands in the half with the older sequence number, so the previous
+    value stays readable until the new one is fully persisted."""
+
+    def __init__(self, region: Region):
+        if region.dtype != "uint8":
+            raise PoolError("JsonRegion wants a uint8 region")
+        self.region = region
+        self.half = region.nbytes // 2
+
+    @classmethod
+    def create(cls, domain: Domain, name: str,
+               nbytes: int = 8 << 10) -> "JsonRegion":
+        return cls(domain.alloc(name, shape=(nbytes,), dtype="uint8"))
+
+    def _slot_view(self, i: int) -> np.ndarray:
+        return self.region.device.view(self.region.off + i * self.half,
+                                       self.half)
+
+    def read(self) -> Optional[dict]:
+        best = None
+        for i in range(2):
+            got = _unpack(self._slot_view(i))
+            if got and (best is None or got[0] > best[0]):
+                best = got
+        return json.loads(best[1].decode()) if best else None
+
+    def read_seq(self) -> int:
+        seqs = [got[0] for i in range(2)
+                if (got := _unpack(self._slot_view(i)))]
+        return max(seqs) if seqs else 0
+
+    def write(self, obj: dict, point: str = "manifest"):
+        seq = self.read_seq() + 1
+        blob = _pack(seq, json.dumps(obj).encode())
+        if len(blob) > self.half:
+            raise PoolError("JsonRegion payload overflows slot")
+        off = self.region.off + (seq % 2) * self.half
+        self.region.device.write(off, blob, tag="manifest")
+        self.region.device.persist(off, self.half, point=point)

@@ -1,0 +1,177 @@
+"""Near-memory ops, the CXL-MEM *computing logic* (counterpart of
+``repro.pool.nmp``, local devices only).
+
+Ops execute against region cache views inside the pool device, so only the
+operands (indices, new rows) cross the host link; undo images never do.
+Each op charges the device's ``PoolMetrics``: media traffic at Table-2
+random-access latency/bandwidth, and link traffic for whatever enters or
+leaves the pool.
+
+The ops here are the ones checkpointing and recovery run: the fused undo-log
+append, the row update of a rollback, the undo-ring header scan and GC, and
+the compressed blob write of a dense snapshot. The JAX package's remote
+dispatch, lookup ops (gather, bag_gather, scatter_add), region migration and
+``EmbeddingPoolMirror`` serve paths the port does not have yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.pool import compress as pc
+from repro_torch.pool import undo_codec as uc
+from repro_torch.pool.allocator import Region
+from repro_torch.pool.device import PoolDevice, PoolError
+from repro_torch.pool.faults import InjectedCrash
+
+
+class NmpQueue:
+    """Near-memory op dispatch on a local device: the ops run in-process on
+    zero-copy cache views."""
+
+    def __init__(self, device: PoolDevice):
+        self.device = device
+
+    # -- helpers -------------------------------------------------------------
+    def _rows_meta(self, region: Region):
+        view = region.view_array()
+        flat = view.reshape(-1, view.shape[-1])
+        row_bytes = flat.shape[-1] * flat.dtype.itemsize
+        return flat, row_bytes
+
+    def _mark_rows_dirty(self, region: Region, idx: np.ndarray,
+                         row_bytes: int):
+        idx = np.unique(idx)                 # sorted unique rows
+        if idx.size == 0:
+            return
+        # coalesce consecutive rows into ranges (vectorized: per-row marks
+        # are far too slow for DLRM-sized touch sets)
+        breaks = np.nonzero(np.diff(idx) > 1)[0]
+        starts = idx[np.concatenate(([0], breaks + 1))].tolist()
+        ends = idx[np.concatenate((breaks, [idx.size - 1]))].tolist()
+        for s, e in zip(starts, ends, strict=True):
+            region.mark_dirty(int(s) * row_bytes,
+                              int(e - s + 1) * row_bytes)
+
+    # -- ops -----------------------------------------------------------------
+    def row_update(self, region: Region, idx, rows,
+                   point: Optional[str] = None):
+        """rows -> pool at idx (the embedding apply). Idempotent writes."""
+        idx = np.asarray(idx).reshape(-1)
+        rows = np.asarray(rows)
+        flat, row_bytes = self._rows_meta(region)
+        flat[idx] = rows.reshape(idx.size, -1)
+        self._mark_rows_dirty(region, idx, row_bytes)
+        m = self.device.metrics
+        m.record("row_update", idx.size * row_bytes,
+                 self.device.profile.t_random_write(idx.size, row_bytes))
+        m.record_link("link_in", idx.nbytes + rows.nbytes)
+        if point is not None:
+            region.persist(point=point)
+
+    def undo_log_append(self, mirror: Region, log: Region, *, step: int,
+                        slot_off: int, slot_bytes: int, idx,
+                        new_rows: Optional[np.ndarray] = None,
+                        compress: str = "zlib",
+                        apply_point: str = "mirror-apply") -> dict:
+        """Undo capture inside the pool (paper Fig. 6/7).
+
+        Snapshot mirror[idx], compress + write the undo entry into the log
+        slot, persist payload and COMMIT flag with the two paper barriers,
+        then (fused) apply ``new_rows`` to the mirror. Only ``(step, idx,
+        new_rows)`` cross the link; the old row images never leave the
+        pool. Returns {"stored", "raw"} byte counts of the logged payload."""
+        idx = np.asarray(idx).reshape(-1)
+        if not (log.off <= slot_off
+                and slot_off + slot_bytes <= log.off + log.nbytes):
+            raise PoolError(f"undo slot [{slot_off}, {slot_off + slot_bytes})"
+                            f" outside log region")
+        dev = self.device
+        m = dev.metrics
+        # operands in; results never out
+        m.record_link("link_in", idx.nbytes + uc.HDR.size
+                      + (0 if new_rows is None else
+                         np.asarray(new_rows).nbytes))
+        # 1: batch-aware capture of the pre-update image (media-only read)
+        flat, row_bytes = self._rows_meta(mirror)
+        old = np.array(flat[idx])
+        m.record("undo_snapshot", idx.size * row_bytes,
+                 dev.profile.t_random_read(idx.size, row_bytes))
+        # 2: compress + log entry (payload barrier), then COMMIT (its own)
+        buf, stored_len, raw_len = uc.pack_slot(step, idx, old, None,
+                                                mode=compress,
+                                                slot_bytes=slot_bytes)
+        if compress != "none":     # engine idle when compression is off
+            m.record_comp(raw_len, stored_len, raw_len / pc.COMPRESS_BPS,
+                          kind="undo")
+        uc.write_slot(dev, slot_off, buf)
+        stats = {"stored": stored_len, "raw": raw_len}
+        if new_rows is None:
+            return stats
+        # 3 (fused): idempotent in-place apply. The commit/apply boundary is
+        # a named fault point inside the node, so crash drills land exactly
+        # between the two barriers.
+        f = dev.faults
+        if f is not None and \
+                f.hit("tier_e.between-commit-and-apply") == "crash-after":
+            raise InjectedCrash("tier_e.between-commit-and-apply",
+                                f.counts["tier_e.between-commit-and-apply"])
+        new_rows = np.asarray(new_rows, flat.dtype).reshape(idx.size, -1)
+        flat[idx] = new_rows
+        self._mark_rows_dirty(mirror, idx, row_bytes)
+        m.record("row_update", idx.size * row_bytes,
+                 dev.profile.t_random_write(idx.size, row_bytes))
+        mirror.persist(point=apply_point)
+        return stats
+
+    def slot_headers(self, log: Region, nslots: int, slot_bytes: int,
+                     hdr_bytes: int) -> np.ndarray:
+        """Strided gather of every slot header in one op."""
+        v = self.device.view(log.off, nslots * slot_bytes)
+        out = np.lib.stride_tricks.as_strided(
+            v, (nslots, hdr_bytes), (slot_bytes, 1)).copy()
+        m = self.device.metrics
+        m.record("undo_scan", nslots * hdr_bytes,
+                 self.device.profile.t_random_read(nslots, hdr_bytes))
+        m.record_link("link_in", 16)
+        m.record_link("link_out", out.nbytes)
+        return out
+
+    def slot_clear(self, log: Region, slots, slot_bytes: int,
+                   point: str = "undo-gc") -> int:
+        """Clear the COMMIT words of many expired slots in ONE op, under one
+        clipped barrier."""
+        slots = np.asarray(slots, np.int64).reshape(-1)
+        if slots.size == 0:
+            return 0
+        for s in slots:
+            off = log.off + int(s) * slot_bytes
+            self.device.write(off + uc.COMMIT_OFF, uc.COMMIT_CLEAR,
+                              tag="undo")
+        lo = int(slots.min()) * slot_bytes
+        hi = (int(slots.max()) + 1) * slot_bytes
+        self.device.persist(log.off + lo, hi - lo, point=point)
+        self.device.metrics.record_link("link_in", 16 + slots.nbytes)
+        return int(slots.size)
+
+    def blob_put(self, region: Region, blob, *, compress: str = "zlib",
+                 point: str = "dense-blob") -> int:
+        """Write an opaque blob through the pool's compression engine: the
+        raw bytes cross the link in, the *framed, compressed* image hits
+        media, and exactly the written range is persisted. Returns the
+        stored (framed) length, what a reader must fetch and ``unframe``."""
+        framed = pc.frame(blob, mode=compress)
+        if len(framed) > region.nbytes:
+            raise PoolError(f"blob ({len(framed)}B framed) overflows region "
+                            f"{region.domain}/{region.name} "
+                            f"({region.nbytes}B)")
+        m = self.device.metrics
+        m.record_link("link_in", len(blob))
+        if compress != "none":     # engine idle when compression is off
+            # frame header excluded: the ratio compares payload bytes only
+            m.record_comp(len(blob), len(framed) - pc.FRAME_OVERHEAD,
+                          len(blob) / pc.COMPRESS_BPS, kind="blob")
+        self.device.write(region.off, framed, tag="dense")
+        self.device.persist(region.off, len(framed), point=point)
+        return len(framed)

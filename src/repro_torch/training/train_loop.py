@@ -21,12 +21,14 @@ them with the state it was given.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import relaxed as rx
+from repro_torch.core.checkpoint.manager import CheckpointManager
 from repro_torch.models.registry import get_api
 from repro_torch.optim import optimizers as opt
 from repro_torch.training import state as st
@@ -120,28 +122,53 @@ def make_step_fns(cfg, train_cfg):
         new_state = {**state, "dense": dense, "opt_dense": od, "opt_embed": oe,
                      "step": state["step"] + 1,
                      "prefetch": {**carry, "rows": rows_next}}
-        return new_state, {"loss": loss, "grad_norm": gnorm}
+        # for the batch-aware checkpoint: the flat ids of the rows this step
+        # updated (distinct, ascending, then -1 pads) and their f32 deltas
+        ckpt_feed = {"touched": uniq, "delta": upd}
+        return new_state, {"loss": loss, "grad_norm": gnorm,
+                           "ckpt_feed": ckpt_feed}
 
     return init_fn, strict_step, relaxed_step, warmup
 
 
+def init_state(cfg, train_cfg, device="cuda"):
+    """A fresh train state, the params drawn from ``train_cfg.seed`` on
+    ``device``."""
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(train_cfg.seed)
+    return make_step_fns(cfg, train_cfg)[0](get_api(cfg).init(gen, cfg))
+
+
 def train(cfg, train_cfg, batches, num_steps: int, *, relaxed: bool = True,
-          state=None, start_step: int = 0,
-          on_metrics: Optional[Callable] = None, device="cuda"):
+          state=None, start_step: int = 0, ckpt_manager=None,
+          on_metrics: Optional[Callable] = None, device="cuda",
+          checkpoint_dir: Optional[str] = None,
+          pool_backend: Optional[str] = None):
     """Host-side loop. Returns (state, losses).
 
     Without ``state`` the params are drawn from ``train_cfg.seed`` on
     ``device`` (default ``cuda``; raises when there is no card, unless the
     caller passes ``device="cpu"``). ``batches`` must emit tensors on the
     same device.
+
+    ``ckpt_manager.on_step`` runs after every step (strict steps give it no
+    feed, and it logs nothing for them), and the manager is flushed before
+    returning. ``checkpoint_dir``/``pool_backend`` build a manager over the
+    dram or pmem pool when the caller passed none; the loop closes a
+    manager it built.
     """
     # full-f32 matmuls on the card, as the JAX reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
-    init_fn, strict_step, relaxed_step, warmup = make_step_fns(cfg, train_cfg)
+    _, strict_step, relaxed_step, warmup = make_step_fns(cfg, train_cfg)
     if state is None:
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(train_cfg.seed)
-        state = init_fn(get_api(cfg).init(gen, cfg))
+        state = init_state(cfg, train_cfg, device)
+    own_manager = False
+    if ckpt_manager is None and checkpoint_dir:
+        cc = dataclasses.replace(
+            train_cfg.checkpoint, directory=checkpoint_dir,
+            **({"pool_backend": pool_backend} if pool_backend else {}))
+        ckpt_manager = CheckpointManager(cfg, cc, embed_init=state["embed"])
+        own_manager = True
     losses = []
     if relaxed and state.get("prefetch") is None:
         state = warmup(state, batches.next(start_step))
@@ -152,6 +179,12 @@ def train(cfg, train_cfg, batches, num_steps: int, *, relaxed: bool = True,
         else:
             state, metrics = strict_step(state, batch)
         losses.append(float(metrics["loss"]))
+        if ckpt_manager is not None:
+            ckpt_manager.on_step(n, state, metrics.get("ckpt_feed"))
         if on_metrics is not None:
             on_metrics(n, metrics)
+    if ckpt_manager is not None:
+        ckpt_manager.flush()
+        if own_manager:
+            ckpt_manager.close()   # release the pool file it opened
     return state, losses

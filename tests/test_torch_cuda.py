@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.data.synthetic import zipf_indices
 from repro_torch.kernels import embedding_bag as eb
+from repro_torch.kernels import gather_rows as gr
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import scatter_update as su
 
@@ -67,3 +68,17 @@ def test_combine_duplicates_matches_cpu(cuda, rng):
     hu, hc = ops.combine_duplicates(torch.from_numpy(ids), torch.from_numpy(delta))
     assert torch.equal(cu.cpu(), hu)
     torch.testing.assert_close(cc.cpu(), hc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [32, 45, 1])
+def test_gather_rows_matches_plain(cuda, rng, dtype, D):
+    """Bitwise; D=45 (f16/bf16: 90-byte rows) takes the narrow-chunk path."""
+    R, N = 1000, 777
+    table = torch.randn((R, D), device=cuda).to(dtype)
+    idx = torch.from_numpy(zipf_indices(rng, (N,), R)).to(cuda)
+    before = gr.launches
+    got = ops.gather_rows(table, idx)
+    assert gr.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, ref.gather_rows_ref(table, idx))

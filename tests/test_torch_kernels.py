@@ -11,7 +11,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.kernels.embedding_bag import embedding_bag_pallas
+from repro.kernels.embedding_bag import embedding_bag_pallas, gather_rows_pallas
 from repro.kernels.scatter_update import scatter_update_pallas
 from repro_torch.kernels import ops, ref
 
@@ -114,3 +114,31 @@ def test_dispatch_refuses_other_devices():
         ops.embedding_bag(table, idx, idx, 1)
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.scatter_update(table, idx, torch.empty((2, 8), device="meta"))
+
+
+# ragged widths; N > R repeats rows
+@pytest.mark.parametrize("R,D,N", [(64, 128, 20), (32, 32, 70), (7, 45, 1)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_gather_rows_matches_pallas(rng, R, D, N, dtype):
+    table = rng.standard_normal((R, D)).astype(dtype)
+    idx = rng.integers(0, R, N).astype(np.int32)
+    want = np.asarray(gather_rows_pallas(jnp.asarray(table), jnp.asarray(idx),
+                                         interpret=True))
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    for got in (ops.gather_rows(t, i), ref.gather_rows_ref(t, i)):
+        assert got.dtype == t.dtype
+        np.testing.assert_array_equal(got.numpy(), want)   # exact
+
+
+def test_gather_rows_bf16_matches_pallas(rng):
+    # finite patterns only: interpret mode quiets NaN payloads on its side
+    bits = rng.integers(0, 1 << 16, (50, 32)).astype(np.uint16) & np.uint16(0xBF7F)
+    table = jnp.asarray(bits).view(jnp.bfloat16)
+    idx = rng.integers(0, 50, 90).astype(np.int32)
+    want = np.asarray(gather_rows_pallas(table, jnp.asarray(idx),
+                                         interpret=True)).view(np.uint16)
+    got = ops.gather_rows(torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16),
+                          torch.from_numpy(idx))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16),
+                                  want)   # bitwise

@@ -97,10 +97,37 @@ def _run(code_or_args, module=False):
 
 def test_port_imports_no_jax_and_no_reference():
     r = _run("import sys, repro_torch.launch.train, repro_torch.interop\n"
-             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-             " or m == 'repro' or m.startswith('repro.')]\n"
+             "import repro_torch.core.checkpoint.manager\n"
+             "import repro_torch.core.checkpoint.recovery\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'ml_dtypes', 'repro')]\n"
              "print(bad); sys.exit(1 if bad else 0)")
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("relaxed", [True, False])
+def test_lookahead_makes_one_batch_per_step(relaxed):
+    """The loop slides the lookahead window: each step makes one new batch
+    (relaxed steps also hold the next), and the losses are those of the
+    plain batch source."""
+    from repro_torch.data.lookahead import LookaheadIterator
+
+    class Counting(DLRMBatches):
+        calls = 0
+
+        def next(self, step):
+            self.calls += 1
+            return super().next(step)
+
+    cfg = get_arch("dlrm-rm1", smoke=True).model
+    tc = TrainConfig(embed_learning_rate=0.05)
+    data = Counting(cfg, 2, seed=0, device="cpu")
+    _, got = train_loop.train(cfg, tc, LookaheadIterator(data, cfg, depth=2),
+                              6, relaxed=relaxed, device="cpu")
+    assert data.calls == 6 + relaxed
+    _, want = train_loop.train(cfg, tc, DLRMBatches(cfg, 2, seed=0, device="cpu"),
+                               6, relaxed=relaxed, device="cpu")
+    assert got == want
 
 
 def test_cli_runs_on_cpu():
