@@ -23,13 +23,31 @@ Phases, each of which exits non-zero on failure:
      recovers the step-1 mirror bitwise, and resumes with losses equal to
      those of run A's state after step 1 with its relaxed carry rebuilt
      (and within 1e-2 of run A's own). The launch counts are read around
-     run A.
+     run A;
+  7. hold the flash-attention kernel against its plain version on the card
+     (f32, bf16, f16; causal and full; S in {1, 17, 128, 1000}; small
+     ragged shapes and the tinyllama and qwen3 head shapes, k and v read
+     from a cache prefix), and time kernel, plain version and SDPA at full
+     tinyllama-1.1b's prefill shape beside the kernel's bound, holding the
+     timed call against the plain version too;
+  8. serve full-width tinyllama-1.1b (bf16, 22 layers, random weights) with
+     greedy_generate at batch 4, prompt 1024, 32 new tokens: prefill and
+     decode times, launch counts read around each part (22 flash launches
+     per prefill and none per decode step; one row gather per prefill and
+     per decode step), the row gather held against its plain version and
+     timed at the prefill's and a decode step's shape, a bitwise-equal
+     repeat, decode at position S against a prefill of S + 1 tokens, and
+     smoke tinyllama on the card against the CPU.
+Phases 7 and 8 print their wall time.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+The line before the last is {"kernels": [...]}, one entry per kernel and
+path (the row gather runs on three: the checkpoint's, the prefill's and
+the decode steps'); the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -41,6 +59,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM f32 rate outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate
 SPIN_CYCLES = 2_000_000      # about 1 ms at the H100's clock
 
 
@@ -81,9 +100,10 @@ def time_ms(torch, fn, iters=20, warmup=3, hide_host=False):
     return total / iters
 
 
-def bound(nbytes: float, nops: float):
-    """Least time in ms for the work, and which of bytes or operations sets it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
+    """Least time in ms for the work, and which of bytes or operations sets
+    it; the operations run at ``ops_per_s``, the card's peak for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -310,11 +330,240 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         shutil.rmtree(work, ignore_errors=True)
 
 
+def flash_phase(torch, dev):
+    """Phase 7. Returns (max abs error against the plain version, timings at
+    full tinyllama-1.1b's prefill shape)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    errs = {}
+
+    def qkv(B, S, Hq, Hkv, D, dtype, smax):
+        # k, v are the first S entries of a (B, smax, Hkv, D) cache, read in
+        # place as prefill reads them
+        q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dtype)
+        kc, vc = (torch.randn((B, smax, Hkv, D), generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        return q, kc[:, :S], vc[:, :S]
+
+    # small ragged shapes, then tinyllama's heads (D=64, G=8) and qwen3's
+    # (D=128, G=2)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for causal in (True, False):
+            for S in (1, 17, 128, 1000):
+                for B, Hq, Hkv, D in ((2, 4, 2, 16), (1, 6, 2, 16),
+                                      (4, 32, 4, 64), (2, 16, 8, 128)):
+                    q, k, v = qkv(B, S, Hq, Hkv, D, dtype, S + 7)
+                    got = ops.flash_attention(q, k, v, causal=causal)
+                    want = ref.flash_attention_ref(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    what = f"{dtype} causal={causal} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}"
+                    check(got.dtype == dtype and got.shape == want.shape,
+                          f"flash_attention {what}: shape/dtype")
+                    # f32: 2e-5 (another summation order); f16/bf16: torch's
+                    # defaults, one rounding of the output
+                    tol = {"rtol": 2e-5, "atol": 2e-5} if dtype == torch.float32 else {}
+                    try:
+                        torch.testing.assert_close(got, want, **tol)
+                    except AssertionError as e:
+                        fail(f"flash_attention {what}: {e}")
+                    e = (got.float() - want.float()).abs().max().item()
+                    errs[dtype] = max(errs.get(dtype, 0.0), e)
+    print(f"[flash] 96 cases against the plain version: ok; max abs err "
+          + ", ".join(f"{d}: {e:.3g}" for d, e in errs.items()))
+
+    # full tinyllama-1.1b prefill: B=4, S=1024, Hq=32, Hkv=4, D=64, bf16, k
+    # and v a prefix of a 1056-deep cache
+    B, S, Hq, Hkv, D = 4, 1024, 32, 4, 64
+    q, k, v = qkv(B, S, Hq, Hkv, D, torch.bfloat16, S + 32)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # SDPA's layout, views
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib_err = (library().transpose(1, 2).float()
+               - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
+    # q, k, v read once and o written once, bf16; a causal call multiplies
+    # S(S+1)/2 (query, key) pairs twice over D (scores and P.V)
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    nops = 4 * B * Hq * D * S * (S + 1) / 2
+    b_ms, b_by = bound(nbytes, nops, BF16_TENSOR_OPS_PER_S)
+
+    def kern():
+        return ops.flash_attention(q, k, v)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v)
+    got, want = kern(), plain()
+    try:
+        torch.testing.assert_close(got, want)   # bf16: as the 96 cases
+    except AssertionError as e:
+        fail(f"flash_attention at the tinyllama prefill shape: {e}")
+    errs["timed"] = (got.float() - want.float()).abs().max().item()
+    print(f"[flash] timed tinyllama prefill inputs against the plain version: "
+          f"ok; max abs err {errs['timed']:.3g}")
+    del got, want
+    timing = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+              "library_ms": time_ms(torch, library), "bound_ms": b_ms,
+              "bound_by": b_by}
+    device_only = {"ms": time_ms(torch, kern, hide_host=True),
+                   "plain_ms": time_ms(torch, plain, hide_host=True),
+                   "library_ms": time_ms(torch, library, hide_host=True)}
+    print(f"[flash] tinyllama prefill shape B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+          f"bf16 ({nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): "
+          + json.dumps(timing) + "; device only: " + json.dumps(device_only)
+          + f"; SDPA vs plain max abs diff {lib_err:.3g}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return max(errs.values()), timing
+
+
+def serve_phase(torch, np, dev, check_gather):
+    """Phase 8. Returns the serving run's launch counts for each part
+    ("prefill", "decode") and the row gather's timings at each part's
+    shape."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.registry import get_api
+    from repro_torch.training.serve_loop import greedy_generate
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_arch("tinyllama-1.1b").model
+    api = get_api(cfg)
+    B, S, new = 4, 1024, 32
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = api.init(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    prompt = make_batches(cfg, B, S, device=dev).next(0)["tokens"]
+    print(f"[serve] full tinyllama-1.1b: {n_params} params "
+          f"({sum(p.numel() * p.element_size() for p in tree_leaves(params)) / 1e9:.2f} "
+          f"GB, {cfg.dtype}), init and prompt {time.perf_counter() - t:.1f}s")
+    greedy_generate(cfg, params, prompt, 2, max_seq=S + new)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    parts = {}
+
+    @contextlib.contextmanager
+    def count(name):
+        # the launches of each part, read around it
+        fa0, gr0 = fa.launches, gr.launches
+        yield
+        parts[name] = {"flash_attention": fa.launches - fa0,
+                       "gather_rows": gr.launches - gr0}
+    fa.launches = gr.launches = 0
+    stats = {}
+    toks = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=stats,
+                           part=count)
+    launches = {"flash_attention": fa.launches, "gather_rows": gr.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metrics = {"prefill_ms": 1e3 * stats["prefill_s"],
+               "decode_ms_per_token": 1e3 * stats["decode_s"] / (new - 1),
+               "tokens_per_s": B * new / (stats["prefill_s"] + stats["decode_s"]),
+               "peak_device_gb": peak_gb}
+    print(f"[serve] batch {B}, prompt {S}, {new} new tokens: {json.dumps(metrics)}; "
+          f"launches {launches}, by part {parts}")
+    print(f"[serve] tokens[0] {toks[0].tolist()}")
+    check(parts == {"prefill": {"flash_attention": cfg.num_layers, "gather_rows": 1},
+                    "decode": {"flash_attention": 0, "gather_rows": new - 1}}
+          and launches == {k: parts["prefill"][k] + parts["decode"][k] for k in launches},
+          f"serve: want {cfg.num_layers} flash launches in the prefill, none in "
+          f"decode, and one gather per prefill and per decode step; got {parts}, "
+          f"{launches} in all")
+    check(toks.shape == (B, new) and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
+          "serve: tokens out of range")
+    check(bool(torch.isfinite(stats["logits"]).all()), "serve: non-finite logits")
+
+    again = {}
+    toks2 = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=again)
+    check(torch.equal(toks, toks2) and torch.equal(stats["logits"], again["logits"]),
+          "serve: a second run gave other tokens or logits")
+    del again
+
+    # the row gather at the shapes serving gives it: the (32000, 2048) bf16
+    # token table with the prompt's B * S ids (prefill) and with the first
+    # decode step's B ids
+    table = params["embed"]["table"]
+    row_bytes = table.shape[1] * table.element_size()
+    timing = {}
+    for name, ids in (("prefill", prompt.reshape(-1).to(torch.int32).contiguous()),
+                      ("decode", toks[:, 0].contiguous())):
+        check_gather(table, ids, f"tinyllama {name} ({ids.numel()} ids, "
+                                 f"table {tuple(table.shape)} {table.dtype})")
+        # the ids once, each distinct row read once, each output row written
+        # once; no operations
+        n_rows = torch.unique(ids).numel()
+        b_ms, b_by = bound(ids.numel() * 4 + (n_rows + ids.numel()) * row_bytes, 0)
+
+        def kern(ids=ids):
+            return ops.gather_rows(table, ids)
+
+        def plain(ids=ids):
+            return ref.gather_rows_ref(table, ids)
+
+        def library(ids=ids):
+            return torch.index_select(table, 0, ids)
+        timing[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                        "library_ms": time_ms(torch, library), "bound_ms": b_ms,
+                        "bound_by": b_by}
+        device_only = {"ms": time_ms(torch, kern, hide_host=True),
+                       "plain_ms": time_ms(torch, plain, hide_host=True),
+                       "library_ms": time_ms(torch, library, hide_host=True)}
+        print(f"[serve] gather_rows {name}: {ids.numel()} ids, {n_rows} distinct: "
+              + json.dumps(timing[name]) + "; device only: " + json.dumps(device_only))
+
+    # decode at position S (the first generated token) against a prefill of
+    # the S + 1 tokens. The two paths round bf16 activations at different
+    # places (other matmul shapes, the flash kernel against the plain
+    # decode), about 2^-9 relative per rounding over 22 layers; 3e-2 of the
+    # logits' largest magnitude bounds that.
+    ext = torch.cat([prompt, toks[:, :1]], dim=1)
+    full, _ = api.prefill(params, cfg, ext, api.init_cache(cfg, B, S + 1, dev))
+    dec = stats["logits"][:, 1]
+    diff, scale = (dec - full).abs().max().item(), full.abs().max().item()
+    print(f"[serve] decode at position {S} vs prefill of {S + 1}: max abs diff "
+          f"{diff:.4g}, logits max abs {scale:.4g} (limit 3e-2 of it); argmax "
+          f"equal in {int((dec.argmax(-1) == full.argmax(-1)).sum())} of {B} rows")
+    check(diff <= 3e-2 * scale, "serve: decode disagrees with prefill")
+    del params, stats, full
+    torch.cuda.empty_cache()
+
+    # smoke tinyllama on the card and on the CPU from the same params (f32)
+    scfg = get_arch("tinyllama-1.1b", smoke=True).model
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    sparams = api.init(gen, scfg)
+    sprompt = make_batches(scfg, 2, 9, device="cpu").next(0)["tokens"]
+    out = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        st = {}
+        tk = greedy_generate(scfg, tree_map(lambda p, w=where: p.to(w), sparams),
+                             sprompt.to(where), 4, max_seq=16, stats=st)
+        out[name] = (tk.cpu(), st["logits"].cpu())
+    print(f"[serve] smoke tokens card {out['card'][0].tolist()} cpu "
+          f"{out['cpu'][0].tolist()}; logits max abs diff "
+          f"{(out['card'][1] - out['cpu'][1]).abs().max().item():.3g}")
+    check(torch.equal(out["card"][0], out["cpu"][0]), "serve smoke: tokens differ")
+    np.testing.assert_allclose(out["card"][1].numpy(), out["cpu"][1].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    return parts, timing
+
+
 def main():
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        fail("no src/repro_torch beside this script: run it from the repo's root")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import TrainConfig
@@ -591,20 +840,41 @@ def main():
             "strict_ms_median": statistics.median(stt)}
     ck_launches = checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
                                    step["relaxed_ms_median"])
-    # the checkpoint path's count for the kernel only it runs; phase 4's for
-    # the training kernels
-    launches["gather_rows"] = ck_launches["gather_rows"]
+    # -- 7. the flash-attention kernel on the card ---------------------------------
+    t0 = time.perf_counter()
+    err["flash_attention"], timing["flash_bf16"] = flash_phase(torch, dev)
+    print(f"[flash] phase 7 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 8. serving full tinyllama-1.1b ------------------------------------------
+    t0 = time.perf_counter()
+    sv_parts, sv_gather = serve_phase(torch, np, dev, check_gather)
+    timing["gather_prefill"], timing["gather_decode"] = (sv_gather["prefill"],
+                                                         sv_gather["decode"])
+    print(f"[serve] phase 8 wall time {time.perf_counter() - t0:.1f}s")
+
+    # one entry per kernel and path: phase 4's counts for the training
+    # kernels, run A's for the checkpoint's gather, and the serving run's
+    # parts for the gather and flash attention
     kernels = []
-    for name, main_shape, src, replaces in (
-            ("embedding_bag", "bag_fwd", "src/repro_torch/csrc/embedding_bag.cu",
-             "src/repro/kernels/embedding_bag.py:40"),
-            ("gather_rows", "gather_bf16", "src/repro_torch/csrc/gather_rows.cu",
-             "src/repro/kernels/embedding_bag.py:73"),
-            ("scatter_update", "update_bf16", "src/repro_torch/csrc/scatter_update.cu",
-             "src/repro/kernels/scatter_update.py:24")):
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+    for name, path, main_shape, n, src, replaces in (
+            ("embedding_bag", "dlrm-rm1 train", "bag_fwd", launches["embedding_bag"],
+             "src/repro_torch/csrc/embedding_bag.cu", "src/repro/kernels/embedding_bag.py:40"),
+            ("gather_rows", "dlrm-rm1 checkpoint", "gather_bf16", ck_launches["gather_rows"],
+             "src/repro_torch/csrc/gather_rows.cu", "src/repro/kernels/embedding_bag.py:73"),
+            ("gather_rows", "tinyllama-1.1b prefill", "gather_prefill",
+             sv_parts["prefill"]["gather_rows"],
+             "src/repro_torch/csrc/gather_rows.cu", "src/repro/kernels/embedding_bag.py:73"),
+            ("gather_rows", "tinyllama-1.1b decode", "gather_decode",
+             sv_parts["decode"]["gather_rows"],
+             "src/repro_torch/csrc/gather_rows.cu", "src/repro/kernels/embedding_bag.py:73"),
+            ("scatter_update", "dlrm-rm1 train", "update_bf16", launches["scatter_update"],
+             "src/repro_torch/csrc/scatter_update.cu", "src/repro/kernels/scatter_update.py:24"),
+            ("flash_attention", "tinyllama-1.1b prefill", "flash_bf16",
+             sv_parts["prefill"]["flash_attention"],
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:62")):
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
     print(f"[train] full dlrm-rm1 batch {Bsz}: {json.dumps(step)}")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """Config registry: ``get_arch("<id>")`` / ``get_arch("<id>", smoke=True)``.
 
-Only the DLRM ids are registered; the LM ids come with the slices that port
-their models.
+The DLRM ids and the dense LM ids whose model the port runs are registered;
+the other LM ids come with the slices that port their models.
 """
 from __future__ import annotations
 
@@ -13,13 +13,15 @@ from repro_torch.configs.base import (DTYPES, ArchBundle, CheckpointConfig,
 
 __all__ = [
     "ARCH_IDS", "ArchBundle", "CheckpointConfig", "DLRM_IDS", "DTYPES",
-    "MambaConfig", "ModelConfig", "MoEConfig", "TrainConfig", "get_arch",
+    "LM_IDS", "MambaConfig", "ModelConfig", "MoEConfig", "TrainConfig", "get_arch",
 ]
 
 DLRM_IDS = ["dlrm-rm1", "dlrm-rm2", "dlrm-rm3", "dlrm-rm4"]
-ARCH_IDS = list(DLRM_IDS)
+LM_IDS = ["tinyllama-1.1b", "qwen3-0.6b"]
+ARCH_IDS = LM_IDS + DLRM_IDS
 
-_MOD = {i: "repro_torch.configs." + i.replace("-", "_") for i in ARCH_IDS}
+_MOD = {i: "repro_torch.configs." + i.replace("-", "_").replace(".", "_")
+        for i in ARCH_IDS}
 
 
 def get_arch(arch_id: str, smoke: bool = False) -> ArchBundle:

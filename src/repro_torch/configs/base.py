@@ -85,11 +85,84 @@ class ModelConfig:
     source: str = ""               # provenance note
 
     @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def layer_types(self) -> tuple[str, ...]:
+        """Per-layer mixer type: 'attn' or 'mamba' (jamba interleave)."""
+        if self.arch_type != "jamba":
+            return ("attn",) * self.num_layers
+        return tuple("attn" if i % self.attn_layer_period == self.attn_layer_offset
+                     else "mamba" for i in range(self.num_layers))
+
+    @property
+    def ffn_types(self) -> tuple[str, ...]:
+        """Per-layer FFN type: 'dense' or 'moe'."""
+        if not self.moe.enabled:
+            return ("dense",) * self.num_layers
+        period = self.moe.layer_period
+        return tuple("moe" if period == 1 or i % period == period - 1 else "dense"
+                     for i in range(self.num_layers))
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_counts(self) -> dict[str, int]:
+        """Returns {'total': N, 'active': N_active, 'embedding': E}."""
+        d, h = self.d_model, self.resolved_head_dim
+        nq, nkv = self.num_heads, self.num_kv_heads
+        if self.arch_type == "dlrm":
+            bot, top = list(self.dlrm_bottom_mlp), list(self.dlrm_top_mlp)
+            dense = sum(a * b + b for a, b in zip(bot[:-1], bot[1:], strict=True))
+            dense += sum(a * b + b for a, b in zip(top[:-1], top[1:], strict=True))
+            emb = self.dlrm_num_tables * self.dlrm_rows_per_table * bot[-1]
+            return {"total": dense + emb, "active": dense + emb, "embedding": emb}
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        per_layer_attn = d * nq * h + 2 * d * nkv * h + nq * h * d  # q,k,v,o
+        if self.qk_norm:
+            per_layer_attn += 2 * h
+        dense_ffn = 3 * d * self.d_ff if self.act == "silu" else 2 * d * self.d_ff
+        moe_ffn = 0
+        if self.moe.enabled:
+            e, fe = self.moe.num_experts, self.moe.d_ff_expert
+            moe_ffn = e * 3 * d * fe + d * e  # experts + router
+            if self.moe.dense_residual:
+                moe_ffn += dense_ffn
+        mamba_per_layer = 0
+        if self.arch_type == "jamba":
+            di, ds = self.mamba.d_inner(d), self.mamba.d_state
+            mamba_per_layer = (d * 2 * di + di * self.mamba.d_conv
+                               + di * (2 * ds + 1) + di + di * d)
+        if self.arch_type == "rwkv6":
+            # time-mix (r,k,v,g,o + decay/lora) + channel-mix
+            per_layer_attn = 5 * d * d + 2 * d * 64 + d
+            dense_ffn = 2 * d * self.d_ff
+        total = active = emb
+        for lt, ft in zip(self.layer_types, self.ffn_types, strict=True):
+            mix = per_layer_attn if lt == "attn" else mamba_per_layer
+            total += mix + 2 * d
+            active += mix + 2 * d
+            if ft == "moe":
+                total += moe_ffn
+                act_ffn = (self.moe.top_k * 3 * d * self.moe.d_ff_expert
+                           + d * self.moe.num_experts)
+                if self.moe.dense_residual:
+                    act_ffn += dense_ffn
+                active += act_ffn
+            else:
+                total += dense_ffn
+                active += dense_ffn
+        if self.encoder_layers:
+            enc = self.encoder_layers * (per_layer_attn + dense_ffn + 2 * d)
+            cross = self.num_layers * (per_layer_attn + d)  # decoder cross-attn
+            total += enc + cross
+            active += enc + cross
+        return {"total": total, "active": active, "embedding": emb}
 
 
 @dataclass(frozen=True)

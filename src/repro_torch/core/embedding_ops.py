@@ -1,6 +1,7 @@
 """Embedding lookups (counterpart of ``repro.core.embedding_ops``, unsharded).
 
-The bag lookup runs through the embedding-bag kernel on the card. The
+The bag lookup runs through the embedding-bag kernel on the card, the row
+lookup (an LM's token embedding) through the row-gather kernel. The
 ``pool`` strategy and the sharded strategies of the JAX package are not
 ported yet.
 """
@@ -12,9 +13,15 @@ from repro_torch.kernels import ops
 
 
 def lookup(table, ids):
-    """Row lookup. table: (V, d); ids: int tensor -> ids.shape + (d,)."""
-    rows = table.index_select(0, ids.reshape(-1).long())
-    return rows.reshape(*ids.shape, table.shape[-1])
+    """Row lookup through the row-gather kernel, bitwise ``table[ids]``.
+
+    table: (V, d) contiguous; ids: int tensor of values in [0, V) on the
+    table's device -> ids.shape + (d,) in the table's dtype.
+    """
+    if table.shape[0] >= 2**31:
+        raise ValueError(f"{table.shape[0]} rows overflow int32 indices")
+    flat = ids.reshape(-1).to(torch.int32).contiguous()
+    return ops.gather_rows(table, flat).reshape(*ids.shape, table.shape[-1])
 
 
 def bag_items(ids, rows_per_table: int):

@@ -1,4 +1,5 @@
-"""Synthetic DLRM features (counterpart of ``repro.data.synthetic``).
+"""Synthetic LM token streams and DLRM features (counterpart of
+``repro.data.synthetic``).
 
 The numpy RNG streams are the JAX package's, so both packages see
 bit-identical batches from the same seed; the port emits torch tensors on
@@ -31,6 +32,30 @@ def zipf_indices(rng: np.random.Generator, shape, num_rows: int,
     rows = (idx.astype(np.uint64) * np.uint64(2654435761)
             + perm_seed) % np.uint64(num_rows)
     return rows.astype(np.int32)
+
+
+class LMBatches:
+    """Deterministic synthetic LM token stream: zipf tokens over the vocab,
+    labels the tokens shifted by one.
+
+    As in the reference, a batch depends on (step, batch, seq) alone: the
+    reference's seed argument never enters the draw, so there is none here.
+    """
+
+    def __init__(self, cfg, batch: int, seq: int, device="cuda"):
+        if cfg.arch_type in ("qwen2vl", "whisper"):
+            raise NotImplementedError(
+                f"{cfg.arch_type} batches (vision embeds, audio frames) are "
+                "not ported yet")
+        self.cfg, self.batch, self.seq = cfg, batch, seq
+        self.device = resolve_device(device)
+
+    def next(self, step: int) -> dict:
+        rng = np.random.default_rng((hash((step, self.batch, self.seq))
+                                     & 0x7FFFFFFF))
+        toks = zipf_indices(rng, (self.batch, self.seq + 1), self.cfg.vocab_size)
+        return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(self.device),
+                "labels": torch.from_numpy(toks[:, 1:].copy()).to(self.device)}
 
 
 class DLRMBatches:
@@ -67,3 +92,10 @@ class DLRMBatches:
                 for k, v in (("dense", dense),
                              ("sparse", self.indices_for_step(step)),
                              ("labels", labels))}
+
+
+def make_batches(cfg, batch: int, seq: int, seed: int = 0, device="cuda"):
+    """The id's batch stream; ``seed`` enters DLRM batches only (LMBatches)."""
+    if cfg.arch_type == "dlrm":
+        return DLRMBatches(cfg, batch, seed, device=device)
+    return LMBatches(cfg, batch, seq, device=device)

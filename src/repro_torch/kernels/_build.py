@@ -34,6 +34,11 @@ KERNELS = {
     "scatter_update": ("scatter_update_launch", [_P, _I, _P, _P, _I, _I, _P]),
     # table, idx, out, n, row bytes, stream
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I64, _I64, _P]),
+    # q, k, v, o, dtype, B, Sq, Sk, Hq, Hkv, D, q/k/v strides (batch, seq,
+    # head), causal, q_offset, stream
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
+                        + [_I64] * 9 + [_I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import embedding_bag as eb
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gather_rows as gr
 from repro_torch.kernels import ref
 from repro_torch.kernels import scatter_update as su
@@ -35,6 +36,16 @@ def gather_rows(table, idx):
         return gr.gather_rows_cuda(table, idx)
     _plain_ok(table, "gather_rows")
     return ref.gather_rows_ref(table, idx)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """Attention, (B, Sq, Hq, D) x (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's
+    dtype, f32 inside; GQA by head index; query row i at position
+    ``q_offset + i``."""
+    if q.is_cuda:
+        return fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    _plain_ok(q, "flash_attention")
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def scatter_update(table, idx, delta):

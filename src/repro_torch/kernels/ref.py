@@ -6,6 +6,8 @@ which is where they differ from the JAX oracles (see each docstring).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -42,3 +44,27 @@ def gather_rows_ref(table, idx):
     table's dtype with out[i] = table[idx[i]], bitwise (as the Pallas
     kernel and the JAX oracle ``jnp.take``)."""
     return table.index_select(0, idx.long())
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D), Hq % Hkv == 0.
+
+    Returns (B, Sq, Hq, D) in q's dtype: softmax(q k^T / sqrt(D)) v with the
+    scores, the softmax and P.V in f32 and one rounding of the output. q head
+    h reads kv head h // (Hq / Hkv) (q's heads viewed as (Hkv, G), no
+    repeat). Query row i sits at position ``q_offset + i`` and key j at j;
+    ``causal`` masks keys past the query's position with the -1e30 sentinel
+    of the Pallas kernel. The JAX oracle takes k, v already expanded to Hq
+    heads and masks with -inf; the two agree wherever a row keeps a key.
+    """
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * (1.0 / math.sqrt(D))
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        k_pos = torch.arange(Sk, device=q.device)
+        s = s.masked_fill(q_pos[:, None] < k_pos[None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)

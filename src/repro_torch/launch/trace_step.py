@@ -1,17 +1,22 @@
-"""Where a training step's time goes on the card.
+"""Where a training step's, or a serving step's, time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.trace_step --full --batch 128 \
         [--arch dlrm-rm1] [--steps 5] [--strict]
+    PYTHONPATH=src python -m repro_torch.launch.trace_step --full \
+        --arch tinyllama-1.1b --batch 4 --prompt-len 1024 [--steps 5]
 
-Makes every batch first (set-up), runs one warm-up step, then times
-``--steps`` steps with ``torch.profiler`` (CPU and CUDA activity). Prints the
-wall time per step, the device time per step of each kernel (largest
-first), and the device's busy share: summed kernel time over wall time.
-Needs a CUDA card.
+For a DLRM id: makes every batch first (set-up), runs one warm-up step, then
+profiles ``--steps`` training steps. For an LM id: runs one warm-up
+generation, then profiles one prefill of the prompt and ``--steps`` greedy
+decode steps after it, each part on its own. Each profile (``torch.profiler``,
+CPU and CUDA activity) prints the wall time per step, the device time per
+step of each kernel (largest first), the kernel launches per step, and the
+device's busy share: summed kernel time over wall time. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -20,55 +25,85 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
-from repro_torch.configs import DLRM_IDS, get_arch
+from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.lookahead import LookaheadIterator
-from repro_torch.data.synthetic import DLRMBatches
+from repro_torch.data.synthetic import DLRMBatches, make_batches
+from repro_torch.models.registry import get_api
 from repro_torch.training import train_loop
+from repro_torch.training.serve_loop import greedy_generate
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm-rm1", choices=DLRM_IDS)
-    ap.add_argument("--smoke", action="store_true", default=True)
-    ap.add_argument("--full", dest="smoke", action="store_false")
-    ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--strict", action="store_true")
-    args = ap.parse_args(argv)
+@contextlib.contextmanager
+def _trace(title: str, steps: int, device):
+    """Profiles the body (``steps`` steps of work) and prints its breakdown."""
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.key] = (e.self_device_time_total / 1e3 / steps, e.count)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    print(f"[trace] {title} on {device}: wall {wall_ms:.3f} ms/step")
+    print(f"[trace] device busy {busy_ms:.3f} ms/step, "
+          f"busy share {busy_ms / wall_ms:.3f}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"[trace] {ms:9.4f} ms/step  x{n / steps:g}  {name[:90]}")
+    print(json.dumps({"part": title, "wall_ms": wall_ms, "busy_ms": busy_ms,
+                      "kernels_per_step": sum(n for _, n in kernels.values())
+                      / steps}))
 
-    device = resolve_device("cuda")
-    cfg = get_arch(args.arch, smoke=args.smoke).model
+
+def _trace_train(cfg, args, device) -> None:
     tc = TrainConfig(embed_learning_rate=0.05)
     relaxed = not args.strict
     batches = LookaheadIterator(DLRMBatches(cfg, args.batch, device=device), cfg,
                                 depth=args.steps + 2)
     state, _ = train_loop.train(cfg, tc, batches, 1, relaxed=relaxed,
                                 device=device)          # warm-up step
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with _trace(f"{cfg.name} batch {args.batch} {'relaxed' if relaxed else 'strict'}",
+                args.steps, device):
         train_loop.train(cfg, tc, batches, args.steps, relaxed=relaxed,
                          state=state, start_step=1)
-        torch.cuda.synchronize(device)
-        wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
 
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            kernels[e.key] = (e.self_device_time_total / 1e3 / args.steps, e.count)
-    busy_ms = sum(ms for ms, _ in kernels.values())
-    print(f"[trace] {cfg.name} batch {args.batch} "
-          f"{'relaxed' if relaxed else 'strict'} on {device}: "
-          f"wall {wall_ms:.3f} ms/step")
-    print(f"[trace] device busy {busy_ms:.3f} ms/step, "
-          f"busy share {busy_ms / wall_ms:.3f}")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    for name, (ms, n) in top:
-        print(f"[trace] {ms:9.4f} ms/step  x{n / args.steps:g}  {name[:90]}")
-    print(json.dumps({"wall_ms": wall_ms, "busy_ms": busy_ms,
-                      "kernels_per_step": sum(n for _, n in kernels.values())
-                      / args.steps}))
+
+def _trace_serve(cfg, args, device) -> None:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = get_api(cfg).init(gen, cfg)
+    B, S = args.batch, args.prompt_len
+    prompt = make_batches(cfg, B, S, device=device).next(0)["tokens"]
+    greedy_generate(cfg, params, prompt, 2)              # warm-up
+    parts = {"prefill": (f"{cfg.name} prefill batch {B} prompt {S}", 1),
+             "decode": (f"{cfg.name} decode batch {B} from position {S}",
+                        args.steps)}
+    greedy_generate(cfg, params, prompt, args.steps + 1,
+                    part=lambda name: _trace(*parts[name], device))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="dlrm-rm1", choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--strict", action="store_true",
+                    help="DLRM: trace strict steps instead of relaxed ones")
+    ap.add_argument("--prompt-len", type=int, default=1024,
+                    help="LM: prompt tokens of the traced prefill")
+    args = ap.parse_args(argv)
+
+    device = resolve_device("cuda")
+    cfg = get_arch(args.arch, smoke=args.smoke).model
+    if cfg.arch_type == "dlrm":
+        _trace_train(cfg, args, device)
+    else:
+        _trace_serve(cfg, args, device)
 
 
 if __name__ == "__main__":

@@ -4,12 +4,21 @@ Params are nested dicts of tensors. Random draws come from an explicit
 ``torch.Generator`` and land on its device; they cannot reproduce the JAX
 package's ``jax.random`` streams, so parity tests load the JAX params
 through ``repro_torch.interop``.
+
+Activations are in ``cfg.dtype``; norms, rotary angles, attention scores and
+softmax are in f32. Attention is GQA: prefill and training attention go
+through the flash-attention kernel (``ops.flash_attention``), single-token
+decode through the plain ``decode_attention``. A KV cache is updated in
+place.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 
 def uniform_init(gen: torch.Generator, shape, scale: float, dtype):
@@ -20,3 +29,182 @@ def uniform_init(gen: torch.Generator, shape, scale: float, dtype):
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype):
     scale = math.sqrt(1.0 / d_in)
     return uniform_init(gen, (d_in, d_out), scale, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms and rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, weight, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * weight.float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: int tensor broadcastable to (..., S).
+
+    Rotates the two halves of each head (not interleaved pairs), in f32.
+    """
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (D/2,)
+    angles = positions[..., None].float() * freqs             # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                     # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0):
+    """GQA attention over a whole sequence: one flash-attention call.
+
+    q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D), Hq % Hkv == 0, any batch and
+    sequence strides. Query row i sits at position ``q_offset + i`` (the
+    reference's ``positions_q``), key j at j. Returns (B, Sq, Hq, D) in q's
+    dtype. The reference scans query chunks with a full-KV softmax; the
+    kernel tiles both axes itself, so there are no chunk sizes to pass.
+    """
+    return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """Single-token decode. q: (B, 1, Hq, D); caches: (B, Smax, Hkv, D).
+
+    kv_len: host int, the number of valid cache entries (the new token
+    already written). Scores over the whole cache in f32, entries past
+    kv_len masked; no kernel (the reference has no Pallas kernel here).
+    """
+    B, _, Hq, D = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qf = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float()) / math.sqrt(D)
+    mask = torch.arange(Smax, device=q.device) < kv_len   # no transfer, no sync
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def init_attention(gen: torch.Generator, cfg):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    dt = cfg.activation_dtype
+    p = {"wq": dense_init(gen, d, nq * hd, dt),
+         "wk": dense_init(gen, d, nkv * hd, dt),
+         "wv": dense_init(gen, d, nkv * hd, dt),
+         "wo": dense_init(gen, nq * hd, d, dt)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=gen.device)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=gen.device)
+    return p
+
+
+def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
+                  cache_index: int | None = None, cross_kv=None,
+                  positions3=None):
+    """Self-attention with rope and an optional KV cache.
+
+    x: (B, S, d); positions: (S,) or (B, S) global positions (rope).
+    cache: optional dict(k, v) of (B, Smax, Hkv, D), written in place at
+    ``cache_index`` (a host int, default 0). With a cache, S == 1 is a
+    decode step against the first cache_index + 1 entries; S > 1 attends
+    over the cache's first cache_index + S entries, queries at positions
+    cache_index .. cache_index + S - 1. Returns (out, cache).
+    """
+    if cross_kv is not None or (cfg.mrope_sections and positions3 is not None):
+        raise NotImplementedError("cross-attention and M-RoPE are not ported yet")
+    B, S, _ = x.shape
+    hd, nq, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = (x @ p["wq"]).reshape(B, S, nq, hd)
+    k = (x @ p["wk"]).reshape(B, S, nkv, hd)
+    v = (x @ p["wv"]).reshape(B, S, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    q_offset = 0
+    if cache is not None:
+        idx = cache_index or 0
+        kc, vc = cache["k"], cache["v"]
+        if idx + S > kc.shape[1]:
+            raise ValueError(f"cache of {kc.shape[1]} positions cannot take "
+                             f"{S} tokens at {idx}")
+        kc[:, idx:idx + S] = k.to(kc.dtype)
+        vc[:, idx:idx + S] = v.to(vc.dtype)
+        if S == 1:
+            out = decode_attention(q, kc, vc, idx + 1)
+            return out.reshape(B, S, nq * hd) @ p["wo"], cache
+        k, v, q_offset = kc[:, :idx + S], vc[:, :idx + S], idx
+    out = chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
+    return out.reshape(B, S, nq * hd) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def _check_act(cfg) -> None:
+    if cfg.act != "silu":
+        raise NotImplementedError(f"mlp activation {cfg.act!r} is not ported yet "
+                                  "(the ported LMs use silu)")
+
+
+def init_mlp(gen: torch.Generator, cfg, d_ff=None):
+    """SwiGLU MLP params: wi, wg (d, f) and wo (f, d)."""
+    _check_act(cfg)
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    dt = cfg.activation_dtype
+    return {"wi": dense_init(gen, d, f, dt), "wg": dense_init(gen, d, f, dt),
+            "wo": dense_init(gen, f, d, dt)}
+
+
+def mlp_fwd(p, cfg, x):
+    _check_act(cfg)
+    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy, chunked over tokens (forward)
+# ---------------------------------------------------------------------------
+
+
+def chunked_softmax_xent(hidden, w_out, labels, *, chunk: int = 8192,
+                         mask=None):
+    """Cross-entropy without materialising (tokens x vocab) logits.
+
+    hidden: (B, S, d); w_out: (d, V); labels: (B, S) ints; mask optional
+    (B, S). Walks sequence chunks; each chunk's logits are f32. Returns
+    (sum_loss, sum_weight) as f32 scalars. Forward only: the backward comes
+    with LM training.
+    """
+    B, S, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, min(chunk, S)):
+        h = hidden[:, s0:s0 + chunk]
+        y = labels[:, s0:s0 + chunk].long()
+        m = mask[:, s0:s0 + chunk].float()
+        logits = (h @ w_out).float()                          # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, y[..., None])[..., 0]
+        loss = loss + ((lse - ll) * m).sum()
+        count = count + m.sum()
+    return loss, count

@@ -1,22 +1,31 @@
-"""Uniform model API: arch_type -> ModelApi(init, loss).
+"""Uniform model API: arch_type -> ModelApi(init, loss, init_cache, prefill,
+decode_step).
 
-Only the DLRM entry is ported; the LM families come with their slices.
+The DLRM and the dense transformer are ported; the other LM families come
+with their slices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
-from repro_torch.models import dlrm
+from repro_torch.models import dlrm, transformer
 
 
 @dataclass(frozen=True)
 class ModelApi:
     init: Callable          # (generator, cfg) -> params
     loss: Callable          # (params, cfg, batch) -> scalar
+    init_cache: Optional[Callable] = None   # (cfg, B, Smax, device) -> caches
+    prefill: Optional[Callable] = None      # (params, cfg, tokens, caches)
+    decode_step: Optional[Callable] = None  # (params, cfg, tokens, pos, caches)
 
 
 _REGISTRY: dict[str, ModelApi] = {
+    "transformer": ModelApi(
+        init=transformer.init_lm, loss=transformer.lm_loss,
+        init_cache=transformer.init_kv_cache,
+        prefill=transformer.prefill, decode_step=transformer.decode_step),
     "dlrm": ModelApi(init=dlrm.init_dlrm, loss=dlrm.bce_loss),
 }
 

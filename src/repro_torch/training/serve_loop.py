@@ -1,0 +1,80 @@
+"""Serving steps (counterpart of ``repro.training.serve_loop``): prefill
+fills the KV caches, decode adds one token against them, and
+``greedy_generate`` runs both in a host loop.
+
+The decode position is a host int, so the loop never waits for the card to
+read it; the next token stays on the card. ``pool_serving`` and
+``make_pool_serve_fns`` (the pool-backed serving tier) are not ported yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+from repro_torch.models.registry import get_api
+
+
+def make_serve_fns(cfg):
+    """Returns (prefill_step, decode_step, init_cache) for ``cfg``."""
+    api = get_api(cfg)
+    if api.decode_step is None:
+        raise NotImplementedError(f"{cfg.name} has no decode step")
+
+    def prefill_step(params, batch, caches):
+        """tokens (B, S) -> (next-token logits (B, V) f32, filled caches)."""
+        return api.prefill(params, cfg, batch["tokens"], caches)
+
+    def decode_step(params, tokens, pos: int, caches):
+        """tokens (B, 1) at position ``pos``, the cache filled below it."""
+        return api.decode_step(params, cfg, tokens, pos, caches)
+
+    def init_cache(batch: int, max_seq: int, device):
+        return api.init_cache(cfg, batch, max_seq, device)
+
+    return prefill_step, decode_step, init_cache
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def greedy_generate(cfg, params, prompt_tokens, num_new: int, *,
+                    max_seq: int | None = None, stats: dict | None = None,
+                    part=None):
+    """Prefill the prompt, then decode ``num_new - 1`` more tokens greedily.
+
+    prompt_tokens: (B, S) ints on the params' device. Returns the (B, num_new)
+    int32 tokens: the prefill's argmax, then one per decode step. If
+    ``stats`` is a dict it receives ``prefill_s`` and ``decode_s`` (host
+    clock; the card is synchronised before the prefill, after it and at the
+    end) and ``logits``, the (B, num_new, V) f32 logits behind the tokens.
+    ``part``, if given, is called with "prefill" and then "decode" and
+    returns a context manager entered around that part (a profiler, say).
+    """
+    part = part or (lambda name: contextlib.nullcontext())
+    prefill_step, decode_step, init_cache = make_serve_fns(cfg)
+    B, S = prompt_tokens.shape
+    device = prompt_tokens.device
+    caches = init_cache(B, max_seq or (S + num_new), device)
+    if stats is not None:
+        _sync(device)
+        t0 = time.perf_counter()
+    with part("prefill"):
+        logits, caches = prefill_step(params, {"tokens": prompt_tokens}, caches)
+        out, kept = [logits.argmax(dim=-1).to(torch.int32)], [logits]
+    if stats is not None:
+        _sync(device)
+        t1 = time.perf_counter()
+    with part("decode"):
+        for t in range(num_new - 1):
+            logits, caches = decode_step(params, out[-1][:, None], S + t, caches)
+            out.append(logits.argmax(dim=-1).to(torch.int32))
+            kept.append(logits)
+    if stats is not None:
+        _sync(device)
+        stats.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
+                     logits=torch.stack(kept, dim=1))
+    return torch.stack(out, dim=1)

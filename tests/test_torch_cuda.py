@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.data.synthetic import zipf_indices
 from repro_torch.kernels import embedding_bag as eb
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gather_rows as gr
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import scatter_update as su
@@ -82,3 +83,44 @@ def test_gather_rows_matches_plain(cuda, rng, dtype, D):
     got = ops.gather_rows(table, idx)
     assert gr.launches == before + 1
     assert got.dtype == dtype and torch.equal(got, ref.gather_rows_ref(table, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 1, 4, 2, 16), (2, 17, 8, 2, 16),
+                                          (1, 130, 32, 4, 64), (2, 100, 16, 8, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_plain(cuda, dtype, B, S, Hq, Hkv, D, causal):
+    """f32 within 2e-5; f16/bf16 within one output rounding (torch's
+    defaults), since the kernel sums in another order."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=cuda).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert fa.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = {"rtol": 2e-5, "atol": 2e-5} if dtype == torch.float32 else {}
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_cache_prefix_and_offset(cuda):
+    """k, v read in place from a cache prefix; queries at positions 5..13."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    kc, vc = (torch.randn((2, 32, 4, 64), generator=g, device=cuda).to(torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn((2, 9, 32, 64), generator=g, device=cuda).to(torch.bfloat16)
+    got = ops.flash_attention(q, kc[:, :14], vc[:, :14], q_offset=5)
+    want = ref.flash_attention_ref(q, kc[:, :14], vc[:, :14], q_offset=5)
+    torch.testing.assert_close(got, want)
+    torch.testing.assert_close(
+        got, ops.flash_attention(q, kc[:, :14].contiguous(),
+                                 vc[:, :14].contiguous(), q_offset=5), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_unsupported_head_size(cuda):
+    q = torch.zeros((1, 4, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head size"):
+        ops.flash_attention(q, q, q)

@@ -1,4 +1,4 @@
-"""The port's embedding kernels against the JAX package's Pallas kernels.
+"""The port's kernels against the JAX package's Pallas kernels.
 
 On the CPU the port runs each kernel's plain version (``repro_torch.kernels.ref``);
 the Pallas kernels run in interpret mode. The CUDA kernels themselves are
@@ -12,6 +12,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.embedding_bag import embedding_bag_pallas, gather_rows_pallas
+from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.scatter_update import scatter_update_pallas
 from repro_torch.kernels import ops, ref
 
@@ -114,6 +115,9 @@ def test_dispatch_refuses_other_devices():
         ops.embedding_bag(table, idx, idx, 1)
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.scatter_update(table, idx, torch.empty((2, 8), device="meta"))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        q = torch.empty((1, 2, 2, 16), device="meta")
+        ops.flash_attention(q, q, q)
 
 
 # ragged widths; N > R repeats rows
@@ -142,3 +146,54 @@ def test_gather_rows_bf16_matches_pallas(rng):
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16),
                                   want)   # bitwise
+
+
+def _qkv(rng, B, S, Hq, Hkv, D):
+    return (rng.standard_normal((B, S, h, D)).astype(np.float32)
+            for h in (Hq, Hkv, Hkv))
+
+
+# the shapes of tests/test_kernels.py::test_flash_attention_sweep
+@pytest.mark.parametrize("B,S,H,D,causal", [
+    (1, 128, 2, 64, True), (2, 256, 4, 64, False), (2, 128, 2, 128, True)])
+def test_flash_attention_matches_pallas(rng, B, S, H, D, causal):
+    q, k, v = _qkv(rng, B, S, H, H, D)
+
+    def flat(x):   # the Pallas kernel's (B*H, S, D) layout
+        return jnp.moveaxis(jnp.asarray(x), 2, 1).reshape(B * H, S, D)
+    out = flash_attention_pallas(flat(q), flat(k), flat(v), causal=causal,
+                                 bq=64, bk=64, interpret=True)
+    want = np.asarray(jnp.moveaxis(out.reshape(B, H, S, D), 1, 2))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    for got in (ops.flash_attention(tq, tk, tv, causal=causal),
+                ref.flash_attention_ref(tq, tk, tv, causal=causal)):
+        assert got.dtype == torch.float32 and got.shape == (B, S, H, D)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+# GQA (no repeat on the port's side) and ragged lengths
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 33, 8, 2, 16), (1, 9, 4, 1, 32),
+                                          (3, 1, 6, 3, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gqa_ragged_matches_jax_ref(rng, B, S, Hq, Hkv, D, causal):
+    q, k, v = _qkv(rng, B, S, Hq, Hkv, D)
+    G = Hq // Hkv
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.repeat(jnp.asarray(k), G, 2),
+                                    jnp.repeat(jnp.asarray(v), G, 2), causal=causal)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_reads_a_cache_prefix_in_place(rng):
+    """k, v as the first S entries of a (B, Smax, Hkv, D) cache (not
+    contiguous across the batch) give the contiguous result."""
+    q, k, v = _qkv(rng, 2, 9, 4, 2, 16)
+    kc = torch.zeros((2, 16, 2, 16))
+    vc = torch.zeros((2, 16, 2, 16))
+    kc[:, :9], vc[:, :9] = torch.from_numpy(k), torch.from_numpy(v)
+    assert not kc[:, :9].is_contiguous()
+    got = ops.flash_attention(torch.from_numpy(q), kc[:, :9], vc[:, :9])
+    want = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v))
+    assert torch.equal(got, want)
