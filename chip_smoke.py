@@ -37,12 +37,24 @@ Phases, each of which exits non-zero on failure:
      per decode step), the row gather held against its plain version and
      timed at the prefill's and a decode step's shape, a bitwise-equal
      repeat, decode at position S against a prefill of S + 1 tokens, and
-     smoke tinyllama on the card against the CPU.
-Phases 7 and 8 print their wall time.
+     smoke tinyllama on the card against the CPU;
+  9. hold the wkv6 kernel against its plain version on the card (r, k, v
+     in f32 and bf16; S in {1, 15, 16, 17, 100, 1024}; zero and random
+     initial state; 2 heads and rwkv6-3b's 40; y and the final state), and
+     time kernel and plain version at full rwkv6-3b's prefill shape and at
+     a decode step's beside the kernel's bound, holding the timed calls
+     against the plain version too;
+ 10. serve full-width rwkv6-3b (bf16, 32 layers, random weights) as phase 8
+     serves tinyllama: 32 wkv6 launches per prefill and per decode step,
+     one row gather per prefill and per decode step, the gather at
+     serving's shapes, a bitwise repeat, decode against prefill, and smoke
+     rwkv6 on the card against the CPU.
+Phases 7 to 10 print their wall time.
 
 The line before the last is {"kernels": [...]}, one entry per kernel and
-path (the row gather runs on three: the checkpoint's, the prefill's and
-the decode steps'); the last line is {"ok": true, "device": {...}}.
+path (the row gather runs on five: the checkpoint's and each served
+model's prefill and decode steps); the last line is {"ok": true,
+"device": {...}}.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -73,19 +85,24 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
-def time_ms(torch, fn, iters=20, warmup=3, hide_host=False):
-    """Mean time of fn() in ms, CUDA events around each call, with the 50 MB
-    L2 flushed before each so the gathered rows start cold.
+def time_ms(torch, fn, iters=20, warmup=3, hide_host=False, samples=None):
+    """Median time of fn() in ms over ``iters`` calls, CUDA events around
+    each call, with the 50 MB L2 flushed before each so the gathered rows
+    start cold. The median, not the mean: one call that waits on the host
+    (a scheduler or collector pause of a millisecond or more) would move
+    the mean of 20 single calls by tens of microseconds. ``samples``, a
+    list, receives every call's time.
 
     The card reaches the start event before the host has enqueued fn's
     kernels, so the time includes the host's launch overhead (the way the
     kernel rows of PERF.md have been timed). With ``hide_host`` the card
     first spins for about 1 ms, long enough for the host to enqueue fn,
-    and the time is the device's alone."""
+    and the time is the device's alone, unless the host took longer than
+    the spin."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush.zero_()
         if hide_host:
@@ -96,8 +113,10 @@ def time_ms(torch, fn, iters=20, warmup=3, hide_host=False):
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    if samples is not None:
+        samples.extend(times)
+    return statistics.median(times)
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -421,20 +440,104 @@ def flash_phase(torch, dev):
     return max(errs.values()), timing
 
 
-def serve_phase(torch, np, dev, check_gather):
-    """Phase 8. Returns the serving run's launch counts for each part
-    ("prefill", "decode") and the row gather's timings at each part's
-    shape."""
+def wkv6_phase(torch, dev):
+    """Phase 9. Returns (max abs error against the plain version, timings at
+    full rwkv6-3b's prefill shape and at a decode step's)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    K, err = 64, 0.0
+
+    def inputs(B, S, H, dtype, with_s0):
+        # r, k, v in dtype; logw over the whole clamp range [-5, -1e-4]
+        def rand(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+        r, k, v = (rand(B, S, H, K, scale=0.5).to(dtype) for _ in range(3))
+        logw = torch.clamp(-torch.exp(rand(B, S, H, K, scale=1.5) - 1.0), -5.0, -1e-4)
+        return (r, k, v, logw, rand(H, K, scale=0.3),
+                rand(B, H, K, K, scale=0.1) if with_s0 else None)
+
+    def compare(got, want, what):
+        # 3e-4: the tolerance tests/test_kernels.py holds the Pallas kernel to
+        nonlocal err
+        for name, g, w in zip(("y", "s_fin"), got, want, strict=True):
+            try:
+                torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+            except AssertionError as e:
+                fail(f"wkv6 {what} {name}: {e}")
+            err = max(err, (g - w).abs().max().item())
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, 15, 16, 17, 100, 1024):
+            for with_s0 in (False, True):
+                for B, H in ((2, 2), (4, 40)):
+                    x = inputs(B, S, H, dtype, with_s0)
+                    got = ops.wkv6(*x)
+                    want = ref.wkv6_ref(*x)
+                    torch.cuda.synchronize()
+                    compare(got, want, f"{dtype} B={B} S={S} H={H} s0={with_s0}")
+                    n += 1
+    print(f"[wkv6] {n} cases against the plain version: ok; max abs err {err:.3g}")
+
+    # full rwkv6-3b: B=4, H=40, bf16 r, k, v, a random state in; the final
+    # state goes to its own buffer so that repeated calls see the same inputs
+    timing = {}
+    for name, S in (("prefill", 1024), ("decode", 1)):
+        B, H = 4, 40
+        x = inputs(B, S, H, torch.bfloat16, True)
+        s_out = torch.empty_like(x[5])
+
+        def kern(x=x, s_out=s_out):
+            return ops.wkv6(*x, s_out=s_out)
+
+        def plain(x=x):
+            return ref.wkv6_ref(*x)
+        compare(kern(), plain(), f"rwkv6-3b {name} shape (timed inputs)")
+        # r, k, v (bf16), logw (f32) and u read once, the state read and
+        # written once, y (f32) written once; per chunk of c rows and head,
+        # the products the function needs: the scores' lower triangle with
+        # its diagonal (the bonus r u k^T) and their product with v, c (c+1)/2
+        # dot products of K each, then r_f S and k^T v, c x K x K each (the
+        # exps, the cumulative sums and the state's decay, about 4% more,
+        # are not counted)
+        nbytes = B * S * H * K * (3 * 2 + 4 + 4) + H * K * 4 + 2 * B * H * K * K * 4
+        nops = sum(2 * (c * (c + 1) * K + 2 * c * K * K) * B * H
+                   for c in [16] * (S // 16) + ([S % 16] if S % 16 else []))
+        b_ms, b_by = bound(nbytes, nops)
+        with_host, alone = [], []
+        timing[name] = {"ms": time_ms(torch, kern, samples=with_host),
+                        "plain_ms": time_ms(torch, plain),
+                        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        device_only = {"ms": time_ms(torch, kern, hide_host=True, samples=alone),
+                       "plain_ms": time_ms(torch, plain, hide_host=True)}
+        spread = {k: [min(v), statistics.median(v), max(v)]
+                  for k, v in (("with_host", with_host), ("device_only", alone))}
+        print(f"[wkv6] rwkv6-3b {name} shape B={B} S={S} H={H} K={K} bf16 "
+              f"({nops / 1e9:.4f} GFLOP, {nbytes / 1e6:.1f} MB): "
+              + json.dumps(timing[name]) + "; device only: " + json.dumps(device_only)
+              + "; kernel min, median, max of 20: " + json.dumps(spread))
+    torch.cuda.empty_cache()
+    return err, timing
+
+
+def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
+    """Phases 8 and 10: serve full ``arch``. ``mixer`` is the wrapper module
+    of the path's sequence-mixer kernel (flash attention, wkv6), launched
+    once per layer in the prefill and ``per_step`` times in each decode
+    step. Returns the serving run's launch counts for each part ("prefill",
+    "decode") and the row gather's timings at each part's shape."""
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import make_batches
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_rows as gr
     from repro_torch.kernels import ops, ref
     from repro_torch.models.registry import get_api
     from repro_torch.training.serve_loop import greedy_generate
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = get_arch("tinyllama-1.1b").model
+    mix = mixer.__name__.rsplit(".", 1)[1]
+    cfg = get_arch(arch).model
     api = get_api(cfg)
     B, S, new = 4, 1024, 32
     t = time.perf_counter()
@@ -444,7 +547,7 @@ def serve_phase(torch, np, dev, check_gather):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(params))
     prompt = make_batches(cfg, B, S, device=dev).next(0)["tokens"]
-    print(f"[serve] full tinyllama-1.1b: {n_params} params "
+    print(f"[serve] full {arch}: {n_params} params "
           f"({sum(p.numel() * p.element_size() for p in tree_leaves(params)) / 1e9:.2f} "
           f"GB, {cfg.dtype}), init and prompt {time.perf_counter() - t:.1f}s")
     greedy_generate(cfg, params, prompt, 2, max_seq=S + new)   # warm-up
@@ -455,15 +558,14 @@ def serve_phase(torch, np, dev, check_gather):
     @contextlib.contextmanager
     def count(name):
         # the launches of each part, read around it
-        fa0, gr0 = fa.launches, gr.launches
+        mx0, gr0 = mixer.launches, gr.launches
         yield
-        parts[name] = {"flash_attention": fa.launches - fa0,
-                       "gather_rows": gr.launches - gr0}
-    fa.launches = gr.launches = 0
+        parts[name] = {mix: mixer.launches - mx0, "gather_rows": gr.launches - gr0}
+    mixer.launches = gr.launches = 0
     stats = {}
     toks = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=stats,
                            part=count)
-    launches = {"flash_attention": fa.launches, "gather_rows": gr.launches}
+    launches = {mix: mixer.launches, "gather_rows": gr.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     metrics = {"prefill_ms": 1e3 * stats["prefill_s"],
                "decode_ms_per_token": 1e3 * stats["decode_s"] / (new - 1),
@@ -472,12 +574,12 @@ def serve_phase(torch, np, dev, check_gather):
     print(f"[serve] batch {B}, prompt {S}, {new} new tokens: {json.dumps(metrics)}; "
           f"launches {launches}, by part {parts}")
     print(f"[serve] tokens[0] {toks[0].tolist()}")
-    check(parts == {"prefill": {"flash_attention": cfg.num_layers, "gather_rows": 1},
-                    "decode": {"flash_attention": 0, "gather_rows": new - 1}}
+    check(parts == {"prefill": {mix: cfg.num_layers, "gather_rows": 1},
+                    "decode": {mix: per_step * (new - 1), "gather_rows": new - 1}}
           and launches == {k: parts["prefill"][k] + parts["decode"][k] for k in launches},
-          f"serve: want {cfg.num_layers} flash launches in the prefill, none in "
-          f"decode, and one gather per prefill and per decode step; got {parts}, "
-          f"{launches} in all")
+          f"serve: want {cfg.num_layers} {mix} launches in the prefill, {per_step} "
+          f"per decode step, and one gather per prefill and per decode step; got "
+          f"{parts}, {launches} in all")
     check(toks.shape == (B, new) and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
           "serve: tokens out of range")
     check(bool(torch.isfinite(stats["logits"]).all()), "serve: non-finite logits")
@@ -488,15 +590,14 @@ def serve_phase(torch, np, dev, check_gather):
           "serve: a second run gave other tokens or logits")
     del again
 
-    # the row gather at the shapes serving gives it: the (32000, 2048) bf16
-    # token table with the prompt's B * S ids (prefill) and with the first
-    # decode step's B ids
+    # the row gather at the shapes serving gives it: the token table with
+    # the prompt's B * S ids (prefill) and with the first decode step's B ids
     table = params["embed"]["table"]
     row_bytes = table.shape[1] * table.element_size()
     timing = {}
     for name, ids in (("prefill", prompt.reshape(-1).to(torch.int32).contiguous()),
                       ("decode", toks[:, 0].contiguous())):
-        check_gather(table, ids, f"tinyllama {name} ({ids.numel()} ids, "
+        check_gather(table, ids, f"{arch} {name} ({ids.numel()} ids, "
                                  f"table {tuple(table.shape)} {table.dtype})")
         # the ids once, each distinct row read once, each output row written
         # once; no operations
@@ -522,9 +623,9 @@ def serve_phase(torch, np, dev, check_gather):
 
     # decode at position S (the first generated token) against a prefill of
     # the S + 1 tokens. The two paths round bf16 activations at different
-    # places (other matmul shapes, the flash kernel against the plain
-    # decode), about 2^-9 relative per rounding over 22 layers; 3e-2 of the
-    # logits' largest magnitude bounds that.
+    # places (other matmul shapes; for tinyllama the flash kernel against
+    # the plain decode), about 2^-9 relative per rounding over 22 or 32
+    # layers; 3e-2 of the logits' largest magnitude bounds that.
     ext = torch.cat([prompt, toks[:, :1]], dim=1)
     full, _ = api.prefill(params, cfg, ext, api.init_cache(cfg, B, S + 1, dev))
     dec = stats["logits"][:, 1]
@@ -536,8 +637,8 @@ def serve_phase(torch, np, dev, check_gather):
     del params, stats, full
     torch.cuda.empty_cache()
 
-    # smoke tinyllama on the card and on the CPU from the same params (f32)
-    scfg = get_arch("tinyllama-1.1b", smoke=True).model
+    # the smoke model on the card and on the CPU from the same params (f32)
+    scfg = get_arch(arch, smoke=True).model
     gen = torch.Generator()
     gen.manual_seed(0)
     sparams = api.init(gen, scfg)
@@ -572,8 +673,10 @@ def main():
     from repro_torch.data.synthetic import DLRMBatches, zipf_indices
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_rows as gr
     from repro_torch.kernels import scatter_update as su
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.models.registry import get_api
     from repro_torch.training import train_loop
     from repro_torch.tree import tree_map
@@ -847,32 +950,57 @@ def main():
 
     # -- 8. serving full tinyllama-1.1b ------------------------------------------
     t0 = time.perf_counter()
-    sv_parts, sv_gather = serve_phase(torch, np, dev, check_gather)
+    sv_parts, sv_gather = serve_phase(torch, np, dev, check_gather, "tinyllama-1.1b",
+                                      fa, 0)
     timing["gather_prefill"], timing["gather_decode"] = (sv_gather["prefill"],
                                                          sv_gather["decode"])
     print(f"[serve] phase 8 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 9. the wkv6 kernel on the card -------------------------------------------
+    t0 = time.perf_counter()
+    err["wkv6"], wkv_timing = wkv6_phase(torch, dev)
+    timing["wkv6_prefill"], timing["wkv6_decode"] = (wkv_timing["prefill"],
+                                                     wkv_timing["decode"])
+    print(f"[wkv6] phase 9 wall time {time.perf_counter() - t0:.1f}s")
+
+    # -- 10. serving full rwkv6-3b -----------------------------------------------
+    t0 = time.perf_counter()
+    rw_parts, rw_gather = serve_phase(torch, np, dev, check_gather, "rwkv6-3b", wk,
+                                      get_arch("rwkv6-3b").model.num_layers)
+    timing["gather_rwkv_prefill"], timing["gather_rwkv_decode"] = (
+        rw_gather["prefill"], rw_gather["decode"])
+    print(f"[serve] phase 10 wall time {time.perf_counter() - t0:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
-    # kernels, run A's for the checkpoint's gather, and the serving run's
-    # parts for the gather and flash attention
+    # kernels, run A's for the checkpoint's gather, and the serving runs'
+    # parts for the gather, flash attention and wkv6
+    gather_src = ("src/repro_torch/csrc/gather_rows.cu",
+                  "src/repro/kernels/embedding_bag.py:73")
+    wkv6_src = ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:65")
     kernels = []
     for name, path, main_shape, n, src, replaces in (
             ("embedding_bag", "dlrm-rm1 train", "bag_fwd", launches["embedding_bag"],
              "src/repro_torch/csrc/embedding_bag.cu", "src/repro/kernels/embedding_bag.py:40"),
             ("gather_rows", "dlrm-rm1 checkpoint", "gather_bf16", ck_launches["gather_rows"],
-             "src/repro_torch/csrc/gather_rows.cu", "src/repro/kernels/embedding_bag.py:73"),
+             *gather_src),
             ("gather_rows", "tinyllama-1.1b prefill", "gather_prefill",
-             sv_parts["prefill"]["gather_rows"],
-             "src/repro_torch/csrc/gather_rows.cu", "src/repro/kernels/embedding_bag.py:73"),
+             sv_parts["prefill"]["gather_rows"], *gather_src),
             ("gather_rows", "tinyllama-1.1b decode", "gather_decode",
-             sv_parts["decode"]["gather_rows"],
-             "src/repro_torch/csrc/gather_rows.cu", "src/repro/kernels/embedding_bag.py:73"),
+             sv_parts["decode"]["gather_rows"], *gather_src),
             ("scatter_update", "dlrm-rm1 train", "update_bf16", launches["scatter_update"],
              "src/repro_torch/csrc/scatter_update.cu", "src/repro/kernels/scatter_update.py:24"),
             ("flash_attention", "tinyllama-1.1b prefill", "flash_bf16",
              sv_parts["prefill"]["flash_attention"],
              "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:62")):
+             "src/repro/kernels/flash_attention.py:62"),
+            ("gather_rows", "rwkv6-3b prefill", "gather_rwkv_prefill",
+             rw_parts["prefill"]["gather_rows"], *gather_src),
+            ("gather_rows", "rwkv6-3b decode", "gather_rwkv_decode",
+             rw_parts["decode"]["gather_rows"], *gather_src),
+            ("wkv6", "rwkv6-3b prefill", "wkv6_prefill", rw_parts["prefill"]["wkv6"],
+             *wkv6_src),
+            ("wkv6", "rwkv6-3b decode", "wkv6_decode", rw_parts["decode"]["wkv6"],
+             *wkv6_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})

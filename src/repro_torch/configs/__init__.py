@@ -1,7 +1,8 @@
 """Config registry: ``get_arch("<id>")`` / ``get_arch("<id>", smoke=True)``.
 
-The DLRM ids and the dense LM ids whose model the port runs are registered;
-the other LM ids come with the slices that port their models.
+The DLRM ids and the LM ids whose model the port runs (the dense
+transformers and RWKV-6) are registered; the other LM ids come with the
+slices that port their models.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ __all__ = [
 ]
 
 DLRM_IDS = ["dlrm-rm1", "dlrm-rm2", "dlrm-rm3", "dlrm-rm4"]
-LM_IDS = ["tinyllama-1.1b", "qwen3-0.6b"]
+LM_IDS = ["tinyllama-1.1b", "qwen3-0.6b", "rwkv6-3b"]
 ARCH_IDS = LM_IDS + DLRM_IDS
 
 _MOD = {i: "repro_torch.configs." + i.replace("-", "_").replace(".", "_")

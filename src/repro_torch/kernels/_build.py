@@ -39,6 +39,9 @@ KERNELS = {
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
                         + [_I64] * 9 + [_I, _I, _P]),
+    # r, k, v, logw, u, s0 (may be null), y, s_fin, dtype, B, S, H, r/k/v/logw
+    # strides (batch, seq, head), stream
+    "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 4 + [_I64] * 12 + [_P]),
 }
 
 _lock = threading.Lock()

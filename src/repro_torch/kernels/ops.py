@@ -13,6 +13,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gather_rows as gr
 from repro_torch.kernels import ref
 from repro_torch.kernels import scatter_update as su
+from repro_torch.kernels import wkv6 as wk
 
 
 def _plain_ok(t, op: str) -> None:
@@ -46,6 +47,16 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
         return fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
     _plain_ok(q, "flash_attention")
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def wkv6(r, k, v, logw, u, s0=None, *, s_out=None):
+    """Chunked RWKV-6 time-mix: r, k, v (B, S, H, 64), logw (B, S, H, 64)
+    f32, u (H, 64) f32, s0 (B, H, 64, 64) f32 or None -> (y (B, S, H, 64)
+    f32, final state); ``s_out`` receives the final state (it may be s0)."""
+    if r.is_cuda:
+        return wk.wkv6_cuda(r, k, v, logw, u, s0, s_out=s_out)
+    _plain_ok(r, "wkv6")
+    return ref.wkv6_ref(r, k, v, logw, u, s0, s_out=s_out)
 
 
 def scatter_update(table, idx, delta):

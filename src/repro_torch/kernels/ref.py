@@ -68,3 +68,68 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+WKV6_CHUNK = 16   # rows per wkv6 chunk: fixed, the CUDA kernel's kC
+
+
+def wkv6_ref(r, k, v, logw, u, s0=None, *, s_out=None):
+    """Chunked RWKV-6 time-mix (``wkv6_chunked`` of the JAX model, in torch).
+
+    r, k, v: (B, S, H, K) in the activation dtype; logw: (B, S, H, K) f32,
+    the per-step log decay, already clamped to [LOG_W_MIN, -1e-4]; u: (H, K)
+    f32, the bonus of the current token; s0: (B, H, K, K) f32 initial state,
+    or None for zero. Per head, with w_t = exp(logw_t):
+
+        y_t = r_t (diag(u) k_t^T v_t + S_{t-1});  S_t = diag(w_t) S_{t-1} + k_t^T v_t
+
+    Returns (y (B, S, H, K) f32, s_fin (B, H, K, K) f32); with ``s_out`` the
+    final state is copied into it (it may be s0 itself) and it is returned.
+
+    The sequence runs in chunks of ``WKV6_CHUNK`` (16) rows from the start,
+    the last one shorter if S is not a multiple (here: zero rows appended,
+    which add nothing to the state and leave the decay to the chunk's end as
+    it is), the grouping the CUDA kernel uses. Within a chunk the scores are
+    the factorised (r e^{L_excl}) (k e^{-L_incl})^T, which stays inside f32
+    only because logw >= -5 and a chunk has at most 16 rows (exponents up
+    to 80); so the chunk is fixed, not a parameter. The JAX function instead
+    picks the largest divisor of S that is at most 16, so the two agree only
+    within rounding where the groupings differ.
+    """
+    B, S, H, K = r.shape
+    chunk = WKV6_CHUNK
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+
+    def chunks(x):
+        x = x.float()
+        if pad:
+            x = torch.cat([x, x.new_zeros((B, pad, H, K))], dim=1)
+        return x.reshape(B, nc, chunk, H, K)
+    rc, kc, vc, lw = (chunks(x) for x in (r, k, v, logw))
+    cum_incl = torch.cumsum(lw, dim=2)                  # includes step t
+    cum_excl = cum_incl - lw
+    r_f = rc * torch.exp(cum_excl)
+    k_f = kc * torch.exp(-cum_incl)
+    scores = torch.einsum("bnthk,bnjhk->bnhtj", r_f, k_f)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    scores = scores.masked_fill(~mask, 0.0)             # strictly lower
+    y = torch.einsum("bnhtj,bnjhk->bnthk", scores, vc)
+    bonus = torch.einsum("bnthk,hk,bnthk->bnth", rc, u.float(), kc)
+    y = y + bonus[..., None] * vc
+    # each chunk's own contribution to the state at its end, and its decay
+    dec_to_end = torch.exp(cum_incl[:, :, -1:] - cum_incl)
+    st_c = torch.einsum("bnjhk,bnjhw->bnhkw", kc * dec_to_end, vc)
+    chunk_dec = torch.exp(cum_incl[:, :, -1])           # (B, nc, H, K)
+    s = (torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    s_prev = []
+    for n in range(nc):
+        s_prev.append(s)
+        s = s * chunk_dec[:, n, :, :, None] + st_c[:, n]
+    y = y + torch.einsum("bnthk,bnhkw->bnthw", r_f, torch.stack(s_prev, dim=1))
+    y = y.reshape(B, nc * chunk, H, K)[:, :S]
+    if s_out is not None:
+        s = s_out.copy_(s)
+    return y, s

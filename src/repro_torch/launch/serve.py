@@ -5,6 +5,11 @@ generation.
         [--smoke | --full] --batch 4 --prompt-len 16 --new-tokens 16 \\
         [--device cuda|cpu]
 
+``--arch`` is any LM id the port registers: the dense transformers
+tinyllama-1.1b and qwen3-0.6b (flash attention on prefill, plain attention
+over the KV cache in decode) and rwkv6-3b (the wkv6 kernel on prefill and
+on every decode step, a recurrent state in place of the KV cache).
+
 Runs on the card unless ``--device cpu`` is given (there is no silent
 fallback). Params are random, from ``--seed``; the prompt is the synthetic
 zipf token stream's first batch. One short warm-up generation (the kernels'

@@ -5,7 +5,7 @@
     PYTHONPATH=src python -m repro_torch.launch.trace_step --full \
         --arch tinyllama-1.1b --batch 4 --prompt-len 1024 [--steps 5]
 
-For a DLRM id: makes every batch first (set-up), runs one warm-up step, then
+(``--arch`` also takes qwen3-0.6b and rwkv6-3b.) For a DLRM id: makes every batch first (set-up), runs one warm-up step, then
 profiles ``--steps`` training steps. For an LM id: runs one warm-up
 generation, then profiles one prefill of the prompt and ``--steps`` greedy
 decode steps after it, each part on its own. Each profile (``torch.profiler``,

@@ -1,15 +1,15 @@
 """Uniform model API: arch_type -> ModelApi(init, loss, init_cache, prefill,
 decode_step).
 
-The DLRM and the dense transformer are ported; the other LM families come
-with their slices.
+The DLRM, the dense transformer and RWKV-6 are ported; the other LM
+families come with their slices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from repro_torch.models import dlrm, transformer
+from repro_torch.models import dlrm, rwkv6, transformer
 
 
 @dataclass(frozen=True)
@@ -26,6 +26,9 @@ _REGISTRY: dict[str, ModelApi] = {
         init=transformer.init_lm, loss=transformer.lm_loss,
         init_cache=transformer.init_kv_cache,
         prefill=transformer.prefill, decode_step=transformer.decode_step),
+    "rwkv6": ModelApi(
+        init=rwkv6.init_lm, loss=rwkv6.lm_loss, init_cache=rwkv6.init_kv_cache,
+        prefill=rwkv6.prefill, decode_step=rwkv6.decode_step),
     "dlrm": ModelApi(init=dlrm.init_dlrm, loss=dlrm.bce_loss),
 }
 

@@ -16,6 +16,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gather_rows as gr
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import scatter_update as su
+from repro_torch.kernels import wkv6 as wk
 
 
 @pytest.fixture
@@ -124,3 +125,62 @@ def test_flash_attention_refuses_unsupported_head_size(cuda):
     q = torch.zeros((1, 4, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="head size"):
         ops.flash_attention(q, q, q)
+
+
+def _wkv_inputs(dev, B, S, H, dtype, with_s0, seed=0):
+    """r, k, v in ``dtype``; logw spread over the whole clamp range
+    [-5, -1e-4]; u and s0 f32 (s0 None when not ``with_s0``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    r, k, v = (rand(B, S, H, 64, scale=0.5).to(dtype) for _ in range(3))
+    logw = torch.clamp(-torch.exp(rand(B, S, H, 64, scale=1.5) - 1.0), -5.0, -1e-4)
+    u = rand(H, 64, scale=0.3)
+    s0 = rand(B, H, 64, 64, scale=0.1) if with_s0 else None
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 100, 1024])
+@pytest.mark.parametrize("B,H", [(2, 2), (4, 40)])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_matches_plain(cuda, dtype, S, B, H, with_s0):
+    """y and the final state within 3e-4 (the tolerance the Pallas kernel
+    is held to in tests/test_kernels.py), ragged last chunks and S = 1
+    included."""
+    r, k, v, logw, u, s0 = _wkv_inputs(cuda, B, S, H, dtype, with_s0)
+    before = wk.launches
+    y, s_fin = ops.wkv6(r, k, v, logw, u, s0)
+    assert wk.launches == before + 1
+    y_want, s_want = ref.wkv6_ref(r, k, v, logw, u, s0)
+    assert y.dtype == s_fin.dtype == torch.float32
+    torch.testing.assert_close(y, y_want, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(s_fin, s_want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.gpu
+def test_wkv6_state_in_place_strided_and_repeatable(cuda):
+    """r, k, v read through head strides (views of a wider tensor); the
+    final state written over s0 (the cache update); two runs bitwise equal."""
+    B, S, H = 2, 37, 3
+    _, _, _, logw, u, s0 = _wkv_inputs(cuda, B, S, H, torch.bfloat16, True)
+    wide = torch.randn((B, S, H, 3 * 64), device=cuda).to(torch.bfloat16)
+    r, k, v = wide[..., :64], wide[..., 64:128], wide[..., 128:]
+    assert not r.is_contiguous()
+    y_want, s_want = ref.wkv6_ref(r, k, v, logw, u, s0)
+    y, _ = ops.wkv6(r, k, v, logw, u, s0.clone())
+    state = s0.clone()
+    y2, s_fin = ops.wkv6(r, k, v, logw, u, state, s_out=state)
+    assert s_fin is state
+    torch.testing.assert_close(y2, y_want, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(state, s_want, rtol=3e-4, atol=3e-4)
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.gpu
+def test_wkv6_refuses_other_head_sizes(cuda):
+    r = torch.zeros((1, 4, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="want r"):
+        ops.wkv6(r, r, r, r, torch.zeros((2, 32), device=cuda))

@@ -34,6 +34,8 @@ from repro_torch.tree import tree_leaves
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CPU = torch.device("cpu")
+# the dense transformer ids; rwkv6-3b has its own tests (test_torch_rwkv.py)
+DENSE_IDS = [a for a in LM_IDS if get_arch(a).model.arch_type == "transformer"]
 
 
 def _t(a):
@@ -48,7 +50,7 @@ def _lm(arch):
     return jcfg, cfg, jparams, interop.params_from_numpy(jparams, CPU)
 
 
-@pytest.mark.parametrize("arch", LM_IDS)
+@pytest.mark.parametrize("arch", DENSE_IDS)
 def test_config_matches_jax(arch):
     for smoke in (True, False):
         jcfg = jax_get_arch(arch, smoke=smoke).model
@@ -59,7 +61,7 @@ def test_config_matches_jax(arch):
         assert cfg.param_counts() == jcfg.param_counts()
 
 
-@pytest.mark.parametrize("arch", LM_IDS)
+@pytest.mark.parametrize("arch", DENSE_IDS)
 def test_init_lm_has_the_reference_tree(arch):
     jcfg, cfg, jparams, _ = _lm(arch)
     gen = torch.Generator()
@@ -149,7 +151,7 @@ def test_lm_batches_bitwise(seed, step):
     assert isinstance(make_batches(cfg, 4, 17, device="cpu"), LMBatches)
 
 
-@pytest.mark.parametrize("arch", LM_IDS)
+@pytest.mark.parametrize("arch", DENSE_IDS)
 def test_prefill_and_decode_match_jax(rng, arch):
     jcfg, cfg, jparams, params = _lm(arch)
     toks = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
@@ -168,7 +170,7 @@ def test_prefill_and_decode_match_jax(rng, arch):
                                    rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", LM_IDS)
+@pytest.mark.parametrize("arch", DENSE_IDS)
 def test_greedy_generate_matches_jax(arch):
     """4 new tokens, max_seq 16, as tests/test_smoke_archs.py::test_decode_shapes."""
     jcfg, cfg, jparams, params = _lm(arch)
@@ -209,7 +211,7 @@ def test_greedy_generate_enters_part_around_prefill_and_decode(monkeypatch):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("arch", LM_IDS)
+@pytest.mark.parametrize("arch", DENSE_IDS)
 def test_decode_matches_own_prefill(rng, arch):
     """As tests/test_sequence_mixers.py::test_transformer_decode_matches_prefill."""
     _, cfg, _, params = _lm(arch)
@@ -221,7 +223,7 @@ def test_decode_matches_own_prefill(rng, arch):
     np.testing.assert_allclose(l_dec.numpy(), l_full.numpy(), rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", LM_IDS)
+@pytest.mark.parametrize("arch", DENSE_IDS)
 def test_lm_loss_matches_jax(arch):
     jcfg, cfg, jparams, params = _lm(arch)
     jb = JaxLMBatches(jcfg, 2, 300).next(1)    # 300 > loss_chunk: two chunks
