@@ -48,12 +48,29 @@ Phases, each of which exits non-zero on failure:
      serves tinyllama: 32 wkv6 launches per prefill and per decode step,
      one row gather per prefill and per decode step, the gather at
      serving's shapes, a bitwise repeat, decode against prefill, and smoke
-     rwkv6 on the card against the CPU.
-Phases 7 to 10 print their wall time.
+     rwkv6 on the card against the CPU;
+ 11. hold the flash-attention backward kernel against its plain version on
+     the card (f32, bf16, f16; causal and full; S in {1, 17, 128, 1000};
+     (Hq, Hkv) in {(4, 2), (32, 4), (16, 8)}; D in {16, 64, 128}; each case
+     repeated bitwise, the forward's log-sum-exp checked too), and time
+     kernel, plain version and SDPA's backward at full tinyllama-1.1b's
+     training shape beside the bound;
+ 12. train full-width tinyllama-1.1b (bf16, 22 layers, remat) at batch 4 x
+     1024: 3 relaxed and 3 strict steps from the same params with bitwise
+     equal losses, a bitwise repeat of the relaxed run, the launch counts of
+     each step, step ms, tokens/s, busy share (one profiled step) and peak
+     memory; the sparse kernels at the step's shapes; smoke tinyllama on the
+     card against the CPU;
+ 13. checkpointed tinyllama on a pmem pool under build/ (removed at the
+     end): full width with tier-E only (4 relaxed steps, the recovered
+     mirror bitwise the table), then at the smoke size a crash between the
+     undo COMMIT and the mirror apply, bitwise recovery and a resume with
+     the uninterrupted run's losses.
+Phases 7 to 13 print their wall time.
 
 The line before the last is {"kernels": [...]}, one entry per kernel and
-path (the row gather runs on five: the checkpoint's and each served
-model's prefill and decode steps); the last line is {"ok": true,
+path (the row gather runs on eight: each checkpoint, each served model's
+prefill and decode steps, and LM training); the last line is {"ok": true,
 "device": {...}}.
 Imports nothing of JAX.
 """
@@ -658,6 +675,497 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     return parts, timing
 
 
+def flash_bwd_phase(torch, dev):
+    """Phase 11. Returns (max abs error against the plain version, timings
+    of the backward and of the forward with its log-sum-exp at full
+    tinyllama-1.1b's training shape)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    # the tolerance, scaled by each gradient's largest magnitude: f32 1e-4;
+    # f16 and bf16 the rtol phase 7 holds the forward to (torch's defaults:
+    # one rounding of the output). The 1e-5 floor covers S = 1 (and row 0
+    # under a causal mask): one key gives dP = Delta, so dq and dk are zero
+    # in exact arithmetic and both versions return rounding noise.
+    rtol = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2, torch.float16: 1e-3}
+    used, worst, err, n = {}, {}, 0.0, 0
+
+    def inputs(B, S, Hq, Hkv, D, dtype, causal):
+        q, do = (torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+        return q, k, v, o, lse, do
+
+    def compare(got, want, dtype, what, S):
+        nonlocal err
+        for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+            check(g.dtype == w.dtype == dtype and g.shape == w.shape,
+                  f"flash backward {what} {name}: shape/dtype")
+            e = (g.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            limit = rtol[dtype] * scale + 1e-5
+            check(e <= limit, f"flash backward {what} {name}: max abs err "
+                  f"{e:.3g}, gradient max {scale:.3g}, limit {limit:.3g}")
+            err = max(err, e)
+            used[dtype] = max(used.get(dtype, 0.0), e / limit)
+            if S > 1:         # S = 1's dq and dk are rounding noise around 0
+                worst[dtype] = max(worst.get(dtype, 0.0), e / scale)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for causal in (True, False):
+            for S in (1, 17, 128, 1000):
+                for Hq, Hkv in ((4, 2), (32, 4), (16, 8)):
+                    for D in (16, 64, 128):
+                        B = 1 if S == 1000 else 2
+                        x = inputs(B, S, Hq, Hkv, D, dtype, causal)
+                        what = (f"{dtype} causal={causal} B={B} S={S} Hq={Hq} "
+                                f"Hkv={Hkv} D={D}")
+                        lse_want = ref.flash_attention_ref(
+                            *x[:3], causal=causal, return_lse=True)[1]
+                        e = (x[4] - lse_want).abs().max().item()
+                        check(e <= 1e-4, f"flash forward lse {what}: max abs err {e:.3g}")
+                        got = ops.flash_attention_bwd(*x, causal=causal)
+                        want = ref.flash_attention_bwd_ref(*x, causal=causal)
+                        again = ops.flash_attention_bwd(*x, causal=causal)
+                        torch.cuda.synchronize()
+                        compare(got, want, dtype, what, S)
+                        check(all(torch.equal(a, b) for a, b in zip(got, again, strict=True)),
+                              f"flash backward {what}: two calls differ")
+                        n += 1
+    print(f"[flash-bwd] {n} cases against the plain version, each repeated "
+          f"bitwise: ok; max abs err {err:.3g}; largest share of the limit "
+          "used: " + ", ".join(f"{d}: {e:.3g}" for d, e in used.items())
+          + "; largest error over the gradient's max for S > 1: "
+          + ", ".join(f"{d}: {e:.3g}" for d, e in worst.items()))
+
+    # full tinyllama-1.1b training: B=4, S=1024, Hq=32, Hkv=4, D=64, bf16,
+    # causal (q, k, v contiguous, as the training step gives them)
+    B, S, Hq, Hkv, D = 4, 1024, 32, 4, 64
+    x = inputs(B, S, Hq, Hkv, D, torch.bfloat16, True)
+    q, k, v, o, lse, do = x
+
+    def kern():
+        return ops.flash_attention_bwd(*x)
+
+    def plain():
+        return ref.flash_attention_bwd_ref(*x)
+    got, want = kern(), plain()
+    compare(got, want, torch.bfloat16, "at the tinyllama training shape", S)
+    timed_err = max((g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want, strict=True))
+    print("[flash-bwd] at the training shape, (elements that differ, "
+          "max |gradient|) for dq, dk, dv: "
+          + str([(int((g != w).sum()), w.float().abs().max().item())
+                 for g, w in zip(got, want, strict=True)]))
+    del got, want
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    do_t = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, leaves, do_t)
+    # q, k, v, o and do read once (bf16) and lse (f32); dq, dk, dv written
+    # once; the five products the backward needs over S(S+1)/2 (query, key)
+    # pairs, 5/2 of the forward's operations
+    nbytes = 2 * (3 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S \
+        + 2 * (B * S * Hq * D + 2 * B * S * Hkv * D)
+    nops = 10 * B * Hq * D * S * (S + 1) / 2
+    b_ms, b_by = bound(nbytes, nops, BF16_TENSOR_OPS_PER_S)
+    lib = {"fwd_bwd": time_ms(torch, sdpa_fwd_bwd), "fwd": time_ms(torch, sdpa_fwd)}
+    timing = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+              "library_ms": lib["fwd_bwd"] - lib["fwd"], "bound_ms": b_ms,
+              "bound_by": b_by}
+    dev_lib = {"fwd_bwd": time_ms(torch, sdpa_fwd_bwd, hide_host=True),
+               "fwd": time_ms(torch, sdpa_fwd, hide_host=True)}
+    device_only = {"ms": time_ms(torch, kern, hide_host=True),
+                   "plain_ms": time_ms(torch, plain, hide_host=True),
+                   "library_ms": dev_lib["fwd_bwd"] - dev_lib["fwd"]}
+    # each pass alone, on the card's clock
+    from repro_torch.kernels import _build
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    outs = [torch.empty_like(t) for t in (q, k, v)]
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, *outs)]
+    passes = [time_ms(torch, lambda p=p: _build.launch(
+        "flash_attention_bwd", dev, p, *ptrs, _build.DTYPE_CODES[q.dtype],
+        B, S, S, Hq, Hkv, D, 1, 0), hide_host=True) for p in range(fa.BWD_PASSES)]
+    print(f"[flash-bwd] tinyllama training shape B={B} S={S} Hq={Hq} Hkv={Hkv} "
+          f"D={D} bf16 causal ({nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+          f"{nops / F32_OPS_PER_S * 1e3:.4f} ms at the f32 CUDA-core rate): "
+          + json.dumps(timing) + "; device only: " + json.dumps(device_only)
+          + f"; SDPA forward+backward {json.dumps(lib)}, device only "
+          + json.dumps(dev_lib) + f"; passes (Delta, dk dv, dq) device only "
+          f"{passes} ms; max abs err {timed_err:.3g}")
+
+    # the forward as training calls it (log-sum-exp written), same inputs
+    def fwd_lse():
+        return ops.flash_attention_lse(q, k, v)
+
+    def fwd_plain():
+        return ref.flash_attention_ref(q, k, v, return_lse=True)
+    nbytes_f = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
+    fb_ms, fb_by = bound(nbytes_f, 4 * B * Hq * D * S * (S + 1) / 2,
+                         BF16_TENSOR_OPS_PER_S)
+    fwd_timing = {"ms": time_ms(torch, fwd_lse), "plain_ms": time_ms(torch, fwd_plain),
+                  "library_ms": time_ms(torch, sdpa_fwd), "bound_ms": fb_ms,
+                  "bound_by": fb_by}
+    print("[flash-bwd] forward with log-sum-exp at the training shape: "
+          + json.dumps(fwd_timing) + "; device only: "
+          + json.dumps({"ms": time_ms(torch, fwd_lse, hide_host=True)}))
+    del x, q, k, v, o, lse, do, leaves, do_t, outs, delta
+    torch.cuda.empty_cache()
+    return max(err, timed_err), timing, fwd_timing
+
+
+def device_busy(torch, fn):
+    """(wall ms, summed kernel ms) of one call of fn under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return wall, busy
+
+
+def lm_train_phase(torch, np, dev, check_bag, check_update, check_gather):
+    """Phase 12: full-width tinyllama-1.1b training. Returns (the launch
+    counts of the relaxed run, the step metrics, the sparse kernels'
+    timings at the step's shapes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import scatter_update as su
+    from repro_torch.models.registry import get_api
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_arch("tinyllama-1.1b").model
+    check(cfg.remat and cfg.dtype == "bfloat16", "tinyllama: want bf16 with remat")
+    tc = TrainConfig(embed_learning_rate=0.05)
+    B, S, steps, L = 4, 1024, 3, cfg.num_layers
+    api = get_api(cfg)
+    init_fn = train_loop.make_step_fns(cfg, tc)[0]
+    mods = {"flash_attention": fa, "embedding_bag": eb, "scatter_update": su,
+            "gather_rows": gr}
+
+    def counts():
+        c = {name: m.launches for name, m in mods.items()}
+        c["flash_attention_bwd"] = fa.bwd_launches
+        return c
+
+    def zero_counts():
+        for m in mods.values():
+            m.launches = 0
+        fa.bwd_launches = 0
+
+    def fresh_state():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(tc.seed)
+        state = init_fn(api.init(gen, cfg))
+        torch.cuda.synchronize()
+        return state
+
+    def make_batches_first():
+        # every batch of a run is made before it (set-up, on the host)
+        return LookaheadIterator(make_batches(cfg, B, S, device=dev), cfg,
+                                 depth=steps + 2)
+
+    t = time.perf_counter()
+    state = fresh_state()
+    n_params = sum(p.numel() for p in tree_leaves(state["dense"])) \
+        + state["embed"]["table"].numel()
+    print(f"[lm-train] full tinyllama-1.1b: {n_params} params, {cfg.dtype}, "
+          f"remat, batch {B} x seq {S}; init "
+          f"{time.perf_counter() - t:.1f}s")
+
+    def run(state, relaxed, per_step=None):
+        batches = make_batches_first()
+        stamps, marks = [time.perf_counter()], [counts()]
+
+        def on_metrics(n, m):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            marks.append(counts())
+        state, losses = train_loop.train(cfg, tc, batches, steps, relaxed=relaxed,
+                                         state=state, on_metrics=on_metrics)
+        ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:], strict=True)]
+        if per_step is not None:   # the launches of each step, read around it
+            per_step.extend({k: b[k] - a[k] for k in a}
+                            for a, b in zip(marks[:-1], marks[1:], strict=True))
+        return state, losses, ms
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    relaxed_steps = []
+    state, rl, rms = run(state, True, relaxed_steps)
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batches = make_batches_first()
+    wall, busy = device_busy(torch, lambda: train_loop.train(
+        cfg, tc, batches, 1, relaxed=True, state=state, start_step=steps))
+    del state
+    torch.cuda.empty_cache()
+    strict_steps = []
+    state, sl, sms = run(fresh_state(), False, strict_steps)
+    del state
+    torch.cuda.empty_cache()
+    state, rl2, rms2 = run(fresh_state(), True)
+    del state
+    torch.cuda.empty_cache()
+    # the first step of a run holds the warm-up (and the first run the
+    # card's own: cuBLAS handles, the allocator's first blocks)
+    med = statistics.median(rms[1:] + rms2[1:])
+    step = {"relaxed_ms": rms, "strict_ms": sms, "relaxed_repeat_ms": rms2,
+            "relaxed_ms_median": med, "strict_ms_median": statistics.median(sms[1:]),
+            "tokens_per_s": B * S / (med / 1e3),
+            "profiled_step_wall_ms": wall, "profiled_step_busy_ms": busy,
+            "busy_share": busy / wall, "peak_device_gb": peak_gb}
+    print(f"[lm-train] relaxed losses {rl}; strict {sl}; relaxed again {rl2}")
+    print(f"[lm-train] launches per relaxed step {relaxed_steps}; per strict "
+          f"step {strict_steps}; relaxed run {launches}")
+    print(f"[lm-train] {json.dumps(step)}")
+    check(all(math.isfinite(x) for x in rl + sl), "tinyllama: non-finite loss")
+    check(rl == sl, f"tinyllama: relaxed losses {rl} differ from strict {sl}")
+    check(rl2 == rl, f"tinyllama: relaxed losses not repeatable: {rl2} vs {rl}")
+    # per step: 22 flash forwards and 22 more in the remat recompute, one
+    # backward of BWD_PASSES launches per layer, one duplicate combine (bag),
+    # the table update; relaxed steps also the stale lookup and the
+    # correction (set, gather, clear the scratch), strict steps the lookup
+    common = {"flash_attention": 2 * L, "flash_attention_bwd": L * fa.BWD_PASSES,
+              "embedding_bag": 1}
+    want_relaxed = {**common, "gather_rows": 2, "scatter_update": 3}
+    want_strict = {**common, "gather_rows": 1, "scatter_update": 1}
+    # (the warm-up's lookup runs inside the first relaxed step's reading)
+    check(relaxed_steps == [{**want_relaxed, "gather_rows": 3}]
+          + [want_relaxed] * (steps - 1),
+          f"tinyllama relaxed step launches {relaxed_steps}, want {want_relaxed} "
+          "(and the warm-up's gather in the first)")
+    check(strict_steps == [want_strict] * steps,
+          f"tinyllama strict step launches {strict_steps}, want {want_strict}")
+    check(launches == {k: steps * v + (k == "gather_rows")   # the warm-up lookup
+                       for k, v in want_relaxed.items()},
+          f"tinyllama relaxed run launches {launches}")
+
+    # the sparse tier's kernels at the step's shapes: batch 0's 4,096 tokens,
+    # their row gradients (bf16) combined, the bf16 table updated
+    table = (torch.randn((cfg.vocab_size, cfg.d_model), device=dev) * 0.02) \
+        .to(torch.bfloat16)
+    d = table.shape[1]
+    ids = batches.next(0)["tokens"].reshape(-1).to(torch.int32).contiguous()
+    N = ids.numel()
+    g_rows = (torch.randn((N, d), device=dev) * 1e-3).to(torch.bfloat16)
+    uniq, comb = ops.combine_duplicates(ids, g_rows)
+    upd = -0.05 * comb
+    n_rows = int((uniq >= 0).sum())
+    order = torch.sort(ids, stable=True)[1]
+    sorted_ids = ids[order]
+    comb_seg = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                                       sorted_ids[1:] != sorted_ids[:-1]]),
+                            0, dtype=torch.int32) - 1
+    comb_src = order.to(torch.int32)
+    check_bag(g_rows, comb_src, comb_seg, N, "tinyllama duplicate combine")
+    check_update(table.clone(), uniq, upd, "tinyllama bf16 table")
+    check_gather(table, ids, "tinyllama token lookup (training batch 0)")
+    touched = uniq[:n_rows]                # the checkpoint's gather
+    check_gather(table, touched, "tinyllama touched rows (bf16 table)")
+    real = touched.long()
+    t_tab = table.clone()
+    upd_real = upd[:n_rows].to(torch.bfloat16)
+    shapes = {
+        # the ids and the N + 1 offsets once, each row gradient once, the
+        # (N, d) f32 output
+        "lm_bag_combine": (lambda: ops.embedding_bag(g_rows, comb_src, comb_seg, N),
+                           lambda: ref.embedding_bag_ref(g_rows, comb_src, comb_seg, N),
+                           None, bound(N * 4 + (N + 1) * 4 + N * d * 2 + N * d * 4,
+                                       N * d)),
+        # the ids, each touched row's f32 delta, the row read and written
+        "lm_update_bf16": (lambda: ops.scatter_update(t_tab, uniq, upd),
+                           lambda: ref.scatter_update_ref(t_tab, uniq, upd),
+                           lambda: t_tab.index_add_(0, real, upd_real),
+                           bound(N * 4 + n_rows * d * (4 + 2 * 2), n_rows * d)),
+        # the ids once, each touched row read once and written once; no ops
+        "lm_gather_touched": (lambda: ops.gather_rows(table, touched),
+                              lambda: ref.gather_rows_ref(table, touched),
+                              lambda: torch.index_select(table, 0, touched),
+                              bound(n_rows * 4 + 2 * n_rows * d * 2, 0)),
+    }
+    timing = {}
+    for name, (kern, plain, lib, (b_ms, b_by)) in shapes.items():
+        timing[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                        "library_ms": None if lib is None else time_ms(torch, lib),
+                        "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[lm-train] {name} ({N} ids, {n_rows} distinct): "
+              + json.dumps(timing[name]) + "; device only: "
+              + json.dumps({"ms": time_ms(torch, kern, hide_host=True)}))
+    del table, t_tab, g_rows, comb, upd, upd_real, touched, real
+    torch.cuda.empty_cache()
+
+    # smoke tinyllama on the card and on the CPU from the same params (f32,
+    # TF32 off): 5 relaxed steps
+    scfg = get_arch("tinyllama-1.1b", smoke=True).model
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    sparams = api.init(gen, scfg)
+    sinit = train_loop.make_step_fns(scfg, tc)[0]
+    curves = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        st = sinit(tree_map(lambda p, w=where: p.to(w, copy=True), sparams))
+        _, curves[name] = train_loop.train(scfg, tc, make_batches(scfg, 4, 16, device=where),
+                                           5, relaxed=True, state=st, device=where)
+    print(f"[lm-train] smoke losses {curves}")
+    np.testing.assert_allclose(curves["card"], curves["cpu"], rtol=1e-5, atol=0)
+    return launches, step, timing
+
+
+def lm_checkpoint_phase(torch, np, dev):
+    """Phase 13: checkpointed tinyllama-1.1b training on a pmem pool, in a
+    temporary directory under build/. Returns the full-width run's launch
+    counts."""
+    import contextlib
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import CheckpointConfig, TrainConfig
+    from repro_torch.core.checkpoint import recovery
+    from repro_torch.core.checkpoint.manager import CheckpointManager
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.models.registry import get_api
+    from repro_torch.pool import FaultSchedule, InjectedCrash
+    from repro_torch.training import train_loop
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="lm-ckpt-smoke-", dir=build)
+    try:
+        def setup(name, arch, smoke, dense_interval):
+            cfg = get_arch(arch, smoke=smoke).model
+            cc = CheckpointConfig(directory=os.path.join(work, name),
+                                  dense_interval=dense_interval, pool_backend="pmem")
+            tc = TrainConfig(embed_learning_rate=0.05, checkpoint=cc)
+
+            def fresh():
+                g = torch.Generator(device=dev)
+                g.manual_seed(tc.seed)
+                return train_loop.make_step_fns(cfg, tc)[0](get_api(cfg).init(g, cfg))
+            return cfg, tc, cc, fresh
+
+        # full width, tier-E only: 4 relaxed steps, then the recovered mirror
+        # against the table
+        cfg, tc, cc, fresh = setup("full", "tinyllama-1.1b", False, 0)
+        batches = LookaheadIterator(make_batches(cfg, 4, 1024, device=dev), cfg, depth=6)
+        state = fresh()
+        t = time.perf_counter()
+        mgr = CheckpointManager(cfg, cc, embed_init=state["embed"])
+        load_s = time.perf_counter() - t
+        stamps = [time.perf_counter()]
+
+        def on_metrics(n, m):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        gr.launches = 0
+        _, losses = train_loop.train(cfg, tc, batches, 4, relaxed=True, state=state,
+                                     ckpt_manager=mgr, on_metrics=on_metrics)
+        gathers = gr.launches
+        step_ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:], strict=True)]
+        t = time.perf_counter()
+        mgr.close()
+        close_s = time.perf_counter() - t
+        final = state["embed"]["table"].to("cpu", torch.float32).numpy()
+        print(f"[lm-ckpt] full tinyllama, dense_interval=0: mirror load {load_s:.2f}s; "
+              f"losses {losses}; step ms with on_step {step_ms}; close (flush) "
+              f"{close_s:.2f}s; stats {json.dumps(mgr.stats)}; gather launches {gathers}")
+        # warm-up lookup, then per step: stale lookup, correction, on_step's
+        # touched rows
+        check(gathers == 1 + 4 * 3, f"lm checkpoint run: {gathers} gathers, want 13")
+        del mgr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rec = recovery.recover(cc.directory)
+        print(f"[lm-ckpt] recover {time.perf_counter() - t:.2f}s: mirror@{rec.mirror_step} "
+              f"dense@{rec.dense_step}, table {rec.table_name} {rec.table_shape}")
+        check(rec.mirror_step == 3 and rec.dense_step == -1 and not rec.rolled_back
+              and rec.table_name == "table", "lm full run: unexpected recovery")
+        check(np.array_equal(rec.embed_rows, final),
+              "lm full run: recovered mirror differs from the table")
+        rec.pool.close()
+        del rec, final, batches
+        shutil.rmtree(cc.directory)
+
+        # smoke size, dense_interval=1: crash between the undo COMMIT and
+        # the mirror apply of step 2, recovery of the step-1 mirror, resume
+        cfg, tc, cc, fresh = setup("crash", "tinyllama-1.1b", True, 1)
+        data = make_batches(cfg, 4, 16, device=dev)
+        _, full = train_loop.train(cfg, tc, data, 5, relaxed=True, state=fresh())
+        ref_cc = dataclasses.replace(cc, directory=os.path.join(work, "ref"))
+        state = fresh()
+        mgr = CheckpointManager(cfg, ref_cc, embed_init=state["embed"])
+        train_loop.train(cfg, tc, data, 2, relaxed=True, state=state, ckpt_manager=mgr)
+        ref_rows = np.array(mgr.mirror_rows)
+        mgr.close()
+        state = fresh()
+        mgr = CheckpointManager(cfg, cc, embed_init=state["embed"],
+                                faults=FaultSchedule.crash_at(
+                                    "tier_e.between-commit-and-apply", occurrence=3))
+        crashed = False
+        try:
+            train_loop.train(cfg, tc, data, 5, relaxed=True, state=state, ckpt_manager=mgr)
+        except InjectedCrash:
+            crashed = True
+        check(crashed, "lm smoke run: no InjectedCrash")
+        with contextlib.suppress(InjectedCrash):
+            mgr.close()                   # process death: the pool file stays
+        rec = recovery.recover(cc.directory)
+        check(rec.mirror_step == 1 and rec.dense_step == 1 and rec.rolled_back,
+              f"lm smoke run: recovered mirror@{rec.mirror_step} "
+              f"dense@{rec.dense_step} rolled_back={rec.rolled_back}")
+        check(np.array_equal(rec.embed_rows, ref_rows),
+              "lm smoke run: recovered mirror differs from a clean run's after step 1")
+        resumed, start = recovery.resume_train_state(rec, fresh())
+        mgr = CheckpointManager(cfg, cc, pool=rec.pool)
+        mgr.init_mirror(resumed["embed"], step=rec.mirror_step)
+        _, tail = train_loop.train(cfg, tc, data, 3, relaxed=True, state=resumed,
+                                   start_step=start, ckpt_manager=mgr)
+        mgr.close()
+        print(f"[lm-ckpt] smoke crash at step 2: recovered mirror@{rec.mirror_step} "
+              f"(rolled back), resumed at {start}: losses {tail}, uninterrupted "
+              f"{full[start:]}")
+        check(start == 2 and tail == full[start:],
+              "lm smoke run: resumed losses differ from the uninterrupted run's")
+        print("[lm-ckpt] full-width mirror, crash, bitwise recovery and resume: ok")
+        return {"gather_rows": gathers}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -971,9 +1479,28 @@ def main():
         rw_gather["prefill"], rw_gather["decode"])
     print(f"[serve] phase 10 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 11. the flash-attention backward on the card ------------------------------
+    t0 = time.perf_counter()
+    err["flash_attention_bwd"], timing["flash_bwd"], timing["flash_lse"] = \
+        flash_bwd_phase(torch, dev)
+    print(f"[flash-bwd] phase 11 wall time {time.perf_counter() - t0:.1f}s")
+
+    # -- 12. training full tinyllama-1.1b ------------------------------------------
+    t0 = time.perf_counter()
+    lm_launches, lm_step, lm_timing = lm_train_phase(torch, np, dev, check_bag,
+                                                     check_update, check_gather)
+    timing.update(lm_timing)
+    print(f"[lm-train] phase 12 wall time {time.perf_counter() - t0:.1f}s")
+
+    # -- 13. checkpointed tinyllama training, crash, recovery, resume ---------------
+    t0 = time.perf_counter()
+    lm_ck_launches = lm_checkpoint_phase(torch, np, dev)
+    print(f"[lm-ckpt] phase 13 wall time {time.perf_counter() - t0:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
-    # kernels, run A's for the checkpoint's gather, and the serving runs'
-    # parts for the gather, flash attention and wkv6
+    # kernels, run A's for the checkpoint's gather, the serving runs' parts
+    # for the gather, flash attention and wkv6, phase 12's relaxed run for
+    # the LM training path and phase 13's full-width run for its checkpoint
     gather_src = ("src/repro_torch/csrc/gather_rows.cu",
                   "src/repro/kernels/embedding_bag.py:73")
     wkv6_src = ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:65")
@@ -1000,11 +1527,29 @@ def main():
             ("wkv6", "rwkv6-3b prefill", "wkv6_prefill", rw_parts["prefill"]["wkv6"],
              *wkv6_src),
             ("wkv6", "rwkv6-3b decode", "wkv6_decode", rw_parts["decode"]["wkv6"],
-             *wkv6_src)):
+             *wkv6_src),
+            ("flash_attention_bwd", "tinyllama-1.1b train", "flash_bwd",
+             lm_launches["flash_attention_bwd"],
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:62"),
+            ("flash_attention", "tinyllama-1.1b train", "flash_lse",
+             lm_launches["flash_attention"], "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:62"),
+            ("gather_rows", "tinyllama-1.1b train", "gather_prefill",
+             lm_launches["gather_rows"], *gather_src),
+            ("gather_rows", "tinyllama-1.1b checkpoint", "lm_gather_touched",
+             lm_ck_launches["gather_rows"], *gather_src),
+            ("embedding_bag", "tinyllama-1.1b train", "lm_bag_combine",
+             lm_launches["embedding_bag"], "src/repro_torch/csrc/embedding_bag.cu",
+             "src/repro/kernels/embedding_bag.py:40"),
+            ("scatter_update", "tinyllama-1.1b train", "lm_update_bf16",
+             lm_launches["scatter_update"], "src/repro_torch/csrc/scatter_update.cu",
+             "src/repro/kernels/scatter_update.py:24")):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
     print(f"[train] full dlrm-rm1 batch {Bsz}: {json.dumps(step)}")
+    print(f"[lm-train] full tinyllama-1.1b batch 4 x 1024: {json.dumps(lm_step)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import relaxed
 from repro_torch.core.checkpoint import store
 from repro_torch.core.checkpoint.undo_log import UndoRing
 from repro_torch.kernels import ops
@@ -54,9 +55,6 @@ from repro_torch.tree import tree_map
 
 
 _LOAD_ROWS = 1 << 20   # rows widened to f32 per copy in init_mirror
-
-
-TABLE = "emb_tables"   # the embedding tier's one leaf (DLRM's stacked tables)
 
 
 def touched_rows(feed: dict):
@@ -149,8 +147,11 @@ class CheckpointManager:
     # -- data region ---------------------------------------------------------
     def init_mirror(self, embed: dict, step: int = -1):
         """Materialise the persistent data region from the tables: one copy
-        to a host f32 array, made before the first step updates them."""
-        tab = embed[TABLE]
+        to a host f32 array, made before the first step updates them. The
+        manifest names the leaf (``relaxed.embed_leaf``: "emb_tables" for
+        DLRM, "table" for an LM), as the JAX package's does."""
+        name = relaxed.embed_leaf(self.cfg)
+        tab = embed[name]
         src = tab.detach().reshape(-1, tab.shape[-1])
         flat = np.empty(tuple(src.shape), dtype=np.float32)
         for s in range(0, src.shape[0], _LOAD_ROWS):  # bounds the f32 temp
@@ -165,7 +166,7 @@ class CheckpointManager:
         self.mirror_region.persist(point="mirror-load")
         man = self.manifest.read() or {"dense_step": -1, "dense_slot": 0,
                                        "dense_len": 0}
-        man.update(mirror_step=step, table_name=TABLE,
+        man.update(mirror_step=step, table_name=name,
                    table_shape=list(self.table_shape),
                    max_undo_logs=self.ccfg.max_undo_logs)
         self._man_write(man, point="manifest-init")
@@ -186,7 +187,7 @@ class CheckpointManager:
         if feed is None:   # strict step: no feed, nothing logged
             return
         ids, idx = touched_rows(feed)
-        tab = state["embed"][TABLE]
+        tab = state["embed"][relaxed.embed_leaf(self.cfg)]
         flat_tab = tab.view(-1, tab.shape[-1])
         new_rows = ops.gather_rows(flat_tab, ids).float().cpu().numpy()
         self._q.put(("tier_e", step, idx, new_rows))

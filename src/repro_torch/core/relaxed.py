@@ -1,80 +1,105 @@
-"""Relaxed embedding lookup (counterpart of ``repro.core.relaxed``, DLRM).
+"""Relaxed embedding lookup (counterpart of ``repro.core.relaxed``).
 
 The RAW hazard: batch N's embedding update and batch N+1's lookup touch the
 same rows. The relaxed schedule uses the commutativity of the additive row
 update,
 
-    bag(T + U, idx) == bag(T, idx) + bag(U, idx)          (linear)
+    gather(T + U, idx) == gather(T, idx) + gather(U, idx)  (exact; LMs)
+    bag(T + U, idx)    == bag(T, idx) + bag(U, idx)        (linear; DLRM)
 
-so batch N+1's bags are read from the pre-update table T, and the
-correction ``bag(U, idx)`` is added once batch N's delta U exists.
+so batch N+1's rows are read from the pre-update table T, and the
+correction ``gather(U, idx)`` (``bag(U, idx)``) is added once batch N's
+delta U exists. "Rows" are the lookup's outputs: a DLRM's reduced bag
+vectors (B, T, d), an LM's token rows (B, S, d). For an LM the correction
+is added with the in-table update's arithmetic, so relaxed equals strict
+bit for bit; for DLRM the bag sums run in another order.
 
 Unlike the JAX package, the port never builds a table-sized gradient or
 update: the adjoint of the lookup is kept at the touched rows only
-(``sparse_rows_grad``), and the tables are updated in place at those rows.
-In-place means that the stale bag of batch N+1 must be read before the
+(``sparse_rows_grad``), and the table is updated in place at those rows.
+In-place means that the stale rows of batch N+1 must be read before the
 update runs on the same stream; ``training.train_loop`` orders it so.
+
+The dense transformer and DLRM are trained; RWKV-6 training needs the wkv6
+backward and raises.
 """
 from __future__ import annotations
 
 from repro_torch.core import embedding_ops
 from repro_torch.kernels import ops
 
+TRAINED = ("dlrm", "transformer")   # the arch types the port trains
 
-def _dlrm_only(cfg) -> None:
-    if cfg.arch_type != "dlrm":
+
+def check_trainable(cfg) -> None:
+    if cfg.arch_type not in TRAINED:
         raise NotImplementedError(
-            f"the port runs DLRM only so far, not {cfg.arch_type!r}")
+            f"the port trains {TRAINED} so far, not {cfg.arch_type!r}")
+
+
+def embed_leaf(cfg) -> str:
+    """The embedding tier's one leaf: DLRM's stacked tables, or an LM's
+    token table (the reference's checkpoint manager names them so too)."""
+    return "emb_tables" if cfg.arch_type == "dlrm" else "table"
 
 
 def lookup_rows(embed_params: dict, cfg, batch: dict):
-    """Pool lookup for a batch -> reduced bag vectors (B, T, d)."""
-    _dlrm_only(cfg)
-    return embedding_ops.bag_lookup(embed_params["emb_tables"], batch["sparse"])
+    """Pool lookup for a batch: bag vectors (B, T, d) for DLRM, token rows
+    (B, S, d) for an LM, in the table's dtype."""
+    check_trainable(cfg)
+    if cfg.arch_type == "dlrm":
+        return embedding_ops.bag_lookup(embed_params["emb_tables"],
+                                        batch["sparse"])
+    return embedding_ops.lookup(embed_params["table"], batch["tokens"])
 
 
 def sparse_rows_grad(embed_params: dict, cfg, batch: dict, rows_grad):
     """Adjoint of ``lookup_rows`` at the touched rows only.
 
-    Every row in a bag receives the bag's gradient. Returns
-    ``(uniq, grad)``: flat row ids into the (T*R, d) tables with -1 pads,
-    and their (N, d) f32 gradients, duplicates summed in item order. The
-    JAX package's ``scatter_rows_grad`` is the same gradient, dense.
+    Every row in a bag receives the bag's gradient; an LM's token row its
+    own. Returns ``(uniq, grad)``: flat row ids into the table (DLRM: the
+    (T*R, d) stacked tables) with -1 pads, and their (N, d) f32 gradients,
+    duplicates summed in item order. The JAX package's
+    ``scatter_rows_grad`` is the same gradient, dense.
     """
-    _dlrm_only(cfg)
-    tables = embed_params["emb_tables"]
-    flat, seg = embedding_ops.bag_items(batch["sparse"], tables.shape[1])
-    g = rows_grad.reshape(-1, tables.shape[-1]).contiguous()
-    return ops.combine_duplicates(flat, g, item_rows=seg)
+    check_trainable(cfg)
+    table = embed_params[embed_leaf(cfg)]
+    g = rows_grad.reshape(-1, table.shape[-1]).contiguous()
+    if cfg.arch_type == "dlrm":
+        flat, seg = embedding_ops.bag_items(batch["sparse"], table.shape[1])
+        return ops.combine_duplicates(flat, g, item_rows=seg)
+    flat = batch["tokens"].reshape(-1).to(g.device).int()
+    return ops.combine_duplicates(flat, g)
 
 
-def apply_embed_update(embed_params: dict, uniq, upd) -> None:
+def apply_embed_update(embed_params: dict, cfg, uniq, upd) -> None:
     """T = round(T + U) in place at the rows ``uniq`` (U given as rows)."""
-    t = embed_params["emb_tables"]
+    t = embed_params[embed_leaf(cfg)]
     ops.scatter_update(t.view(-1, t.shape[-1]), uniq, upd)
 
 
 def prefetch_corrected(stale, scratch, uniq, upd, cfg, next_batch: dict):
-    """Relaxed prefetch of batch N+1's bags: round(f32(stale) + bag(U, idx)).
+    """Relaxed prefetch of batch N+1's rows: round(f32(stale) + f32(corr)).
 
-    ``stale`` is ``lookup_rows`` of batch N+1 on the PRE-update tables.
-    ``scratch`` is an all-zero f32 tensor of the tables' (T, R, d) shape; U's
-    rows are written into it, the correction bag is read from it, and the
+    ``stale`` is ``lookup_rows`` of batch N+1 on the PRE-update table, and
+    corr the same lookup in U. ``scratch`` is an all-zero f32 tensor of the
+    table's shape; U's rows are written into it, the correction is read
+    from it (an LM row that U does not touch reads an exact +0), and the
     same rows are cleared again (u + (-u) is exactly +0), so it is all zero
-    again on return. Equal to looking batch N+1 up in the updated tables, up
-    to the order of the f32 sums.
+    again on return. The add mirrors the in-table update's arithmetic, so
+    for an LM the result is bitwise the lookup in the updated table; for
+    DLRM it equals it up to the order of the f32 sums.
     """
-    _dlrm_only(cfg)
+    check_trainable(cfg)
     flat = scratch.view(-1, scratch.shape[-1])
     ops.scatter_update(flat, uniq, upd)
-    corr = embedding_ops.bag_lookup(scratch, next_batch["sparse"])
+    corr = lookup_rows({embed_leaf(cfg): scratch}, cfg, next_batch)
     ops.scatter_update(flat, uniq, -upd)
-    # mirror the in-table update arithmetic: f32 add, round to table dtype
     return (stale.float() + corr).to(stale.dtype)
 
 
 def touched_indices(cfg, batch: dict):
-    """The rows a batch WILL update, known from its sparse features before
-    any compute (paper Fig. 6)."""
-    _dlrm_only(cfg)
-    return batch["sparse"]
+    """The rows a batch WILL update, known from its ids before any compute
+    (paper Fig. 6): DLRM's sparse features, an LM's tokens."""
+    check_trainable(cfg)
+    return batch["sparse"] if cfg.arch_type == "dlrm" else batch["tokens"]

@@ -31,6 +31,11 @@
 //   - The query tile holding the most work starts first (reversed tile
 //     order), so the causal triangle's long rows do not end the grid.
 //
+// The log-sum-exp output. With a non-null lse pointer each row's m + log(l),
+// the log-sum-exp of its scaled scores, is written in f32 to lse (B, Hq,
+// Sq): the backward (flash_attention_bwd.cu) rebuilds P from it. Serving
+// passes null, and its kernel does the same work as before.
+//
 // Bound: operations. A causal call does about 4 * B * Hq * D * S(S+1)/2
 // flops and moves q, k, v and o once. This first version multiplies on the
 // CUDA cores in f32 (no tensor cores), so it runs far above the card's
@@ -64,24 +69,6 @@ struct Strides {
   int64_t b, s, h;              // in elements; the last axis is contiguous
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __half* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 // Rows r0 .. r0 + 63 of one head (row r at base + r * stride) into dst as
 // f32, row stride D + 4; rows at or past n are zero.
 template <typename T, int D>
@@ -101,9 +88,10 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ base,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-             int Hq, int group, Strides qs, Strides ks, Strides vs,
-             int causal, int q_offset, float scale) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int Hq, int group,
+             Strides qs, Strides ks, Strides vs, int causal, int q_offset,
+             float scale) {
   constexpr int kLd = D + 4;
   constexpr int kDCols = D / 16;             // output columns per thread
   extern __shared__ float4 smem4[];
@@ -232,6 +220,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + g + 8 * i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && c == 0)
+      lse[(static_cast<int64_t>(b) * Hq + h) * Sq + row] = m[i] + logf(den);
     T* out = o + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * D;
 #pragma unroll
     for (int j = 0; j < kDCols; ++j) out[c + 16 * j] = from_f32<T>(acc[i][j] / den);
@@ -239,8 +229,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int Hq, int Hkv, Strides qs, Strides ks,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int Hq, int Hkv, Strides qs, Strides ks,
            Strides vs, int causal, int q_offset, cudaStream_t stream) {
   constexpr int kSmem = static_cast<int>(sizeof(float))
                         * (3 * kBQ * (D + 4) + kBQ * kLdP);
@@ -251,20 +241,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, Hq, Hq / Hkv,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, Hq, Hq / Hkv,
       qs, ks, vs, causal, q_offset, 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_dim(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Sk, int Hq, int Hkv, int D, Strides qs,
-                 Strides ks, Strides vs, int causal, int q_offset,
+int dispatch_dim(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                 Strides qs, Strides ks, Strides vs, int causal, int q_offset,
                  cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qs, ks, vs, causal, q_offset, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qs, ks, vs, causal, q_offset, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qs, ks, vs, causal, q_offset, s);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, qs, ks, vs, causal, q_offset, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, qs, ks, vs, causal, q_offset, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, qs, ks, vs, causal, q_offset, s);
     default: return -2;
   }
 }
@@ -273,21 +263,22 @@ int dispatch_dim(const void* q, const void* k, const void* v, void* o, int B,
 
 // q: (B, Sq, Hq, D), k and v: (B, Sk, Hkv, D), each with the given batch,
 // sequence and head strides (elements) and a contiguous last axis, 4-element
-// aligned; o: (B, Sq, Hq, D) contiguous. Query row r sits at global position
+// aligned; o: (B, Sq, Hq, D) contiguous; lse: null, or (B, Hq, Sq) f32 for
+// each row's log-sum-exp. Query row r sits at global position
 // q_offset + r, key j at j. Returns 0 on success, else the CUDA error code
 // of the launch, -1 for an unknown type code or -2 for an unsupported D.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int Sq, int Sk, int Hq, int Hkv, int D, int64_t q_sb, int64_t q_ss,
+    const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D, int64_t q_sb, int64_t q_ss,
     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
     int64_t v_ss, int64_t v_sh, int causal, int q_offset, void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   switch (dtype) {
-    case 0: return dispatch_dim<float>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, causal, q_offset, s);
-    case 1: return dispatch_dim<__half>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, causal, q_offset, s);
-    case 2: return dispatch_dim<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, causal, q_offset, s);
+    case 0: return dispatch_dim<float>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, causal, q_offset, s);
+    case 1: return dispatch_dim<__half>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, causal, q_offset, s);
+    case 2: return dispatch_dim<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, causal, q_offset, s);
     default: return -1;
   }
 }

@@ -34,11 +34,14 @@ KERNELS = {
     "scatter_update": ("scatter_update_launch", [_P, _I, _P, _P, _I, _I, _P]),
     # table, idx, out, n, row bytes, stream
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I64, _I64, _P]),
-    # q, k, v, o, dtype, B, Sq, Sk, Hq, Hkv, D, q/k/v strides (batch, seq,
-    # head), causal, q_offset, stream
+    # q, k, v, o, lse (may be null), dtype, B, Sq, Sk, Hq, Hkv, D, q/k/v
+    # strides (batch, seq, head), causal, q_offset, stream
     "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
-                        + [_I64] * 9 + [_I, _I, _P]),
+                        [_P] * 5 + [_I] * 7 + [_I64] * 9 + [_I, _I, _P]),
+    # pass, q, k, v, o, do, lse, delta, dq, dk, dv, dtype, B, Sq, Sk, Hq,
+    # Hkv, D, causal, q_offset, stream
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            [_I] + [_P] * 10 + [_I] * 9 + [_P]),
     # r, k, v, logw, u, s0 (may be null), y, s_fin, dtype, B, S, H, r/k/v/logw
     # strides (batch, seq, head), stream
     "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 4 + [_I64] * 12 + [_P]),

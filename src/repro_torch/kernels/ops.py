@@ -42,11 +42,39 @@ def gather_rows(table, idx):
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """Attention, (B, Sq, Hq, D) x (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's
     dtype, f32 inside; GQA by head index; query row i at position
-    ``q_offset + i``."""
+    ``q_offset + i``. Differentiable: when grad is on and an input needs
+    it, the call goes through ``FlashAttention``, whose backward is the
+    backward kernel (or its plain version on the CPU)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return fa.FlashAttention.apply(q, k, v, causal, q_offset)
     if q.is_cuda:
         return fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
     _plain_ok(q, "flash_attention")
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """``flash_attention`` (not differentiable) that also returns each row's
+    log-sum-exp, (B, Hq, Sq) f32: the forward that training saves."""
+    if q.is_cuda:
+        return fa.flash_attention_cuda(q, k, v, causal=causal,
+                                       q_offset=q_offset, want_lse=True)
+    _plain_ok(q, "flash_attention")
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                   return_lse=True)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        q_offset: int = 0):
+    """(dq, dk, dv) of ``flash_attention`` from its inputs, output o,
+    log-sum-exp and the output's gradient do (contiguous on the card)."""
+    if q.is_cuda:
+        return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                           q_offset=q_offset)
+    _plain_ok(q, "flash_attention_bwd")
+    return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       q_offset=q_offset)
 
 
 def wkv6(r, k, v, logw, u, s0=None, *, s_out=None):

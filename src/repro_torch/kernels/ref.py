@@ -46,7 +46,24 @@ def gather_rows_ref(table, idx):
     return table.index_select(0, idx.long())
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+def _attention_scores(q, k, causal: bool, q_offset: int):
+    """f32 scores q k^T / sqrt(D) of shape (B, Hkv, G, Sq, Sk), masked keys
+    at -1e30, and the mask itself (True where a key is masked, or None)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * (1.0 / math.sqrt(D))
+    masked = None
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        k_pos = torch.arange(Sk, device=q.device)
+        masked = q_pos[:, None] < k_pos[None, :]
+        s = s.masked_fill(masked, -1e30)
+    return s, masked
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        return_lse: bool = False):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D), Hq % Hkv == 0.
 
     Returns (B, Sq, Hq, D) in q's dtype: softmax(q k^T / sqrt(D)) v with the
@@ -56,18 +73,54 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
     ``causal`` masks keys past the query's position with the -1e30 sentinel
     of the Pallas kernel. The JAX oracle takes k, v already expanded to Hq
     heads and masks with -inf; the two agree wherever a row keeps a key.
+
+    With ``return_lse`` also returns each row's log-sum-exp of the scaled
+    scores, f32 of shape (B, Hq, Sq): what the backward needs to rebuild P.
+    """
+    B, Sq, Hq, D = q.shape
+    s, _ = _attention_scores(q, k, causal, q_offset)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    o = o.reshape(B, Sq, Hq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, Hq, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            q_offset: int = 0):
+    """The backward of ``flash_attention_ref``, written out (no autograd).
+
+    q, o, do: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); lse: (B, Hq, Sq) f32,
+    the forward's row log-sum-exp. In f32, per (batch, q head), with the
+    scores S = q k^T / sqrt(D) masked as in the forward:
+
+        P = exp(S - lse)    dV = P^T dO    dP = dO V^T
+        Delta = rowsum(dO * O)    dS = P * (dP - Delta)
+        dQ = dS K / sqrt(D)    dK = dS^T Q / sqrt(D)
+
+    dK and dV of a kv head sum the G q heads that read it. Delta reads the
+    forward's stored (rounded) output, as the kernel does. Returns (dq, dk,
+    dv) in q's, k's and v's dtypes.
     """
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * (1.0 / math.sqrt(D))
-    if causal:
-        q_pos = q_offset + torch.arange(Sq, device=q.device)
-        k_pos = torch.arange(Sk, device=q.device)
-        s = s.masked_fill(q_pos[:, None] < k_pos[None, :], -1e30)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    s, masked = _attention_scores(q, k, causal, q_offset)
+    p = torch.exp(s - lse.reshape(B, Hkv, G, Sq)[..., None])
+    if masked is not None:
+        p = p.masked_fill(masked, 0.0)
+    dof = do.float().reshape(B, Sq, Hkv, G, D)
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    delta = (dof * o.float().reshape(B, Sq, Hkv, G, D)).sum(-1)   # (B, Sq, Hkv, G)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 WKV6_CHUNK = 16   # rows per wkv6 chunk: fixed, the CUDA kernel's kC

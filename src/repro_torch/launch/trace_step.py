@@ -4,14 +4,19 @@
         [--arch dlrm-rm1] [--steps 5] [--strict]
     PYTHONPATH=src python -m repro_torch.launch.trace_step --full \
         --arch tinyllama-1.1b --batch 4 --prompt-len 1024 [--steps 5]
+    PYTHONPATH=src python -m repro_torch.launch.trace_step --full \
+        --arch tinyllama-1.1b --train --batch 4 --seq 1024 [--steps 3] [--strict]
 
-(``--arch`` also takes qwen3-0.6b and rwkv6-3b.) For a DLRM id: makes every batch first (set-up), runs one warm-up step, then
-profiles ``--steps`` training steps. For an LM id: runs one warm-up
-generation, then profiles one prefill of the prompt and ``--steps`` greedy
-decode steps after it, each part on its own. Each profile (``torch.profiler``,
-CPU and CUDA activity) prints the wall time per step, the device time per
-step of each kernel (largest first), the kernel launches per step, and the
-device's busy share: summed kernel time over wall time. Needs a CUDA card.
+(``--arch`` also takes qwen3-0.6b and rwkv6-3b.) For a DLRM id, or an LM id
+with ``--train`` (dense transformers only): makes every batch first
+(set-up), runs one warm-up step, then profiles ``--steps`` training steps.
+For an LM id otherwise: runs one warm-up generation, then profiles one
+prefill of the prompt and ``--steps`` greedy decode steps after it, each
+part on its own. Each profile (``torch.profiler``, CPU and CUDA activity)
+prints the wall time per step, the device time per step of each kernel
+(largest first) and of each family of kernels (the port's own by function,
+cuBLAS matmuls, the rest), the kernel launches per step, and the device's
+busy share: summed kernel time over wall time. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -28,10 +33,22 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.lookahead import LookaheadIterator
-from repro_torch.data.synthetic import DLRMBatches, make_batches
+from repro_torch.data.synthetic import make_batches
 from repro_torch.models.registry import get_api
 from repro_torch.training import train_loop
 from repro_torch.training.serve_loop import greedy_generate
+
+
+def _family(kernel: str) -> str:
+    """The port's own kernels (top-level anonymous namespace in csrc/) by
+    function name, cuBLAS's matmuls, and everything else (PyTorch's
+    elementwise, reduction and copy kernels)."""
+    own = "void (anonymous namespace)::"
+    if kernel.startswith(own):
+        return kernel[len(own):].split("<")[0].split("(")[0]
+    if any(w in kernel.lower() for w in ("nvjet", "gemm", "cutlass")):
+        return "cuBLAS matmuls"
+    return "other: elementwise, reductions, copies"
 
 
 @contextlib.contextmanager
@@ -53,6 +70,13 @@ def _trace(title: str, steps: int, device):
           f"busy share {busy_ms / wall_ms:.3f}")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"[trace] {ms:9.4f} ms/step  x{n / steps:g}  {name[:90]}")
+    families = {}
+    for name, (ms, n) in kernels.items():
+        f = families.setdefault(_family(name), [0.0, 0])
+        f[0] += ms
+        f[1] += n / steps
+    for name, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        print(f"[trace] family {ms:9.4f} ms/step  x{n:g}  {name}")
     print(json.dumps({"part": title, "wall_ms": wall_ms, "busy_ms": busy_ms,
                       "kernels_per_step": sum(n for _, n in kernels.values())
                       / steps}))
@@ -61,11 +85,14 @@ def _trace(title: str, steps: int, device):
 def _trace_train(cfg, args, device) -> None:
     tc = TrainConfig(embed_learning_rate=0.05)
     relaxed = not args.strict
-    batches = LookaheadIterator(DLRMBatches(cfg, args.batch, device=device), cfg,
+    batches = LookaheadIterator(make_batches(cfg, args.batch, args.seq,
+                                             device=device), cfg,
                                 depth=args.steps + 2)
     state, _ = train_loop.train(cfg, tc, batches, 1, relaxed=relaxed,
                                 device=device)          # warm-up step
-    with _trace(f"{cfg.name} batch {args.batch} {'relaxed' if relaxed else 'strict'}",
+    shape = f"batch {args.batch}" + ("" if cfg.arch_type == "dlrm"
+                                     else f" seq {args.seq}")
+    with _trace(f"{cfg.name} {shape} {'relaxed' if relaxed else 'strict'}",
                 args.steps, device):
         train_loop.train(cfg, tc, batches, args.steps, relaxed=relaxed,
                          state=state, start_step=1)
@@ -92,15 +119,19 @@ def main(argv=None):
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--train", action="store_true",
+                    help="LM: trace training steps instead of serving")
     ap.add_argument("--strict", action="store_true",
-                    help="DLRM: trace strict steps instead of relaxed ones")
+                    help="training: trace strict steps instead of relaxed ones")
+    ap.add_argument("--seq", type=int, default=1024,
+                    help="LM training: tokens per sequence")
     ap.add_argument("--prompt-len", type=int, default=1024,
                     help="LM: prompt tokens of the traced prefill")
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
     cfg = get_arch(args.arch, smoke=args.smoke).model
-    if cfg.arch_type == "dlrm":
+    if cfg.arch_type == "dlrm" or args.train:
         _trace_train(cfg, args, device)
     else:
         _trace_serve(cfg, args, device)

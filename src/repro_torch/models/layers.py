@@ -7,9 +7,9 @@ through ``repro_torch.interop``.
 
 Activations are in ``cfg.dtype``; norms, rotary angles, attention scores and
 softmax are in f32. Attention is GQA: prefill and training attention go
-through the flash-attention kernel (``ops.flash_attention``), single-token
-decode through the plain ``decode_attention``. A KV cache is updated in
-place.
+through the flash-attention kernels (``ops.flash_attention``, forward and
+backward), single-token decode through the plain ``decode_attention``. A KV
+cache is updated in place.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 
@@ -75,6 +76,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0):
     reference's ``positions_q``), key j at j. Returns (B, Sq, Hq, D) in q's
     dtype. The reference scans query chunks with a full-KV softmax; the
     kernel tiles both axes itself, so there are no chunk sizes to pass.
+    Differentiable: the gradient is the flash backward kernel (the
+    reference differentiates its scan, recomputing each query block).
     """
     return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
@@ -180,8 +183,16 @@ def mlp_fwd(p, cfg, x):
 
 
 # ---------------------------------------------------------------------------
-# Cross-entropy, chunked over tokens (forward)
+# Cross-entropy, chunked over tokens
 # ---------------------------------------------------------------------------
+
+
+def _chunk_xent(h, w_out, y, m):
+    """Summed cross-entropy of one chunk and its weight; logits in f32."""
+    logits = (h @ w_out).float()                          # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, y[..., None])[..., 0]
+    return ((lse - ll) * m).sum(), m.sum()
 
 
 def chunked_softmax_xent(hidden, w_out, labels, *, chunk: int = 8192,
@@ -190,21 +201,26 @@ def chunked_softmax_xent(hidden, w_out, labels, *, chunk: int = 8192,
 
     hidden: (B, S, d); w_out: (d, V); labels: (B, S) ints; mask optional
     (B, S). Walks sequence chunks; each chunk's logits are f32. Returns
-    (sum_loss, sum_weight) as f32 scalars. Forward only: the backward comes
-    with LM training.
+    (sum_loss, sum_weight) as f32 scalars. Differentiable: with grad on,
+    each chunk runs under ``torch.utils.checkpoint``, so its logits are
+    recomputed in the backward and never saved, as the reference's
+    ``jax.checkpoint`` per chunk does (``src/repro/models/layers.py:341``).
     """
     B, S, _ = hidden.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    recompute = torch.is_grad_enabled() and (hidden.requires_grad
+                                             or w_out.requires_grad)
     loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, S, min(chunk, S)):
-        h = hidden[:, s0:s0 + chunk]
-        y = labels[:, s0:s0 + chunk].long()
-        m = mask[:, s0:s0 + chunk].float()
-        logits = (h @ w_out).float()                          # (B, c, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, y[..., None])[..., 0]
-        loss = loss + ((lse - ll) * m).sum()
-        count = count + m.sum()
+        args = (hidden[:, s0:s0 + chunk], w_out, labels[:, s0:s0 + chunk].long(),
+                mask[:, s0:s0 + chunk].float())
+        if recompute:
+            li, ci = torch.utils.checkpoint.checkpoint(_chunk_xent, *args,
+                                                       use_reentrant=False)
+        else:
+            li, ci = _chunk_xent(*args)
+        loss = loss + li
+        count = count + ci
     return loss, count

@@ -10,14 +10,21 @@ layers. Jamba groups, MoE, mamba and vision embeds raise
 KV caches keep the reference's layout, ``{"k", "v"}`` of (L, B, Smax, Hkv,
 D), and are written in place: ``prefill`` and ``decode_step`` return the
 cache they were given.
+
+Training differentiates ``lm_loss`` with torch autograd. With ``cfg.remat``
+each block runs under ``torch.utils.checkpoint``, as the reference wraps
+its block in ``jax.checkpoint`` (``src/repro/models/transformer.py:139``):
+only the block's input is kept, and the block (its flash-attention forward
+included) runs again in the backward.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
 from repro_torch.models import layers
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _check_supported(cfg) -> None:
@@ -60,22 +67,44 @@ def _block_fwd(p, cfg, x, positions, cache=None, cache_index=None):
     return x + layers.mlp_fwd(p["mlp"], cfg, h), cache
 
 
+def _layer_params(blocks, num_layers: int) -> list:
+    """The stacked block tree as one tree per layer. ``unbind`` gives views
+    whose backward stacks the layers' grads once (indexing each layer would
+    build a zero tensor of the whole stack per layer)."""
+    leaves = tree_leaves(blocks)
+    parts = [a.unbind(0) for a in leaves]
+    out = []
+    for i in range(num_layers):
+        it = iter([p[i] for p in parts])
+        out.append(tree_map(lambda _, it=it: next(it), blocks))
+    return out
+
+
 def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
-                   vision_embeds=None):
+                   vision_embeds=None, embed_rows=None):
     """tokens: (B, S) -> (hidden (B, S, d), caches).
 
-    The token embedding goes through the row-gather kernel. Tokens sit at
-    positions cache_index .. cache_index + S - 1. The reference's relaxed
-    lookup (pre-gathered ``embed_rows``) comes with LM training.
+    The token embedding goes through the row-gather kernel, unless
+    ``embed_rows`` gives the (B, S, d) rows already gathered (the relaxed
+    lookup's prefetch). Tokens sit at positions cache_index .. cache_index
+    + S - 1. With grad on and ``cfg.remat``, each block is checkpointed.
     """
     if vision_embeds is not None:
         raise NotImplementedError("vision embeds are not ported yet")
     _check_supported(cfg)
     S = tokens.shape[1]
-    x = embedding_ops.lookup(params["embed"]["table"], tokens)
+    if embed_rows is not None:
+        x = embed_rows.to(cfg.activation_dtype)
+    else:
+        x = embedding_ops.lookup(params["embed"]["table"], tokens)
     positions = (cache_index or 0) + torch.arange(S, device=tokens.device)
-    for i in range(cfg.num_layers):
-        bp = tree_map(lambda a, i=i: a[i], params["blocks"])
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    for i, bp in enumerate(_layer_params(params["blocks"], cfg.num_layers)):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda bp, x: _block_fwd(bp, cfg, x, positions)[0], bp, x,
+                use_reentrant=False)
+            continue
         cache = None if caches is None else {"k": caches["k"][i], "v": caches["v"][i]}
         x, _ = _block_fwd(bp, cfg, x, positions, cache, cache_index)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), caches
@@ -88,9 +117,10 @@ def head_matrix(params, cfg):
 
 
 def lm_loss(params, cfg, batch):
-    """Mean token cross-entropy (forward). batch: tokens (B, S), labels
-    (B, S) [, loss_mask]."""
-    hidden, _ = forward_hidden(params, cfg, batch["tokens"])
+    """Mean token cross-entropy. batch: tokens (B, S), labels (B, S) [,
+    loss_mask, embed_rows (the relaxed lookup's prefetched rows)]."""
+    hidden, _ = forward_hidden(params, cfg, batch["tokens"],
+                               embed_rows=batch.get("embed_rows"))
     loss, count = layers.chunked_softmax_xent(
         hidden, head_matrix(params, cfg), batch["labels"],
         chunk=cfg.loss_chunk, mask=batch.get("loss_mask"))

@@ -1,7 +1,7 @@
 """Training steps: strict (dependent) and relaxed (paper) schedules.
 
-Counterpart of ``repro.training.train_loop`` for DLRM, with
-``torch.autograd`` in place of ``jax.value_and_grad``.
+Counterpart of ``repro.training.train_loop`` for DLRM and the dense
+transformer LMs, with ``torch.autograd`` in place of ``jax.value_and_grad``.
 
 strict_step:
     lookup_N -> fwd/bwd_N -> update_dense -> update_pool
@@ -10,14 +10,18 @@ relaxed_step (TrainingCXL):
     N+1 on the pre-update tables, the pool update, then the correction
     bag(U, idx_{N+1}) added to the stale bags.
 
-Both steps take the loss's gradient with respect to the bag vectors, spread
-it over the touched rows with duplicates combined in a fixed order, and
-update the tables in place at those rows only (``core.relaxed``). No
-table-sized gradient or update is ever built. The embedding tier therefore
-takes the additive SGD rule only; other embedding optimizers raise.
+Both steps take the loss's gradient with respect to the looked-up rows (a
+DLRM's bag vectors, an LM's token rows), spread it over the touched table
+rows with duplicates combined in a fixed order, and update the table in
+place at those rows only (``core.relaxed``). No table-sized gradient or
+update is ever built. The embedding tier therefore takes the additive SGD
+rule only; other embedding optimizers raise, and so does an LM whose head
+is tied to the table (its dense table gradient would bypass the sparse
+tier). The dense tier is the rest of the tree (an LM's blocks, final norm
+and head) under ``train_cfg.optimizer``.
 
-The tables are updated in place, so a step returns a state that shares
-them with the state it was given.
+The table is updated in place, so a step returns a state that shares it
+with the state it was given.
 """
 from __future__ import annotations
 
@@ -46,6 +50,12 @@ def make_step_fns(cfg, train_cfg):
     package's takes a PRNG key; torch cannot reproduce its draws).
     """
     api = get_api(cfg)
+    rx.check_trainable(cfg)
+    if cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name}: a head tied to the embedding table is not trained "
+            "by the port (its dense table gradient bypasses the sparse tier)")
+    leaf = rx.embed_leaf(cfg)
     if train_cfg.embed_optimizer != "sgd":
         raise NotImplementedError(
             f"embed_optimizer={train_cfg.embed_optimizer!r}: the sparse "
@@ -58,7 +68,7 @@ def make_step_fns(cfg, train_cfg):
         return st.make_state(params, dense_opt, embed_opt)
 
     def loss_and_grads(state, rows, batch):
-        """Loss, dense-param grads and the grad w.r.t. the bag vectors."""
+        """Loss, dense-param grads and the grad w.r.t. the looked-up rows."""
         dense = tree_map(lambda p: p.detach().requires_grad_(), state["dense"])
         rows = rows.detach().requires_grad_()
         loss = api.loss(st.merge_params(dense, state["embed"]), cfg,
@@ -79,9 +89,8 @@ def make_step_fns(cfg, train_cfg):
     def sparse_update(state, batch, g_rows):
         """SGD at the touched rows: (uniq row ids, f32 row updates, opt state)."""
         uniq, g_emb = rx.sparse_rows_grad(state["embed"], cfg, batch, g_rows)
-        upd, oe = embed_opt.update({"emb_tables": g_emb}, state["opt_embed"],
-                                   None)
-        return uniq, upd["emb_tables"], oe
+        upd, oe = embed_opt.update({leaf: g_emb}, state["opt_embed"], None)
+        return uniq, upd[leaf], oe
 
     # -- strict ------------------------------------------------------------
     @torch.no_grad()
@@ -91,7 +100,7 @@ def make_step_fns(cfg, train_cfg):
             loss, g_dense, g_rows = loss_and_grads(state, rows, batch)
         dense, od, gnorm = update_dense(state, g_dense)
         uniq, upd, oe = sparse_update(state, batch, g_rows)
-        rx.apply_embed_update(state["embed"], uniq, upd)
+        rx.apply_embed_update(state["embed"], cfg, uniq, upd)
         new_state = {**state, "dense": dense, "opt_dense": od, "opt_embed": oe,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm}
@@ -100,23 +109,23 @@ def make_step_fns(cfg, train_cfg):
     @torch.no_grad()
     def warmup(state, batch0):
         """Fill the prefetch carry for step 0 and allocate the correction's
-        zeroed f32 scratch of the tables' shape."""
-        tables = state["embed"]["emb_tables"]
+        zeroed f32 scratch of the table's shape."""
+        table = state["embed"][leaf]
         return {**state, "prefetch": {
             "rows": rx.lookup_rows(state["embed"], cfg, batch0),
-            "scratch": torch.zeros(tables.shape, dtype=torch.float32,
-                                   device=tables.device)}}
+            "scratch": torch.zeros(table.shape, dtype=torch.float32,
+                                   device=table.device)}}
 
     @torch.no_grad()
     def relaxed_step(state, batch, next_batch):
         carry = state["prefetch"]
         with torch.enable_grad():
             loss, g_dense, g_rows = loss_and_grads(state, carry["rows"], batch)
-        # batch N+1's stale bags, read before the in-place update below
+        # batch N+1's stale rows, read before the in-place update below
         stale = rx.lookup_rows(state["embed"], cfg, next_batch)
         dense, od, gnorm = update_dense(state, g_dense)
         uniq, upd, oe = sparse_update(state, batch, g_rows)
-        rx.apply_embed_update(state["embed"], uniq, upd)
+        rx.apply_embed_update(state["embed"], cfg, uniq, upd)
         rows_next = rx.prefetch_corrected(stale, carry["scratch"], uniq, upd,
                                           cfg, next_batch)
         new_state = {**state, "dense": dense, "opt_dense": od, "opt_embed": oe,

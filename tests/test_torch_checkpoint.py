@@ -2,9 +2,10 @@
 
 Byte formats (tree blobs, undo slots, compressed frames) are compared with
 the JAX package's for the same inputs; the crash drills of
-``tests/test_checkpoint.py`` run through the port's trainer on dlrm-rm1
-smoke, over the dram and pmem pools; and a checkpoint written by either
-package is recovered by the other. Mirrors are compared bitwise.
+``tests/test_checkpoint.py`` run through the port's trainer on dlrm-rm1 and
+tinyllama-1.1b smoke (the reference drills tinyllama), over the dram and
+pmem pools; and a checkpoint written by either package is recovered by the
+other. Mirrors are compared bitwise.
 """
 import os
 import shutil
@@ -34,18 +35,20 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import CheckpointConfig, TrainConfig
 from repro_torch.core.checkpoint import recovery, store
 from repro_torch.core.checkpoint.manager import CheckpointManager, touched_rows
-from repro_torch.data.synthetic import DLRMBatches
+from repro_torch.data.synthetic import make_batches as port_make_batches
 from repro_torch.pool import FaultSchedule, InjectedCrash, PoolError, make_pool
 from repro_torch.pool import compress, undo_codec
 from repro_torch.training import train_loop
 
 BACKENDS = ["dram", "pmem"]
+ARCHS = ["dlrm-rm1", "tinyllama-1.1b"]
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 # resumed losses against the uninterrupted run: tests/test_checkpoint.py's
 # tolerance. The resumed run rebuilds the relaxed carry by a fresh bag
 # lookup where the uninterrupted one carried stale bags plus a correction,
 # so the f32 sums differ in order. (With bf16 tables the carry is also
 # rounded differently, and the gap is far wider: chip_smoke.py phase 6.)
+# An LM's rebuilt carry is bitwise the carried one.
 RESUME_TOL = 1e-6
 
 
@@ -98,13 +101,13 @@ def test_undo_slot_and_frame_bytes_match_jax(rng, mode):
 # -- crash drills through the port's trainer ------------------------------------
 
 def setup_run(tmp, dense_interval=1, backend="pmem", compress_mode="zlib",
-              **kw):
+              arch="dlrm-rm1", **kw):
     cc = CheckpointConfig(directory=tmp, dense_interval=dense_interval,
                           pool_backend=backend, pool_compress=compress_mode,
                           **kw)
     tc = TrainConfig(embed_learning_rate=0.05, checkpoint=cc)
-    cfg = get_arch("dlrm-rm1", smoke=True).model
-    return cfg, tc, cc, DLRMBatches(cfg, 4, seed=3, device="cpu")
+    cfg = get_arch(arch, smoke=True).model
+    return cfg, tc, cc, port_make_batches(cfg, 4, 16, seed=3, device="cpu")
 
 
 def fresh(cfg, tc):
@@ -125,7 +128,7 @@ def run_with_manager(cfg, tc, cc, data, steps, faults=None):
 
 def mirror_after(cfg, tc, tmp, backend, steps):
     """Mirror rows of a clean run stopped after `steps` steps."""
-    _, _, cc, data = setup_run(tmp, backend=backend)
+    _, _, cc, data = setup_run(tmp, backend=backend, arch=cfg.name)
     mgr = run_with_manager(cfg, tc, cc, data, steps)
     rows = np.array(mgr.mirror_rows)
     mgr.pool.close()
@@ -148,9 +151,10 @@ def recover_after_crash(mgr, tmp, backend):
     return recovery.recover(tmp)
 
 
-def test_resume_exact(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_resume_exact(tmp_path, arch):
     tmp = str(tmp_path / "ck")
-    cfg, tc, _, data = setup_run(tmp)
+    cfg, tc, _, data = setup_run(tmp, arch=arch)
     _, full = train(cfg, tc, data, 8)
     # the loop builds (and closes) its own manager from the directory
     train(cfg, tc, data, 5, checkpoint_dir=tmp, pool_backend="pmem")
@@ -162,13 +166,14 @@ def test_resume_exact(tmp_path):
     rec.pool.close()
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_crash_between_commit_and_apply(tmp_path, backend):
+def test_crash_between_commit_and_apply(tmp_path, backend, arch):
     """Power loss after step 3's undo COMMIT persisted, before its mirror
     apply: recovery rolls back to a bit-identical step-2 mirror, and
     resuming reproduces the uninterrupted run."""
     tmp = str(tmp_path / "ck")
-    cfg, tc, cc, data = setup_run(tmp, backend=backend)
+    cfg, tc, cc, data = setup_run(tmp, backend=backend, arch=arch)
     _, full = train(cfg, tc, data, 6)
     ref_rows = mirror_after(cfg, tc, str(tmp_path / "ref"), backend, 3)
     mgr = crash_run(cfg, tc, cc, data, FaultSchedule.crash_at(
@@ -183,12 +188,13 @@ def test_crash_between_commit_and_apply(tmp_path, backend):
     rec.pool.close()
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_torn_mirror_apply_rolls_back(tmp_path, backend):
+def test_torn_mirror_apply_rolls_back(tmp_path, backend, arch):
     """A torn persist mid-apply leaves garbage in some mirror rows; the
     COMMITted undo entry restores them bit-exactly."""
     tmp = str(tmp_path / "ck")
-    cfg, tc, cc, data = setup_run(tmp, backend=backend)
+    cfg, tc, cc, data = setup_run(tmp, backend=backend, arch=arch)
     ref_rows = mirror_after(cfg, tc, str(tmp_path / "ref"), backend, 2)
     mgr = crash_run(cfg, tc, cc, data,
                     FaultSchedule.torn_at("mirror-apply", occurrence=3))
@@ -199,14 +205,17 @@ def test_torn_mirror_apply_rolls_back(tmp_path, backend):
     mgr.pool.close()
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_recovery_bit_identical_across_compression_modes(tmp_path, backend):
+def test_recovery_bit_identical_across_compression_modes(tmp_path, backend,
+                                                         arch):
     """The same drill recovers the same bytes whether pool-side compression
     is on or off."""
     rows, dense_steps = {}, {}
     for comp in ("none", "zlib"):
         tmp = str(tmp_path / f"ck-{comp}")
-        cfg, tc, cc, data = setup_run(tmp, backend=backend, compress_mode=comp)
+        cfg, tc, cc, data = setup_run(tmp, backend=backend, compress_mode=comp,
+                                      arch=arch)
         mgr = crash_run(cfg, tc, cc, data, FaultSchedule.crash_at(
             "tier_e.between-commit-and-apply", occurrence=4))
         if comp == "zlib":       # the compressed run really compressed
@@ -220,11 +229,12 @@ def test_recovery_bit_identical_across_compression_modes(tmp_path, backend):
     assert dense_steps["none"] == dense_steps["zlib"]
 
 
-def test_relaxed_gap_semantics(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_relaxed_gap_semantics(tmp_path, arch):
     """dense_interval=3: the dense tier trails the embedding tier; recovery
     reports the gap and resumes after the mirror's step."""
     tmp = str(tmp_path / "ck")
-    cfg, tc, cc, data = setup_run(tmp, dense_interval=3)
+    cfg, tc, cc, data = setup_run(tmp, dense_interval=3, arch=arch)
     run_with_manager(cfg, tc, cc, data, 5).pool.close()
     rec = recovery.recover(tmp)
     assert (rec.mirror_step, rec.dense_step, rec.gap) == (4, 3, 1)
@@ -233,18 +243,20 @@ def test_relaxed_gap_semantics(tmp_path):
     rec.pool.close()
 
 
-def test_undo_log_gc(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_undo_log_gc(tmp_path, arch):
     cfg, tc, cc, data = setup_run(str(tmp_path / "ck"), dense_interval=0,
-                                  max_undo_logs=3)
+                                  max_undo_logs=3, arch=arch)
     mgr = run_with_manager(cfg, tc, cc, data, 8)
     steps = mgr.ring.committed_steps()
     assert len(steps) <= 4 and max(steps) == 7
     mgr.pool.close()
 
 
-def test_writer_deadline_skips_tier_m(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_writer_deadline_skips_tier_m(tmp_path, arch):
     tmp = str(tmp_path / "ck")
-    cfg, tc, cc, data = setup_run(tmp, writer_deadline_s=1e-9)
+    cfg, tc, cc, data = setup_run(tmp, writer_deadline_s=1e-9, arch=arch)
     mgr = run_with_manager(cfg, tc, cc, data, 3)
     # tier-M never blocks; with an impossible deadline every snapshot is
     # skipped, and tier-E stays consistent
@@ -256,26 +268,30 @@ def test_writer_deadline_skips_tier_m(tmp_path):
 
 # -- the feed and the two packages' checkpoints ----------------------------------
 
-def test_feed_ids_are_jax_flatten_touched():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_feed_ids_are_jax_flatten_touched(arch):
     """The ids the port logs for a relaxed step are the JAX manager's
-    ``flatten_touched`` of the batch: same values, int64."""
-    cfg = get_arch("dlrm-rm1", smoke=True).model
+    ``flatten_touched`` of the batch: same values, int64 (for an LM the JAX
+    ids are the tokens' int32, which the undo codec widens to int64)."""
+    cfg = get_arch(arch, smoke=True).model
     tc = TrainConfig(embed_learning_rate=0.05)
     _, _, relaxed_step, warmup = train_loop.make_step_fns(cfg, tc)
-    data = DLRMBatches(cfg, 8, seed=1, device="cpu")
+    data = port_make_batches(cfg, 8, 16, seed=1, device="cpu")
     state = warmup(fresh(cfg, tc), data.next(0))
     _, m = relaxed_step(state, data.next(0), data.next(1))
     ids, idx = touched_rows(m["ckpt_feed"])
-    want = flatten_touched(jax_get_arch("dlrm-rm1", smoke=True).model,
-                           data.next(0)["sparse"].numpy())
-    assert idx.dtype == want.dtype == np.int64
+    batch = data.next(0)
+    want = flatten_touched(jax_get_arch(arch, smoke=True).model,
+                           batch["sparse" if "sparse" in batch else "tokens"].numpy())
+    assert idx.dtype == np.int64
+    assert want.dtype == (np.int64 if arch == "dlrm-rm1" else np.int32)
     np.testing.assert_array_equal(idx, want)
     assert ids.dtype == torch.int32 and np.array_equal(ids.numpy(), want)
 
 
-def _crashed_jax_checkpoint(tmp):
+def _crashed_jax_checkpoint(tmp, arch):
     """JAX: 4 relaxed steps, crash between COMMIT and apply of step 2."""
-    jcfg = jax_get_arch("dlrm-rm1", smoke=True).model
+    jcfg = jax_get_arch(arch, smoke=True).model
     cc = JaxCheckpointConfig(directory=tmp, dense_interval=1,
                              pool_backend="pmem")
     jtc = JaxTrainConfig(embed_learning_rate=0.05, checkpoint=cc)
@@ -289,8 +305,8 @@ def _crashed_jax_checkpoint(tmp):
     mgr.pool.close()
 
 
-def _crashed_port_checkpoint(tmp):
-    cfg, tc, cc, data = setup_run(tmp)
+def _crashed_port_checkpoint(tmp, arch):
+    cfg, tc, cc, data = setup_run(tmp, arch=arch)
     crash_run(cfg, tc, cc, data, FaultSchedule.crash_at(
         "tier_e.between-commit-and-apply", occurrence=3), steps=4).pool.close()
 
@@ -309,13 +325,15 @@ def _leaves(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("writer", ["jax", "port"])
-def test_checkpoint_recovers_in_the_other_package(tmp_path, writer):
+def test_checkpoint_recovers_in_the_other_package(tmp_path, writer, arch):
     """A pmem checkpoint written by one package (with a rollback pending)
     recovers in the other to the same mirror, dense tree and steps as in
     the package that wrote it. Exact."""
     src = str(tmp_path / "ck")
-    (_crashed_jax_checkpoint if writer == "jax" else _crashed_port_checkpoint)(src)
+    (_crashed_jax_checkpoint if writer == "jax" else _crashed_port_checkpoint)(
+        src, arch)
     shutil.copytree(src, str(tmp_path / "ck2"))  # recovery writes its rollback
     jrec = jrecovery.recover(src)
     prec = recovery.recover(str(tmp_path / "ck2"))
@@ -323,7 +341,8 @@ def test_checkpoint_recovers_in_the_other_package(tmp_path, writer):
         assert (prec.mirror_step, prec.dense_step, prec.gap, prec.rolled_back) \
             == (jrec.mirror_step, jrec.dense_step, jrec.gap, jrec.rolled_back) \
             == (1, 1, 0, True)
-        assert prec.table_name == jrec.table_name
+        assert prec.table_name == jrec.table_name == (
+            "emb_tables" if arch == "dlrm-rm1" else "table")
         assert prec.table_shape == tuple(jrec.table_shape)
         np.testing.assert_array_equal(prec.embed_rows, jrec.embed_rows)
         got, want = _leaves(prec.dense), _leaves(jrec.dense)
@@ -370,12 +389,14 @@ def _cli(*args):
                           capture_output=True, text=True, timeout=300)
 
 
-def test_cli_checkpoint_and_resume(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cli_checkpoint_and_resume(tmp_path, arch):
     ck = str(tmp_path / "ck")
-    r = _cli("--steps", "3", "--ckpt-dir", ck, "--dense-interval", "1")
+    a = ("--arch", arch, "--seq", "16")
+    r = _cli(*a, "--steps", "3", "--ckpt-dir", ck, "--dense-interval", "1")
     assert r.returncode == 0, r.stdout + r.stderr
     assert "'tier_e': 3" in r.stdout and "pool[pmem]" in r.stdout
-    r = _cli("--steps", "2", "--ckpt-dir", ck, "--resume")
+    r = _cli(*a, "--steps", "2", "--ckpt-dir", ck, "--resume")
     assert r.returncode == 0, r.stdout + r.stderr
     assert "resumed at step 3" in r.stdout
     assert "done on cpu: 2 steps" in r.stdout

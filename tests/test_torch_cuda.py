@@ -184,3 +184,121 @@ def test_wkv6_refuses_other_head_sizes(cuda):
     r = torch.zeros((1, 4, 2, 32), device=cuda)
     with pytest.raises(ValueError, match="want r"):
         ops.wkv6(r, r, r, r, torch.zeros((2, 32), device=cuda))
+
+
+# the backward's tolerance, scaled by each gradient's largest magnitude: f32
+# 1e-4; f16 and bf16 the rtol the forward's tests take (torch's defaults, one
+# rounding of the output). The 1e-5 floor covers S = 1 (and row 0 under a
+# causal mask): one key gives dP = Delta, so dq and dk are zero in exact
+# arithmetic and both versions return rounding noise.
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2, torch.float16: 1e-3}
+
+
+def _assert_grads_close(got, want, dtype):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape, name
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        assert err <= BWD_RTOL[dtype] * scale + 1e-5, (name, err, scale)
+
+
+def _bwd_inputs(dev, B, Sq, Sk, Hq, Hkv, D, dtype, causal, q_offset=0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((B, Sq, Hq, D), generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, Hkv, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    o, lse = ops.flash_attention_lse(q, k, v, causal=causal, q_offset=q_offset)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 1, 4, 2, 16), (2, 17, 8, 2, 16),
+                                          (1, 130, 32, 4, 64), (2, 100, 16, 8, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_matches_plain(cuda, dtype, B, S, Hq, Hkv, D, causal):
+    """The backward kernel against ``ref.flash_attention_bwd_ref`` on the
+    same inputs (the kernel's own forward output and log-sum-exp)."""
+    x = _bwd_inputs(cuda, B, S, S, Hq, Hkv, D, dtype, causal)
+    want = ref.flash_attention_bwd_ref(*x, causal=causal)
+    lse_want = ref.flash_attention_ref(*x[:3], causal=causal, return_lse=True)[1]
+    torch.testing.assert_close(x[4], lse_want, rtol=1e-5, atol=1e-5)
+    before = fa.bwd_launches
+    got = ops.flash_attention_bwd(*x, causal=causal)
+    assert fa.bwd_launches == before + fa.BWD_PASSES
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_offset_and_bitwise_repeat(cuda):
+    """Queries at positions 35..39 over 40 keys; two calls give the same
+    bits (no atomics)."""
+    x = _bwd_inputs(cuda, 2, 5, 40, 8, 2, 64, torch.bfloat16, True, q_offset=35)
+    got = ops.flash_attention_bwd(*x, causal=True, q_offset=35)
+    _assert_grads_close(got, ref.flash_attention_bwd_ref(*x, causal=True, q_offset=35),
+                        torch.bfloat16)
+    x = _bwd_inputs(cuda, 4, 300, 300, 32, 4, 64, torch.bfloat16, True, seed=1)
+    first = ops.flash_attention_bwd(*x, causal=True)
+    again = ops.flash_attention_bwd(*x, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    """With grad on, ``ops.flash_attention`` on the card launches the forward
+    (with its log-sum-exp) and the backward kernels, and its gradients are
+    the backward kernel's."""
+    q, k, v, _, _, do = _bwd_inputs(cuda, 2, 70, 70, 8, 2, 64, torch.float32, True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.launches, fa.bwd_launches)
+    o = ops.flash_attention(*leaves)
+    got = torch.autograd.grad(o, leaves, do)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1,
+                                              before[1] + fa.BWD_PASSES)
+    o2, lse = ops.flash_attention_lse(q, k, v)
+    assert torch.equal(o.detach(), o2)
+    want = ops.flash_attention_bwd(q, k, v, o2, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_refuses_strided_inputs(cuda):
+    x = list(_bwd_inputs(cuda, 1, 8, 8, 4, 2, 16, torch.float32, True))
+    x[0] = x[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention_bwd(*x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relaxed", [True, False])
+def test_smoke_tinyllama_training_on_card_matches_cpu(cuda, relaxed):
+    """Three steps of smoke tinyllama (f32, TF32 off) on the card and on the
+    CPU from the same params: losses and the trained embedding table within
+    1e-5 (the table's SGD update is linear in the gradient; AdamW's first
+    steps, near sign(g), would amplify float-order noise in the dense
+    tier's tiniest gradients, so the dense params are not compared)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.models.registry import get_api
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("tinyllama-1.1b", smoke=True).model
+    tc = TrainConfig(embed_learning_rate=0.05)
+    gen = torch.Generator().manual_seed(0)
+    params = get_api(cfg).init(gen, cfg)
+    init_fn = train_loop.make_step_fns(cfg, tc)[0]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = init_fn(tree_map(lambda p, d=dev: p.to(d, copy=True), params))
+        before = fa.bwd_launches
+        state, losses = train_loop.train(cfg, tc, make_batches(cfg, 4, 16, device=dev),
+                                         3, relaxed=relaxed, state=state, device=dev)
+        if dev.type == "cuda":   # one backward per layer and step
+            assert fa.bwd_launches - before == 3 * cfg.num_layers * fa.BWD_PASSES
+        out[dev.type] = (losses, state["embed"]["table"].cpu())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-5)
