@@ -9,11 +9,14 @@ Phases, each of which exits non-zero on failure:
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version on the card, at
      small ragged shapes and at the shapes full dlrm-rm1 gives it, and time
-     kernel, plain version and one library call beside the kernel's bound;
+     kernel, plain version and one library call beside the kernel's bound
+     (the logged update, bitwise in the table and its undo rows, in f32,
+     f16 and bf16, beside the index_select + index_add_ pair);
   4. train full-width dlrm-rm1 (bf16, 20 x 1M x 32 tables) at batch 128:
      5 relaxed steps then 2 strict ones, with the kernels' launch counts
-     read around that run; repeat 3 relaxed steps from the same seed and
-     require bitwise-equal losses;
+     read around that run (a relaxed step updates the table through the
+     logged update, a strict step through the plain one); repeat 3 relaxed
+     steps from the same seed and require bitwise-equal losses;
   5. train dlrm-rm1 smoke on the card and on the CPU from the same params
      and require the loss curves to agree;
   6. checkpointed training at full rm1 on a pmem pool (in a temporary
@@ -23,7 +26,8 @@ Phases, each of which exits non-zero on failure:
      recovers the step-1 mirror bitwise, and resumes with losses equal to
      those of run A's state after step 1 with its relaxed carry rebuilt
      (and within 1e-2 of run A's own). The launch counts are read around
-     run A;
+     run A, and each of its steps' undo image, captured on the card by the
+     logged update, must equal the pool's bitwise;
   7. hold the flash-attention kernel against its plain version on the card
      (f32, bf16, f16; causal and full; S in {1, 17, 128, 1000}; small
      ragged shapes and the tinyllama and qwen3 head shapes, k and v read
@@ -59,19 +63,26 @@ Phases, each of which exits non-zero on failure:
      1024: 3 relaxed and 3 strict steps from the same params with bitwise
      equal losses, a bitwise repeat of the relaxed run, the launch counts of
      each step, step ms, tokens/s, busy share (one profiled step) and peak
-     memory; the sparse kernels at the step's shapes; smoke tinyllama on the
-     card against the CPU;
+     memory; the sparse kernels at the step's shapes (the duplicate combine
+     beside F.embedding_bag, the logged update beside index_select +
+     index_add_); smoke tinyllama on the card against the CPU;
  13. checkpointed tinyllama on a pmem pool under build/ (removed at the
-     end): full width with tier-E only (4 relaxed steps, the recovered
-     mirror bitwise the table), then at the smoke size a crash between the
-     undo COMMIT and the mirror apply, bitwise recovery and a resume with
-     the uninterrupted run's losses.
-Phases 7 to 13 print their wall time.
+     end): full width with tier-E only (4 relaxed steps, each step's undo
+     image on the card equal to the pool's bitwise, the recovered mirror
+     bitwise the table), then at the smoke size a crash between the undo
+     COMMIT and the mirror apply, bitwise recovery and a resume with the
+     uninterrupted run's losses;
+ 14. run the port's examples on the card as a user does, one process each,
+     all at once (python -m repro_torch.examples.<name>): the pmem and dram
+     crash drills, train_dlrm_e2e at 20 steps, quickstart, and
+     serve_batched for tinyllama-1.1b and rwkv6-3b; each must exit 0 and
+     print its marker line.
+Phases 7 to 14 print their wall time.
 
 The line before the last is {"kernels": [...]}, one entry per kernel and
 path (the row gather runs on eight: each checkpoint, each served model's
-prefill and decode steps, and LM training); the last line is {"ok": true,
-"device": {...}}.
+prefill and decode steps, and LM training; the logged update on the two
+training paths); the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -80,6 +91,7 @@ import contextlib
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -153,7 +165,9 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
     import tempfile
 
     from repro_torch.core.checkpoint import recovery
-    from repro_torch.core.checkpoint.manager import CheckpointManager, touched_rows
+    from repro_torch.core.checkpoint.manager import (CheckpointManager,
+                                                     check_undo_images,
+                                                     touched_rows, undo_image)
     from repro_torch.data.lookahead import LookaheadIterator
     from repro_torch.data.synthetic import DLRMBatches
     from repro_torch.kernels import embedding_bag as eb
@@ -235,19 +249,29 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
                 after1["rows"] = host_tables(st)
                 after1["state"] = {**st, "prefetch": None, "embed": {
                     "emb_tables": st["embed"]["emb_tables"].clone()}}
-                after1["s"] = time.perf_counter() - t   # not the step's time
+                after1["s"] += time.perf_counter() - t   # not the step's time
         mgr.on_step = on_step
+        images = {}
 
         def on_metrics(n, m):
             torch.cuda.synchronize()
             stamps.append(time.perf_counter() - after1["s"])
             after1["feed"] = m["ckpt_feed"]
+            t = time.perf_counter()        # the undo image to the host
+            images[n] = undo_image(m["ckpt_feed"])
+            after1["s"] += time.perf_counter() - t
 
-        eb.launches = su.launches = gr.launches = 0
+        eb.launches = su.launches = su.launches_logged = gr.launches = 0
         _, la = train_loop.train(cfg, tca, batches, 4, relaxed=True, state=state,
                                  ckpt_manager=mgr, on_metrics=on_metrics)
         launches = {"embedding_bag": eb.launches, "scatter_update": su.launches,
+                    "scatter_update_logged": su.launches_logged,
                     "gather_rows": gr.launches}
+        checked = check_undo_images(mgr.ring, images)
+        check(checked == 4, f"run A: {checked} undo entries checked, want 4")
+        print(f"[ckpt] run A: the undo images of all {checked} steps, captured on "
+              "the card by the logged update, equal the pool's bitwise")
+        del images
         step_ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:], strict=True)]
         print(f"[ckpt] run A losses {la} step ms (with on_step) {step_ms}; "
               f"plain relaxed step (phase 4 median) {plain_step_ms:.2f} ms")
@@ -272,8 +296,8 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         print(f"[ckpt] stats {json.dumps(mgr.stats)}")
         print(f"[ckpt] pool image {os.path.getsize(os.path.join(work, 'A', 'pool.img'))} "
               f"bytes; launches {launches}")
-        check(launches == {"embedding_bag": 1 + 4 * 3, "scatter_update": 4 * 3,
-                           "gather_rows": 4},
+        check(launches == {"embedding_bag": 1 + 4 * 3, "scatter_update": 4 * 2,
+                           "scatter_update_logged": 4, "gather_rows": 4},
               f"checkpoint run: unexpected launch counts {launches}")
         print(mgr.pool.metrics.report())
         mgr.close()
@@ -844,7 +868,8 @@ def device_busy(torch, fn):
     return wall, busy
 
 
-def lm_train_phase(torch, np, dev, check_bag, check_update, check_gather):
+def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
+                   check_gather):
     """Phase 12: full-width tinyllama-1.1b training. Returns (the launch
     counts of the relaxed run, the step metrics, the sparse kernels'
     timings at the step's shapes)."""
@@ -873,12 +898,13 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_gather):
     def counts():
         c = {name: m.launches for name, m in mods.items()}
         c["flash_attention_bwd"] = fa.bwd_launches
+        c["scatter_update_logged"] = su.launches_logged
         return c
 
     def zero_counts():
         for m in mods.values():
             m.launches = 0
-        fa.bwd_launches = 0
+        fa.bwd_launches = su.launches_logged = 0
 
     def fresh_state():
         gen = torch.Generator(device=dev)
@@ -952,12 +978,15 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_gather):
     check(rl2 == rl, f"tinyllama: relaxed losses not repeatable: {rl2} vs {rl}")
     # per step: 22 flash forwards and 22 more in the remat recompute, one
     # backward of BWD_PASSES launches per layer, one duplicate combine (bag),
-    # the table update; relaxed steps also the stale lookup and the
-    # correction (set, gather, clear the scratch), strict steps the lookup
+    # the table update (logged in a relaxed step, plain in a strict one);
+    # relaxed steps also the stale lookup and the correction (set, gather,
+    # clear the scratch), strict steps the lookup
     common = {"flash_attention": 2 * L, "flash_attention_bwd": L * fa.BWD_PASSES,
               "embedding_bag": 1}
-    want_relaxed = {**common, "gather_rows": 2, "scatter_update": 3}
-    want_strict = {**common, "gather_rows": 1, "scatter_update": 1}
+    want_relaxed = {**common, "gather_rows": 2, "scatter_update": 2,
+                    "scatter_update_logged": 1}
+    want_strict = {**common, "gather_rows": 1, "scatter_update": 1,
+                   "scatter_update_logged": 0}
     # (the warm-up's lookup runs inside the first relaxed step's reading)
     check(relaxed_steps == [{**want_relaxed, "gather_rows": 3}]
           + [want_relaxed] * (steps - 1),
@@ -986,8 +1015,12 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_gather):
                                        sorted_ids[1:] != sorted_ids[:-1]]),
                             0, dtype=torch.int32) - 1
     comb_src = order.to(torch.int32)
+    comb_starts = torch.nonzero(torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                                           sorted_ids[1:] != sorted_ids[:-1]])
+                                ).flatten().to(torch.int32)
     check_bag(g_rows, comb_src, comb_seg, N, "tinyllama duplicate combine")
     check_update(table.clone(), uniq, upd, "tinyllama bf16 table")
+    check_update_logged(table.clone(), uniq, upd, "tinyllama bf16 table")
     check_gather(table, ids, "tinyllama token lookup (training batch 0)")
     touched = uniq[:n_rows]                # the checkpoint's gather
     check_gather(table, touched, "tinyllama touched rows (bf16 table)")
@@ -997,15 +1030,26 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_gather):
     shapes = {
         # the ids and the N + 1 offsets once, each row gradient once, the
         # (N, d) f32 output
+        # (the library's bags are the n_rows distinct tokens, in bf16)
         "lm_bag_combine": (lambda: ops.embedding_bag(g_rows, comb_src, comb_seg, N),
                            lambda: ref.embedding_bag_ref(g_rows, comb_src, comb_seg, N),
-                           None, bound(N * 4 + (N + 1) * 4 + N * d * 2 + N * d * 4,
-                                       N * d)),
+                           lambda: torch.nn.functional.embedding_bag(
+                               comb_src, g_rows, comb_starts, mode="sum"),
+                           bound(N * 4 + (N + 1) * 4 + N * d * 2 + N * d * 4,
+                                 N * d)),
         # the ids, each touched row's f32 delta, the row read and written
         "lm_update_bf16": (lambda: ops.scatter_update(t_tab, uniq, upd),
                            lambda: ref.scatter_update_ref(t_tab, uniq, upd),
                            lambda: t_tab.index_add_(0, real, upd_real),
                            bound(N * 4 + n_rows * d * (4 + 2 * 2), n_rows * d)),
+        # a real slot: its id, its f32 delta, the row read, written and
+        # logged; a pad: its id and a zero undo row
+        "lm_update_logged_bf16": (
+            lambda: ops.scatter_update_logged(t_tab, uniq, upd),
+            lambda: ref.scatter_update_logged_ref(t_tab, uniq, upd),
+            lambda: (t_tab.index_select(0, real), t_tab.index_add_(0, real, upd_real)),
+            bound(n_rows * (4 + d * (4 + 3 * 2)) + (N - n_rows) * (4 + d * 2),
+                  n_rows * d)),
         # the ids once, each touched row read once and written once; no ops
         "lm_gather_touched": (lambda: ops.gather_rows(table, touched),
                               lambda: ref.gather_rows_ref(table, touched),
@@ -1017,9 +1061,12 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_gather):
         timing[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
                         "library_ms": None if lib is None else time_ms(torch, lib),
                         "bound_ms": b_ms, "bound_by": b_by}
+        device_only = {"ms": time_ms(torch, kern, hide_host=True),
+                       "plain_ms": time_ms(torch, plain, hide_host=True),
+                       "library_ms": None if lib is None
+                       else time_ms(torch, lib, hide_host=True)}
         print(f"[lm-train] {name} ({N} ids, {n_rows} distinct): "
-              + json.dumps(timing[name]) + "; device only: "
-              + json.dumps({"ms": time_ms(torch, kern, hide_host=True)}))
+              + json.dumps(timing[name]) + "; device only: " + json.dumps(device_only))
     del table, t_tab, g_rows, comb, upd, upd_real, touched, real
     torch.cuda.empty_cache()
 
@@ -1053,7 +1100,8 @@ def lm_checkpoint_phase(torch, np, dev):
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import CheckpointConfig, TrainConfig
     from repro_torch.core.checkpoint import recovery
-    from repro_torch.core.checkpoint.manager import CheckpointManager
+    from repro_torch.core.checkpoint.manager import (CheckpointManager,
+                                                     check_undo_images, undo_image)
     from repro_torch.data.lookahead import LookaheadIterator
     from repro_torch.data.synthetic import make_batches
     from repro_torch.kernels import gather_rows as gr
@@ -1085,16 +1133,26 @@ def lm_checkpoint_phase(torch, np, dev):
         t = time.perf_counter()
         mgr = CheckpointManager(cfg, cc, embed_init=state["embed"])
         load_s = time.perf_counter() - t
-        stamps = [time.perf_counter()]
+        stamps, images, skip = [time.perf_counter()], {}, [0.0]
 
         def on_metrics(n, m):
             torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
+            stamps.append(time.perf_counter() - skip[0])
+            t = time.perf_counter()        # the undo image to the host
+            images[n] = undo_image(m["ckpt_feed"])
+            skip[0] += time.perf_counter() - t
         gr.launches = 0
         _, losses = train_loop.train(cfg, tc, batches, 4, relaxed=True, state=state,
                                      ckpt_manager=mgr, on_metrics=on_metrics)
         gathers = gr.launches
         step_ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:], strict=True)]
+        checked = check_undo_images(mgr.ring, images)   # train flushed the writer
+        check(checked == 4, f"lm full run: {checked} undo entries checked, want 4")
+        print(f"[lm-ckpt] the undo images of all {checked} steps "
+              f"({images[0][0].size} to {max(v[0].size for v in images.values())} "
+              "rows), captured on the card by the logged update, equal the pool's "
+              "bitwise")
+        del images
         t = time.perf_counter()
         mgr.close()
         close_s = time.perf_counter() - t
@@ -1166,6 +1224,66 @@ def lm_checkpoint_phase(torch, np, dev):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def examples_phase():
+    """Phase 14: the port's examples on the card, each in a process of its
+    own as a user runs it, all started at once; their pool files go to a
+    temporary directory under build/. Returns each one's wall time in s."""
+    import shutil
+    import tempfile
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="examples-smoke-", dir=build)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    runs = (("fault_tolerance_demo pmem", "fault_tolerance_demo",
+             ["--pool-backend", "pmem", "--work-dir", work], "fault-tolerance demo PASSED"),
+            ("fault_tolerance_demo dram", "fault_tolerance_demo",
+             ["--pool-backend", "dram", "--work-dir", work], "fault-tolerance demo PASSED"),
+            ("train_dlrm_e2e", "train_dlrm_e2e", ["--steps", "20", "--work-dir", work],
+             "== done: 20 steps"),
+            ("quickstart", "quickstart", [], "strict == relaxed: True"),
+            ("serve_batched tinyllama-1.1b", "serve_batched",
+             ["--arch", "tinyllama-1.1b"], "[decode] 8x32 tokens"),
+            ("serve_batched rwkv6-3b", "serve_batched", ["--arch", "rwkv6-3b"],
+             "[decode] 8x32 tokens"))
+    procs, wall = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for i, (label, name, args, _) in enumerate(runs):
+            # output to a file: a full pipe would stall a process not yet read
+            # (a process group of its own: the kill below reaches the demo's trainer)
+            with open(os.path.join(work, f"{i}.log"), "w") as log:
+                procs[label] = subprocess.Popen(
+                    [sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+                    env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True,
+                    start_new_session=True)
+        while len(wall) < len(procs):
+            check(time.perf_counter() - t0 < 300, "examples: not all exited within "
+                  f"300 s: {sorted(set(procs) - set(wall))}")
+            for label, proc in procs.items():
+                if label not in wall and proc.poll() is not None:
+                    wall[label] = time.perf_counter() - t0
+            time.sleep(0.1)
+        for i, (label, _, _, marker) in enumerate(runs):
+            rc = procs[label].returncode
+            with open(os.path.join(work, f"{i}.log")) as log:
+                out = log.read()
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith(("==", "[prefill]", "[decode]", "strict", "loss:",
+                                       "fault-tolerance"))]
+            print(f"[examples] {label}: exit {rc}, done at {wall[label]:.1f}s; "
+                  + " | ".join(lines[-4:]))
+            check(rc == 0 and marker in out,
+                  f"example {label}: exit {rc}, no {marker!r}:\n{out[-6000:]}")
+    finally:
+        for proc in procs.values():      # none outlives the phase
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return wall
+
+
 def main():
     import numpy as np
     import torch
@@ -1213,7 +1331,8 @@ def main():
 
     # -- 3. kernels against their plain versions ---------------------------------
     rng = np.random.default_rng(0)
-    err = {"embedding_bag": 0.0, "scatter_update": 0.0, "gather_rows": 0.0}
+    err = {"embedding_bag": 0.0, "scatter_update": 0.0, "gather_rows": 0.0,
+           "scatter_update_logged": 0.0}
 
     def check_bag(table, idx, seg, num_bags, what):
         got = ops.embedding_bag(table, idx, seg, num_bags)
@@ -1237,6 +1356,21 @@ def main():
         check(torch.equal(table, want), f"scatter_update {what}: not bitwise equal")
         err["scatter_update"] = max(err["scatter_update"],
                                     (table.float() - want.float()).abs().max().item())
+
+    def check_update_logged(table, idx, delta, what):
+        want, want_old = ref.scatter_update_logged_ref(table.clone(), idx, delta)
+        _, old = ops.scatter_update_logged(table, idx, delta)
+        torch.cuda.synchronize()
+        bits = torch.int32 if table.dtype == torch.float32 else torch.int16
+        check(torch.equal(table, want), f"scatter_update_logged {what}: table "
+              "not bitwise equal")
+        check(old.dtype == table.dtype and torch.equal(old.view(bits),
+                                                       want_old.view(bits)),
+              f"scatter_update_logged {what}: undo rows not bitwise equal")
+        err["scatter_update_logged"] = max(
+            err["scatter_update_logged"],
+            (table.float() - want.float()).abs().max().item() if table.numel() else 0.0,
+            (old.float() - want_old.float()).abs().max().item() if old.numel() else 0.0)
 
     def check_gather(table, idx, what):
         got = ops.gather_rows(table, idx)
@@ -1271,6 +1405,27 @@ def main():
         before = table[0].float() + comb[0]
         check_update(table, uniq, comb, f"{dtype} zipf")
         check(torch.equal(table[0], before.to(dtype)), "scatter_update: row 0 lost")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        # zipf ids, row 0 real or absent, -1 pads trailing; D=45 is ragged;
+        # a call of pads only and an empty one
+        for R, D, N, row0 in ((300, 32, 400, True), (500, 45, 91, False),
+                              (64, 1, 5, True), (10, 8, 0, False)):
+            ids = zipf_indices(rng, (N,), R) if not row0 else \
+                np.concatenate([[0], zipf_indices(rng, (N - 1,), R)])
+            if not row0:
+                ids = ids[ids != 0]
+            uniq, comb = ops.combine_duplicates(
+                torch.from_numpy(ids.astype(np.int32)).to(dev),
+                torch.randn((ids.size, D), device=dev))
+            table = torch.randn((R, D), device=dev).to(dtype)
+            row_0 = table[0].clone()
+            check_update_logged(table, uniq, comb,
+                                f"{dtype} R={R} D={D} N={ids.size} row 0 {row0}")
+            check(row0 or torch.equal(table[0], row_0),
+                  "scatter_update_logged: a pad touched row 0")
+        pads = torch.full((7,), -1, dtype=torch.int32, device=dev)
+        check_update_logged(torch.randn((9, 16), device=dev).to(dtype), pads,
+                            torch.randn((7, 16), device=dev), f"{dtype} pads only")
     # combine on the card vs on the CPU: same slots, same sums (row 0 real)
     ids = np.concatenate([[0], zipf_indices(rng, (999,), 500)]).astype(np.int32)
     delta = rng.standard_normal((1000, 32)).astype(np.float32)
@@ -1303,6 +1458,7 @@ def main():
     check_bag(tables, flat, seg, nb, "rm1 forward bag (bf16 table)")
     check_bag(g_rows, comb_src, comb_seg, N, "rm1 duplicate combine")
     check_update(tables.clone(), uniq, upd, "rm1 bf16 table")
+    check_update_logged(tables.clone(), uniq, upd, "rm1 bf16 table")
     check_update(scratch, uniq, upd, "rm1 f32 scratch")
     real_ids = uniq[: (uniq >= 0).sum().item()]   # the checkpoint's gather
     check_gather(tables, real_ids, "rm1 touched rows (bf16 table)")
@@ -1342,6 +1498,14 @@ def main():
                         lambda: ref.scatter_update_ref(t_tab, uniq, upd),
                         lambda: t_tab.index_add_(0, real, upd_real_bf16),
                         bound(N * 4 + n_rows * d * (4 + 2 * rows_b), n_rows * d)),
+        # a real slot: its id, its f32 delta, the row read, written and
+        # logged; a pad: its id and a zero undo row
+        "update_logged_bf16": (
+            lambda: ops.scatter_update_logged(t_tab, uniq, upd),
+            lambda: ref.scatter_update_logged_ref(t_tab, uniq, upd),
+            lambda: (t_tab.index_select(0, real), t_tab.index_add_(0, real, upd_real_bf16)),
+            bound(n_rows * (4 + d * (4 + 3 * rows_b)) + (N - n_rows) * (4 + d * rows_b),
+                  n_rows * d)),
         "update_f32": (lambda: ops.scatter_update(scratch, uniq, upd),
                        lambda: ref.scatter_update_ref(scratch, uniq, upd),
                        None,
@@ -1402,21 +1566,24 @@ def main():
           f"tables {tuple(state['embed']['emb_tables'].shape)} "
           f"{state['embed']['emb_tables'].dtype}")
     torch.cuda.reset_peak_memory_stats()
-    eb.launches = su.launches = gr.launches = 0
+    eb.launches = su.launches = su.launches_logged = gr.launches = 0
     state, rl, rt = run(state, 5, relaxed=True)
     state, sl, stt = run(state, 2, relaxed=False, start=5)
     launches = {"embedding_bag": eb.launches, "scatter_update": su.launches,
+                "scatter_update_logged": su.launches_logged,
                 "gather_rows": gr.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[train] relaxed losses {rl} step ms {rt}")
     print(f"[train] strict losses {sl} step ms {stt}")
     print(f"[train] launches {launches}; peak device memory {peak_gb:.2f} GB")
     check(all(math.isfinite(x) for x in rl + sl), "non-finite loss")
-    # warmup bag + per relaxed step 3 bags (stale, combine, correction) and
-    # 3 updates (table, scratch set, scratch clear); per strict step 2 + 1
-    # no checkpoint manager here, so no gather
+    # warmup bag + per relaxed step 3 bags (stale, combine, correction),
+    # the table's logged update and 2 plain ones (scratch set, scratch
+    # clear); per strict step 2 bags and the table's plain update; no
+    # checkpoint manager here, so no gather
     check(launches == {"embedding_bag": 1 + 5 * 3 + 2 * 2,
-                       "scatter_update": 5 * 3 + 2 * 1, "gather_rows": 0},
+                       "scatter_update": 5 * 2 + 2 * 1,
+                       "scatter_update_logged": 5, "gather_rows": 0},
           f"unexpected launch counts {launches}")
     check(not state["prefetch"]["scratch"].any().item(), "scratch not zero after run")
     del state
@@ -1488,7 +1655,8 @@ def main():
     # -- 12. training full tinyllama-1.1b ------------------------------------------
     t0 = time.perf_counter()
     lm_launches, lm_step, lm_timing = lm_train_phase(torch, np, dev, check_bag,
-                                                     check_update, check_gather)
+                                                     check_update, check_update_logged,
+                                                     check_gather)
     timing.update(lm_timing)
     print(f"[lm-train] phase 12 wall time {time.perf_counter() - t0:.1f}s")
 
@@ -1497,6 +1665,12 @@ def main():
     lm_ck_launches = lm_checkpoint_phase(torch, np, dev)
     print(f"[lm-ckpt] phase 13 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 14. the examples on the card ------------------------------------------------
+    t0 = time.perf_counter()
+    ex_wall = examples_phase()
+    print(f"[examples] each one's end, s after the start: {json.dumps(ex_wall)}")
+    print(f"[examples] phase 14 wall time {time.perf_counter() - t0:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
     # for the gather, flash attention and wkv6, phase 12's relaxed run for
@@ -1504,6 +1678,8 @@ def main():
     gather_src = ("src/repro_torch/csrc/gather_rows.cu",
                   "src/repro/kernels/embedding_bag.py:73")
     wkv6_src = ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:65")
+    logged_src = ("src/repro_torch/csrc/scatter_update_logged.cu",
+                  "src/repro/kernels/scatter_update.py:56")
     kernels = []
     for name, path, main_shape, n, src, replaces in (
             ("embedding_bag", "dlrm-rm1 train", "bag_fwd", launches["embedding_bag"],
@@ -1544,7 +1720,11 @@ def main():
              "src/repro/kernels/embedding_bag.py:40"),
             ("scatter_update", "tinyllama-1.1b train", "lm_update_bf16",
              lm_launches["scatter_update"], "src/repro_torch/csrc/scatter_update.cu",
-             "src/repro/kernels/scatter_update.py:24")):
+             "src/repro/kernels/scatter_update.py:24"),
+            ("scatter_update_logged", "dlrm-rm1 train", "update_logged_bf16",
+             launches["scatter_update_logged"], *logged_src),
+            ("scatter_update_logged", "tinyllama-1.1b train", "lm_update_logged_bf16",
+             lm_launches["scatter_update_logged"], *logged_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})

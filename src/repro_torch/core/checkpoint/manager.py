@@ -71,6 +71,39 @@ def touched_rows(feed: dict):
     return ids, ids.cpu().numpy().astype(np.int64)
 
 
+def undo_image(feed: dict):
+    """Host copy of a relaxed step's undo image: ``(idx, rows)``, the ids of
+    ``touched_rows`` and the pre-update rows that the fused update captured
+    on the card (``feed["old_rows"]``), pads dropped, widened to f32 as the
+    pool's mirror holds them."""
+    _, idx = touched_rows(feed)
+    return idx, feed["old_rows"][:idx.size].float().cpu().numpy()
+
+
+def check_undo_images(ring: UndoRing, images: dict) -> int:
+    """Holds the undo entry of every step the ring still commits against
+    ``images[step]`` (``undo_image`` of that step's feed), bitwise.
+
+    The pool captures its image from the mirror (``nmp.undo_log_append``),
+    the card from the tables, so equality shows that the mirror was in step
+    with the tables before each logged update. Needs lossless undo payloads
+    (``pool_compress`` none or zlib). Returns the count of steps checked;
+    raises ``RuntimeError`` for a step that has no image or differs.
+    """
+    steps = ring.committed_steps()
+    for step in steps:
+        if step not in images:
+            raise RuntimeError(f"undo entry of step {step}: no device image")
+        got, (idx, rows) = ring.read(step), images[step]
+        if got is None or not (
+                np.array_equal(got[0], idx)
+                and np.array_equal(np.asarray(got[1]).view(np.uint32),
+                                   rows.view(np.uint32))):
+            raise RuntimeError(f"undo entry of step {step} differs from the "
+                               "image the update captured on the device")
+    return len(steps)
+
+
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 

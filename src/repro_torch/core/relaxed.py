@@ -78,6 +78,16 @@ def apply_embed_update(embed_params: dict, cfg, uniq, upd) -> None:
     ops.scatter_update(t.view(-1, t.shape[-1]), uniq, upd)
 
 
+def apply_embed_update_logged(embed_params: dict, cfg, uniq, upd):
+    """``apply_embed_update`` fused with undo capture (paper Fig. 7).
+
+    Returns the rows ``uniq`` as they were before the update: (N, d) in the
+    table's dtype, bitwise, +0 in the pad slots.
+    """
+    t = embed_params[embed_leaf(cfg)]
+    return ops.scatter_update_logged(t.view(-1, t.shape[-1]), uniq, upd)[1]
+
+
 def prefetch_corrected(stale, scratch, uniq, upd, cfg, next_batch: dict):
     """Relaxed prefetch of batch N+1's rows: round(f32(stale) + f32(corr)).
 

@@ -32,6 +32,9 @@ KERNELS = {
     "embedding_bag": ("embedding_bag_launch", [_P, _I, _P, _P, _P, _I, _I, _P]),
     # table, dtype, idx, delta, n, dim, stream
     "scatter_update": ("scatter_update_launch", [_P, _I, _P, _P, _I, _I, _P]),
+    # table, dtype, idx, delta, old, n, dim, stream
+    "scatter_update_logged": ("scatter_update_logged_launch",
+                              [_P, _I, _P, _P, _P, _I, _I, _P]),
     # table, idx, out, n, row bytes, stream
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I64, _I64, _P]),
     # q, k, v, o, lse (may be null), dtype, B, Sq, Sk, Hq, Hkv, D, q/k/v

@@ -95,6 +95,16 @@ def scatter_update(table, idx, delta):
     return ref.scatter_update_ref(table, idx, delta)
 
 
+def scatter_update_logged(table, idx, delta):
+    """``scatter_update`` that also returns the undo image: ``(table, old)``,
+    old (N, D) in the table's dtype with the pre-update rows at idx, bitwise,
+    and +0 for a pad (-1) slot."""
+    if table.is_cuda:
+        return su.scatter_update_logged_cuda(table, idx, delta)
+    _plain_ok(table, "scatter_update_logged")
+    return ref.scatter_update_logged_ref(table, idx, delta)
+
+
 def combine_duplicates(idx, delta, item_rows=None):
     """Sum the deltas of duplicate indices, in a fixed order.
 

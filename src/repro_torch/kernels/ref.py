@@ -39,6 +39,19 @@ def scatter_update_ref(table, idx, delta):
     return table
 
 
+def scatter_update_logged_ref(table, idx, delta):
+    """``scatter_update_ref`` with undo capture. Returns ``(table, old)``:
+    old (N, D) in the table's dtype holds the rows idx[i] as they were
+    before the update, bitwise, and +0 in a pad slot (-1). The JAX oracle
+    pads with row 0 and logs row 0's content there instead.
+    """
+    keep = idx >= 0
+    old = torch.zeros((idx.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    old[keep] = table[idx[keep].long()]
+    return scatter_update_ref(table, idx, delta), old
+
+
 def gather_rows_ref(table, idx):
     """table: (R, D); idx: (N,) ints in [0, R). Returns (N, D) in the
     table's dtype with out[i] = table[idx[i]], bitwise (as the Pallas

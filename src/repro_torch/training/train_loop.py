@@ -7,8 +7,10 @@ strict_step:
     lookup_N -> fwd/bwd_N -> update_dense -> update_pool
 relaxed_step (TrainingCXL):
     fwd/bwd on the bags prefetched at step N-1, the stale lookup of batch
-    N+1 on the pre-update tables, the pool update, then the correction
-    bag(U, idx_{N+1}) added to the stale bags.
+    N+1 on the pre-update tables, the pool update fused with undo capture
+    (the pre-update rows it overwrites, paper Fig. 7), then the correction
+    bag(U, idx_{N+1}) added to the stale bags. Its metrics carry
+    ``ckpt_feed``: the touched row ids, their deltas and that undo image.
 
 Both steps take the loss's gradient with respect to the looked-up rows (a
 DLRM's bag vectors, an LM's token rows), spread it over the touched table
@@ -125,15 +127,17 @@ def make_step_fns(cfg, train_cfg):
         stale = rx.lookup_rows(state["embed"], cfg, next_batch)
         dense, od, gnorm = update_dense(state, g_dense)
         uniq, upd, oe = sparse_update(state, batch, g_rows)
-        rx.apply_embed_update(state["embed"], cfg, uniq, upd)
+        old_rows = rx.apply_embed_update_logged(state["embed"], cfg, uniq, upd)
         rows_next = rx.prefetch_corrected(stale, carry["scratch"], uniq, upd,
                                           cfg, next_batch)
         new_state = {**state, "dense": dense, "opt_dense": od, "opt_embed": oe,
                      "step": state["step"] + 1,
                      "prefetch": {**carry, "rows": rows_next}}
         # for the batch-aware checkpoint: the flat ids of the rows this step
-        # updated (distinct, ascending, then -1 pads) and their f32 deltas
-        ckpt_feed = {"touched": uniq, "delta": upd}
+        # updated (distinct, ascending, then -1 pads), their f32 deltas, and
+        # the undo image: the pre-update rows of exactly those ids, in the
+        # table's dtype (+0 at the pads), captured by the update itself
+        ckpt_feed = {"touched": uniq, "delta": upd, "old_rows": old_rows}
         return new_state, {"loss": loss, "grad_norm": gnorm,
                            "ckpt_feed": ckpt_feed}
 

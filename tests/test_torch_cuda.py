@@ -62,6 +62,27 @@ def test_scatter_update_matches_plain(cuda, rng, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [32, 45])
+def test_scatter_update_logged_matches_plain(cuda, rng, dtype, D):
+    """Row 0 real and pads present: the table and the undo rows bitwise
+    equal to the plain version's (the pads' rows +0, from torch.empty)."""
+    R = 1000
+    table = torch.randn((R, D), device=cuda).to(dtype)
+    ids = np.concatenate([[0, 0], zipf_indices(rng, (600,), R)]).astype(np.int32)
+    uniq, comb = ops.combine_duplicates(torch.from_numpy(ids).to(cuda),
+                                        torch.randn((602, D), device=cuda))
+    assert uniq[0].item() == 0 and (uniq < 0).any().item()
+    want_t, want_old = ref.scatter_update_logged_ref(table.clone(), uniq, comb)
+    before = su.launches_logged
+    _, old = ops.scatter_update_logged(table, uniq, comb)
+    assert su.launches_logged == before + 1
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(table, want_t)
+    assert old.dtype == dtype and torch.equal(old.view(bits), want_old.view(bits))
+
+
+@pytest.mark.gpu
 def test_combine_duplicates_matches_cpu(cuda, rng):
     ids = np.concatenate([[0], zipf_indices(rng, (999,), 500)]).astype(np.int32)
     delta = rng.standard_normal((1000, 32)).astype(np.float32)

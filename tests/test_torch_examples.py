@@ -1,0 +1,100 @@
+"""The port's examples (``repro_torch.examples``) on the CPU, at smoke size.
+
+Each runs as a subprocess with ``--device cpu``, as a user runs it, and
+must exit 0 with its marker line. What the examples do not run (the JAX
+demo's remote and sharded drills, pool serving, a CUDA device without a
+card) must raise.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.examples import (fault_tolerance_demo, quickstart,
+                                  serve_batched, train_dlrm_e2e)
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+EXAMPLES = {"fault_tolerance_demo": fault_tolerance_demo,
+            "train_dlrm_e2e": train_dlrm_e2e, "quickstart": quickstart,
+            "serve_batched": serve_batched}
+
+
+def _run(name, *args, tmp_path):
+    env = {**os.environ, "PYTHONPATH": SRC}
+    r = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}",
+                        "--device", "cpu", *args], env=env, cwd=tmp_path,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return r.stdout
+
+
+@pytest.mark.parametrize("backend", ["pmem", "dram"])
+def test_fault_tolerance_demo(tmp_path, backend):
+    """The drill recovers a mirror bitwise equal to a clean replay, whose
+    every logged step's device undo image equals the pool's, and resumes."""
+    out = _run("fault_tolerance_demo", "--pool-backend", backend,
+               "--work-dir", str(tmp_path), tmp_path=tmp_path)
+    assert "BIT-IDENTICAL to a clean replay" in out
+    assert "the device's equal the pool's bitwise" in out
+    assert "the mirror equals the tables" in out
+    assert out.rstrip().endswith("fault-tolerance demo PASSED")
+    if backend == "pmem":
+        assert "SIGKILLed trainer after 12 reported steps" in out
+    else:
+        assert "rolled_back=True" in out
+    assert os.listdir(tmp_path) == []      # its pool files are removed
+
+
+def test_train_dlrm_e2e(tmp_path):
+    out = _run("train_dlrm_e2e", "--steps", "4", "--batch", "32",
+               "--work-dir", str(tmp_path), tmp_path=tmp_path)
+    assert "96.1M params" in out and "simulated crash at step 2" in out
+    assert "recovered: embeddings@1" in out and "== done: 4 steps" in out
+
+
+def test_quickstart(tmp_path):
+    out = _run("quickstart", tmp_path=tmp_path)
+    assert "strict == relaxed: True" in out and "generated:" in out
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-3b"])
+def test_serve_batched(tmp_path, arch):
+    out = _run("serve_batched", "--arch", arch, "--new-tokens", "8",
+               tmp_path=tmp_path)
+    assert f"[prefill] {arch} on cpu: 8x32 tokens" in out
+    assert "[decode] 8x8 tokens" in out and "[sample]" in out
+
+
+@pytest.mark.parametrize("name,args,msg", [
+    ("fault_tolerance_demo", ["--pool-backend", "remote"], "queue 1 item 6"),
+    ("fault_tolerance_demo", ["--pool-backend", "sharded"], "queue 1 item 6"),
+    ("serve_batched", ["--pool-backend", "dram"], "queue 1 item 2"),
+])
+def test_unported_options_raise(name, args, msg):
+    with pytest.raises(NotImplementedError, match=msg):
+        EXAMPLES[name].main(["--device", "cpu", *args])
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_without_card_raises(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        EXAMPLES[name].main([])
+
+
+def test_examples_import_no_jax_and_no_reference():
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "import repro_torch.examples.fault_tolerance_demo, "
+         "repro_torch.examples.train_dlrm_e2e, repro_torch.examples.quickstart, "
+         "repro_torch.examples.serve_batched\n"
+         "bad = [m for m in sys.modules if m.split('.')[0] in "
+         "('jax', 'ml_dtypes', 'repro')]\n"
+         "print(bad); sys.exit(1 if bad else 0)"],
+        env={**os.environ, "PYTHONPATH": SRC}, capture_output=True, text=True,
+        timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr

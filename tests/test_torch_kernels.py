@@ -13,8 +13,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.embedding_bag import embedding_bag_pallas, gather_rows_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
-from repro.kernels.scatter_update import scatter_update_pallas
+from repro.kernels.scatter_update import (scatter_update_logged_pallas,
+                                          scatter_update_pallas)
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import scatter_update as su
 
 
 def _bag_case(rng, R, D, N, B, dtype):
@@ -72,6 +74,85 @@ def test_scatter_update_skips_pads_and_keeps_row0(rng, dtype):
         want[r] = (want[r].float() + delta[s]).to(dtype)
     ops.scatter_update(table, idx, delta)
     assert torch.equal(table, want)
+
+
+# the shapes of tests/test_kernels.py::test_scatter_update_sweep
+@pytest.mark.parametrize("R,D,N", [(64, 128, 16), (128, 256, 48)])
+def test_scatter_update_logged_matches_pallas(rng, R, D, N):
+    """The undo rows bitwise; the f32 table within the Pallas test's 1e-6,
+    and bitwise too (both add in f32)."""
+    table = rng.standard_normal((R, D)).astype(np.float32)
+    idx = rng.permutation(R)[:N].astype(np.int32)
+    delta = rng.standard_normal((N, D)).astype(np.float32)
+    want_t, want_old = scatter_update_logged_pallas(
+        jnp.asarray(table), jnp.asarray(idx), jnp.asarray(delta), interpret=True)
+    t = torch.from_numpy(table.copy())
+    out, old = ops.scatter_update_logged(t, torch.from_numpy(idx),
+                                         torch.from_numpy(delta))
+    assert out is t and old.dtype == torch.float32 and old.shape == (N, D)
+    np.testing.assert_array_equal(old.numpy(), np.asarray(want_old))
+    np.testing.assert_array_equal(old.numpy(), table[idx])
+    np.testing.assert_allclose(t.numpy(), np.asarray(want_t), atol=1e-6)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(want_t))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("with_row0", [True, False])
+def test_scatter_update_logged_pads(rng, dtype, with_row0):
+    """Pad slots (-1) log a +0 row and leave the table alone, row 0
+    included; real slots log their row's bits and update it once with
+    ``scatter_update_ref``'s round(f32(t) + f32(u))."""
+    R, D = 16, 8
+    table = torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32)).to(dtype)
+    ids = [5, 0, 3] if with_row0 else [5, 3]
+    idx = torch.tensor(ids + [-1, -1, -1], dtype=torch.int32)
+    delta = torch.from_numpy(rng.standard_normal((len(idx), D)).astype(np.float32))
+    before = table.clone()
+    want = ref.scatter_update_ref(table.clone(), idx, delta)
+    _, old = ops.scatter_update_logged(table, idx, delta)
+    assert old.dtype == dtype
+    assert torch.equal(table, want)
+    n, bits = len(ids), torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(old[:n].view(bits), before[ids].view(bits))
+    assert not old[n:].any() and not torch.signbit(old[n:]).any()   # +0
+    if not with_row0:
+        assert torch.equal(table[0], before[0])
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float16])
+def test_scatter_update_logged_half_types(rng, dtype):
+    """bf16 and f16: the undo rows equal the Pallas kernel's bitwise (both
+    copy the row); the table follows ``scatter_update_ref``'s arithmetic,
+    not the Pallas kernel's cast of delta to the table type first."""
+    R, D, N = 64, 128, 16
+    tdt = {jnp.bfloat16: torch.bfloat16, jnp.float16: torch.float16}[dtype]
+    table32 = rng.standard_normal((R, D)).astype(np.float32)
+    idx = rng.permutation(R)[:N].astype(np.int32)
+    delta = (rng.standard_normal((N, D)) * 1e-2).astype(np.float32)
+    _, want_old = scatter_update_logged_pallas(
+        jnp.asarray(table32, dtype), jnp.asarray(idx), jnp.asarray(delta),
+        interpret=True)
+    t = torch.from_numpy(table32).to(tdt)
+    want_t = ref.scatter_update_ref(t.clone(), torch.from_numpy(idx),
+                                    torch.from_numpy(delta))
+    _, old = ops.scatter_update_logged(t, torch.from_numpy(idx),
+                                       torch.from_numpy(delta))
+    assert torch.equal(t, want_t)
+    np.testing.assert_array_equal(
+        old.view(torch.int16).numpy(),
+        np.asarray(want_old).view(np.int16))
+
+
+def test_scatter_update_logged_refuses_other_devices():
+    """Dispatch has no plain path for a meta tensor, and the kernel's
+    wrapper takes no CPU table (the CPU goes to the plain version)."""
+    table = torch.empty((4, 8), device="meta")
+    idx = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.scatter_update_logged(table, idx, torch.empty((2, 8), device="meta"))
+    with pytest.raises(ValueError, match="needs a CUDA table"):
+        su.scatter_update_logged_cuda(torch.zeros((4, 8)), torch.zeros(2, dtype=torch.int32),
+                                      torch.zeros((2, 8)))
 
 
 @pytest.mark.parametrize("n,rmax,seed", [(2, 4, 0), (17, 8, 1), (40, 64, 2),
