@@ -53,19 +53,23 @@ Phases, each of which exits non-zero on failure:
      one row gather per prefill and per decode step, the gather at
      serving's shapes, a bitwise repeat, decode against prefill, and smoke
      rwkv6 on the card against the CPU;
- 11. hold the flash-attention backward kernel against its plain version on
-     the card (f32, bf16, f16; causal and full; S in {1, 17, 128, 1000};
-     (Hq, Hkv) in {(4, 2), (32, 4), (16, 8)}; D in {16, 64, 128}; each case
-     repeated bitwise, the forward's log-sum-exp checked too), and time
-     kernel, plain version and SDPA's backward at full tinyllama-1.1b's
-     training shape beside the bound;
+ 11. hold the flash-attention backward kernels against their plain version
+     on the card (f32 on the CUDA-core route, bf16 and f16 on the
+     tensor-core route, those also against the plain emulation of its
+     rounding; causal and full; S in {1, 17, 128, 1000}; (Hq, Hkv) in
+     {(4, 2), (32, 4), (16, 8)}; D in {16, 64, 128}; each case repeated
+     bitwise, the forward's log-sum-exp checked too), and time kernel (each
+     pass too), plain version and SDPA's backward at full tinyllama-1.1b's
+     training shape beside the bound, in bf16 and in f32;
  12. train full-width tinyllama-1.1b (bf16, 22 layers, remat) at batch 4 x
      1024: 3 relaxed and 3 strict steps from the same params with bitwise
      equal losses, a bitwise repeat of the relaxed run, the launch counts of
      each step, step ms, tokens/s, busy share (one profiled step) and peak
      memory; the sparse kernels at the step's shapes (the duplicate combine
      beside F.embedding_bag, the logged update beside index_select +
-     index_add_); smoke tinyllama on the card against the CPU;
+     index_add_); smoke tinyllama on the card against the CPU: 5 f32 steps
+     (losses and the AdamW-trained dense params) and one bf16 step (the
+     losses before and after it);
  13. checkpointed tinyllama on a pmem pool under build/ (removed at the
      end): full width with tier-E only (4 relaxed steps, each step's undo
      image on the card equal to the pool's bitwise, the recovered mirror
@@ -82,12 +86,16 @@ Phases 7 to 14 print their wall time.
 The line before the last is {"kernels": [...]}, one entry per kernel and
 path (the row gather runs on eight: each checkpoint, each served model's
 prefill and decode steps, and LM training; the logged update on the two
-training paths); the last line is {"ok": true, "device": {...}}.
+training paths; the flash backward's tensor-core route in LM training and
+its f32 route in phase 12's f32 smoke training); the last line is
+{"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
+shared memory and spills from ptxas.
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -296,7 +304,8 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         print(f"[ckpt] stats {json.dumps(mgr.stats)}")
         print(f"[ckpt] pool image {os.path.getsize(os.path.join(work, 'A', 'pool.img'))} "
               f"bytes; launches {launches}")
-        check(launches == {"embedding_bag": 1 + 4 * 3, "scatter_update": 4 * 2,
+        check(launches == {"embedding_bag": (1 + 4 * 3) * eb.PASSES,
+                           "scatter_update": 4 * 2,
                            "scatter_update_logged": 4, "gather_rows": 4},
               f"checkpoint run: unexpected launch counts {launches}")
         print(mgr.pool.metrics.report())
@@ -700,9 +709,10 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
 
 
 def flash_bwd_phase(torch, dev):
-    """Phase 11. Returns (max abs error against the plain version, timings
-    of the backward and of the forward with its log-sum-exp at full
-    tinyllama-1.1b's training shape)."""
+    """Phase 11. Returns (each route's max abs error against the plain
+    version, timings of the bf16 backward and of the forward with its
+    log-sum-exp at full tinyllama-1.1b's training shape, and of the f32
+    backward route at the same shape)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -716,7 +726,12 @@ def flash_bwd_phase(torch, dev):
     # under a causal mask): one key gives dP = Delta, so dq and dk are zero
     # in exact arithmetic and both versions return rounding noise.
     rtol = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2, torch.float16: 1e-3}
-    used, worst, err, n = {}, {}, 0.0, 0
+    # f16 and bf16 take the tensor-core route: held also against its plain
+    # emulation (P and dS rounded before their products; f32, no output
+    # rounding) at tests/test_torch_cuda.py's TC_EMUL_RTOL
+    emul_rtol = {torch.bfloat16: 1.25 * 2**-8, torch.float16: 1.25 * 2**-11}
+    used, worst, emul_used, n = {}, {}, {}, 0
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0, torch.float16: 0.0}
 
     def inputs(B, S, Hq, Hkv, D, dtype, causal):
         q, do = (torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dtype)
@@ -727,7 +742,6 @@ def flash_bwd_phase(torch, dev):
         return q, k, v, o, lse, do
 
     def compare(got, want, dtype, what, S):
-        nonlocal err
         for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
             check(g.dtype == w.dtype == dtype and g.shape == w.shape,
                   f"flash backward {what} {name}: shape/dtype")
@@ -736,7 +750,7 @@ def flash_bwd_phase(torch, dev):
             limit = rtol[dtype] * scale + 1e-5
             check(e <= limit, f"flash backward {what} {name}: max abs err "
                   f"{e:.3g}, gradient max {scale:.3g}, limit {limit:.3g}")
-            err = max(err, e)
+            err[dtype] = max(err[dtype], e)
             used[dtype] = max(used.get(dtype, 0.0), e / limit)
             if S > 1:         # S = 1's dq and dk are rounding noise around 0
                 worst[dtype] = max(worst.get(dtype, 0.0), e / scale)
@@ -759,14 +773,29 @@ def flash_bwd_phase(torch, dev):
                         again = ops.flash_attention_bwd(*x, causal=causal)
                         torch.cuda.synchronize()
                         compare(got, want, dtype, what, S)
+                        if dtype != torch.float32:
+                            emul = ref.flash_attention_bwd_ref(
+                                *(t.float() for t in x), causal=causal,
+                                round_to=dtype)
+                            for name, g, w in zip(("dq", "dk", "dv"), got, emul,
+                                                  strict=True):
+                                e = (g.float() - w).abs().max().item()
+                                limit = emul_rtol[dtype] * w.abs().max().item() + 1e-5
+                                check(e <= limit, f"flash backward {what} {name}: "
+                                      f"{e:.3g} from the rounding emulation, "
+                                      f"limit {limit:.3g}")
+                                emul_used[dtype] = max(emul_used.get(dtype, 0.0),
+                                                       e / limit)
                         check(all(torch.equal(a, b) for a, b in zip(got, again, strict=True)),
                               f"flash backward {what}: two calls differ")
                         n += 1
     print(f"[flash-bwd] {n} cases against the plain version, each repeated "
-          f"bitwise: ok; max abs err {err:.3g}; largest share of the limit "
+          f"bitwise: ok; max abs err {max(err.values()):.3g}; largest share of the limit "
           "used: " + ", ".join(f"{d}: {e:.3g}" for d, e in used.items())
           + "; largest error over the gradient's max for S > 1: "
-          + ", ".join(f"{d}: {e:.3g}" for d, e in worst.items()))
+          + ", ".join(f"{d}: {e:.3g}" for d, e in worst.items())
+          + "; largest share of the emulation's limit used: "
+          + ", ".join(f"{d}: {e:.3g}" for d, e in emul_used.items()))
 
     # full tinyllama-1.1b training: B=4, S=1024, Hq=32, Hkv=4, D=64, bf16,
     # causal (q, k, v contiguous, as the training step gives them)
@@ -816,21 +845,61 @@ def flash_bwd_phase(torch, dev):
     device_only = {"ms": time_ms(torch, kern, hide_host=True),
                    "plain_ms": time_ms(torch, plain, hide_host=True),
                    "library_ms": dev_lib["fwd_bwd"] - dev_lib["fwd"]}
-    # each pass alone, on the card's clock
+    # each pass of the bf16 route alone, on the card's clock
     from repro_torch.kernels import _build
     delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
     outs = [torch.empty_like(t) for t in (q, k, v)]
-    ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, *outs)]
+    parts = [torch.empty((B, Hq, S, D), dtype=torch.float32, device=dev)
+             for _ in range(2)]
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, *outs, *parts)]
     passes = [time_ms(torch, lambda p=p: _build.launch(
-        "flash_attention_bwd", dev, p, *ptrs, _build.DTYPE_CODES[q.dtype],
-        B, S, S, Hq, Hkv, D, 1, 0), hide_host=True) for p in range(fa.BWD_PASSES)]
+        "flash_attention_bwd_tc", dev, p, *ptrs, _build.DTYPE_CODES[q.dtype],
+        B, S, S, Hq, Hkv, D, 1, 0), hide_host=True)
+        for p in range(fa.BWD_PASSES[q.dtype])]
+    del outs, parts
     print(f"[flash-bwd] tinyllama training shape B={B} S={S} Hq={Hq} Hkv={Hkv} "
           f"D={D} bf16 causal ({nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
           f"{nops / F32_OPS_PER_S * 1e3:.4f} ms at the f32 CUDA-core rate): "
           + json.dumps(timing) + "; device only: " + json.dumps(device_only)
           + f"; SDPA forward+backward {json.dumps(lib)}, device only "
-          + json.dumps(dev_lib) + f"; passes (Delta, dk dv, dq) device only "
-          f"{passes} ms; max abs err {timed_err:.3g}")
+          + json.dumps(dev_lib) + "; passes (Delta, dk dv partials, dq, head "
+          f"sum) device only {passes} ms; max abs err {timed_err:.3g}")
+
+    # the f32 route (the CUDA-core kernel) at the same shape: the card-vs-CPU
+    # smoke training runs in f32
+    x32 = tuple(t.float() for t in x[:4]) + (x[4], x[5].float())
+
+    def kern32():
+        return ops.flash_attention_bwd(*x32)
+
+    def plain32():
+        return ref.flash_attention_bwd_ref(*x32)
+    got, want = kern32(), plain32()
+    compare(got, want, torch.float32, "f32 at the tinyllama training shape", S)
+    err32 = max((g - w).abs().max().item() for g, w in zip(got, want, strict=True))
+    del got, want
+    # the same five products at the f32 rate outside the tensor cores, each
+    # f32 input read once and each gradient written once
+    b32_ms, b32_by = bound(2 * nbytes - 4 * B * Hq * S, nops, F32_OPS_PER_S)
+    leaves32 = [t.transpose(1, 2).float().detach().requires_grad_() for t in (q, k, v)]
+    do32_t = do.transpose(1, 2).float()
+
+    def sdpa32_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*leaves32, is_causal=True,
+                                                  enable_gqa=True)
+
+    def sdpa32_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves32, is_causal=True,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, leaves32, do32_t)
+    timing32 = {"ms": time_ms(torch, kern32), "plain_ms": time_ms(torch, plain32),
+                "library_ms": time_ms(torch, sdpa32_fwd_bwd) - time_ms(torch, sdpa32_fwd),
+                "bound_ms": b32_ms, "bound_by": b32_by}
+    print("[flash-bwd] f32 route at the training shape: " + json.dumps(timing32)
+          + "; device only: " + json.dumps({"ms": time_ms(torch, kern32, hide_host=True)})
+          + f"; max abs err {err32:.3g}")
+    del x32, leaves32, do32_t
 
     # the forward as training calls it (log-sum-exp written), same inputs
     def fwd_lse():
@@ -847,9 +916,14 @@ def flash_bwd_phase(torch, dev):
     print("[flash-bwd] forward with log-sum-exp at the training shape: "
           + json.dumps(fwd_timing) + "; device only: "
           + json.dumps({"ms": time_ms(torch, fwd_lse, hide_host=True)}))
-    del x, q, k, v, o, lse, do, leaves, do_t, outs, delta
+    del x, q, k, v, o, lse, do, leaves, do_t, delta
     torch.cuda.empty_cache()
-    return max(err, timed_err), timing, fwd_timing
+    # each route's own largest error: f32 the CUDA-core kernel, f16 and bf16
+    # the tensor-core one
+    errs = {"flash_attention_bwd": max(err[torch.float32], err32),
+            "flash_attention_bwd_tc": max(err[torch.bfloat16], err[torch.float16],
+                                          timed_err)}
+    return errs, timing, fwd_timing, timing32
 
 
 def device_busy(torch, fn):
@@ -977,12 +1051,14 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     check(rl == sl, f"tinyllama: relaxed losses {rl} differ from strict {sl}")
     check(rl2 == rl, f"tinyllama: relaxed losses not repeatable: {rl2} vs {rl}")
     # per step: 22 flash forwards and 22 more in the remat recompute, one
-    # backward of BWD_PASSES launches per layer, one duplicate combine (bag),
+    # bf16 backward of BWD_PASSES launches per layer, one duplicate combine
+    # (a bag, eb.PASSES launches),
     # the table update (logged in a relaxed step, plain in a strict one);
     # relaxed steps also the stale lookup and the correction (set, gather,
     # clear the scratch), strict steps the lookup
-    common = {"flash_attention": 2 * L, "flash_attention_bwd": L * fa.BWD_PASSES,
-              "embedding_bag": 1}
+    common = {"flash_attention": 2 * L,
+              "flash_attention_bwd": L * fa.BWD_PASSES[torch.bfloat16],
+              "embedding_bag": eb.PASSES}
     want_relaxed = {**common, "gather_rows": 2, "scatter_update": 2,
                     "scatter_update_logged": 1}
     want_strict = {**common, "gather_rows": 1, "scatter_update": 1,
@@ -1028,15 +1104,14 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     t_tab = table.clone()
     upd_real = upd[:n_rows].to(torch.bfloat16)
     shapes = {
-        # the ids and the N + 1 offsets once, each row gradient once, the
-        # (N, d) f32 output
+        # the ids and the bag ids once, each row gradient once, the (N, d)
+        # f32 output
         # (the library's bags are the n_rows distinct tokens, in bf16)
         "lm_bag_combine": (lambda: ops.embedding_bag(g_rows, comb_src, comb_seg, N),
                            lambda: ref.embedding_bag_ref(g_rows, comb_src, comb_seg, N),
                            lambda: torch.nn.functional.embedding_bag(
                                comb_src, g_rows, comb_starts, mode="sum"),
-                           bound(N * 4 + (N + 1) * 4 + N * d * 2 + N * d * 4,
-                                 N * d)),
+                           bound(N * 4 * 2 + N * d * 2 + N * d * 4, N * d)),
         # the ids, each touched row's f32 delta, the row read and written
         "lm_update_bf16": (lambda: ops.scatter_update(t_tab, uniq, upd),
                            lambda: ref.scatter_update_ref(t_tab, uniq, upd),
@@ -1070,20 +1145,51 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     del table, t_tab, g_rows, comb, upd, upd_real, touched, real
     torch.cuda.empty_cache()
 
-    # smoke tinyllama on the card and on the CPU from the same params (f32,
-    # TF32 off): 5 relaxed steps
+    # smoke tinyllama on the card and on the CPU from the same params: 5
+    # relaxed steps in f32 (TF32 off; the f32 backward route), then one step
+    # in bf16 (the tensor-core route) and the loss after it
     scfg = get_arch("tinyllama-1.1b", smoke=True).model
-    gen = torch.Generator()
-    gen.manual_seed(0)
-    sparams = api.init(gen, scfg)
-    sinit = train_loop.make_step_fns(scfg, tc)[0]
-    curves = {}
-    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
-        st = sinit(tree_map(lambda p, w=where: p.to(w, copy=True), sparams))
-        _, curves[name] = train_loop.train(scfg, tc, make_batches(scfg, 4, 16, device=where),
-                                           5, relaxed=True, state=st, device=where)
-    print(f"[lm-train] smoke losses {curves}")
-    np.testing.assert_allclose(curves["card"], curves["cpu"], rtol=1e-5, atol=0)
+    smoke = {}
+    for dtype, n_steps in (("float32", 5), ("bfloat16", 2)):
+        c = dataclasses.replace(scfg, dtype=dtype)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        sparams = api.init(gen, c)
+        sinit = train_loop.make_step_fns(c, tc)[0]
+        for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            st = sinit(tree_map(lambda p, w=where: p.to(w, copy=True), sparams))
+            before = fa.bwd_launches
+            st, losses = train_loop.train(c, tc, make_batches(c, 4, 16, device=where),
+                                          n_steps, relaxed=True, state=st, device=where)
+            smoke[dtype, name] = (losses, [p.detach().float().cpu() for p in
+                                           tree_leaves(st["dense"])],
+                                  st["embed"]["table"].float().cpu())
+            if dtype == "float32" and name == "card":
+                launches["flash_attention_bwd_f32"] = fa.bwd_launches - before
+    (lc, dc, tc_), (lp, dp, tp) = smoke["float32", "card"], smoke["float32", "cpu"]
+    dense_diff = max((a - b).abs().max().item() for a, b in zip(dc, dp, strict=True))
+    print(f"[lm-train] smoke f32 losses card {lc} cpu {lp}; dense params max abs "
+          f"difference {dense_diff:.3g}; table {(tc_ - tp).abs().max().item():.3g}")
+    np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=0)
+    # AdamW's first steps, near sign(g), could amplify float-order noise in
+    # the tiniest gradients; the dense params agree within 1e-5 all the same
+    torch.testing.assert_close(dc, dp, rtol=1e-5, atol=1e-5)
+    check(launches["flash_attention_bwd_f32"]
+          == 5 * scfg.num_layers * fa.BWD_PASSES[torch.float32],
+          f"smoke f32 backward launches {launches['flash_attention_bwd_f32']}")
+    # bf16: the first loss is the forward alone, the second follows one step
+    # (the backward on the card's tensor-core route, on the CPU in f32).
+    # bf16 keeps 8 bits (unit roundoff 2^-9); the losses, f32 means over bf16
+    # logits, agree within two such roundings, 2^-8 relative. The params are
+    # printed, not held: an element near 0 moves by lr times a gradient that
+    # the two routes round at different places.
+    (lc, dc, tc_), (lp, dp, tp) = smoke["bfloat16", "card"], smoke["bfloat16", "cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp, strict=True))
+    dense_diff = max((a - b).abs().max().item() for a, b in zip(dc, dp, strict=True))
+    print(f"[lm-train] smoke bf16 step: losses card {lc} cpu {lp} (largest relative "
+          f"difference {rel:.3g}, limit {2**-8:.3g}); table max abs difference "
+          f"{(tc_ - tp).abs().max().item():.3g}; dense params {dense_diff:.3g}")
+    check(rel <= 2**-8, f"smoke bf16 step: losses differ by {rel:.3g} relative")
     return launches, step, timing
 
 
@@ -1316,8 +1422,8 @@ def main():
     t0 = time.perf_counter()
     logs = _build.build()
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+        for line in log.splitlines():   # ptxas -v: each kernel's resources
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {len(logs)} built, {len(_build.KERNELS) - len(logs)} cached, "
           f"{time.perf_counter() - t0:.1f}s")
@@ -1336,8 +1442,10 @@ def main():
 
     def check_bag(table, idx, seg, num_bags, what):
         got = ops.embedding_bag(table, idx, seg, num_bags)
+        again = ops.embedding_bag(table, idx, seg, num_bags)
         want = ref.embedding_bag_ref(table, idx, seg, num_bags)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"embedding_bag {what}: two calls differ")
         check(got.dtype == torch.float32 and got.shape == want.shape,
               f"embedding_bag {what}: shape/dtype")
         diff = (got - want).abs()
@@ -1475,9 +1583,8 @@ def main():
     rows_b = 2   # bf16
 
     def bag_bytes(n_bags, rows_read, row_bytes):
-        # idx once, the (n_bags + 1) CSR offsets the kernel reads (it never
-        # reads seg itself), each distinct row once, the f32 output
-        return N * 4 + (n_bags + 1) * 4 + rows_read * row_bytes + n_bags * d * 4
+        # idx and seg once, each distinct row once, the f32 output
+        return N * 4 * 2 + rows_read * row_bytes + n_bags * d * 4
 
     shapes = {
         "bag_fwd": (lambda: ops.embedding_bag(tables, flat, seg, nb),
@@ -1580,8 +1687,8 @@ def main():
     # warmup bag + per relaxed step 3 bags (stale, combine, correction),
     # the table's logged update and 2 plain ones (scratch set, scratch
     # clear); per strict step 2 bags and the table's plain update; no
-    # checkpoint manager here, so no gather
-    check(launches == {"embedding_bag": 1 + 5 * 3 + 2 * 2,
+    # checkpoint manager here, so no gather. Each bag is eb.PASSES launches.
+    check(launches == {"embedding_bag": (1 + 5 * 3 + 2 * 2) * eb.PASSES,
                        "scatter_update": 5 * 2 + 2 * 1,
                        "scatter_update_logged": 5, "gather_rows": 0},
           f"unexpected launch counts {launches}")
@@ -1648,8 +1755,9 @@ def main():
 
     # -- 11. the flash-attention backward on the card ------------------------------
     t0 = time.perf_counter()
-    err["flash_attention_bwd"], timing["flash_bwd"], timing["flash_lse"] = \
+    bwd_err, timing["flash_bwd"], timing["flash_lse"], timing["flash_bwd_f32"] = \
         flash_bwd_phase(torch, dev)
+    err.update(bwd_err)
     print(f"[flash-bwd] phase 11 wall time {time.perf_counter() - t0:.1f}s")
 
     # -- 12. training full tinyllama-1.1b ------------------------------------------
@@ -1704,8 +1812,12 @@ def main():
              *wkv6_src),
             ("wkv6", "rwkv6-3b decode", "wkv6_decode", rw_parts["decode"]["wkv6"],
              *wkv6_src),
-            ("flash_attention_bwd", "tinyllama-1.1b train", "flash_bwd",
+            ("flash_attention_bwd_tc", "tinyllama-1.1b train", "flash_bwd",
              lm_launches["flash_attention_bwd"],
+             "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
+             "src/repro/kernels/flash_attention.py:62"),
+            ("flash_attention_bwd", "smoke tinyllama-1.1b train (f32)", "flash_bwd_f32",
+             lm_launches["flash_attention_bwd_f32"],
              "src/repro_torch/csrc/flash_attention_bwd.cu",
              "src/repro/kernels/flash_attention.py:62"),
             ("flash_attention", "tinyllama-1.1b train", "flash_lse",

@@ -1,6 +1,8 @@
 // Flash attention, backward: dq, dk and dv of o = softmax(q k^T / sqrt(D)
 // [causal]) v, from q, k, v, the forward's output o and row log-sum-exp
-// lse, and the output's gradient do. All arithmetic in f32.
+// lse, and the output's gradient do. All arithmetic in f32. This is the
+// route for f32 inputs; f16 and bf16 inputs take the tensor-core kernel of
+// flash_attention_bwd_tc.cu.
 //
 // flash_attention_pallas (src/repro/kernels/flash_attention.py:62) is
 // forward only; the JAX model gets attention's gradient by autodiff of
@@ -48,7 +50,7 @@
 // 176,640 bytes at D = 128 (one block per SM), 111,104 at D = 64.
 //
 // Layout: q, o, do, dq (B, Sq, Hq, D) and k, v, dk, dv (B, Sk, Hkv, D), all
-// contiguous, in one of f32, f16, bf16; lse and Delta (B, Hq, Sq) f32. Query
+// contiguous f32; lse and Delta (B, Hq, Sq) f32. Query
 // row i sits at position q_offset + i and key j at j, as in the forward;
 // rows past Sq and keys past Sk are neither read nor written.
 //
@@ -58,13 +60,14 @@
 // tensor-core rate and 0.64 ms at the f32 CUDA-core rate this first version
 // multiplies at. Pass 1's blocks are uneven under a causal mask (key tile 0
 // walks every query tile, the last one a single tile), and it does 7
-// products, not 5; a bf16 wgmma version with a balanced split is the way to
-// the bound.
+// products, not 5. The 16-bit route (flash_attention_bwd_tc.cu) runs the
+// products on tensor cores with a balanced dk/dv split.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "dtypes.cuh"
+#include "flash_bwd_delta.cuh"
 
 namespace {
 
@@ -158,30 +161,6 @@ __device__ __forceinline__ void tile_accumulate(const float* __restrict__ w,
         acc[i][j] = fmaf(wv.w, mv[3][j], acc[i][j]);
       }
     }
-  }
-}
-
-// Pass 0: delta[b, h, i] = sum_d do[b, i, h, d] * o[b, i, h, d], one warp
-// per (b, i, h) row, lanes over d, a fixed shuffle tree.
-template <typename T, int D>
-__global__ void __launch_bounds__(256)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-             float* __restrict__ delta, int64_t rows, int Sq, int Hq) {
-  const int64_t row = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;                 // whole warps leave together
-  const T* po = o + row * D;
-  const T* pd = dout + row * D;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s = fmaf(to_f32(pd[d]), to_f32(po[d]), s);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {
-    const int h = static_cast<int>(row % Hq);
-    const int64_t bi = row / Hq;           // b * Sq + i
-    const int64_t b = bi / Sq;
-    const int i = static_cast<int>(bi - b * Sq);
-    delta[(b * Hq + h) * Sq + i] = s;
   }
 }
 
@@ -400,11 +379,8 @@ int launch(int pass, const Args& a, cudaStream_t stream) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   if (pass == 0) {
-    const int64_t rows = static_cast<int64_t>(a.B) * a.Sq * a.Hq;
-    const int64_t blocks = (rows * 32 + 255) / 256;
-    if (blocks > 0x7fffffff) return -3;
-    delta_kernel<T, D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-        static_cast<const T*>(a.o), dout, a.delta, rows, a.Sq, a.Hq);
+    const int rc = launch_delta<T, D>(a.o, a.dout, a.delta, a.B, a.Sq, a.Hq, stream);
+    if (rc != 0) return rc;
   } else if (pass == 1) {
     // above 48 KB a block's dynamic shared memory must be allowed per kernel
     const cudaError_t attr = cudaFuncSetAttribute(
@@ -443,10 +419,10 @@ int dispatch_dim(int pass, int D, const Args& a, cudaStream_t s) {
 
 // Runs pass `pass` (0: Delta, 1: dk and dv, 2: dq) of the backward; the
 // three must run in that order on one stream. q, o, do, dq: (B, Sq, Hq, D);
-// k, v, dk, dv: (B, Sk, Hkv, D); all contiguous, of the type `dtype`. lse:
+// k, v, dk, dv: (B, Sk, Hkv, D); all contiguous f32 (`dtype` 0). lse:
 // the forward's (B, Hq, Sq) f32 log-sum-exp; delta: (B, Hq, Sq) f32
 // scratch, written by pass 0 and read by 1 and 2. Returns 0 on success,
-// else the CUDA error code of the launch, -1 for an unknown type code, -2
+// else the CUDA error code of the launch, -1 for a type other than f32, -2
 // for an unsupported D, -3 for too many rows, -4 for an unknown pass.
 extern "C" int flash_attention_bwd_launch(
     int pass, const void* q, const void* k, const void* v, const void* o,
@@ -458,10 +434,6 @@ extern "C" int flash_attention_bwd_launch(
   const Args a{q, k, v, o, dout, static_cast<const float*>(lse),
                static_cast<float*>(delta), dq, dk, dv, B, Sq, Sk, Hq, Hkv,
                causal, q_offset};
-  switch (dtype) {
-    case 0: return dispatch_dim<float>(pass, D, a, s);
-    case 1: return dispatch_dim<__half>(pass, D, a, s);
-    case 2: return dispatch_dim<__nv_bfloat16>(pass, D, a, s);
-    default: return -1;
-  }
+  if (dtype != 0) return -1;   // f16 and bf16: flash_attention_bwd_tc.cu
+  return dispatch_dim<float>(pass, D, a, s);
 }

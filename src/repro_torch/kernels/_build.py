@@ -28,8 +28,10 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # name -> (C symbol, argtypes); every entry returns an int status (0 = ok)
 KERNELS = {
-    # table, dtype, idx, offsets, out, num_bags, dim, stream
-    "embedding_bag": ("embedding_bag_launch", [_P, _I, _P, _P, _P, _I, _I, _P]),
+    # pass, table, dtype, idx, seg, out, partial, desc, n, num_bags, dim,
+    # stream
+    "embedding_bag": ("embedding_bag_launch",
+                      [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     # table, dtype, idx, delta, n, dim, stream
     "scatter_update": ("scatter_update_launch", [_P, _I, _P, _P, _I, _I, _P]),
     # table, dtype, idx, delta, old, n, dim, stream
@@ -45,6 +47,10 @@ KERNELS = {
     # Hkv, D, causal, q_offset, stream
     "flash_attention_bwd": ("flash_attention_bwd_launch",
                             [_I] + [_P] * 10 + [_I] * 9 + [_P]),
+    # pass, q, k, v, o, do, lse, delta, dq, dk, dv, dk_part, dv_part, dtype,
+    # B, Sq, Sk, Hq, Hkv, D, causal, q_offset, stream
+    "flash_attention_bwd_tc": ("flash_attention_bwd_tc_launch",
+                               [_I] + [_P] * 12 + [_I] * 9 + [_P]),
     # r, k, v, logw, u, s0 (may be null), y, s_fin, dtype, B, S, H, r/k/v/logw
     # strides (batch, seq, head), stream
     "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 4 + [_I64] * 12 + [_P]),

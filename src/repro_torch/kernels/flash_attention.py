@@ -1,10 +1,12 @@
 """Flash attention on the card, forward and backward.
 
 Counterpart of ``flash_attention_pallas`` (``repro/kernels/flash_attention.py``);
-the forward kernel is ``csrc/flash_attention.cu`` and the backward
-``csrc/flash_attention_bwd.cu``, whose headers say how they are laid out,
-what bounds them and where they depart from the reference. Their plain
-versions are ``ref.flash_attention_ref`` and ``ref.flash_attention_bwd_ref``.
+the forward kernel is ``csrc/flash_attention.cu``; the backward is
+``csrc/flash_attention_bwd_tc.cu`` (tensor cores) for f16 and bf16 inputs
+and ``csrc/flash_attention_bwd.cu`` (f32 products) for f32 ones. Their
+headers say how they are laid out, what bounds them and where they depart
+from the reference. The plain versions are ``ref.flash_attention_ref`` and
+``ref.flash_attention_bwd_ref``.
 ``FlashAttention`` ties the two directions into one autograd function.
 """
 from __future__ import annotations
@@ -15,7 +17,9 @@ from repro_torch.kernels import _build
 
 launches = 0       # kernel launches made by flash_attention_cuda
 bwd_launches = 0   # kernel launches made by flash_attention_bwd_cuda
-BWD_PASSES = 3     # launches per backward: Delta, then dk and dv, then dq
+# launches per backward, by input type: Delta, dk and dv, dq for f32; Delta,
+# the dk and dv partials, dq, their sum over the q heads for f16 and bf16
+BWD_PASSES = {torch.float32: 3, torch.float16: 4, torch.bfloat16: 4}
 HEAD_DIMS = (16, 64, 128)   # the head sizes the kernels are built for
 
 
@@ -89,8 +93,15 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     type (f32/f16/bf16) on one CUDA device, D in ``HEAD_DIMS``; lse: the
     forward's (B, Hq, Sq) f32 log-sum-exp. ``causal`` and ``q_offset`` as
     in the forward. Returns dq, dk, dv in the inputs' type, contiguous.
-    Runs the kernel's three passes, one launch each; no atomics, so the
-    result is the same on every call.
+    Runs ``BWD_PASSES[dtype]`` launches; no atomics, so the result is the
+    same on every call.
+
+    The route is declared by the type, with no fallback between them: f32
+    inputs take ``flash_attention_bwd.cu`` (products in f32); f16 and bf16
+    inputs take ``flash_attention_bwd_tc.cu``, whose products run on the
+    tensor cores with P and dS rounded to the input type before they are
+    multiplied (``ref.flash_attention_bwd_ref(..., round_to=dtype)`` is its
+    plain emulation). Its inputs must be 16-byte aligned.
     """
     global bwd_launches
     if not q.is_cuda:
@@ -130,10 +141,22 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)]
-    for p in range(BWD_PASSES):
-        _build.launch("flash_attention_bwd", q.device, p, *ptrs,
-                      _build.DTYPE_CODES[q.dtype], B, Sq, Sk, Hq, Hkv, D,
-                      int(causal), q_offset)
+    if q.dtype == torch.float32:
+        name = "flash_attention_bwd"
+    else:
+        name = "flash_attention_bwd_tc"
+        for t_name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_bwd: {t_name} must be "
+                                 "16-byte aligned for the tensor-core route")
+        # each q head's dK and dV sums, f32 (B, Hq, Sk, D); pass 3 adds them
+        # over the heads of a kv head
+        parts = [torch.empty((B, Hq, Sk, D), dtype=torch.float32, device=q.device)
+                 for _ in range(2)]
+        ptrs += [t.data_ptr() for t in parts]
+    for p in range(BWD_PASSES[q.dtype]):
+        _build.launch(name, q.device, p, *ptrs, _build.DTYPE_CODES[q.dtype],
+                      B, Sq, Sk, Hq, Hkv, D, int(causal), q_offset)
         bwd_launches += 1
     return dq, dk, dv
 

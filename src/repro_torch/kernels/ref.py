@@ -101,7 +101,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            q_offset: int = 0):
+                            q_offset: int = 0, round_to=None):
     """The backward of ``flash_attention_ref``, written out (no autograd).
 
     q, o, do: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); lse: (B, Hq, Sq) f32,
@@ -115,6 +115,10 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     dK and dV of a kv head sum the G q heads that read it. Delta reads the
     forward's stored (rounded) output, as the kernel does. Returns (dq, dk,
     dv) in q's, k's and v's dtypes.
+
+    ``round_to`` (a 16-bit dtype, default None: all in f32) emulates the
+    tensor-core kernel's arithmetic: P is rounded to it before dV = P^T dO,
+    and dS before dQ and dK; dS itself is formed from the unrounded P.
     """
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -126,10 +130,13 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
         p = p.masked_fill(masked, 0.0)
     dof = do.float().reshape(B, Sq, Hkv, G, D)
     qf = q.float().reshape(B, Sq, Hkv, G, D)
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+
+    def rounded(x):
+        return x if round_to is None else x.to(round_to).float()
+    dv = torch.einsum("bkgqs,bqkgd->bskd", rounded(p), dof)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
     delta = (dof * o.float().reshape(B, Sq, Hkv, G, D)).sum(-1)   # (B, Sq, Hkv, G)
-    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    ds = rounded(p * (dp - delta.permute(0, 2, 3, 1)[..., None]))
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
     return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),

@@ -15,6 +15,7 @@ from repro.kernels.embedding_bag import embedding_bag_pallas, gather_rows_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.scatter_update import (scatter_update_logged_pallas,
                                           scatter_update_pallas)
+from repro_torch.data.synthetic import zipf_indices
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import scatter_update as su
 
@@ -155,11 +156,22 @@ def test_scatter_update_logged_refuses_other_devices():
                                       torch.zeros((2, 8)))
 
 
-@pytest.mark.parametrize("n,rmax,seed", [(2, 4, 0), (17, 8, 1), (40, 64, 2),
-                                         (64, 5, 3)])
-def test_combine_duplicates_matches_jax(n, rmax, seed):
+# uniform ids; and the LM step's shape: 4,096 zipf(1.05) tokens over a
+# 32,000 vocabulary, whose hottest token's bag holds hundreds of items (the
+# kernel on the card sums such a bag in runs)
+@pytest.mark.parametrize("n,rmax,seed,dist", [
+    pytest.param(2, 4, 0, "uniform", id="2-4-0"),
+    pytest.param(17, 8, 1, "uniform", id="17-8-1"),
+    pytest.param(40, 64, 2, "uniform", id="40-64-2"),
+    pytest.param(64, 5, 3, "uniform", id="64-5-3"),
+    pytest.param(4096, 32000, 4, "zipf", id="lm-4096-32000-zipf")])
+def test_combine_duplicates_matches_jax(n, rmax, seed, dist):
     rng = np.random.default_rng(seed)
-    idx = rng.integers(0, rmax, n).astype(np.int32)
+    if dist == "zipf":
+        idx = zipf_indices(rng, (n,), rmax)
+        assert np.bincount(idx).max() > 200      # a bag of hundreds of items
+    else:
+        idx = rng.integers(0, rmax, n).astype(np.int32)
     delta = rng.standard_normal((n, 8)).astype(np.float32)
     ui, cd = jops.combine_duplicates(jnp.asarray(idx), jnp.asarray(delta), rmax)
     dense_jax = np.asarray(jnp.zeros((rmax, 8)).at[ui].add(cd))
@@ -278,3 +290,40 @@ def test_flash_attention_reads_a_cache_prefix_in_place(rng):
     want = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                                torch.from_numpy(v))
     assert torch.equal(got, want)
+
+
+# test_torch_cuda.py's limits for the backward kernel against the plain
+# version, by input type (f32 1e-4; f16 and bf16 one rounding of the
+# output), scaled by each gradient's largest magnitude, with a 1e-5 floor
+BWD_RTOL = {torch.bfloat16: 1.6e-2, torch.float16: 1e-3}
+
+
+# the shapes of test_torch_cuda.py::test_flash_attention_bwd_matches_plain
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 1, 4, 2, 16), (2, 17, 8, 2, 16),
+                                          (1, 130, 32, 4, 64), (2, 100, 16, 8, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_rounding_emulation_within_limits(rng, dtype, B, S, Hq, Hkv, D,
+                                                    causal):
+    """The tensor-core backward rounds P and dS to the input type before
+    their products; its plain emulation (``round_to``) stays within the
+    limits the card holds the kernel to against the unrounded plain
+    version, so the rounding alone does not use them up. Prints the share
+    of each limit used."""
+    q, do = (torch.from_numpy(rng.standard_normal((B, S, Hq, D)).astype(np.float32))
+             .to(dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, Hkv, D)).astype(np.float32))
+            .to(dtype) for _ in range(2))
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    plain = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    emul = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       round_to=dtype)
+    shares = []
+    for name, e, w in zip(("dq", "dk", "dv"), emul, plain, strict=True):
+        assert e.dtype == w.dtype == dtype and e.shape == w.shape
+        err = (e.float() - w.float()).abs().max().item()
+        limit = BWD_RTOL[dtype] * w.float().abs().max().item() + 1e-5
+        shares.append(err / limit)
+        assert err <= limit, (name, err, limit)
+    print(f"rounding emulation, {dtype} causal={causal} {B, S, Hq, Hkv, D}: "
+          f"share of the limit used by dq, dk, dv {[f'{x:.3f}' for x in shares]}")
