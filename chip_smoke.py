@@ -28,16 +28,20 @@ Phases, each of which exits non-zero on failure:
      (and within 1e-2 of run A's own). The launch counts are read around
      run A, and each of its steps' undo image, captured on the card by the
      logged update, must equal the pool's bitwise;
-  7. hold the flash-attention kernel against its plain version on the card
-     (f32, bf16, f16; causal and full; S in {1, 17, 128, 1000}; small
-     ragged shapes and the tinyllama and qwen3 head shapes, k and v read
-     from a cache prefix), and time kernel, plain version and SDPA at full
-     tinyllama-1.1b's prefill shape beside the kernel's bound, holding the
-     timed call against the plain version too;
+  7. hold the flash-attention forward against its plain version on the
+     card (f32 on the CUDA-core route, bf16 and f16 on the tensor-core
+     route, the per-route launch count checked; causal and full; S in {1,
+     17, 128, 1000}; small ragged shapes and the tinyllama and qwen3 head
+     shapes, k and v read from a cache prefix; each case repeated
+     bitwise), and time kernel, plain version and SDPA at full
+     tinyllama-1.1b's prefill shape in bf16, f16 and f32 beside the
+     kernel's bound, holding the timed calls against the plain version
+     too;
   8. serve full-width tinyllama-1.1b (bf16, 22 layers, random weights) with
      greedy_generate at batch 4, prompt 1024, 32 new tokens: prefill and
      decode times, launch counts read around each part (22 flash launches
-     per prefill and none per decode step; one row gather per prefill and
+     per prefill, all on the tensor-core route, and none per decode step;
+     one row gather per prefill and
      per decode step), the row gather held against its plain version and
      timed at the prefill's and a decode step's shape, a bitwise-equal
      repeat, decode at position S against a prefill of S + 1 tokens, and
@@ -64,8 +68,9 @@ Phases, each of which exits non-zero on failure:
  12. train full-width tinyllama-1.1b (bf16, 22 layers, remat) at batch 4 x
      1024: 3 relaxed and 3 strict steps from the same params with bitwise
      equal losses, a bitwise repeat of the relaxed run, the launch counts of
-     each step, step ms, tokens/s, busy share (one profiled step) and peak
-     memory; the sparse kernels at the step's shapes (the duplicate combine
+     each step (the flash forwards on the tensor-core route), step ms,
+     tokens/s, busy share (one profiled step) and peak memory; the sparse
+     kernels at the step's shapes (the duplicate combine
      beside F.embedding_bag, the logged update beside index_select +
      index_add_); smoke tinyllama on the card against the CPU: 5 f32 steps
      (losses and the AdamW-trained dense params) and one bf16 step (the
@@ -86,8 +91,8 @@ Phases 7 to 14 print their wall time.
 The line before the last is {"kernels": [...]}, one entry per kernel and
 path (the row gather runs on eight: each checkpoint, each served model's
 prefill and decode steps, and LM training; the logged update on the two
-training paths; the flash backward's tensor-core route in LM training and
-its f32 route in phase 12's f32 smoke training); the last line is
+training paths; each flash direction's tensor-core route on the bf16
+paths and its f32 route in phase 12's f32 smoke training); the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
 Imports nothing of JAX.
@@ -400,10 +405,12 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
 
 
 def flash_phase(torch, dev):
-    """Phase 7. Returns (max abs error against the plain version, timings at
-    full tinyllama-1.1b's prefill shape)."""
+    """Phase 7. Returns (each route's max abs error against the plain
+    version, timings at full tinyllama-1.1b's prefill shape: bf16 and f16 on
+    the tensor-core route, f32 on the CUDA-core route)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev)
@@ -419,19 +426,26 @@ def flash_phase(torch, dev):
         return q, kc[:, :S], vc[:, :S]
 
     # small ragged shapes, then tinyllama's heads (D=64, G=8) and qwen3's
-    # (D=128, G=2)
+    # (D=128, G=2); f32 takes the CUDA-core route, f16 and bf16 the
+    # tensor-core one (the per-route launch count says which ran); each
+    # case is repeated and must give the same bits
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for causal in (True, False):
             for S in (1, 17, 128, 1000):
                 for B, Hq, Hkv, D in ((2, 4, 2, 16), (1, 6, 2, 16),
                                       (4, 32, 4, 64), (2, 16, 8, 128)):
                     q, k, v = qkv(B, S, Hq, Hkv, D, dtype, S + 7)
+                    tc0 = fa.tc_launches
                     got = ops.flash_attention(q, k, v, causal=causal)
+                    again = ops.flash_attention(q, k, v, causal=causal)
                     want = ref.flash_attention_ref(q, k, v, causal=causal)
                     torch.cuda.synchronize()
                     what = f"{dtype} causal={causal} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}"
                     check(got.dtype == dtype and got.shape == want.shape,
                           f"flash_attention {what}: shape/dtype")
+                    check(fa.tc_launches - tc0 == 2 * (dtype != torch.float32),
+                          f"flash_attention {what}: wrong route")
+                    check(torch.equal(got, again), f"flash_attention {what}: two calls differ")
                     # f32: 2e-5 (another summation order); f16/bf16: torch's
                     # defaults, one rounding of the output
                     tol = {"rtol": 2e-5, "atol": 2e-5} if dtype == torch.float32 else {}
@@ -441,53 +455,66 @@ def flash_phase(torch, dev):
                         fail(f"flash_attention {what}: {e}")
                     e = (got.float() - want.float()).abs().max().item()
                     errs[dtype] = max(errs.get(dtype, 0.0), e)
-    print(f"[flash] 96 cases against the plain version: ok; max abs err "
-          + ", ".join(f"{d}: {e:.3g}" for d, e in errs.items()))
+    print("[flash] 96 cases against the plain version, each repeated bitwise: ok; "
+          "max abs err " + ", ".join(f"{d}: {e:.3g}" for d, e in errs.items()))
 
-    # full tinyllama-1.1b prefill: B=4, S=1024, Hq=32, Hkv=4, D=64, bf16, k
-    # and v a prefix of a 1056-deep cache
+    # full tinyllama-1.1b prefill: B=4, S=1024, Hq=32, Hkv=4, D=64, causal, k
+    # and v a prefix of a 1056-deep cache; bf16 (the served type) and f16 on
+    # the tensor-core route, f32 on the CUDA-core route
     B, S, Hq, Hkv, D = 4, 1024, 32, 4, 64
-    q, k, v = qkv(B, S, Hq, Hkv, D, torch.bfloat16, S + 32)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # SDPA's layout, views
+    # q, k, v read once and o written once; a causal call multiplies
+    # S(S+1)/2 (query, key) pairs twice over D (scores and P.V); the
+    # tensor-core route's split of P makes the second product two
+    pairs = B * Hq * S * (S + 1) / 2
+    nops, nops_split = 4 * D * pairs, 6 * D * pairs
+    timings = {}
+    for dtype, rate in ((torch.bfloat16, BF16_TENSOR_OPS_PER_S),
+                        (torch.float16, BF16_TENSOR_OPS_PER_S),
+                        (torch.float32, F32_OPS_PER_S)):
+        q, k, v = qkv(B, S, Hq, Hkv, D, dtype, S + 32)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # SDPA's layout, views
+        nbytes = q.element_size() * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        b_ms, b_by = bound(nbytes, nops, rate)
 
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-    lib_err = (library().transpose(1, 2).float()
-               - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
-    # q, k, v read once and o written once, bf16; a causal call multiplies
-    # S(S+1)/2 (query, key) pairs twice over D (scores and P.V)
-    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
-    nops = 4 * B * Hq * D * S * (S + 1) / 2
-    b_ms, b_by = bound(nbytes, nops, BF16_TENSOR_OPS_PER_S)
+        def library(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
 
-    def kern():
-        return ops.flash_attention(q, k, v)
+        def kern(q=q, k=k, v=v):
+            return ops.flash_attention(q, k, v)
 
-    def plain():
-        return ref.flash_attention_ref(q, k, v)
-    got, want = kern(), plain()
-    try:
-        torch.testing.assert_close(got, want)   # bf16: as the 96 cases
-    except AssertionError as e:
-        fail(f"flash_attention at the tinyllama prefill shape: {e}")
-    errs["timed"] = (got.float() - want.float()).abs().max().item()
-    print(f"[flash] timed tinyllama prefill inputs against the plain version: "
-          f"ok; max abs err {errs['timed']:.3g}")
-    del got, want
-    timing = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
-              "library_ms": time_ms(torch, library), "bound_ms": b_ms,
-              "bound_by": b_by}
-    device_only = {"ms": time_ms(torch, kern, hide_host=True),
-                   "plain_ms": time_ms(torch, plain, hide_host=True),
-                   "library_ms": time_ms(torch, library, hide_host=True)}
-    print(f"[flash] tinyllama prefill shape B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-          f"bf16 ({nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): "
-          + json.dumps(timing) + "; device only: " + json.dumps(device_only)
-          + f"; SDPA vs plain max abs diff {lib_err:.3g}")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return max(errs.values()), timing
+        def plain(q=q, k=k, v=v):
+            return ref.flash_attention_ref(q, k, v)
+        got, want = kern(), plain()
+        lib_err = (library().transpose(1, 2).float() - want.float()).abs().max().item()
+        tol = {"rtol": 2e-5, "atol": 2e-5} if dtype == torch.float32 else {}
+        try:
+            torch.testing.assert_close(got, want, **tol)   # as the 96 cases
+        except AssertionError as e:
+            fail(f"flash_attention {dtype} at the tinyllama prefill shape: {e}")
+        errs[dtype] = max(errs[dtype], (got.float() - want.float()).abs().max().item())
+        del got, want
+        timing = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                  "library_ms": time_ms(torch, library), "bound_ms": b_ms,
+                  "bound_by": b_by}
+        device_only = {"ms": time_ms(torch, kern, hide_host=True),
+                       "plain_ms": time_ms(torch, plain, hide_host=True),
+                       "library_ms": time_ms(torch, library, hide_host=True)}
+        split = "" if dtype == torch.float32 else (
+            f", {nops_split / 1e9:.2f} GFLOP with P split, bound "
+            f"{bound(nbytes, nops_split, rate)[0]:.5f} ms")
+        print(f"[flash] tinyllama prefill shape B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+              f"{dtype} ({nops / 1e9:.2f} GFLOP{split}, {nbytes / 1e6:.1f} MB): "
+              + json.dumps(timing) + "; device only: " + json.dumps(device_only)
+              + f"; SDPA vs plain max abs diff {lib_err:.3g}")
+        timings[dtype] = timing
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    # each route's own largest error: f32 the CUDA-core kernel, f16 and bf16
+    # the tensor-core one
+    route_err = {"flash_attention": errs[torch.float32],
+                 "flash_attention_tc": max(errs[torch.bfloat16], errs[torch.float16])}
+    return route_err, timings
 
 
 def wkv6_phase(torch, dev):
@@ -605,17 +632,27 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     torch.cuda.reset_peak_memory_stats()
     parts = {}
 
+    def counts():
+        # flash attention also counts its tensor-core route (bf16 serving
+        # must take it)
+        c = {mix: mixer.launches, "gather_rows": gr.launches}
+        if hasattr(mixer, "tc_launches"):
+            c[mix + "_tc"] = mixer.tc_launches
+        return c
+
     @contextlib.contextmanager
     def count(name):
         # the launches of each part, read around it
-        mx0, gr0 = mixer.launches, gr.launches
+        before = counts()
         yield
-        parts[name] = {mix: mixer.launches - mx0, "gather_rows": gr.launches - gr0}
+        parts[name] = {k: v - before[k] for k, v in counts().items()}
     mixer.launches = gr.launches = 0
+    if hasattr(mixer, "tc_launches"):
+        mixer.tc_launches = 0
     stats = {}
     toks = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=stats,
                            part=count)
-    launches = {mix: mixer.launches, "gather_rows": gr.launches}
+    launches = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     metrics = {"prefill_ms": 1e3 * stats["prefill_s"],
                "decode_ms_per_token": 1e3 * stats["decode_s"] / (new - 1),
@@ -624,12 +661,16 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     print(f"[serve] batch {B}, prompt {S}, {new} new tokens: {json.dumps(metrics)}; "
           f"launches {launches}, by part {parts}")
     print(f"[serve] tokens[0] {toks[0].tolist()}")
-    check(parts == {"prefill": {mix: cfg.num_layers, "gather_rows": 1},
-                    "decode": {mix: per_step * (new - 1), "gather_rows": new - 1}}
+    want = {"prefill": {mix: cfg.num_layers, "gather_rows": 1},
+            "decode": {mix: per_step * (new - 1), "gather_rows": new - 1}}
+    if hasattr(mixer, "tc_launches"):
+        for part in want.values():
+            part[mix + "_tc"] = part[mix]
+    check(parts == want
           and launches == {k: parts["prefill"][k] + parts["decode"][k] for k in launches},
-          f"serve: want {cfg.num_layers} {mix} launches in the prefill, {per_step} "
-          f"per decode step, and one gather per prefill and per decode step; got "
-          f"{parts}, {launches} in all")
+          f"serve: want {cfg.num_layers} {mix} launches in the prefill (all on the "
+          f"tensor-core route where it has one), {per_step} per decode step, and one "
+          f"gather per prefill and per decode step; got {parts}, {launches} in all")
     check(toks.shape == (B, new) and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
           "serve: tokens out of range")
     check(bool(torch.isfinite(stats["logits"]).all()), "serve: non-finite logits")
@@ -971,6 +1012,7 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
 
     def counts():
         c = {name: m.launches for name, m in mods.items()}
+        c["flash_attention_tc"] = fa.tc_launches
         c["flash_attention_bwd"] = fa.bwd_launches
         c["scatter_update_logged"] = su.launches_logged
         return c
@@ -978,7 +1020,7 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     def zero_counts():
         for m in mods.values():
             m.launches = 0
-        fa.bwd_launches = su.launches_logged = 0
+        fa.tc_launches = fa.bwd_launches = su.launches_logged = 0
 
     def fresh_state():
         gen = torch.Generator(device=dev)
@@ -1050,13 +1092,14 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     check(all(math.isfinite(x) for x in rl + sl), "tinyllama: non-finite loss")
     check(rl == sl, f"tinyllama: relaxed losses {rl} differ from strict {sl}")
     check(rl2 == rl, f"tinyllama: relaxed losses not repeatable: {rl2} vs {rl}")
-    # per step: 22 flash forwards and 22 more in the remat recompute, one
+    # per step: 22 flash forwards and 22 more in the remat recompute, all on
+    # the tensor-core route, one
     # bf16 backward of BWD_PASSES launches per layer, one duplicate combine
     # (a bag, eb.PASSES launches),
     # the table update (logged in a relaxed step, plain in a strict one);
     # relaxed steps also the stale lookup and the correction (set, gather,
     # clear the scratch), strict steps the lookup
-    common = {"flash_attention": 2 * L,
+    common = {"flash_attention": 2 * L, "flash_attention_tc": 2 * L,
               "flash_attention_bwd": L * fa.BWD_PASSES[torch.bfloat16],
               "embedding_bag": eb.PASSES}
     want_relaxed = {**common, "gather_rows": 2, "scatter_update": 2,
@@ -1158,7 +1201,7 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
         sinit = train_loop.make_step_fns(c, tc)[0]
         for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
             st = sinit(tree_map(lambda p, w=where: p.to(w, copy=True), sparams))
-            before = fa.bwd_launches
+            before, before_f32 = fa.bwd_launches, fa.launches - fa.tc_launches
             st, losses = train_loop.train(c, tc, make_batches(c, 4, 16, device=where),
                                           n_steps, relaxed=True, state=st, device=where)
             smoke[dtype, name] = (losses, [p.detach().float().cpu() for p in
@@ -1166,6 +1209,8 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
                                   st["embed"]["table"].float().cpu())
             if dtype == "float32" and name == "card":
                 launches["flash_attention_bwd_f32"] = fa.bwd_launches - before
+                launches["flash_attention_f32"] = (fa.launches - fa.tc_launches
+                                                   - before_f32)
     (lc, dc, tc_), (lp, dp, tp) = smoke["float32", "card"], smoke["float32", "cpu"]
     dense_diff = max((a - b).abs().max().item() for a, b in zip(dc, dp, strict=True))
     print(f"[lm-train] smoke f32 losses card {lc} cpu {lp}; dense params max abs "
@@ -1177,6 +1222,11 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     check(launches["flash_attention_bwd_f32"]
           == 5 * scfg.num_layers * fa.BWD_PASSES[torch.float32],
           f"smoke f32 backward launches {launches['flash_attention_bwd_f32']}")
+    # the f32 forward route: one forward a layer and step (no remat at the
+    # smoke size), two with it
+    check(launches["flash_attention_f32"]
+          == 5 * scfg.num_layers * (2 if scfg.remat else 1),
+          f"smoke f32 forward launches {launches['flash_attention_f32']}")
     # bf16: the first loss is the forward alone, the second follows one step
     # (the backward on the card's tensor-core route, on the CPU in f32).
     # bf16 keeps 8 bits (unit roundoff 2^-9); the losses, f32 means over bf16
@@ -1727,7 +1777,10 @@ def main():
                                    step["relaxed_ms_median"])
     # -- 7. the flash-attention kernel on the card ---------------------------------
     t0 = time.perf_counter()
-    err["flash_attention"], timing["flash_bf16"] = flash_phase(torch, dev)
+    flash_err, flash_t = flash_phase(torch, dev)
+    err.update(flash_err)
+    timing["flash_bf16"], timing["flash_f32"] = (flash_t[torch.bfloat16],
+                                                 flash_t[torch.float32])
     print(f"[flash] phase 7 wall time {time.perf_counter() - t0:.1f}s")
 
     # -- 8. serving full tinyllama-1.1b ------------------------------------------
@@ -1800,9 +1853,9 @@ def main():
              sv_parts["decode"]["gather_rows"], *gather_src),
             ("scatter_update", "dlrm-rm1 train", "update_bf16", launches["scatter_update"],
              "src/repro_torch/csrc/scatter_update.cu", "src/repro/kernels/scatter_update.py:24"),
-            ("flash_attention", "tinyllama-1.1b prefill", "flash_bf16",
-             sv_parts["prefill"]["flash_attention"],
-             "src/repro_torch/csrc/flash_attention.cu",
+            ("flash_attention_tc", "tinyllama-1.1b prefill", "flash_bf16",
+             sv_parts["prefill"]["flash_attention_tc"],
+             "src/repro_torch/csrc/flash_attention_tc.cu",
              "src/repro/kernels/flash_attention.py:62"),
             ("gather_rows", "rwkv6-3b prefill", "gather_rwkv_prefill",
              rw_parts["prefill"]["gather_rows"], *gather_src),
@@ -1820,8 +1873,11 @@ def main():
              lm_launches["flash_attention_bwd_f32"],
              "src/repro_torch/csrc/flash_attention_bwd.cu",
              "src/repro/kernels/flash_attention.py:62"),
-            ("flash_attention", "tinyllama-1.1b train", "flash_lse",
-             lm_launches["flash_attention"], "src/repro_torch/csrc/flash_attention.cu",
+            ("flash_attention_tc", "tinyllama-1.1b train", "flash_lse",
+             lm_launches["flash_attention_tc"], "src/repro_torch/csrc/flash_attention_tc.cu",
+             "src/repro/kernels/flash_attention.py:62"),
+            ("flash_attention", "smoke tinyllama-1.1b train (f32)", "flash_f32",
+             lm_launches["flash_attention_f32"], "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:62"),
             ("gather_rows", "tinyllama-1.1b train", "gather_prefill",
              lm_launches["gather_rows"], *gather_src),

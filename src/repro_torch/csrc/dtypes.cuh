@@ -2,6 +2,8 @@
 // Type codes match repro_torch/kernels/_build.py: 0 = f32, 1 = f16, 2 = bf16.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
@@ -36,4 +38,20 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Two f32 rounded to a 16-bit type and packed, lo in the low half: one
+// 32-bit register of a tensor-core operand fragment.
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }

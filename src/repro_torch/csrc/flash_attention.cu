@@ -1,5 +1,6 @@
 // Flash attention, forward: o = softmax(q k^T / sqrt(D) [causal]) v, with a
-// streaming softmax over key tiles and all arithmetic in f32.
+// streaming softmax over key tiles and all arithmetic in f32. This is the
+// route for f32 inputs; f16 and bf16 inputs take flash_attention_tc.cu.
 //
 // Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py:62)
 // and computes what its _flash_kernel computes: scores in f32 scaled by
@@ -37,9 +38,8 @@
 // passes null, and its kernel does the same work as before.
 //
 // Bound: operations. A causal call does about 4 * B * Hq * D * S(S+1)/2
-// flops and moves q, k, v and o once. This first version multiplies on the
-// CUDA cores in f32 (no tensor cores), so it runs far above the card's
-// bf16 tensor-core bound; wgmma with TMA-fed tiles is the way to that bound.
+// flops and moves q, k, v and o once. It multiplies on the CUDA cores in
+// f32, so its bound is the card's f32 rate outside the tensor cores.
 //
 // Threads: 128 per block, 8 groups of 16. Group g owns query rows g, g+8,
 // ..., g+56 of the tile; lane c of a group owns key columns c, c+16, c+32,
@@ -266,7 +266,8 @@ int dispatch_dim(const void* q, const void* k, const void* v, void* o,
 // aligned; o: (B, Sq, Hq, D) contiguous; lse: null, or (B, Hq, Sq) f32 for
 // each row's log-sum-exp. Query row r sits at global position
 // q_offset + r, key j at j. Returns 0 on success, else the CUDA error code
-// of the launch, -1 for an unknown type code or -2 for an unsupported D.
+// of the launch, -1 for a type other than f32 (`dtype` 0) or -2 for an
+// unsupported D.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
     int B, int Sq, int Sk, int Hq, int Hkv, int D, int64_t q_sb, int64_t q_ss,
@@ -277,8 +278,6 @@ extern "C" int flash_attention_launch(
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   switch (dtype) {
     case 0: return dispatch_dim<float>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, causal, q_offset, s);
-    case 1: return dispatch_dim<__half>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, causal, q_offset, s);
-    case 2: return dispatch_dim<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, causal, q_offset, s);
     default: return -1;
   }
 }

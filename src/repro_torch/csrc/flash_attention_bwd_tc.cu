@@ -156,21 +156,6 @@ __device__ __forceinline__ void mma<__half>(float (&c)[4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two f32 rounded to the 16-bit type, lo in the low half
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  const __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // ---- tiles and fragments ------------------------------------------------
 
 // Rows r0 .. r0 + 63 of one head (row r at base + r * stride) into dst (row

@@ -43,6 +43,9 @@ KERNELS = {
     # strides (batch, seq, head), causal, q_offset, stream
     "flash_attention": ("flash_attention_launch",
                         [_P] * 5 + [_I] * 7 + [_I64] * 9 + [_I, _I, _P]),
+    # the same arguments, f16 and bf16 only (tensor cores)
+    "flash_attention_tc": ("flash_attention_tc_launch",
+                           [_P] * 5 + [_I] * 7 + [_I64] * 9 + [_I, _I, _P]),
     # pass, q, k, v, o, do, lse, delta, dq, dk, dv, dtype, B, Sq, Sk, Hq,
     # Hkv, D, causal, q_offset, stream
     "flash_attention_bwd": ("flash_attention_bwd_launch",

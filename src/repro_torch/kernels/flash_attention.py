@@ -1,12 +1,13 @@
 """Flash attention on the card, forward and backward.
 
-Counterpart of ``flash_attention_pallas`` (``repro/kernels/flash_attention.py``);
-the forward kernel is ``csrc/flash_attention.cu``; the backward is
-``csrc/flash_attention_bwd_tc.cu`` (tensor cores) for f16 and bf16 inputs
-and ``csrc/flash_attention_bwd.cu`` (f32 products) for f32 ones. Their
-headers say how they are laid out, what bounds them and where they depart
-from the reference. The plain versions are ``ref.flash_attention_ref`` and
-``ref.flash_attention_bwd_ref``.
+Counterpart of ``flash_attention_pallas`` (``repro/kernels/flash_attention.py``).
+Each direction has two routes, declared by the input type: the forward is
+``csrc/flash_attention_tc.cu`` (tensor cores) for f16 and bf16 inputs and
+``csrc/flash_attention.cu`` (f32 products) for f32 ones; the backward is
+``csrc/flash_attention_bwd_tc.cu`` and ``csrc/flash_attention_bwd.cu``
+likewise. Their headers say how they are laid out, what bounds them and
+where they depart from the reference. The plain versions are
+``ref.flash_attention_ref`` and ``ref.flash_attention_bwd_ref``.
 ``FlashAttention`` ties the two directions into one autograd function.
 """
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0       # kernel launches made by flash_attention_cuda
+launches = 0       # kernel launches made by flash_attention_cuda (both routes)
+tc_launches = 0    # those of them on the tensor-core route (f16, bf16)
 bwd_launches = 0   # kernel launches made by flash_attention_bwd_cuda
 # launches per backward, by input type: Delta, dk and dv, dq for f32; Delta,
 # the dk and dv partials, dq, their sum over the q heads for f16 and bf16
@@ -38,12 +40,20 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
     reads kv head h // (Hq / Hkv)); all three f32/f16/bf16 of one type on
     one CUDA device, D in ``HEAD_DIMS``. Any batch, sequence and head
     strides (a prefix of a KV cache is read in place); the last axis must be
-    contiguous and every stride and base 4-element aligned. Query row i sits
-    at position ``q_offset + i`` and key j at j; ``causal`` masks keys past
-    the query's position. Returns (B, Sq, Hq, D) in q's type, contiguous;
-    with ``want_lse`` also each row's log-sum-exp, (B, Hq, Sq) f32.
+    contiguous. Query row i sits at position ``q_offset + i`` and key j at
+    j; ``causal`` masks keys past the query's position. Returns (B, Sq, Hq,
+    D) in q's type, contiguous; with ``want_lse`` also each row's
+    log-sum-exp, (B, Hq, Sq) f32.
+
+    The route is declared by the type, with no fallback between them: f32
+    inputs take ``flash_attention.cu`` (products in f32; strides and bases
+    4-element aligned); f16 and bf16 inputs take ``flash_attention_tc.cu``,
+    whose products run on the tensor cores with P carried as two terms of
+    the input type (``ref.flash_attention_ref(..., p_dtype=dtype)`` is its
+    plain emulation); its strides and bases must be 16-byte aligned, as its
+    TMA copies need.
     """
-    global launches
+    global launches, tc_launches
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda needs CUDA tensors")
     if q.dtype not in _build.DTYPE_CODES:
@@ -61,27 +71,33 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
         raise ValueError(f"flash_attention: head size {D} not in {HEAD_DIMS}")
     if Sk == 0 or q_offset < 0:
         raise ValueError("flash_attention: needs a key and q_offset >= 0")
+    tc = q.dtype != torch.float32
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype} on "
                              f"{t.device}, q is {q.dtype} on {q.device}")
         st = _strides(t)
-        if t.stride(3) != 1 or any(x % 4 for x in st) \
-                or t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"flash_attention: {name} needs a contiguous last "
-                             "axis and 4-element aligned strides and base")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} needs a contiguous last axis")
+        if tc and (any(x * t.element_size() % 16 for x in st) or t.data_ptr() % 16):
+            raise ValueError(f"flash_attention: {name} needs 16-byte aligned "
+                             "strides and base for the tensor-core route")
+        if not tc and (any(x % 4 for x in st) or t.data_ptr() % (4 * t.element_size())):
+            raise ValueError(f"flash_attention: {name} needs 4-element aligned "
+                             "strides and base")
         strides += st
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
     if out.numel():
-        _build.launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(),
+        _build.launch("flash_attention_tc" if tc else "flash_attention", q.device,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                       None if lse is None else lse.data_ptr(),
                       _build.DTYPE_CODES[q.dtype], B, Sq, Sk, Hq, Hkv, D,
                       *strides, int(causal), q_offset)
         launches += 1
+        tc_launches += tc
     return out if lse is None else (out, lse)
 
 

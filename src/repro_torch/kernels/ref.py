@@ -76,7 +76,7 @@ def _attention_scores(q, k, causal: bool, q_offset: int):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                        return_lse: bool = False):
+                        return_lse: bool = False, p_dtype=None, p_terms: int = 2):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D), Hq % Hkv == 0.
 
     Returns (B, Sq, Hq, D) in q's dtype: softmax(q k^T / sqrt(D)) v with the
@@ -89,10 +89,25 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
     With ``return_lse`` also returns each row's log-sum-exp of the scaled
     scores, f32 of shape (B, Hq, Sq): what the backward needs to rebuild P.
+
+    ``p_dtype`` (a 16-bit dtype, default None: P in f32) emulates a kernel
+    that multiplies P.V with P in that type: P = exp(S - max) is carried as
+    ``p_terms`` terms of it, each the rounding of what the earlier ones
+    leave (2: P_hi = round(P) and P_lo = round(P - P_hi), the tensor-core
+    forward's split; 1: a single rounding), and the sum of the terms' f32
+    products with v is divided by the unrounded row sum.
     """
     B, Sq, Hq, D = q.shape
     s, _ = _attention_scores(q, k, causal, q_offset)
-    p = torch.softmax(s, dim=-1)
+    if p_dtype is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        rest, p = e, torch.zeros_like(e)
+        for _ in range(p_terms):
+            term = rest.to(p_dtype).float()
+            p, rest = p + term, rest - term
+        p = p / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     o = o.reshape(B, Sq, Hq, D).to(q.dtype)
     if not return_lse:

@@ -164,16 +164,20 @@ def test_gather_rows_matches_plain(cuda, rng, dtype, D):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_plain(cuda, dtype, B, S, Hq, Hkv, D, causal):
     """f32 within 2e-5; f16/bf16 within one output rounding (torch's
-    defaults), since the kernel sums in another order."""
+    defaults), since the kernel sums in another order. f16 and bf16 run on
+    the tensor-core route (its launch count says so) and repeat bitwise."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((B, S, h, D), generator=g, device=cuda).to(dtype)
                for h in (Hq, Hkv, Hkv))
-    before = fa.launches
+    before, before_tc = fa.launches, fa.tc_launches
     got = ops.flash_attention(q, k, v, causal=causal)
-    assert fa.launches == before + 1
+    tc = dtype != torch.float32
+    assert (fa.launches, fa.tc_launches) == (before + 1, before_tc + tc)
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     tol = {"rtol": 2e-5, "atol": 2e-5} if dtype == torch.float32 else {}
     torch.testing.assert_close(got, want, **tol)
+    if tc:
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
 
 
 @pytest.mark.gpu
@@ -183,12 +187,61 @@ def test_flash_attention_cache_prefix_and_offset(cuda):
     kc, vc = (torch.randn((2, 32, 4, 64), generator=g, device=cuda).to(torch.bfloat16)
               for _ in range(2))
     q = torch.randn((2, 9, 32, 64), generator=g, device=cuda).to(torch.bfloat16)
+    before_tc = fa.tc_launches
     got = ops.flash_attention(q, kc[:, :14], vc[:, :14], q_offset=5)
+    assert fa.tc_launches == before_tc + 1        # the tensor-core route
     want = ref.flash_attention_ref(q, kc[:, :14], vc[:, :14], q_offset=5)
     torch.testing.assert_close(got, want)
     torch.testing.assert_close(
         got, ops.flash_attention(q, kc[:, :14].contiguous(),
                                  vc[:, :14].contiguous(), q_offset=5), rtol=0, atol=0)
+
+
+# The tensor-core forward against its plain emulation
+# (ref.flash_attention_ref(..., p_dtype=dtype): P carried as two terms of the
+# input type): both round the same f32 value to within a few units in the
+# 24th bit, so they agree within one unit in the last place of the output
+# type (2^-7 of the value in bf16, 2^-10 in f16; atol 1e-5 near 0).
+TC_FWD_EMUL_TOL = {torch.bfloat16: (2**-7, 1e-5), torch.float16: (2**-10, 1e-5)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tc_lse_and_emulation(cuda, dtype, D, causal):
+    """The f16/bf16 forward: 100 queries at positions 30..129 over 130 keys,
+    GQA 8/2. Its log-sum-exp within 1e-5 of the plain version's, its output
+    within one unit in the last place of the split-P emulation, both bitwise
+    on repeat."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((2, 100, 8, D), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((2, 130, 2, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kw = {"causal": causal, "q_offset": 30}
+    o, lse = ops.flash_attention_lse(q, k, v, **kw)
+    o2, lse2 = ops.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _, lse_want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, lse_want, rtol=1e-5, atol=1e-5)
+    rtol, atol = TC_FWD_EMUL_TOL[dtype]
+    torch.testing.assert_close(o, ref.flash_attention_ref(q, k, v, p_dtype=dtype, **kw),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_tc_refuses_misaligned_inputs(cuda):
+    """The tensor-core route's TMA copies need 16-byte bases and strides;
+    a base 2 bytes off raises, where the f32 route's 4-element rule would
+    pass it."""
+    flat = torch.randn(2 * 8 * 4 * 64 + 1, device=cuda).to(torch.bfloat16)
+    q = flat[1:].view(2, 8, 4, 64)
+    assert q.data_ptr() % 16
+    k = torch.randn((2, 8, 2, 64), device=cuda).to(torch.bfloat16)
+    before = (fa.launches, fa.tc_launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, k, k)
+    assert (fa.launches, fa.tc_launches) == before
 
 
 @pytest.mark.gpu

@@ -292,6 +292,68 @@ def test_flash_attention_reads_a_cache_prefix_in_place(rng):
     assert torch.equal(got, want)
 
 
+# The tensor-core forward (f16, bf16) carries P as P_hi + P_lo, two terms of
+# the input type (``ref.flash_attention_ref(..., p_dtype=dtype)`` emulates
+# it). Its gate is the one chip_smoke.py's phase 7 and test_torch_cuda.py
+# hold the kernel to against the f32-P plain version: torch's defaults for
+# the type (bf16 rtol 1.6e-2, f16 1e-3; atol 1e-5).
+FWD_TOL = {torch.bfloat16: (1.6e-2, 1e-5), torch.float16: (1e-3, 1e-5)}
+
+
+def _share(got, want, dtype):
+    """Largest |got - want| over the gate's allowance (atol + rtol |want|)."""
+    rtol, atol = FWD_TOL[dtype]
+    w = want.float()
+    return ((got.float() - w).abs() / (atol + rtol * w.abs())).max().item()
+
+
+# the shapes of tests/test_kernels.py::test_flash_attention_sweep
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,H,D,causal", [
+    (1, 128, 2, 64, True), (2, 256, 4, 64, False), (2, 128, 2, 128, True)])
+def test_flash_split_p_emulation_matches_pallas(rng, dtype, B, S, H, D, causal):
+    """The split-P emulation against the Pallas kernel (interpret mode, f32
+    P) and the JAX oracle on the same 16-bit inputs, within the gate."""
+    q, k, v = (x.astype(jnp.dtype(str(dtype).split(".")[1])) for x in _qkv(rng, B, S, H, H, D))
+
+    def flat(x):
+        return jnp.moveaxis(jnp.asarray(x), 2, 1).reshape(B * H, S, D)
+    out = flash_attention_pallas(flat(q), flat(k), flat(v), causal=causal,
+                                 bq=64, bk=64, interpret=True)
+    pallas = jnp.moveaxis(out.reshape(B, H, S, D), 1, 2)
+    oracle = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      causal=causal)
+    tq, tk, tv = (torch.from_numpy(np.asarray(x, dtype=np.float32)).to(dtype)
+                  for x in (q, k, v))
+    emul = ref.flash_attention_ref(tq, tk, tv, causal=causal, p_dtype=dtype)
+    assert emul.dtype == dtype and emul.shape == (B, S, H, D)
+    rtol, atol = FWD_TOL[dtype]
+    for want in (pallas, oracle):
+        want = torch.from_numpy(np.asarray(want, dtype=np.float32)).to(dtype)
+        torch.testing.assert_close(emul, want, rtol=rtol, atol=atol)
+
+
+# phase 7's head shapes at sizes the CPU takes, ragged and with GQA
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 1, 4, 2, 16), (2, 17, 8, 2, 16),
+                                          (1, 130, 32, 4, 64), (2, 100, 16, 8, 128),
+                                          (1, 1000, 6, 2, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_split_p_within_limits_single_rounding_reported(rng, dtype, B, S, Hq,
+                                                              Hkv, D, causal):
+    """The split-P emulation stays within the gate against the f32-P plain
+    version; prints the share of the gate it uses and the share a single
+    rounding of P would use (run with -s), which is not held."""
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in _qkv(rng, B, S, Hq, Hkv, D))
+    plain = ref.flash_attention_ref(tq, tk, tv, causal=causal)
+    split = ref.flash_attention_ref(tq, tk, tv, causal=causal, p_dtype=dtype)
+    single = ref.flash_attention_ref(tq, tk, tv, causal=causal, p_dtype=dtype, p_terms=1)
+    split_share, single_share = _share(split, plain, dtype), _share(single, plain, dtype)
+    print(f"P in {dtype} causal={causal} {B, S, Hq, Hkv, D}: share of the gate "
+          f"used by the split {split_share:.3f}, by a single rounding {single_share:.3f}")
+    assert split_share <= 1.0
+
+
 # test_torch_cuda.py's limits for the backward kernel against the plain
 # version, by input type (f32 1e-4; f16 and bf16 one rounding of the
 # output), scaled by each gradient's largest magnitude, with a 1e-5 floor
