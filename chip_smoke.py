@@ -46,17 +46,21 @@ Phases, each of which exits non-zero on failure:
      timed at the prefill's and a decode step's shape, a bitwise-equal
      repeat, decode at position S against a prefill of S + 1 tokens, and
      smoke tinyllama on the card against the CPU;
-  9. hold the wkv6 kernel against its plain version on the card (r, k, v
-     in f32 and bf16; S in {1, 15, 16, 17, 100, 1024}; zero and random
-     initial state; 2 heads and rwkv6-3b's 40; y and the final state), and
-     time kernel and plain version at full rwkv6-3b's prefill shape and at
-     a decode step's beside the kernel's bound, holding the timed calls
-     against the plain version too;
+  9. hold the wkv6 kernels against their plain version on the card (r, k,
+     v in f32 and bf16; S in {1, 15, 16, 17, 31, 63, 64, 65, 100, 1024,
+     4096}; zero and random initial state; 2 heads and rwkv6-3b's 40; y and
+     the final state; each case repeated bitwise, its launch counted on the
+     decode route exactly when S = 1), 17 decode-route calls chained
+     through the state against one call of 17, and time kernel and plain
+     version at full rwkv6-3b's prefill shape and at a decode step's beside
+     the kernel's bound (with and without the host's launch, each kernel
+     time's min, median and max of 20), holding the timed calls against the
+     plain version too;
  10. serve full-width rwkv6-3b (bf16, 32 layers, random weights) as phase 8
-     serves tinyllama: 32 wkv6 launches per prefill and per decode step,
-     one row gather per prefill and per decode step, the gather at
-     serving's shapes, a bitwise repeat, decode against prefill, and smoke
-     rwkv6 on the card against the CPU;
+     serves tinyllama: 32 wkv6 launches per prefill (none on the decode
+     route) and per decode step (all on it), one row gather per prefill and
+     per decode step, the gather at serving's shapes, a bitwise repeat,
+     decode against prefill, and smoke rwkv6 on the card against the CPU;
  11. hold the flash-attention backward kernels against their plain version
      on the card (f32 on the CUDA-core route, bf16 and f16 on the
      tensor-core route, those also against the plain emulation of its
@@ -521,6 +525,7 @@ def wkv6_phase(torch, dev):
     """Phase 9. Returns (max abs error against the plain version, timings at
     full rwkv6-3b's prefill shape and at a decode step's)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -545,18 +550,43 @@ def wkv6_phase(torch, dev):
                 fail(f"wkv6 {what} {name}: {e}")
             err = max(err, (g - w).abs().max().item())
 
+    # every case twice: one launch a call, on the decode route exactly when
+    # S = 1, and the same bits both times
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for S in (1, 15, 16, 17, 100, 1024):
+        for S in (1, 15, 16, 17, 31, 63, 64, 65, 100, 1024, 4096):
             for with_s0 in (False, True):
                 for B, H in ((2, 2), (4, 40)):
+                    what = f"{dtype} B={B} S={S} H={H} s0={with_s0}"
                     x = inputs(B, S, H, dtype, with_s0)
+                    before = (wk.launches, wk.decode_launches)
                     got = ops.wkv6(*x)
+                    again = ops.wkv6(*x)
+                    check((wk.launches, wk.decode_launches)
+                          == (before[0] + 2, before[1] + 2 * (S == 1)),
+                          f"wkv6 {what}: want 2 launches, on the decode route iff S = 1")
                     want = ref.wkv6_ref(*x)
                     torch.cuda.synchronize()
-                    compare(got, want, f"{dtype} B={B} S={S} H={H} s0={with_s0}")
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"wkv6 {what}: two calls differ")
+                    compare(got, want, what)
                     n += 1
-    print(f"[wkv6] {n} cases against the plain version: ok; max abs err {err:.3g}")
+                    del x, got, again, want
+    # S = 17 as 17 decode-route calls, the state carried through s_out, against
+    # one call
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H in ((2, 2), (4, 40)):
+            r, k, v, logw, u, s0 = inputs(B, 17, H, dtype, True)
+            y_one, s_one = ops.wkv6(r, k, v, logw, u, s0)
+            state = s0.clone()
+            rows = [ops.wkv6(r[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1], logw[:, t:t + 1],
+                             u, state, s_out=state)[0] for t in range(17)]
+            compare((torch.cat(rows, dim=1), state), (y_one, s_one),
+                    f"{dtype} B={B} H={H}: 17 decode steps against one call of 17")
+            n += 1
+    torch.cuda.empty_cache()
+    print(f"[wkv6] {n} cases against the plain version (each repeated bitwise; 4 of "
+          f"them 17 decode steps against one call): ok; max abs err {err:.3g}")
 
     # full rwkv6-3b: B=4, H=40, bf16 r, k, v, a random state in; the final
     # state goes to its own buffer so that repeated calls see the same inputs
@@ -634,10 +664,12 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
 
     def counts():
         # flash attention also counts its tensor-core route (bf16 serving
-        # must take it)
+        # must take it), wkv6 its decode route (a decode step's S = 1)
         c = {mix: mixer.launches, "gather_rows": gr.launches}
         if hasattr(mixer, "tc_launches"):
             c[mix + "_tc"] = mixer.tc_launches
+        if hasattr(mixer, "decode_launches"):
+            c[mix + "_decode"] = mixer.decode_launches
         return c
 
     @contextlib.contextmanager
@@ -649,6 +681,8 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     mixer.launches = gr.launches = 0
     if hasattr(mixer, "tc_launches"):
         mixer.tc_launches = 0
+    if hasattr(mixer, "decode_launches"):
+        mixer.decode_launches = 0
     stats = {}
     toks = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=stats,
                            part=count)
@@ -666,10 +700,14 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     if hasattr(mixer, "tc_launches"):
         for part in want.values():
             part[mix + "_tc"] = part[mix]
+    if hasattr(mixer, "decode_launches"):
+        want["prefill"][mix + "_decode"] = 0
+        want["decode"][mix + "_decode"] = want["decode"][mix]
     check(parts == want
           and launches == {k: parts["prefill"][k] + parts["decode"][k] for k in launches},
           f"serve: want {cfg.num_layers} {mix} launches in the prefill (all on the "
-          f"tensor-core route where it has one), {per_step} per decode step, and one "
+          f"tensor-core route where it has one, none on a decode route), {per_step} "
+          f"per decode step (all on a decode route where it has one), and one "
           f"gather per prefill and per decode step; got {parts}, {launches} in all")
     check(toks.shape == (B, new) and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
           "serve: tokens out of range")

@@ -161,7 +161,36 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 WKV6_CHUNK = 16   # rows per wkv6 chunk: fixed, the CUDA kernel's kC
 
 
-def wkv6_ref(r, k, v, logw, u, s0=None, *, s_out=None):
+def _tf32(x):
+    """x (f32) rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as the card's ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x (f32) cut to TF32, its low 13 bits dropped, as the tensor cores
+    read a TF32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, tf32):
+    """``torch.einsum(eq, a, b)`` with the operands rounded as the wkv6
+    kernel's tensor cores take them: ``"single"`` one TF32 rounding of
+    each; ``"split"`` each as hi + lo, hi rounded to TF32 and lo = x - hi
+    cut to TF32, and the three products hi hi + (hi lo + lo hi) summed in
+    f32 (lo lo is dropped)."""
+    if tf32 == "single":
+        return torch.einsum(eq, _tf32(a), _tf32(b))
+    if tf32 != "split":
+        raise ValueError(f"tf32 must be None, 'split' or 'single', got {tf32!r}")
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return torch.einsum(eq, ah, bh) + (torch.einsum(eq, ah, bl)
+                                       + torch.einsum(eq, al, bh))
+
+
+def wkv6_ref(r, k, v, logw, u, s0=None, *, s_out=None, tf32=None):
     """Chunked RWKV-6 time-mix (``wkv6_chunked`` of the JAX model, in torch).
 
     r, k, v: (B, S, H, K) in the activation dtype; logw: (B, S, H, K) f32,
@@ -183,6 +212,13 @@ def wkv6_ref(r, k, v, logw, u, s0=None, *, s_out=None):
     to 80); so the chunk is fixed, not a parameter. The JAX function instead
     picks the largest divisor of S that is at most 16, so the two agree only
     within rounding where the groupings differ.
+
+    ``tf32`` (tests only) emulates the CUDA kernel's arithmetic: the bonus
+    sits on the scores' diagonal, the state's decay to the chunk's end is
+    k_f e^{L_end}, and the four products (the scores r_f k_f^T, their
+    product with v, r_f S_prev, the chunk's k^T v) take their operands
+    rounded to TF32, split in two terms (``"split"``, the kernel's) or once
+    (``"single"``, which the kernel does not do); see ``_tf32_product``.
     """
     B, S, H, K = r.shape
     chunk = WKV6_CHUNK
@@ -194,29 +230,39 @@ def wkv6_ref(r, k, v, logw, u, s0=None, *, s_out=None):
         if pad:
             x = torch.cat([x, x.new_zeros((B, pad, H, K))], dim=1)
         return x.reshape(B, nc, chunk, H, K)
+
+    def product(eq, a, b):
+        if tf32 is None:
+            return torch.einsum(eq, a, b)
+        return _tf32_product(eq, a, b, tf32)
     rc, kc, vc, lw = (chunks(x) for x in (r, k, v, logw))
     cum_incl = torch.cumsum(lw, dim=2)                  # includes step t
     cum_excl = cum_incl - lw
     r_f = rc * torch.exp(cum_excl)
     k_f = kc * torch.exp(-cum_incl)
-    scores = torch.einsum("bnthk,bnjhk->bnhtj", r_f, k_f)
+    scores = product("bnthk,bnjhk->bnhtj", r_f, k_f)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=r.device), diagonal=-1)
     scores = scores.masked_fill(~mask, 0.0)             # strictly lower
-    y = torch.einsum("bnhtj,bnjhk->bnthk", scores, vc)
     bonus = torch.einsum("bnthk,hk,bnthk->bnth", rc, u.float(), kc)
-    y = y + bonus[..., None] * vc
-    # each chunk's own contribution to the state at its end, and its decay
-    dec_to_end = torch.exp(cum_incl[:, :, -1:] - cum_incl)
-    st_c = torch.einsum("bnjhk,bnjhw->bnhkw", kc * dec_to_end, vc)
     chunk_dec = torch.exp(cum_incl[:, :, -1])           # (B, nc, H, K)
+    if tf32 is None:
+        y = torch.einsum("bnhtj,bnjhk->bnthk", scores, vc)
+        y = y + bonus[..., None] * vc
+        # each chunk's own contribution to the state at its end
+        kd = kc * torch.exp(cum_incl[:, :, -1:] - cum_incl)
+    else:
+        scores = scores + torch.diag_embed(bonus.permute(0, 1, 3, 2))
+        y = product("bnhtj,bnjhk->bnthk", scores, vc)
+        kd = k_f * chunk_dec[:, :, None]
+    st_c = product("bnjhk,bnjhw->bnhkw", kd, vc)
     s = (torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
          if s0 is None else s0.float())
     s_prev = []
     for n in range(nc):
         s_prev.append(s)
         s = s * chunk_dec[:, n, :, :, None] + st_c[:, n]
-    y = y + torch.einsum("bnthk,bnhkw->bnthw", r_f, torch.stack(s_prev, dim=1))
+    y = y + product("bnthk,bnhkw->bnthw", r_f, torch.stack(s_prev, dim=1))
     y = y.reshape(B, nc * chunk, H, K)[:, :S]
     if s_out is not None:
         s = s_out.copy_(s)

@@ -267,17 +267,18 @@ def _wkv_inputs(dev, B, S, H, dtype, with_s0, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [1, 15, 16, 17, 100, 1024])
-@pytest.mark.parametrize("B,H", [(2, 2), (4, 40)])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 31, 63, 64, 65, 100, 1024, 4096])
+@pytest.mark.parametrize("B,H", [(1, 1), (2, 2), (4, 40)])
 @pytest.mark.parametrize("with_s0", [False, True])
 def test_wkv6_matches_plain(cuda, dtype, S, B, H, with_s0):
     """y and the final state within 3e-4 (the tolerance the Pallas kernel
     is held to in tests/test_kernels.py), ragged last chunks and S = 1
-    included."""
+    included; one launch a call, on the decode route exactly when S = 1."""
     r, k, v, logw, u, s0 = _wkv_inputs(cuda, B, S, H, dtype, with_s0)
-    before = wk.launches
+    before, before_dec = wk.launches, wk.decode_launches
     y, s_fin = ops.wkv6(r, k, v, logw, u, s0)
     assert wk.launches == before + 1
+    assert wk.decode_launches == before_dec + (S == 1)
     y_want, s_want = ref.wkv6_ref(r, k, v, logw, u, s0)
     assert y.dtype == s_fin.dtype == torch.float32
     torch.testing.assert_close(y, y_want, rtol=3e-4, atol=3e-4)
@@ -301,6 +302,54 @@ def test_wkv6_state_in_place_strided_and_repeatable(cuda):
     torch.testing.assert_close(y2, y_want, rtol=3e-4, atol=3e-4)
     torch.testing.assert_close(state, s_want, rtol=3e-4, atol=3e-4)
     assert torch.equal(y, y2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(2, 2), (4, 40)])
+def test_wkv6_decode_steps_chain_to_one_call(cuda, dtype, B, H):
+    """17 decode-route calls, each carrying the state on through s_out,
+    give the y rows and the final state of one S = 17 call (chunked route)
+    within 3e-4."""
+    S = 17
+    r, k, v, logw, u, s0 = _wkv_inputs(cuda, B, S, H, dtype, True)
+    y_one, s_one = ops.wkv6(r, k, v, logw, u, s0)
+    state = s0.clone()
+    before = wk.decode_launches
+    rows = [ops.wkv6(r[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1], logw[:, t:t + 1],
+                     u, state, s_out=state)[0] for t in range(S)]
+    assert wk.decode_launches == before + S
+    torch.testing.assert_close(torch.cat(rows, dim=1), y_one, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(state, s_one, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 100, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_repeats_bitwise(cuda, S, dtype):
+    """Both routes (S = 1: decode; else chunked) give the same bits twice:
+    every sum has a fixed order and no atomics."""
+    x = _wkv_inputs(cuda, 4, S, 40, dtype, True)
+    y1, s1 = ops.wkv6(*x)
+    y2, s2 = ops.wkv6(*x)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.gpu
+def test_wkv6_refuses_rows_it_cannot_copy(cuda):
+    """The kernels copy rows 16 bytes at a time: a sequence stride of 196
+    bf16 elements (392 bytes) or a start 4 bytes in raises, with no slower
+    route."""
+    B, S, H = 2, 8, 3
+    _, _, _, logw, u, _ = _wkv_inputs(cuda, B, S, H, torch.bfloat16, False)
+    wide = torch.zeros((B, S, H * 64 + 4), device=cuda).to(torch.bfloat16)
+    odd = wide[..., :H * 64].view(B, S, H, 64)        # sequence stride 392 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.wkv6(odd, odd, odd, logw, u)
+    flat = torch.zeros(B * S * H * 64 + 1, device=cuda)
+    shifted = flat[1:].view(B, S, H, 64)              # starts 4 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.wkv6(shifted, shifted, shifted, logw, u)
 
 
 @pytest.mark.gpu

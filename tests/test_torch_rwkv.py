@@ -136,6 +136,90 @@ def test_wkv6_refuses_other_devices():
         ops.wkv6(r, r, r, r, torch.zeros((1, 64), device="meta"))
 
 
+# The wkv6 kernel's products on the tensor cores take their operands as TF32
+# hi + lo terms (``ref.wkv6_ref(..., tf32="split")`` emulates it). Its gate
+# is the one tests/test_kernels.py holds the Pallas kernel to: 3e-4.
+WKV_TOL = 3e-4
+
+
+def _gate_share(got, want):
+    """Largest |got - want| over the gate's allowance (atol + rtol |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (WKV_TOL + WKV_TOL * np.abs(want))).max())
+
+
+def _wkv_whole_range_case(rng, B, S, H, dtype):
+    """r, k, v rounded to ``dtype`` (as f32 arrays), logw log-uniform over
+    the whole clamp range [-5, -1e-4], u and s0 f32."""
+    K = rwkv6.HEAD_K
+    r, k, v = (_np(torch.from_numpy(rng.standard_normal((B, S, H, K)).astype(np.float32)
+                                    * 0.5).to(dtype).float()) for _ in range(3))
+    logw = -np.exp(rng.uniform(np.log(1e-4), np.log(-rwkv6.LOG_W_MIN),
+                               (B, S, H, K))).astype(np.float32)
+    u = rng.standard_normal((H, K)).astype(np.float32) * 0.3
+    s0 = rng.standard_normal((B, H, K, K)).astype(np.float32) * 0.1
+    return r, k, v, logw, u, s0
+
+
+# the shapes of tests/test_kernels.py::test_wkv6_pallas_kernel, and a longer
+# sequence that carries the state through 64 chunks
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H", [(2, 64, 2), (1, 48, 1), (1, 1024, 2)])
+def test_wkv6_tf32_split_emulation_within_gate(rng, dtype, B, S, H):
+    """The kernel's arithmetic (TF32 hi + lo terms) against the Pallas
+    kernel in interpret mode (zero state) and ``wkv6_chunked`` (a random
+    state in, the final state out) on the same inputs, within 3e-4; one
+    TF32 rounding of each operand breaks that gate. Prints the share of
+    the gate each uses (run with -s)."""
+    r, k, v, logw, u, s0 = _wkv_whole_range_case(rng, B, S, H, dtype)
+    tin = [_t(a) for a in (r, k, v, logw, u)]
+    shares = {}
+    for mode in ("split", "single"):
+        zero, _ = ref.wkv6_ref(*tin, tf32=mode)
+        y, s_fin = ref.wkv6_ref(*tin, _t(s0), tf32=mode)
+        want = []
+        if S <= 64:     # the Pallas kernel in interpret mode, at its test shapes
+            want.append((zero, wkv6_pallas(*(jnp.asarray(a) for a in (r, k, v, logw, u)),
+                                           chunk=rwkv6.WKV_CHUNK)))
+        y_c, s_c = jrwkv.wkv6_chunked(*(jnp.asarray(a) for a in (r, k, v, logw, u, s0)))
+        want += [(y, y_c), (s_fin, s_c)]
+        shares[mode] = max(_gate_share(_np(g), w) for g, w in want)
+    print(f"wkv6 TF32 emulation, {dtype} {B, S, H}: share of the 3e-4 gate used by "
+          f"the split {shares['split']:.4f}, by a single rounding {shares['single']:.2f}")
+    assert shares["split"] <= 1.0
+    assert shares["single"] > 1.0
+
+
+# tests/test_sequence_mixers.py::test_rwkv_decode_matches_prefill's comparison
+# in bf16, prompts of one chunk and of 2, 4 and 8 chunks and a ragged one
+@pytest.mark.parametrize("S1", [9, 33, 65, 130])
+def test_decode_matches_prefill_bf16_in_both_packages(S1):
+    """Decode after a prefill of S1 - 1 tokens against a prefill of S1, in
+    bf16 through the JAX package and through the port from the same params.
+    Both gaps are at most one bf16 rounding of the logits (2^-8 of the
+    largest), the port's not above the JAX package's, so the port's
+    recurrent decode (state precision, token shift) adds nothing of its own.
+    The limit is two roundings; with -s the gaps are printed."""
+    jcfg, cfg, jparams, params = _lm("bfloat16")
+    japi, api = jax_get_api(jcfg), get_api(cfg)
+    toks = np.random.default_rng(S1).integers(0, cfg.vocab_size, (2, S1)).astype(np.int32)
+    _, jc = japi.prefill(jparams, jcfg, jnp.asarray(toks[:, :-1]), japi.init_cache(jcfg, 2, S1))
+    jdec, _ = japi.decode_step(jparams, jcfg, jnp.asarray(toks[:, -1:]), S1 - 1, jc)
+    jfull, _ = japi.prefill(jparams, jcfg, jnp.asarray(toks), japi.init_cache(jcfg, 2, S1))
+    t = _t(toks)
+    _, c = api.prefill(params, cfg, t[:, :-1], api.init_cache(cfg, 2, S1, CPU))
+    dec, _ = api.decode_step(params, cfg, t[:, -1:], S1 - 1, c)
+    full, _ = api.prefill(params, cfg, t, api.init_cache(cfg, 2, S1, CPU))
+    jdec, jfull = np.asarray(jdec, np.float32), np.asarray(jfull, np.float32)
+    scale = float(np.abs(jfull).max())
+    jax_gap = float(np.abs(jdec - jfull).max()) / scale
+    port_gap = float(np.abs(_np(dec) - _np(full)).max()) / scale
+    print(f"bf16 decode vs prefill, S1={S1}: gap over the largest logit, JAX "
+          f"{jax_gap:.3g}, port {port_gap:.3g}")
+    assert jax_gap <= 2 ** -7 and port_gap <= 2 ** -7
+    assert port_gap <= max(jax_gap, 2 ** -8)
+
+
 def _layer0(tree):
     return jax.tree_util.tree_map(lambda a: a[0], tree)
 
