@@ -75,7 +75,8 @@ Phases, each of which exits non-zero on failure:
      each step (the flash forwards on the tensor-core route), step ms,
      tokens/s, busy share (one profiled step) and peak memory; the sparse
      kernels at the step's shapes (the duplicate combine
-     beside F.embedding_bag, the logged update beside index_select +
+     beside F.embedding_bag, the plain update of the bf16 table and of the
+     f32 scratch beside index_add_, the logged update beside index_select +
      index_add_); smoke tinyllama on the card against the CPU: 5 f32 steps
      (losses and the AdamW-trained dense params) and one bf16 step (the
      losses before and after it);
@@ -90,13 +91,17 @@ Phases, each of which exits non-zero on failure:
      crash drills, train_dlrm_e2e at 20 steps, quickstart, and
      serve_batched for tinyllama-1.1b and rwkv6-3b; each must exit 0 and
      print its marker line.
-Phases 7 to 14 print their wall time.
+Phases 7 to 14 print their wall time. Phases 4, 8, 10 and 12 also require
+every scatter_update and gather_rows launch of the path on its 16-byte
+route (su.wide_launches, gr.wide_launches).
 
 The line before the last is {"kernels": [...]}, one entry per kernel and
-path (the row gather runs on eight: each checkpoint, each served model's
-prefill and decode steps, and LM training; the logged update on the two
-training paths; each flash direction's tensor-core route on the bf16
-paths and its f32 route in phase 12's f32 smoke training); the last line is
+path (the row gather runs on seven: each checkpoint, each served model's
+prefill and decode steps, and LM training; the plain update on four:
+each training path's relaxed run, on the f32 scratch, and its strict
+run, on the bf16 table; the logged update on the two training paths;
+each flash direction's tensor-core route on the bf16 paths and its f32
+route in phase 12's f32 smoke training); the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
 Imports nothing of JAX.
@@ -678,7 +683,7 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
         before = counts()
         yield
         parts[name] = {k: v - before[k] for k, v in counts().items()}
-    mixer.launches = gr.launches = 0
+    mixer.launches = gr.launches = gr.wide_launches = 0
     if hasattr(mixer, "tc_launches"):
         mixer.tc_launches = 0
     if hasattr(mixer, "decode_launches"):
@@ -709,6 +714,8 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
           f"tensor-core route where it has one, none on a decode route), {per_step} "
           f"per decode step (all on a decode route where it has one), and one "
           f"gather per prefill and per decode step; got {parts}, {launches} in all")
+    check(gr.wide_launches == gr.launches, "serve: the gathers did not all move "
+          f"16-byte chunks ({gr.wide_launches} of {gr.launches})")
     check(toks.shape == (B, new) and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
           "serve: tokens out of range")
     check(bool(torch.isfinite(stats["logits"]).all()), "serve: non-finite logits")
@@ -1024,7 +1031,8 @@ def device_busy(torch, fn):
 def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
                    check_gather):
     """Phase 12: full-width tinyllama-1.1b training. Returns (the launch
-    counts of the relaxed run, the step metrics, the sparse kernels'
+    counts of the relaxed run, with the strict run's updates as
+    "scatter_update_strict", the step metrics, the sparse kernels'
     timings at the step's shapes)."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import TrainConfig
@@ -1055,10 +1063,14 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
         c["scatter_update_logged"] = su.launches_logged
         return c
 
+    def wide():   # launches of the two row kernels on their 16-byte route
+        return {"scatter_update": su.wide_launches, "gather_rows": gr.wide_launches}
+
     def zero_counts():
         for m in mods.values():
             m.launches = 0
         fa.tc_launches = fa.bwd_launches = su.launches_logged = 0
+        su.wide_launches = gr.wide_launches = 0
 
     def fresh_state():
         gen = torch.Generator(device=dev)
@@ -1102,6 +1114,8 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     relaxed_steps = []
     state, rl, rms = run(state, True, relaxed_steps)
     launches = counts()
+    check(wide() == {k: launches[k] for k in wide()}, "tinyllama: the row kernels "
+          f"did not all move 16-byte chunks: {wide()} of {launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     batches = make_batches_first()
     wall, busy = device_busy(torch, lambda: train_loop.train(
@@ -1109,7 +1123,11 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     del state
     torch.cuda.empty_cache()
     strict_steps = []
+    zero_counts()
     state, sl, sms = run(fresh_state(), False, strict_steps)
+    strict_updates = su.launches   # all on the bf16 table
+    check(su.wide_launches == strict_updates, "tinyllama: the strict run's updates "
+          f"did not all move 16-byte chunks ({su.wide_launches} of {strict_updates})")
     del state
     torch.cuda.empty_cache()
     state, rl2, rms2 = run(fresh_state(), True)
@@ -1154,6 +1172,8 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     check(launches == {k: steps * v + (k == "gather_rows")   # the warm-up lookup
                        for k, v in want_relaxed.items()},
           f"tinyllama relaxed run launches {launches}")
+    check(strict_updates == steps, f"tinyllama strict run: {strict_updates} updates")
+    launches["scatter_update_strict"] = strict_updates
 
     # the sparse tier's kernels at the step's shapes: batch 0's 4,096 tokens,
     # their row gradients (bf16) combined, the bf16 table updated
@@ -1177,6 +1197,8 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
                                 ).flatten().to(torch.int32)
     check_bag(g_rows, comb_src, comb_seg, N, "tinyllama duplicate combine")
     check_update(table.clone(), uniq, upd, "tinyllama bf16 table")
+    scratch = torch.zeros(table.shape, dtype=torch.float32, device=dev)
+    check_update(scratch, uniq, upd, "tinyllama f32 scratch")
     check_update_logged(table.clone(), uniq, upd, "tinyllama bf16 table")
     check_gather(table, ids, "tinyllama token lookup (training batch 0)")
     touched = uniq[:n_rows]                # the checkpoint's gather
@@ -1184,6 +1206,7 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     real = touched.long()
     t_tab = table.clone()
     upd_real = upd[:n_rows].to(torch.bfloat16)
+    upd_real_f32 = upd[:n_rows]
     shapes = {
         # the ids and the bag ids once, each row gradient once, the (N, d)
         # f32 output
@@ -1198,6 +1221,11 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
                            lambda: ref.scatter_update_ref(t_tab, uniq, upd),
                            lambda: t_tab.index_add_(0, real, upd_real),
                            bound(N * 4 + n_rows * d * (4 + 2 * 2), n_rows * d)),
+        # the relaxed step's two launches: the correction's f32 scratch
+        "lm_update_f32": (lambda: ops.scatter_update(scratch, uniq, upd),
+                          lambda: ref.scatter_update_ref(scratch, uniq, upd),
+                          lambda: scratch.index_add_(0, real, upd_real_f32),
+                          bound(N * 4 + n_rows * d * 12, n_rows * d)),
         # a real slot: its id, its f32 delta, the row read, written and
         # logged; a pad: its id and a zero undo row
         "lm_update_logged_bf16": (
@@ -1223,7 +1251,7 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
                        else time_ms(torch, lib, hide_host=True)}
         print(f"[lm-train] {name} ({N} ids, {n_rows} distinct): "
               + json.dumps(timing[name]) + "; device only: " + json.dumps(device_only))
-    del table, t_tab, g_rows, comb, upd, upd_real, touched, real
+    del table, t_tab, scratch, g_rows, comb, upd, upd_real, upd_real_f32, touched, real
     torch.cuda.empty_cache()
 
     # smoke tinyllama on the card and on the CPU from the same params: 5
@@ -1701,9 +1729,10 @@ def main():
             lambda: (t_tab.index_select(0, real), t_tab.index_add_(0, real, upd_real_bf16)),
             bound(n_rows * (4 + d * (4 + 3 * rows_b)) + (N - n_rows) * (4 + d * rows_b),
                   n_rows * d)),
+        # f32 with unique rows: index_add_ computes the same function
         "update_f32": (lambda: ops.scatter_update(scratch, uniq, upd),
                        lambda: ref.scatter_update_ref(scratch, uniq, upd),
-                       None,
+                       lambda: scratch.index_add_(0, real, upd[: real.numel()]),
                        bound(N * 4 + n_rows * d * 12, n_rows * d)),
         # the ids once, each touched row read once and written once; no ops
         "gather_bf16": (lambda: ops.gather_rows(tables, real_ids),
@@ -1761,8 +1790,9 @@ def main():
           f"tables {tuple(state['embed']['emb_tables'].shape)} "
           f"{state['embed']['emb_tables'].dtype}")
     torch.cuda.reset_peak_memory_stats()
-    eb.launches = su.launches = su.launches_logged = gr.launches = 0
+    eb.launches = su.launches = su.launches_logged = gr.launches = su.wide_launches = 0
     state, rl, rt = run(state, 5, relaxed=True)
+    relaxed_updates = su.launches   # all on the f32 scratch
     state, sl, stt = run(state, 2, relaxed=False, start=5)
     launches = {"embedding_bag": eb.launches, "scatter_update": su.launches,
                 "scatter_update_logged": su.launches_logged,
@@ -1780,6 +1810,8 @@ def main():
                        "scatter_update": 5 * 2 + 2 * 1,
                        "scatter_update_logged": 5, "gather_rows": 0},
           f"unexpected launch counts {launches}")
+    check(su.wide_launches == su.launches, "scatter_update: the rm1 run's updates did "
+          f"not all move 16-byte chunks ({su.wide_launches} of {su.launches})")
     check(not state["prefetch"]["scratch"].any().item(), "scratch not zero after run")
     del state
     torch.cuda.empty_cache()
@@ -1877,6 +1909,8 @@ def main():
     gather_src = ("src/repro_torch/csrc/gather_rows.cu",
                   "src/repro/kernels/embedding_bag.py:73")
     wkv6_src = ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:65")
+    update_src = ("src/repro_torch/csrc/scatter_update.cu",
+                  "src/repro/kernels/scatter_update.py:24")
     logged_src = ("src/repro_torch/csrc/scatter_update_logged.cu",
                   "src/repro/kernels/scatter_update.py:56")
     kernels = []
@@ -1889,8 +1923,10 @@ def main():
              sv_parts["prefill"]["gather_rows"], *gather_src),
             ("gather_rows", "tinyllama-1.1b decode", "gather_decode",
              sv_parts["decode"]["gather_rows"], *gather_src),
-            ("scatter_update", "dlrm-rm1 train", "update_bf16", launches["scatter_update"],
-             "src/repro_torch/csrc/scatter_update.cu", "src/repro/kernels/scatter_update.py:24"),
+            ("scatter_update", "dlrm-rm1 train", "update_f32", relaxed_updates,
+             *update_src),
+            ("scatter_update", "dlrm-rm1 train (strict)", "update_bf16",
+             launches["scatter_update"] - relaxed_updates, *update_src),
             ("flash_attention_tc", "tinyllama-1.1b prefill", "flash_bf16",
              sv_parts["prefill"]["flash_attention_tc"],
              "src/repro_torch/csrc/flash_attention_tc.cu",
@@ -1924,9 +1960,10 @@ def main():
             ("embedding_bag", "tinyllama-1.1b train", "lm_bag_combine",
              lm_launches["embedding_bag"], "src/repro_torch/csrc/embedding_bag.cu",
              "src/repro/kernels/embedding_bag.py:40"),
-            ("scatter_update", "tinyllama-1.1b train", "lm_update_bf16",
-             lm_launches["scatter_update"], "src/repro_torch/csrc/scatter_update.cu",
-             "src/repro/kernels/scatter_update.py:24"),
+            ("scatter_update", "tinyllama-1.1b train", "lm_update_f32",
+             lm_launches["scatter_update"], *update_src),
+            ("scatter_update", "tinyllama-1.1b train (strict)", "lm_update_bf16",
+             lm_launches["scatter_update_strict"], *update_src),
             ("scatter_update_logged", "dlrm-rm1 train", "update_logged_bf16",
              launches["scatter_update_logged"], *logged_src),
             ("scatter_update_logged", "tinyllama-1.1b train", "lm_update_logged_bf16",

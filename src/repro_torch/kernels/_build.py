@@ -32,13 +32,13 @@ KERNELS = {
     # stream
     "embedding_bag": ("embedding_bag_launch",
                       [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    # table, dtype, idx, delta, n, dim, stream
-    "scatter_update": ("scatter_update_launch", [_P, _I, _P, _P, _I, _I, _P]),
+    # table, dtype, idx, delta, n, dim, elements a chunk, stream
+    "scatter_update": ("scatter_update_launch", [_P, _I, _P, _P, _I, _I, _I, _P]),
     # table, dtype, idx, delta, old, n, dim, stream
     "scatter_update_logged": ("scatter_update_logged_launch",
                               [_P, _I, _P, _P, _P, _I, _I, _P]),
-    # table, idx, out, n, row bytes, stream
-    "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I64, _I64, _P]),
+    # table, idx, out, n, row bytes, bytes a chunk, stream
+    "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I, _I64, _I, _P]),
     # q, k, v, o, lse (may be null), dtype, B, Sq, Sk, Hq, Hkv, D, q/k/v
     # strides (batch, seq, head), causal, q_offset, stream
     "flash_attention": ("flash_attention_launch",

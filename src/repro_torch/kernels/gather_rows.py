@@ -10,7 +10,18 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0   # kernel launches made by gather_rows_cuda
+launches = 0          # kernel launches made by gather_rows_cuda
+wide_launches = 0     # those that moved 16-byte chunks
+narrow_launches = 0   # those that moved narrower chunks
+
+
+def chunk_bytes(row_bytes: int, *ptrs: int) -> int:
+    """Bytes a thread moves at once: the largest of 16, 8, 4, 2 and 1 that
+    divides the row's bytes and every base address (table and output)."""
+    align = row_bytes
+    for p in ptrs:
+        align |= p
+    return next(c for c in (16, 8, 4, 2, 1) if align % c == 0)
 
 
 def gather_rows_cuda(table, idx):
@@ -20,7 +31,7 @@ def gather_rows_cuda(table, idx):
     on the same device with values in [0, R) (not checked). Returns (N, D)
     in the table's dtype.
     """
-    global launches
+    global launches, wide_launches, narrow_launches
     if not table.is_cuda:
         raise ValueError("gather_rows_cuda needs a CUDA table")
     if table.dim() != 2 or not table.is_contiguous():
@@ -30,11 +41,18 @@ def gather_rows_cuda(table, idx):
         raise ValueError("gather_rows: idx must be a contiguous (N,) int32 "
                          "tensor on the table's device")
     n, dim = idx.shape[0], table.shape[1]
+    if n >= 2**31:
+        raise ValueError(f"gather_rows: {n} ids is too many")
     out = torch.empty((n, dim), dtype=table.dtype, device=table.device)
     if n == 0 or dim == 0:
         return out
+    row_bytes = dim * table.element_size()
+    chunk = chunk_bytes(row_bytes, table.data_ptr(), out.data_ptr())
     _build.launch("gather_rows", table.device, table.data_ptr(),
-                  idx.data_ptr(), out.data_ptr(), n,
-                  dim * table.element_size())
+                  idx.data_ptr(), out.data_ptr(), n, row_bytes, chunk)
     launches += 1
+    if chunk == 16:
+        wide_launches += 1
+    else:
+        narrow_launches += 1
     return out

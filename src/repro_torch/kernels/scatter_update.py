@@ -14,7 +14,19 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0          # kernel launches made by scatter_update_cuda
+wide_launches = 0     # those that moved 16 bytes of the table a chunk
+narrow_launches = 0   # those that moved narrower chunks
 launches_logged = 0   # kernel launches made by scatter_update_logged_cuda
+
+
+def chunk_elems(elem_size: int, dim: int, table_ptr: int, delta_ptr: int) -> int:
+    """Elements a thread of ``scatter_update_cuda`` moves as one chunk: the
+    largest of 8, 4, 2 and 1 whose table bytes are at most 16, that divides
+    the row, and whose table bytes and f32 delta (up to 16 bytes a load)
+    both bases hold whole."""
+    return next(v for v in (8, 4, 2, 1)
+                if v * elem_size <= 16 and dim % v == 0
+                and table_ptr % (v * elem_size) == 0 and delta_ptr % (4 * min(v, 4)) == 0)
 
 
 def _check(op: str, table, idx, delta) -> tuple[int, int]:
@@ -46,14 +58,19 @@ def scatter_update_cuda(table, idx, delta):
     at most once, -1 for a pad slot that is skipped; delta: (N, D) f32.
     Returns ``table``.
     """
-    global launches
+    global launches, wide_launches, narrow_launches
     n, dim = _check("scatter_update", table, idx, delta)
     if n == 0 or dim == 0:
         return table
+    vec = chunk_elems(table.element_size(), dim, table.data_ptr(), delta.data_ptr())
     _build.launch("scatter_update", table.device,
                   table.data_ptr(), _build.DTYPE_CODES[table.dtype],
-                  idx.data_ptr(), delta.data_ptr(), n, dim)
+                  idx.data_ptr(), delta.data_ptr(), n, dim, vec)
     launches += 1
+    if vec * table.element_size() == 16:
+        wide_launches += 1
+    else:
+        narrow_launches += 1
     return table
 
 

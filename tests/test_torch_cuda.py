@@ -94,21 +94,103 @@ def test_embedding_bag_long_bags(cuda, rng, dtype, D):
     assert not got[empty].any()
 
 
+def _route_counts(mod):
+    return mod.launches, mod.wide_launches, mod.narrow_launches
+
+
+def _assert_one_launch(mod, before, wide):
+    """One more launch of ``mod``'s kernel, counted on its 16-byte route
+    when ``wide``, else on its narrow one."""
+    n, w, nw = before
+    assert _route_counts(mod) == (n + 1, w + wide, nw + (not wide))
+
+
+WIDTHS = [1, 45, 32, 2047, 2048, 2560]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_scatter_update_matches_plain(cuda, rng, dtype):
-    """Row 0 real and pads present: bitwise equal, no update lost."""
-    R, D = 1000, 32
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", WIDTHS)
+def test_scatter_update_matches_plain(cuda, rng, dtype, D):
+    """Row 0 real and pads present: bitwise equal, no update lost, the same
+    bits again on a second copy; rows whose bytes are a multiple of 16 take
+    the 16-byte route, the ragged ones the narrow route."""
+    R = 1000
     table = torch.randn((R, D), device=cuda).to(dtype)
     ids = np.concatenate([[0, 0], zipf_indices(rng, (600,), R)]).astype(np.int32)
     uniq, comb = ops.combine_duplicates(torch.from_numpy(ids).to(cuda),
                                         torch.randn((602, D), device=cuda))
     assert uniq[0].item() == 0 and (uniq < 0).any().item()
     want = ref.scatter_update_ref(table.clone(), uniq, comb)
-    before = su.launches
+    again = table.clone()
+    before = _route_counts(su)
     ops.scatter_update(table, uniq, comb)
-    assert su.launches == before + 1
+    _assert_one_launch(su, before, D * table.element_size() % 16 == 0)
     assert torch.equal(table, want)
+    ops.scatter_update(again, uniq, comb)
+    assert torch.equal(again, table)
+
+
+def _pads_anywhere(rng, case):
+    """(R, D, ids) of a case: real rows unique, pads (-1) among them."""
+    if case == "empty":
+        return 10, 32, np.zeros(0, np.int32)
+    if case == "pads only":
+        return 9, 16, np.full(7, -1, np.int32)
+    R, D, N = {"interleaved": (8000, 32, 5000), "interleaved wide": (900, 2048, 600),
+               "many rounds": (3_000_000, 1, 2_500_000)}[case]
+    ids = rng.permutation(R)[:N].astype(np.int32)
+    ids[rng.random(N) < 0.5] = -1
+    return R, D, ids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["interleaved", "interleaved wide", "many rounds",
+                                  "pads only", "empty"])
+def test_scatter_update_pads_anywhere(cuda, rng, dtype, case):
+    """Pads (-1) anywhere among the real slots, not only trailing: only the
+    real rows change, bitwise as the plain version, the same bits on a
+    second copy; 2,500,000 slots make each block stage several rounds; a
+    call of pads only launches and changes nothing; an empty call does not
+    launch."""
+    R, D, ids = _pads_anywhere(rng, case)
+    idx = torch.from_numpy(ids).to(cuda)
+    table = torch.randn((R, D), device=cuda).to(dtype)
+    delta = torch.randn((ids.size, D), device=cuda)
+    want = ref.scatter_update_ref(table.clone(), idx, delta)
+    again = table.clone()
+    before = _route_counts(su)
+    ops.scatter_update(table, idx, delta)
+    if ids.size:
+        _assert_one_launch(su, before, D * table.element_size() % 16 == 0)
+    else:
+        assert _route_counts(su) == before
+    assert torch.equal(table, want)
+    ops.scatter_update(again, idx, delta)
+    assert torch.equal(again, table)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_scatter_update_misaligned_view(cuda, rng, dtype):
+    """A table whose base is one element into its buffer (2-byte aligned for
+    16-bit types, 4 for f32) refuses the 16-byte route: the narrow route
+    updates it bitwise and leaves the element before it alone."""
+    R, D = 300, 2048
+    flat = torch.randn(R * D + 1, device=cuda).to(dtype)
+    table = flat[1:].view(R, D)
+    assert table.data_ptr() % 16 != 0 and table.is_contiguous()
+    ids = rng.permutation(R)[:200].astype(np.int32)
+    ids[::3] = -1
+    idx = torch.from_numpy(ids).to(cuda)
+    delta = torch.randn((200, D), device=cuda)
+    want = ref.scatter_update_ref(table.clone(), idx, delta)
+    head = flat[0].clone()
+    before = _route_counts(su)
+    ops.scatter_update(table, idx, delta)
+    _assert_one_launch(su, before, False)
+    assert torch.equal(table, want) and torch.equal(flat[0], head)
 
 
 @pytest.mark.gpu
@@ -145,16 +227,51 @@ def test_combine_duplicates_matches_cpu(cuda, rng):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("D", [32, 45, 1])
+@pytest.mark.parametrize("D", WIDTHS)
 def test_gather_rows_matches_plain(cuda, rng, dtype, D):
-    """Bitwise; D=45 (f16/bf16: 90-byte rows) takes the narrow-chunk path."""
+    """Bitwise, and again on a second call; rows whose bytes are a multiple
+    of 16 take the 16-byte route, the others (D=45 in f16/bf16: 90-byte
+    rows) the narrow route."""
     R, N = 1000, 777
     table = torch.randn((R, D), device=cuda).to(dtype)
     idx = torch.from_numpy(zipf_indices(rng, (N,), R)).to(cuda)
-    before = gr.launches
+    before = _route_counts(gr)
     got = ops.gather_rows(table, idx)
-    assert gr.launches == before + 1
+    _assert_one_launch(gr, before, D * table.element_size() % 16 == 0)
     assert got.dtype == dtype and torch.equal(got, ref.gather_rows_ref(table, idx))
+    assert torch.equal(ops.gather_rows(table, idx), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_gather_rows_misaligned_view(cuda, rng, dtype):
+    """A table one element into its buffer refuses the 16-byte route; the
+    narrow route copies it bitwise."""
+    R, D = 300, 2048
+    flat = torch.randn(R * D + 1, device=cuda).to(dtype)
+    table = flat[1:].view(R, D)
+    assert table.data_ptr() % 16 != 0 and table.is_contiguous()
+    idx = torch.from_numpy(zipf_indices(rng, (500,), R)).to(cuda)
+    before = _route_counts(gr)
+    got = ops.gather_rows(table, idx)
+    _assert_one_launch(gr, before, False)
+    assert torch.equal(got, ref.gather_rows_ref(table, idx))
+    assert torch.equal(ops.gather_rows(table, idx), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D,N", [(torch.bfloat16, 8, 300_000),
+                                       (torch.float32, 1, 2_500_000)])
+def test_gather_rows_many_slots(cuda, rng, dtype, D, N):
+    """Zipf ids, so many duplicates, and more granules of 32 slots than the
+    persistent grid has warps: some warps walk two (300,000 slots), every
+    warp several (2,500,000). Bitwise, and again on a second call."""
+    R = 50_000
+    table = torch.randn((R, D), device=cuda).to(dtype)
+    idx = torch.from_numpy(zipf_indices(rng, (N,), R)).to(cuda)
+    got = ops.gather_rows(table, idx)
+    assert torch.equal(got, ref.gather_rows_ref(table, idx))
+    assert torch.equal(ops.gather_rows(table, idx), got)
 
 
 @pytest.mark.gpu

@@ -16,6 +16,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.scatter_update import (scatter_update_logged_pallas,
                                           scatter_update_pallas)
 from repro_torch.data.synthetic import zipf_indices
+from repro_torch.kernels import gather_rows as gr
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import scatter_update as su
 
@@ -239,6 +240,34 @@ def test_gather_rows_bf16_matches_pallas(rng):
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16),
                                   want)   # bitwise
+
+
+# (table dtype, D, table one element into its buffer) -> the gather's chunk
+# bytes and the update's chunk elements: rm1's 64-byte bf16 rows, the LM's
+# 4 KB bf16 table rows and 8 KB f32 scratch rows, a 2-byte-aligned view,
+# D = 1
+@pytest.mark.parametrize("dtype,D,offset,gather_bytes,update_elems", [
+    (torch.bfloat16, 32, False, 16, 8),
+    (torch.float32, 32, False, 16, 4),
+    (torch.bfloat16, 2048, False, 16, 8),
+    (torch.float32, 2048, False, 16, 4),
+    (torch.bfloat16, 2048, True, 2, 1),
+    (torch.float32, 2048, True, 4, 1),
+    (torch.bfloat16, 1, False, 2, 1),
+    (torch.float32, 45, False, 4, 1),
+])
+def test_row_kernels_chunk_route(dtype, D, offset, gather_bytes, update_elems):
+    """The chunk each row kernel's wrapper picks for the main paths' tables
+    (16 bytes: the wide route) and for the ones the wide route refuses."""
+    R = 8
+    flat = torch.zeros(R * D + 1, dtype=dtype)
+    table = flat[int(offset):][: R * D].view(R, D)
+    out = torch.empty((5, D), dtype=dtype)
+    delta = torch.empty((5, D), dtype=torch.float32)
+    row_bytes = D * table.element_size()
+    assert gr.chunk_bytes(row_bytes, table.data_ptr(), out.data_ptr()) == gather_bytes
+    assert su.chunk_elems(table.element_size(), D, table.data_ptr(),
+                          delta.data_ptr()) == update_elems
 
 
 def _qkv(rng, B, S, Hq, Hkv, D):
