@@ -93,7 +93,8 @@ Phases, each of which exits non-zero on failure:
      print its marker line.
 Phases 7 to 14 print their wall time. Phases 4, 8, 10 and 12 also require
 every scatter_update and gather_rows launch of the path on its 16-byte
-route (su.wide_launches, gr.wide_launches).
+route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12 and 13
+every scatter_update_logged launch (su.wide_launches_logged).
 
 The line before the last is {"kernels": [...]}, one entry per kernel and
 path (the row gather runs on seven: each checkpoint, each served model's
@@ -284,11 +285,15 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
             after1["s"] += time.perf_counter() - t
 
         eb.launches = su.launches = su.launches_logged = gr.launches = 0
+        su.wide_launches_logged = 0
         _, la = train_loop.train(cfg, tca, batches, 4, relaxed=True, state=state,
                                  ckpt_manager=mgr, on_metrics=on_metrics)
         launches = {"embedding_bag": eb.launches, "scatter_update": su.launches,
                     "scatter_update_logged": su.launches_logged,
                     "gather_rows": gr.launches}
+        check(su.wide_launches_logged == su.launches_logged, "run A: the logged "
+              f"updates did not all move 16-byte chunks ({su.wide_launches_logged} "
+              f"of {su.launches_logged})")
         checked = check_undo_images(mgr.ring, images)
         check(checked == 4, f"run A: {checked} undo entries checked, want 4")
         print(f"[ckpt] run A: the undo images of all {checked} steps, captured on "
@@ -1063,14 +1068,15 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
         c["scatter_update_logged"] = su.launches_logged
         return c
 
-    def wide():   # launches of the two row kernels on their 16-byte route
-        return {"scatter_update": su.wide_launches, "gather_rows": gr.wide_launches}
+    def wide():   # launches of the row kernels on their 16-byte route
+        return {"scatter_update": su.wide_launches, "gather_rows": gr.wide_launches,
+                "scatter_update_logged": su.wide_launches_logged}
 
     def zero_counts():
         for m in mods.values():
             m.launches = 0
         fa.tc_launches = fa.bwd_launches = su.launches_logged = 0
-        su.wide_launches = gr.wide_launches = 0
+        su.wide_launches = gr.wide_launches = su.wide_launches_logged = 0
 
     def fresh_state():
         gen = torch.Generator(device=dev)
@@ -1327,6 +1333,7 @@ def lm_checkpoint_phase(torch, np, dev):
     from repro_torch.data.lookahead import LookaheadIterator
     from repro_torch.data.synthetic import make_batches
     from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import scatter_update as su
     from repro_torch.models.registry import get_api
     from repro_torch.pool import FaultSchedule, InjectedCrash
     from repro_torch.training import train_loop
@@ -1363,10 +1370,13 @@ def lm_checkpoint_phase(torch, np, dev):
             t = time.perf_counter()        # the undo image to the host
             images[n] = undo_image(m["ckpt_feed"])
             skip[0] += time.perf_counter() - t
-        gr.launches = 0
+        gr.launches = su.launches_logged = su.wide_launches_logged = 0
         _, losses = train_loop.train(cfg, tc, batches, 4, relaxed=True, state=state,
                                      ckpt_manager=mgr, on_metrics=on_metrics)
         gathers = gr.launches
+        check(su.launches_logged == 4 and su.wide_launches_logged == 4,
+              f"lm full run: {su.launches_logged} logged updates, "
+              f"{su.wide_launches_logged} on the 16-byte route, want 4 and 4")
         step_ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:], strict=True)]
         checked = check_undo_images(mgr.ring, images)   # train flushed the writer
         check(checked == 4, f"lm full run: {checked} undo entries checked, want 4")
@@ -1791,6 +1801,7 @@ def main():
           f"{state['embed']['emb_tables'].dtype}")
     torch.cuda.reset_peak_memory_stats()
     eb.launches = su.launches = su.launches_logged = gr.launches = su.wide_launches = 0
+    su.wide_launches_logged = 0
     state, rl, rt = run(state, 5, relaxed=True)
     relaxed_updates = su.launches   # all on the f32 scratch
     state, sl, stt = run(state, 2, relaxed=False, start=5)
@@ -1812,6 +1823,9 @@ def main():
           f"unexpected launch counts {launches}")
     check(su.wide_launches == su.launches, "scatter_update: the rm1 run's updates did "
           f"not all move 16-byte chunks ({su.wide_launches} of {su.launches})")
+    check(su.wide_launches_logged == su.launches_logged, "scatter_update_logged: the "
+          f"rm1 run's logged updates did not all move 16-byte chunks "
+          f"({su.wide_launches_logged} of {su.launches_logged})")
     check(not state["prefetch"]["scratch"].any().item(), "scratch not zero after run")
     del state
     torch.cuda.empty_cache()

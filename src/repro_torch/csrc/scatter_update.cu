@@ -41,7 +41,8 @@
 // neighbouring chunks, and each thread issues the loads of four chunks
 // before any store. idx and delta are read once, without allocating in
 // L1; the table row is read and written back by the same thread with the
-// default policy.
+// default policy. The parts of this layout that scatter_update_logged.cu
+// shares (the plan, the staging, the chunk types) are in row_update.cuh.
 //
 // idx must hold each real row at most once (the caller combines duplicates).
 
@@ -50,176 +51,20 @@
 #include <cuda_runtime.h>
 
 #include "dtypes.cuh"
+#include "row_update.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 1024;                    // slots staged a round, at most
-constexpr int kPerThread = kTile / kThreads;   // index loads a thread, a round
-constexpr int kUnroll = 4;                     // chunks in flight a thread
-
-// The launch's layout, the same for every block.
-struct Plan {
-  int gshift;      // a granule is 2^gshift slots
-  int tshift;      // a round stages 2^tshift slots (at least one granule)
-  int cpr;         // chunks in a row
-  int cpr_shift;   // log2(cpr) when cpr is a power of two, else -1
-};
-
-struct Stage {
-  int row[kTile];                 // the table row of each staged slot
-  int slot[kTile];                // the slot itself
-  int count[kPerThread][kWarps];  // real slots of each warp's load
-};
-
-// An index, read once: no room taken in L1
-__device__ __forceinline__ int ld_once(const int32_t* p) {
-  int v;
-  asm("ld.global.nc.L1::no_allocate.s32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ bool has_round(int n, const Plan& p, int round) {
-  const int64_t granules = ((static_cast<int64_t>(n) - 1) >> p.gshift) + 1;
-  const int64_t first = blockIdx.x + static_cast<int64_t>(round)
-      * (1 << (p.tshift - p.gshift)) * gridDim.x;
-  return first < granules;
-}
-
-// Stages this block's slots of the round; returns how many are real
-// (the same in every thread). Stage::row/slot[0, count) hold them.
-__device__ __forceinline__ int stage(const int32_t* __restrict__ idx, int n,
-                                     const Plan& p, int round, Stage& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t per_round = 1 << (p.tshift - p.gshift);   // granules
-  int row[kPerThread], slot[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {   // every load before any use
-    const int at = threadIdx.x + j * kThreads;
-    const int64_t granule = blockIdx.x
-        + (round * per_round + (at >> p.gshift)) * gridDim.x;
-    const int64_t sl = (granule << p.gshift) + (at & ((1 << p.gshift) - 1));
-    row[j] = -1;
-    slot[j] = 0;
-    if (at < (1 << p.tshift) && sl < n) {
-      slot[j] = static_cast<int>(sl);
-      row[j] = ld_once(idx + sl);
-    }
-  }
-  unsigned mask[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    mask[j] = __ballot_sync(0xffffffffu, row[j] >= 0);
-    if (lane == 0) s.count[j][warp] = __popc(mask[j]);
-  }
-  __syncthreads();
-  int total = 0, before[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (w == warp) before[j] = total;
-      total += s.count[j][w];
-    }
-  }
-  const unsigned lower = (1u << lane) - 1;
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    if (row[j] >= 0) {
-      const int at = before[j] + __popc(mask[j] & lower);
-      s.row[at] = row[j];
-      s.slot[at] = slot[j];
-    }
-  }
-  __syncthreads();
-  // The next round's first writes to Stage::row come after its barrier
-  // above, which every thread reaches only once done with this round's rows.
-  return total;
-}
-
-// The row and chunk of flattened chunk g of the staged rows
-__device__ __forceinline__ void split(int g, const Plan& p, int& r, int& c) {
-  r = p.cpr_shift >= 0 ? g >> p.cpr_shift : g / p.cpr;
-  c = g - r * p.cpr;
-}
-
-int log2_exact(int64_t v) {   // -1 unless a power of two
-  if (v <= 0 || (v & (v - 1)) != 0) return -1;
-  int s = 0;
-  while ((int64_t{1} << s) < v) ++s;
-  return s;
-}
-
-// The plan and the grid for n slots of rows of cpr chunks; the grid is at
-// most what fits on the card at once (`per_sm` blocks of the kernel an SM).
-Plan plan_for(int n, int cpr, int per_sm, int& grid) {
-  Plan p;
-  p.cpr = cpr;
-  p.cpr_shift = log2_exact(cpr);
-  // a round's chunks stay below 2^31: at most kTile slots, fewer for rows
-  // of over 2^21 chunks
-  p.tshift = 10;
-  while (p.tshift > 0 && (int64_t{cpr} << p.tshift) >= (int64_t{1} << 31)) --p.tshift;
-  // a granule of about one pass of the block's threads, 1 to 32 slots
-  p.gshift = 0;
-  while (p.gshift < 5 && p.gshift < p.tshift
-         && (int64_t{cpr} << (p.gshift + 1)) <= kThreads) {
-    ++p.gshift;
-  }
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int64_t granules = ((static_cast<int64_t>(n) - 1) >> p.gshift) + 1;
-  const int64_t most = static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-  grid = static_cast<int>(granules < most ? granules : most);
-  return p;
-}
-
-// Blocks of `kernel` that fit on an SM, asked once per kernel
-template <typename K>
-int blocks_per_sm(K kernel) {
-  int blocks = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
-  return blocks;
-}
-
-template <int B> struct Bits;   // B bytes as one load
-template <> struct Bits<16> { using type = uint4; };
-template <> struct Bits<8> { using type = uint2; };
-template <> struct Bits<4> { using type = uint32_t; };
-template <> struct Bits<2> { using type = uint16_t; };
-
-// V floats of delta, read once
-template <int V> __device__ __forceinline__ void load_delta(const float* p, float* u);
-
-template <> __device__ __forceinline__ void load_delta<1>(const float* p, float* u) {
-  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(u[0]) : "l"(p));
-}
-
-template <> __device__ __forceinline__ void load_delta<2>(const float* p, float* u) {
-  asm("ld.global.nc.L1::no_allocate.v2.f32 {%0, %1}, [%2];"
-      : "=f"(u[0]), "=f"(u[1]) : "l"(p));
-}
-
-template <> __device__ __forceinline__ void load_delta<4>(const float* p, float* u) {
-  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
-      : "=f"(u[0]), "=f"(u[1]), "=f"(u[2]), "=f"(u[3]) : "l"(p));
-}
-
-template <> __device__ __forceinline__ void load_delta<8>(const float* p, float* u) {
-  load_delta<4>(p, u);
-  load_delta<4>(p + 4, u + 4);
-}
+using namespace row_update;
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 update_kernel(T* __restrict__ table, const int32_t* __restrict__ idx,
               const float* __restrict__ delta, int n, int dim, Plan plan) {
   using Chunk = typename Bits<V * sizeof(T)>::type;
-  __shared__ Stage s;
+  __shared__ Stage<false> s;
   for (int round = 0; has_round(n, plan, round); ++round) {
-    const int work = stage(idx, n, plan, round, s) * plan.cpr;
+    const int work = stage(idx, n, plan, round, s).real * plan.cpr;
     for (int base = threadIdx.x; base < work; base += kThreads * kUnroll) {
       Chunk t[kUnroll];
       Chunk* dst[kUnroll];
@@ -265,15 +110,7 @@ int launch(void* table, const int32_t* idx, const float* delta, int n, int dim,
 template <typename T>
 int launch_v(void* table, const int32_t* idx, const float* delta, int n, int dim,
              int vec, cudaStream_t s) {
-  // refuse a chunk that does not divide the row or that a base does not
-  // hold whole
-  const uintptr_t t = reinterpret_cast<uintptr_t>(table);
-  const uintptr_t d = reinterpret_cast<uintptr_t>(delta);
-  const int delta_align = 4 * (vec < 4 ? vec : 4);
-  if (vec * sizeof(T) > 16 || dim % vec != 0 || t % (vec * sizeof(T)) != 0
-      || d % delta_align != 0) {
-    return -2;
-  }
+  if (!chunk_fits<T>(vec, dim, table, delta)) return -2;
   if (vec == 1) return launch<T, 1>(table, idx, delta, n, dim, s);
   if (vec == 2) return launch<T, 2>(table, idx, delta, n, dim, s);
   if (vec == 4) return launch<T, 4>(table, idx, delta, n, dim, s);

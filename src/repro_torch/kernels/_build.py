@@ -34,9 +34,9 @@ KERNELS = {
                       [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     # table, dtype, idx, delta, n, dim, elements a chunk, stream
     "scatter_update": ("scatter_update_launch", [_P, _I, _P, _P, _I, _I, _I, _P]),
-    # table, dtype, idx, delta, old, n, dim, stream
+    # table, dtype, idx, delta, old, n, dim, elements a chunk, stream
     "scatter_update_logged": ("scatter_update_logged_launch",
-                              [_P, _I, _P, _P, _P, _I, _I, _P]),
+                              [_P, _I, _P, _P, _P, _I, _I, _I, _P]),
     # table, idx, out, n, row bytes, bytes a chunk, stream
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I, _I64, _I, _P]),
     # q, k, v, o, lse (may be null), dtype, B, Sq, Sk, Hq, Hkv, D, q/k/v

@@ -2,10 +2,10 @@
 
 Counterparts of ``scatter_update_pallas`` and ``scatter_update_logged_pallas``
 (``repro/kernels/scatter_update.py``); the kernels are
-``csrc/scatter_update.cu`` and ``csrc/scatter_update_logged.cu``, whose
-headers say how they are laid out, what bounds them, and why pad slots
-carry index -1. Their plain versions are ``ref.scatter_update_ref`` and
-``ref.scatter_update_logged_ref``.
+``csrc/scatter_update.cu`` and ``csrc/scatter_update_logged.cu``, on the
+layout of ``csrc/row_update.cuh``; their headers say how they are laid
+out, what bounds them, and why pad slots carry index -1. Their plain
+versions are ``ref.scatter_update_ref`` and ``ref.scatter_update_logged_ref``.
 """
 from __future__ import annotations
 
@@ -16,17 +16,22 @@ from repro_torch.kernels import _build
 launches = 0          # kernel launches made by scatter_update_cuda
 wide_launches = 0     # those that moved 16 bytes of the table a chunk
 narrow_launches = 0   # those that moved narrower chunks
-launches_logged = 0   # kernel launches made by scatter_update_logged_cuda
+launches_logged = 0         # kernel launches made by scatter_update_logged_cuda
+wide_launches_logged = 0    # those that moved 16 bytes of the table a chunk
+narrow_launches_logged = 0  # those that moved narrower chunks
 
 
-def chunk_elems(elem_size: int, dim: int, table_ptr: int, delta_ptr: int) -> int:
-    """Elements a thread of ``scatter_update_cuda`` moves as one chunk: the
+def chunk_elems(elem_size: int, dim: int, table_ptr: int, delta_ptr: int,
+                old_ptr: int = 0) -> int:
+    """Elements a thread of the update kernels moves as one chunk: the
     largest of 8, 4, 2 and 1 whose table bytes are at most 16, that divides
     the row, and whose table bytes and f32 delta (up to 16 bytes a load)
-    both bases hold whole."""
+    both bases hold whole; for the logged update the undo buffer's base
+    ``old_ptr`` must hold the table bytes whole too."""
     return next(v for v in (8, 4, 2, 1)
                 if v * elem_size <= 16 and dim % v == 0
-                and table_ptr % (v * elem_size) == 0 and delta_ptr % (4 * min(v, 4)) == 0)
+                and table_ptr % (v * elem_size) == 0 and old_ptr % (v * elem_size) == 0
+                and delta_ptr % (4 * min(v, 4)) == 0)
 
 
 def _check(op: str, table, idx, delta) -> tuple[int, int]:
@@ -81,13 +86,19 @@ def scatter_update_logged_cuda(table, idx, delta):
     Same arguments. Returns ``(table, old)``: old (N, D) in the table's
     dtype, old[i] the bits of table[idx[i]] before the update, +0 for a pad.
     """
-    global launches_logged
+    global launches_logged, wide_launches_logged, narrow_launches_logged
     n, dim = _check("scatter_update_logged", table, idx, delta)
     old = torch.empty((n, dim), dtype=table.dtype, device=table.device)
     if n == 0 or dim == 0:
         return table, old
+    vec = chunk_elems(table.element_size(), dim, table.data_ptr(), delta.data_ptr(),
+                      old.data_ptr())
     _build.launch("scatter_update_logged", table.device,
                   table.data_ptr(), _build.DTYPE_CODES[table.dtype],
-                  idx.data_ptr(), delta.data_ptr(), old.data_ptr(), n, dim)
+                  idx.data_ptr(), delta.data_ptr(), old.data_ptr(), n, dim, vec)
     launches_logged += 1
+    if vec * table.element_size() == 16:
+        wide_launches_logged += 1
+    else:
+        narrow_launches_logged += 1
     return table, old

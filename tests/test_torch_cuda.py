@@ -193,25 +193,83 @@ def test_scatter_update_misaligned_view(cuda, rng, dtype):
     assert torch.equal(table, want) and torch.equal(flat[0], head)
 
 
+def _logged_counts():
+    return su.launches_logged, su.wide_launches_logged, su.narrow_launches_logged
+
+
+def _check_logged(table, idx, delta, wide):
+    """The logged update of ``table`` in place against its plain version:
+    the table and the undo rows bitwise, the pads' undo rows all-zero bits,
+    one launch counted on the 16-byte route when ``wide``, else on the
+    narrow one (none for N = 0), and the same bits again on a second copy."""
+    bits = torch.int32 if table.element_size() == 4 else torch.int16
+    want_t, want_old = ref.scatter_update_logged_ref(table.clone(), idx, delta)
+    again = table.clone()
+    n, w, nw = _logged_counts()
+    _, old = ops.scatter_update_logged(table, idx, delta)
+    if idx.numel():
+        assert _logged_counts() == (n + 1, w + wide, nw + (not wide))
+    else:
+        assert _logged_counts() == (n, w, nw)
+    assert old.dtype == table.dtype and old.shape == (idx.numel(), table.shape[1])
+    assert torch.equal(table.view(bits), want_t.view(bits))
+    assert torch.equal(old.view(bits), want_old.view(bits))
+    assert not old[idx < 0].view(bits).any()
+    _, old_again = ops.scatter_update_logged(again, idx, delta)
+    assert torch.equal(again.view(bits), table.view(bits))
+    assert torch.equal(old_again.view(bits), old.view(bits))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("D", [32, 45])
+@pytest.mark.parametrize("D", WIDTHS)
 def test_scatter_update_logged_matches_plain(cuda, rng, dtype, D):
     """Row 0 real and pads present: the table and the undo rows bitwise
-    equal to the plain version's (the pads' rows +0, from torch.empty)."""
+    equal to the plain version's (the pads' rows +0, from torch.empty), the
+    same bits again on a second copy; rows whose bytes are a multiple of 16
+    take the 16-byte route, the ragged ones the narrow route."""
     R = 1000
     table = torch.randn((R, D), device=cuda).to(dtype)
     ids = np.concatenate([[0, 0], zipf_indices(rng, (600,), R)]).astype(np.int32)
     uniq, comb = ops.combine_duplicates(torch.from_numpy(ids).to(cuda),
                                         torch.randn((602, D), device=cuda))
     assert uniq[0].item() == 0 and (uniq < 0).any().item()
-    want_t, want_old = ref.scatter_update_logged_ref(table.clone(), uniq, comb)
-    before = su.launches_logged
-    _, old = ops.scatter_update_logged(table, uniq, comb)
-    assert su.launches_logged == before + 1
-    bits = torch.int32 if dtype == torch.float32 else torch.int16
-    assert torch.equal(table, want_t)
-    assert old.dtype == dtype and torch.equal(old.view(bits), want_old.view(bits))
+    _check_logged(table, uniq, comb, D * table.element_size() % 16 == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", ["interleaved", "interleaved wide", "many rounds",
+                                  "pads only", "empty"])
+def test_scatter_update_logged_pads_anywhere(cuda, rng, dtype, case):
+    """Pads (-1) anywhere among the real slots: only the real rows change
+    and every pad logs a zero row, bitwise as the plain version; 2,500,000
+    slots make each block stage several rounds; a call of pads only
+    launches, logs zeros and changes nothing; an empty call does not
+    launch."""
+    R, D, ids = _pads_anywhere(rng, case)
+    idx = torch.from_numpy(ids).to(cuda)
+    table = torch.randn((R, D), device=cuda).to(dtype)
+    delta = torch.randn((ids.size, D), device=cuda)
+    _check_logged(table, idx, delta, D * table.element_size() % 16 == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_scatter_update_logged_misaligned_view(cuda, rng, dtype):
+    """A table one element into its buffer refuses the 16-byte route: the
+    narrow route updates and logs it bitwise and leaves the element before
+    it alone."""
+    R, D = 300, 2048
+    flat = torch.randn(R * D + 1, device=cuda).to(dtype)
+    table = flat[1:].view(R, D)
+    assert table.data_ptr() % 16 != 0 and table.is_contiguous()
+    ids = rng.permutation(R)[:200].astype(np.int32)
+    ids[::3] = -1
+    head = flat[0].clone()
+    _check_logged(table, torch.from_numpy(ids).to(cuda), torch.randn((200, D), device=cuda),
+                  False)
+    assert torch.equal(flat[0], head)
 
 
 @pytest.mark.gpu

@@ -243,9 +243,10 @@ def test_gather_rows_bf16_matches_pallas(rng):
 
 
 # (table dtype, D, table one element into its buffer) -> the gather's chunk
-# bytes and the update's chunk elements: rm1's 64-byte bf16 rows, the LM's
-# 4 KB bf16 table rows and 8 KB f32 scratch rows, a 2-byte-aligned view,
-# D = 1
+# bytes and the updates' chunk elements (the logged update's undo buffer
+# from torch.empty, as its wrapper makes it): rm1's 64-byte bf16 rows, the
+# LM's 4 KB bf16 table rows and 8 KB f32 scratch rows, a 2-byte-aligned
+# view, D = 1
 @pytest.mark.parametrize("dtype,D,offset,gather_bytes,update_elems", [
     (torch.bfloat16, 32, False, 16, 8),
     (torch.float32, 32, False, 16, 4),
@@ -258,7 +259,9 @@ def test_gather_rows_bf16_matches_pallas(rng):
 ])
 def test_row_kernels_chunk_route(dtype, D, offset, gather_bytes, update_elems):
     """The chunk each row kernel's wrapper picks for the main paths' tables
-    (16 bytes: the wide route) and for the ones the wide route refuses."""
+    (16 bytes: the wide route) and for the ones the wide route refuses; the
+    logged update takes the plain update's chunk, and the narrow one for an
+    undo buffer one element into its buffer."""
     R = 8
     flat = torch.zeros(R * D + 1, dtype=dtype)
     table = flat[int(offset):][: R * D].view(R, D)
@@ -268,6 +271,12 @@ def test_row_kernels_chunk_route(dtype, D, offset, gather_bytes, update_elems):
     assert gr.chunk_bytes(row_bytes, table.data_ptr(), out.data_ptr()) == gather_bytes
     assert su.chunk_elems(table.element_size(), D, table.data_ptr(),
                           delta.data_ptr()) == update_elems
+    old = torch.empty((5, D), dtype=dtype)
+    assert su.chunk_elems(table.element_size(), D, table.data_ptr(), delta.data_ptr(),
+                          old.data_ptr()) == update_elems
+    old_view = torch.empty(5 * D + 1, dtype=dtype)[1:]
+    assert su.chunk_elems(table.element_size(), D, table.data_ptr(), delta.data_ptr(),
+                          old_view.data_ptr()) == 1
 
 
 def _qkv(rng, B, S, Hq, Hkv, D):
