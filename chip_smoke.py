@@ -73,7 +73,9 @@ Phases, each of which exits non-zero on failure:
      1024: 3 relaxed and 3 strict steps from the same params with bitwise
      equal losses, a bitwise repeat of the relaxed run, the launch counts of
      each step (the flash forwards on the tensor-core route), step ms,
-     tokens/s, busy share (one profiled step) and peak memory; the sparse
+     tokens/s, busy share (one profiled step) and peak memory, which must
+     fall below the functional AdamW's 41.25 GB; two smoke steps of the
+     in-place AdamW and clip bitwise equal to the functional ones; the sparse
      kernels at the step's shapes (the duplicate combine
      beside F.embedding_bag, the plain update of the bf16 table and of the
      f32 scratch beside index_add_, the logged update beside index_select +
@@ -90,19 +92,37 @@ Phases, each of which exits non-zero on failure:
      all at once (python -m repro_torch.examples.<name>): the pmem and dram
      crash drills, train_dlrm_e2e at 20 steps, quickstart, and
      serve_batched for tinyllama-1.1b and rwkv6-3b; each must exit 0 and
-     print its marker line.
-Phases 7 to 14 print their wall time. Phases 4, 8, 10 and 12 also require
-every scatter_update and gather_rows launch of the path on its 16-byte
-route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12 and 13
-every scatter_update_logged launch (su.wide_launches_logged).
+     print its marker line;
+ 15. hold the wkv6 backward kernel against its plain version on the card
+     (r, k, v in f32 and bf16; S in {1, 15, 16, 17, 64, 100, 1024}; 2 heads
+     and rwkv6-3b's 40; zero and random initial state and final-state
+     gradient; every gradient; each case repeated bitwise, its launch
+     counted), and time kernel and plain version at full rwkv6-3b's
+     training shape beside the bound (autograd through the plain forward
+     printed as a reference point), and the forward there too;
+ 16. train full-width rwkv6-3b (bf16, 32 layers, remat) at batch 4 x 1024
+     as phase 12 trains tinyllama: bitwise-equal relaxed and strict losses,
+     a bitwise repeat, each step's launches (64 wkv6 forwards on the
+     chunked route, 32 backwards), step ms, tokens/s, busy share and peak
+     memory (below 80 GB); the sparse kernels at its shapes; smoke rwkv6 on
+     the card against the CPU (5 f32 steps: losses within 1e-5 and the
+     AdamW-trained dense params, all but one element in 10^4 within 1e-5
+     and every one within 1e-4, against a plain CPU run and one whose
+     forward emulates the wkv6 kernel's TF32 split).
+Phases 7 to 16 print their wall time. Phases 4, 8, 10, 12 and 16 also
+require every scatter_update and gather_rows launch of the path on its
+16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
+13 and 16 every scatter_update_logged launch (su.wide_launches_logged).
 
 The line before the last is {"kernels": [...]}, one entry per kernel and
-path (the row gather runs on seven: each checkpoint, each served model's
-prefill and decode steps, and LM training; the plain update on four:
-each training path's relaxed run, on the f32 scratch, and its strict
-run, on the bf16 table; the logged update on the two training paths;
-each flash direction's tensor-core route on the bf16 paths and its f32
-route in phase 12's f32 smoke training); the last line is
+path (the row gather runs on eight: each checkpoint, each served model's
+prefill and decode steps, and each LM's training; the plain update on
+six: each training path's relaxed run, on the f32 scratch, and its
+strict run, on the bf16 table; the logged update on the three training
+paths; wkv6 forward on rwkv6-3b's prefill, decode and training, its
+backward on training; each flash direction's tensor-core route on the
+bf16 paths and its f32 route in phase 12's f32 smoke training); the last
+line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
 Imports nothing of JAX.
@@ -266,12 +286,15 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
             if step == 1:
                 # run A after step 1: the tables on the host in f32, and a
                 # twin state on the card with its relaxed carry dropped, as
-                # a resume rebuilds it (dense leaves are never updated in
-                # place, so references keep them)
+                # a resume rebuilds it (the tables, the dense leaves and
+                # their moments are updated in place: cloned)
                 t = time.perf_counter()
                 after1["rows"] = host_tables(st)
-                after1["state"] = {**st, "prefetch": None, "embed": {
-                    "emb_tables": st["embed"]["emb_tables"].clone()}}
+                after1["state"] = {
+                    **st, "prefetch": None,
+                    "embed": {"emb_tables": st["embed"]["emb_tables"].clone()},
+                    "dense": tree_map(torch.clone, st["dense"]),
+                    "opt_dense": tree_map(torch.clone, st["opt_dense"])}
                 after1["s"] += time.perf_counter() - t   # not the step's time
         mgr.on_step = on_step
         images = {}
@@ -635,6 +658,129 @@ def wkv6_phase(torch, dev):
               f"({nops / 1e9:.4f} GFLOP, {nbytes / 1e6:.1f} MB): "
               + json.dumps(timing[name]) + "; device only: " + json.dumps(device_only)
               + "; kernel min, median, max of 20: " + json.dumps(spread))
+    torch.cuda.empty_cache()
+    return err, timing
+
+
+def wkv6_bwd_phase(torch, dev):
+    """Phase 15. Returns (max abs error against the plain version, timings
+    of the backward and of the forward at full rwkv6-3b's training shape)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    K, err = 64, 0.0
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def inputs(B, S, H, dtype, with_state):
+        # r, k, v in dtype; logw over the whole clamp range [-5, -1e-4]; the
+        # cotangents dy and (with a state) ds_fin
+        r, k, v = (rand(B, S, H, K, scale=0.5).to(dtype) for _ in range(3))
+        logw = torch.clamp(-torch.exp(rand(B, S, H, K, scale=1.5) - 1.0), -5.0, -1e-4)
+        s0 = rand(B, H, K, K, scale=0.1) if with_state else None
+        return (r, k, v, logw, rand(H, K, scale=0.3), s0, rand(B, S, H, K),
+                rand(B, H, K, K) if with_state else None)
+
+    def compare(got, want, dtype, what):
+        # 1e-4 of each gradient's largest magnitude: both f32, the sums in
+        # other orders; dr, dk, dv in bf16 also one rounding, 2^-8 relative
+        # (tests/test_torch_cuda.py's WKV6_BWD_TOL)
+        nonlocal err
+        for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got, want,
+                              strict=True):
+            if w is None:
+                check(g is None, f"wkv6_bwd {what}: {name} given without s0")
+                continue
+            rtol = 2**-8 if g.dtype == torch.bfloat16 else 0.0
+            try:
+                torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                           atol=1e-4 * w.abs().max().item() + 1e-30)
+            except AssertionError as e:
+                fail(f"wkv6_bwd {what} {name}: {e}")
+            err = max(err, (g.float() - w).abs().max().item())
+
+    # every case twice: one launch a call and the same bits both times
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, 15, 16, 17, 64, 100, 1024):
+            for with_state in (False, True):
+                for B, H in ((2, 2), (4, 40)):
+                    what = f"{dtype} B={B} S={S} H={H} state={with_state}"
+                    x = inputs(B, S, H, dtype, with_state)
+                    before = wk.bwd_launches
+                    got = ops.wkv6_bwd(*x)
+                    again = ops.wkv6_bwd(*x)
+                    check(wk.bwd_launches == before + 2, f"wkv6_bwd {what}: want 2 launches")
+                    want = ref.wkv6_bwd_ref(*x)
+                    torch.cuda.synchronize()
+                    check(all((a is None and b is None) or torch.equal(a, b)
+                              for a, b in zip(got, again, strict=True)),
+                          f"wkv6_bwd {what}: two calls differ")
+                    compare(got, want, dtype, what)
+                    n += 1
+                    del x, got, again, want
+    torch.cuda.empty_cache()
+    print(f"[wkv6-bwd] {n} cases against the plain version (each repeated bitwise): "
+          f"ok; max abs err {err:.3g}")
+
+    # full rwkv6-3b training: B=4, S=1024, H=40, bf16 r, k, v, no state in
+    # and no gradient of the final state, as each layer's call in a step
+    B, S, H = 4, 1024, 40
+    r, k, v, logw, u, _, dy, _ = inputs(B, S, H, torch.bfloat16, False)
+    compare(ops.wkv6_bwd(r, k, v, logw, u, None, dy),
+            ref.wkv6_bwd_ref(r, k, v, logw, u, None, dy), torch.bfloat16,
+            "rwkv6-3b training shape (timed inputs)")
+    chunks = [16] * (S // 16) + ([S % 16] if S % 16 else [])
+    # bytes: r, k, v read and dr, dk, dv written once (bf16), logw and dy
+    # read and dlogw written once (f32), u read and du written once.
+    # Operations, per chunk of c rows and head: five c x K x K products (the
+    # state's recompute, r_f^T dy, v G^T, kd G, dy S_prev^T), three over the
+    # scores' triangle with its diagonal and two over the strict one, K
+    # multiply-adds an entry (the exps and the scan, a few percent, not
+    # counted)
+    nbytes = B * S * H * K * (6 * 2 + 3 * 4) + 2 * H * K * 4
+    nops = sum(2 * (5 * c * K * K + 3 * c * (c + 1) // 2 * K + 2 * c * (c - 1) // 2 * K)
+               * B * H for c in chunks)
+    b_ms, b_by = bound(nbytes, nops)
+    leaves = [t.detach().requires_grad_() for t in (r, k, v, logw, u)]
+
+    def autograd_plain():
+        y, _ = ref.wkv6_ref(*leaves)
+        return torch.autograd.grad(y, leaves, dy)
+    timing = {"wkv6_bwd": {
+        "ms": time_ms(torch, lambda: ops.wkv6_bwd(r, k, v, logw, u, None, dy)),
+        "plain_ms": time_ms(torch, lambda: ref.wkv6_bwd_ref(r, k, v, logw, u, None, dy)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}}
+    device_only = {"ms": time_ms(torch, lambda: ops.wkv6_bwd(r, k, v, logw, u, None, dy),
+                                 hide_host=True)}
+    reference_ms = time_ms(torch, autograd_plain)
+    print(f"[wkv6-bwd] rwkv6-3b training shape B={B} S={S} H={H} K={K} bf16 "
+          f"({nops / 1e9:.4f} GFLOP, {nbytes / 1e6:.1f} MB): "
+          + json.dumps(timing["wkv6_bwd"]) + "; device only: " + json.dumps(device_only)
+          + "; library: none (no single PyTorch call computes it); reference point "
+          f"only, not a library call: autograd through ref.wkv6_ref, forward and "
+          f"backward, {reference_ms:.4f} ms")
+    # the forward as training calls it (no state in; the final state
+    # written): r, k, v, logw and u read once, y and the state written once
+    nbytes_f = B * S * H * K * (3 * 2 + 4 + 4) + H * K * 4 + B * H * K * K * 4
+    nops_f = sum(2 * (c * (c + 1) * K + 2 * c * K * K) * B * H for c in chunks)
+    compare_f = (ops.wkv6(r, k, v, logw, u), ref.wkv6_ref(r, k, v, logw, u))
+    for name, g, w in zip(("y", "s_fin"), *compare_f, strict=True):
+        try:
+            torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+        except AssertionError as e:
+            fail(f"wkv6 forward at the training shape, {name}: {e}")
+    fb_ms, fb_by = bound(nbytes_f, nops_f)
+    timing["wkv6_train"] = {"ms": time_ms(torch, lambda: ops.wkv6(r, k, v, logw, u)),
+                            "plain_ms": time_ms(torch, lambda: ref.wkv6_ref(r, k, v, logw, u)),
+                            "library_ms": None, "bound_ms": fb_ms, "bound_by": fb_by}
+    print("[wkv6-bwd] the forward at the training shape (no state in): "
+          + json.dumps(timing["wkv6_train"]) + "; device only: " + json.dumps(
+              {"ms": time_ms(torch, lambda: ops.wkv6(r, k, v, logw, u), hide_host=True)}))
+    del r, k, v, logw, u, dy, leaves
     torch.cuda.empty_cache()
     return err, timing
 
@@ -1033,38 +1179,18 @@ def device_busy(torch, fn):
     return wall, busy
 
 
-def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
-                   check_gather):
-    """Phase 12: full-width tinyllama-1.1b training. Returns (the launch
-    counts of the relaxed run, with the strict run's updates as
-    "scatter_update_strict", the step metrics, the sparse kernels'
-    timings at the step's shapes)."""
-    from repro_torch.configs import get_arch
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.lookahead import LookaheadIterator
-    from repro_torch.data.synthetic import make_batches
-    from repro_torch.kernels import embedding_bag as eb
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gather_rows as gr
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import scatter_update as su
-    from repro_torch.models.registry import get_api
-    from repro_torch.training import train_loop
-    from repro_torch.tree import tree_leaves, tree_map
-
-    cfg = get_arch("tinyllama-1.1b").model
-    check(cfg.remat and cfg.dtype == "bfloat16", "tinyllama: want bf16 with remat")
-    tc = TrainConfig(embed_learning_rate=0.05)
-    B, S, steps, L = 4, 1024, 3, cfg.num_layers
-    api = get_api(cfg)
-    init_fn = train_loop.make_step_fns(cfg, tc)[0]
-    mods = {"flash_attention": fa, "embedding_bag": eb, "scatter_update": su,
-            "gather_rows": gr}
+def lm_counts(mods):
+    """The launch counters of the LM training paths' kernels: the sparse
+    tier's, flash attention's and wkv6's (``mods``: name -> wrapper module)."""
+    fa, wk, su, gr = mods["flash_attention"], mods["wkv6"], mods["scatter_update"], \
+        mods["gather_rows"]
 
     def counts():
         c = {name: m.launches for name, m in mods.items()}
         c["flash_attention_tc"] = fa.tc_launches
         c["flash_attention_bwd"] = fa.bwd_launches
+        c["wkv6_decode"] = wk.decode_launches
+        c["wkv6_bwd"] = wk.bwd_launches
         c["scatter_update_logged"] = su.launches_logged
         return c
 
@@ -1076,7 +1202,42 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
         for m in mods.values():
             m.launches = 0
         fa.tc_launches = fa.bwd_launches = su.launches_logged = 0
+        wk.decode_launches = wk.bwd_launches = 0
         su.wide_launches = gr.wide_launches = su.wide_launches_logged = 0
+    return counts, wide, zero_counts
+
+
+def lm_train_runs(torch, dev, arch, mixer_want):
+    """Full-width training of ``arch`` (bf16, remat, batch 4 x 1024): 3
+    relaxed steps, 3 strict ones and the relaxed run again, each from the
+    same params, and one profiled relaxed step. ``mixer_want`` is the
+    sequence mixer's launches per step. Checks bitwise-equal losses, the
+    repeat and every step's launch counts. Returns (the relaxed run's
+    launch counts with the strict run's updates as "scatter_update_strict",
+    the step metrics, the run's batches)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import scatter_update as su
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models.registry import get_api
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_leaves
+
+    tag = f"[{arch}-train]"
+    cfg = get_arch(arch).model
+    check(cfg.remat and cfg.dtype == "bfloat16", f"{arch}: want bf16 with remat")
+    tc = TrainConfig(embed_learning_rate=0.05)
+    B, S, steps = 4, 1024, 3
+    api = get_api(cfg)
+    init_fn = train_loop.make_step_fns(cfg, tc)[0]
+    counts, wide, zero_counts = lm_counts({
+        "flash_attention": fa, "wkv6": wk, "embedding_bag": eb,
+        "scatter_update": su, "gather_rows": gr})
 
     def fresh_state():
         gen = torch.Generator(device=dev)
@@ -1094,9 +1255,8 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     state = fresh_state()
     n_params = sum(p.numel() for p in tree_leaves(state["dense"])) \
         + state["embed"]["table"].numel()
-    print(f"[lm-train] full tinyllama-1.1b: {n_params} params, {cfg.dtype}, "
-          f"remat, batch {B} x seq {S}; init "
-          f"{time.perf_counter() - t:.1f}s")
+    print(f"{tag} full {arch}: {n_params} params, {cfg.dtype}, remat, batch {B} x "
+          f"seq {S}; init {time.perf_counter() - t:.1f}s")
 
     def run(state, relaxed, per_step=None):
         batches = make_batches_first()
@@ -1120,7 +1280,7 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     relaxed_steps = []
     state, rl, rms = run(state, True, relaxed_steps)
     launches = counts()
-    check(wide() == {k: launches[k] for k in wide()}, "tinyllama: the row kernels "
+    check(wide() == {k: launches[k] for k in wide()}, f"{arch}: the row kernels "
           f"did not all move 16-byte chunks: {wide()} of {launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     batches = make_batches_first()
@@ -1132,7 +1292,7 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     zero_counts()
     state, sl, sms = run(fresh_state(), False, strict_steps)
     strict_updates = su.launches   # all on the bf16 table
-    check(su.wide_launches == strict_updates, "tinyllama: the strict run's updates "
+    check(su.wide_launches == strict_updates, f"{arch}: the strict run's updates "
           f"did not all move 16-byte chunks ({su.wide_launches} of {strict_updates})")
     del state
     torch.cuda.empty_cache()
@@ -1147,22 +1307,20 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
             "tokens_per_s": B * S / (med / 1e3),
             "profiled_step_wall_ms": wall, "profiled_step_busy_ms": busy,
             "busy_share": busy / wall, "peak_device_gb": peak_gb}
-    print(f"[lm-train] relaxed losses {rl}; strict {sl}; relaxed again {rl2}")
-    print(f"[lm-train] launches per relaxed step {relaxed_steps}; per strict "
+    print(f"{tag} relaxed losses {rl}; strict {sl}; relaxed again {rl2}")
+    print(f"{tag} launches per relaxed step {relaxed_steps}; per strict "
           f"step {strict_steps}; relaxed run {launches}")
-    print(f"[lm-train] {json.dumps(step)}")
-    check(all(math.isfinite(x) for x in rl + sl), "tinyllama: non-finite loss")
-    check(rl == sl, f"tinyllama: relaxed losses {rl} differ from strict {sl}")
-    check(rl2 == rl, f"tinyllama: relaxed losses not repeatable: {rl2} vs {rl}")
-    # per step: 22 flash forwards and 22 more in the remat recompute, all on
-    # the tensor-core route, one
-    # bf16 backward of BWD_PASSES launches per layer, one duplicate combine
-    # (a bag, eb.PASSES launches),
-    # the table update (logged in a relaxed step, plain in a strict one);
-    # relaxed steps also the stale lookup and the correction (set, gather,
-    # clear the scratch), strict steps the lookup
-    common = {"flash_attention": 2 * L, "flash_attention_tc": 2 * L,
-              "flash_attention_bwd": L * fa.BWD_PASSES[torch.bfloat16],
+    print(f"{tag} {json.dumps(step)}")
+    check(all(math.isfinite(x) for x in rl + sl), f"{arch}: non-finite loss")
+    check(rl == sl, f"{arch}: relaxed losses {rl} differ from strict {sl}")
+    check(rl2 == rl, f"{arch}: relaxed losses not repeatable: {rl2} vs {rl}")
+    check(peak_gb < 80, f"{arch}: peak device memory {peak_gb:.2f} GB")
+    # per step: the sequence mixer's launches, one duplicate combine (a bag,
+    # eb.PASSES launches), the table update (logged in a relaxed step,
+    # plain in a strict one); relaxed steps also the stale lookup and the
+    # correction (set, gather, clear the scratch), strict steps the lookup
+    common = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_bwd": 0,
+              "wkv6": 0, "wkv6_decode": 0, "wkv6_bwd": 0, **mixer_want,
               "embedding_bag": eb.PASSES}
     want_relaxed = {**common, "gather_rows": 2, "scatter_update": 2,
                     "scatter_update_logged": 1}
@@ -1171,18 +1329,26 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     # (the warm-up's lookup runs inside the first relaxed step's reading)
     check(relaxed_steps == [{**want_relaxed, "gather_rows": 3}]
           + [want_relaxed] * (steps - 1),
-          f"tinyllama relaxed step launches {relaxed_steps}, want {want_relaxed} "
+          f"{arch} relaxed step launches {relaxed_steps}, want {want_relaxed} "
           "(and the warm-up's gather in the first)")
     check(strict_steps == [want_strict] * steps,
-          f"tinyllama strict step launches {strict_steps}, want {want_strict}")
+          f"{arch} strict step launches {strict_steps}, want {want_strict}")
     check(launches == {k: steps * v + (k == "gather_rows")   # the warm-up lookup
                        for k, v in want_relaxed.items()},
-          f"tinyllama relaxed run launches {launches}")
-    check(strict_updates == steps, f"tinyllama strict run: {strict_updates} updates")
+          f"{arch} relaxed run launches {launches}")
+    check(strict_updates == steps, f"{arch} strict run: {strict_updates} updates")
     launches["scatter_update_strict"] = strict_updates
+    return launches, step, batches
 
-    # the sparse tier's kernels at the step's shapes: batch 0's 4,096 tokens,
-    # their row gradients (bf16) combined, the bf16 table updated
+
+def lm_sparse_timing(torch, dev, cfg, batches, check_bag, check_update,
+                     check_update_logged, check_gather, prefix):
+    """The sparse tier's kernels at an LM training step's shapes: batch 0's
+    tokens, their row gradients (bf16) combined, the bf16 table updated,
+    held against their plain versions and timed beside the library's
+    calls. Returns the timings, keyed ``prefix`` + shape."""
+    from repro_torch.kernels import ops, ref
+
     table = (torch.randn((cfg.vocab_size, cfg.d_model), device=dev) * 0.02) \
         .to(torch.bfloat16)
     d = table.shape[1]
@@ -1194,21 +1360,20 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     n_rows = int((uniq >= 0).sum())
     order = torch.sort(ids, stable=True)[1]
     sorted_ids = ids[order]
-    comb_seg = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                                       sorted_ids[1:] != sorted_ids[:-1]]),
-                            0, dtype=torch.int32) - 1
+    firsts = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                        sorted_ids[1:] != sorted_ids[:-1]])
+    comb_seg = torch.cumsum(firsts, 0, dtype=torch.int32) - 1
     comb_src = order.to(torch.int32)
-    comb_starts = torch.nonzero(torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                                           sorted_ids[1:] != sorted_ids[:-1]])
-                                ).flatten().to(torch.int32)
-    check_bag(g_rows, comb_src, comb_seg, N, "tinyllama duplicate combine")
-    check_update(table.clone(), uniq, upd, "tinyllama bf16 table")
+    comb_starts = torch.nonzero(firsts).flatten().to(torch.int32)
+    what = f"{cfg.name}"
+    check_bag(g_rows, comb_src, comb_seg, N, f"{what} duplicate combine")
+    check_update(table.clone(), uniq, upd, f"{what} bf16 table")
     scratch = torch.zeros(table.shape, dtype=torch.float32, device=dev)
-    check_update(scratch, uniq, upd, "tinyllama f32 scratch")
-    check_update_logged(table.clone(), uniq, upd, "tinyllama bf16 table")
-    check_gather(table, ids, "tinyllama token lookup (training batch 0)")
+    check_update(scratch, uniq, upd, f"{what} f32 scratch")
+    check_update_logged(table.clone(), uniq, upd, f"{what} bf16 table")
+    check_gather(table, ids, f"{what} token lookup (training batch 0)")
     touched = uniq[:n_rows]                # the checkpoint's gather
-    check_gather(table, touched, "tinyllama touched rows (bf16 table)")
+    check_gather(table, touched, f"{what} touched rows (bf16 table)")
     real = touched.long()
     t_tab = table.clone()
     upd_real = upd[:n_rows].to(torch.bfloat16)
@@ -1217,73 +1382,177 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
         # the ids and the bag ids once, each row gradient once, the (N, d)
         # f32 output
         # (the library's bags are the n_rows distinct tokens, in bf16)
-        "lm_bag_combine": (lambda: ops.embedding_bag(g_rows, comb_src, comb_seg, N),
-                           lambda: ref.embedding_bag_ref(g_rows, comb_src, comb_seg, N),
-                           lambda: torch.nn.functional.embedding_bag(
-                               comb_src, g_rows, comb_starts, mode="sum"),
-                           bound(N * 4 * 2 + N * d * 2 + N * d * 4, N * d)),
+        "bag_combine": (lambda: ops.embedding_bag(g_rows, comb_src, comb_seg, N),
+                        lambda: ref.embedding_bag_ref(g_rows, comb_src, comb_seg, N),
+                        lambda: torch.nn.functional.embedding_bag(
+                            comb_src, g_rows, comb_starts, mode="sum"),
+                        bound(N * 4 * 2 + N * d * 2 + N * d * 4, N * d)),
         # the ids, each touched row's f32 delta, the row read and written
-        "lm_update_bf16": (lambda: ops.scatter_update(t_tab, uniq, upd),
-                           lambda: ref.scatter_update_ref(t_tab, uniq, upd),
-                           lambda: t_tab.index_add_(0, real, upd_real),
-                           bound(N * 4 + n_rows * d * (4 + 2 * 2), n_rows * d)),
+        "update_bf16": (lambda: ops.scatter_update(t_tab, uniq, upd),
+                        lambda: ref.scatter_update_ref(t_tab, uniq, upd),
+                        lambda: t_tab.index_add_(0, real, upd_real),
+                        bound(N * 4 + n_rows * d * (4 + 2 * 2), n_rows * d)),
         # the relaxed step's two launches: the correction's f32 scratch
-        "lm_update_f32": (lambda: ops.scatter_update(scratch, uniq, upd),
-                          lambda: ref.scatter_update_ref(scratch, uniq, upd),
-                          lambda: scratch.index_add_(0, real, upd_real_f32),
-                          bound(N * 4 + n_rows * d * 12, n_rows * d)),
+        "update_f32": (lambda: ops.scatter_update(scratch, uniq, upd),
+                       lambda: ref.scatter_update_ref(scratch, uniq, upd),
+                       lambda: scratch.index_add_(0, real, upd_real_f32),
+                       bound(N * 4 + n_rows * d * 12, n_rows * d)),
         # a real slot: its id, its f32 delta, the row read, written and
         # logged; a pad: its id and a zero undo row
-        "lm_update_logged_bf16": (
+        "update_logged_bf16": (
             lambda: ops.scatter_update_logged(t_tab, uniq, upd),
             lambda: ref.scatter_update_logged_ref(t_tab, uniq, upd),
             lambda: (t_tab.index_select(0, real), t_tab.index_add_(0, real, upd_real)),
             bound(n_rows * (4 + d * (4 + 3 * 2)) + (N - n_rows) * (4 + d * 2),
                   n_rows * d)),
         # the ids once, each touched row read once and written once; no ops
-        "lm_gather_touched": (lambda: ops.gather_rows(table, touched),
-                              lambda: ref.gather_rows_ref(table, touched),
-                              lambda: torch.index_select(table, 0, touched),
-                              bound(n_rows * 4 + 2 * n_rows * d * 2, 0)),
+        "gather_touched": (lambda: ops.gather_rows(table, touched),
+                           lambda: ref.gather_rows_ref(table, touched),
+                           lambda: torch.index_select(table, 0, touched),
+                           bound(n_rows * 4 + 2 * n_rows * d * 2, 0)),
     }
     timing = {}
     for name, (kern, plain, lib, (b_ms, b_by)) in shapes.items():
-        timing[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
-                        "library_ms": None if lib is None else time_ms(torch, lib),
-                        "bound_ms": b_ms, "bound_by": b_by}
+        key = prefix + name
+        timing[key] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                       "library_ms": None if lib is None else time_ms(torch, lib),
+                       "bound_ms": b_ms, "bound_by": b_by}
         device_only = {"ms": time_ms(torch, kern, hide_host=True),
                        "plain_ms": time_ms(torch, plain, hide_host=True),
                        "library_ms": None if lib is None
                        else time_ms(torch, lib, hide_host=True)}
-        print(f"[lm-train] {name} ({N} ids, {n_rows} distinct): "
-              + json.dumps(timing[name]) + "; device only: " + json.dumps(device_only))
+        print(f"[{cfg.name}-train] {key} ({N} ids, {n_rows} distinct): "
+              + json.dumps(timing[key]) + "; device only: " + json.dumps(device_only))
     del table, t_tab, scratch, g_rows, comb, upd, upd_real, upd_real_f32, touched, real
     torch.cuda.empty_cache()
+    return timing
+
+
+def smoke_train_card_vs_cpu(torch, dev, arch, dtype, n_steps, on_card=None,
+                            cpu_runs=None):
+    """Smoke ``arch`` trained on the card and on the CPU from the same
+    params (``n_steps`` relaxed steps in ``dtype``, TF32 off). Returns
+    {run name: (losses, dense params f32 on the host, table f32)} for the
+    run "card" and the CPU runs; ``on_card()`` reads counters before and
+    after the card's run, their difference going to "card_counts".
+    ``cpu_runs`` maps each CPU run's name to a context it runs in (default:
+    one run, "cpu", as it is)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.models.registry import get_api
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_leaves, tree_map
+
+    c = dataclasses.replace(get_arch(arch, smoke=True).model, dtype=dtype)
+    tc = TrainConfig(embed_learning_rate=0.05)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    sparams = get_api(c).init(gen, c)
+    sinit = train_loop.make_step_fns(c, tc)[0]
+    out = {}
+    runs = [("card", dev, contextlib.nullcontext)] + [
+        (name, torch.device("cpu"), ctx) for name, ctx in
+        (cpu_runs or {"cpu": contextlib.nullcontext}).items()]
+    for name, where, ctx in runs:
+        st = sinit(tree_map(lambda p, w=where: p.to(w, copy=True), sparams))
+        before = on_card() if on_card is not None and name == "card" else None
+        with ctx():
+            st, losses = train_loop.train(c, tc, make_batches(c, 4, 16, device=where),
+                                          n_steps, relaxed=True, state=st, device=where)
+        out[name] = (losses, [p.detach().float().cpu() for p in tree_leaves(st["dense"])],
+                     st["embed"]["table"].float().cpu())
+        if before is not None:
+            out["card_counts"] = {k: v - before[k] for k, v in on_card().items()}
+    return out
+
+
+def adamw_inplace_check(torch, dev):
+    """One smoke tinyllama step's dense update (bf16 params, the grads of
+    its loss on a batch, clipped) twice over on the card: the functional
+    AdamW and the in-place one the trainer runs, from the same state; the
+    params, moments and norm must be bitwise equal after each of two
+    steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b", smoke=True).model,
+                              dtype="bfloat16")
+    tc = TrainConfig()
+    api = get_api(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = api.init(gen, cfg)
+    dense = {k: v for k, v in params.items() if k != "embed"}
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(dense)]
+    it = iter(leaves)
+    loss = api.loss({**tree_map(lambda _: next(it), dense), "embed": params["embed"]},
+                    cfg, make_batches(cfg, 4, 16, device=dev).next(0))
+    it = iter(torch.autograd.grad(loss, leaves))
+    grads = tree_map(lambda _: next(it), dense)
+    adam = opt.make_optimizer("adamw", tc.learning_rate, tc)
+    p_fun, p_in = tree_map(torch.clone, dense), tree_map(torch.clone, dense)
+    s_fun, s_in = adam.init(p_fun), adam.init(p_in)
+    for _ in range(2):
+        g_fun, norm_fun = opt.global_norm_clip(grads, tc.grad_clip)
+        upd, s_fun = adam.update(g_fun, s_fun, p_fun)
+        p_fun = tree_map(lambda p, u: (p.float() + u).to(p.dtype), p_fun, upd)
+        g_in = tree_map(torch.clone, grads)
+        norm_in = opt.global_norm_clip_(g_in, tc.grad_clip)
+        s_in = adam.update_inplace(g_in, s_in, p_in)
+        torch.cuda.synchronize()
+        check(torch.equal(norm_fun, norm_in), "in-place clip: norm differs")
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves((p_fun, s_fun)), tree_leaves((p_in, s_in)), strict=True)),
+            "in-place AdamW differs from the functional one")
+    print(f"[lm-train] in-place AdamW and clip on the card: 2 steps of smoke "
+          f"tinyllama (bf16, {len(leaves)} dense leaves) bitwise equal to the "
+          "functional ones")
+
+
+def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
+                   check_gather):
+    """Phase 12: full-width tinyllama-1.1b training. Returns (the launch
+    counts of the relaxed run, with the strict run's updates as
+    "scatter_update_strict", the step metrics, the sparse kernels'
+    timings at the step's shapes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+
+    L = get_arch("tinyllama-1.1b").model.num_layers
+    # per step: 22 flash forwards and 22 more in the remat recompute, all on
+    # the tensor-core route, one bf16 backward of BWD_PASSES launches per layer
+    launches, step, batches = lm_train_runs(torch, dev, "tinyllama-1.1b", {
+        "flash_attention": 2 * L, "flash_attention_tc": 2 * L,
+        "flash_attention_bwd": L * fa.BWD_PASSES[torch.bfloat16]})
+    print(f"[lm-train] tinyllama peak device memory {step['peak_device_gb']:.2f} GB "
+          "(PR 15, the functional AdamW: 41.25 GB)")
+    check(step["peak_device_gb"] < 41.25, "tinyllama: the peak did not fall below "
+          f"the functional AdamW's 41.25 GB: {step['peak_device_gb']:.2f} GB")
+    adamw_inplace_check(torch, dev)
+    timing = lm_sparse_timing(torch, dev, get_arch("tinyllama-1.1b").model, batches,
+                              check_bag, check_update, check_update_logged,
+                              check_gather, "lm_")
 
     # smoke tinyllama on the card and on the CPU from the same params: 5
     # relaxed steps in f32 (TF32 off; the f32 backward route), then one step
     # in bf16 (the tensor-core route) and the loss after it
     scfg = get_arch("tinyllama-1.1b", smoke=True).model
-    smoke = {}
-    for dtype, n_steps in (("float32", 5), ("bfloat16", 2)):
-        c = dataclasses.replace(scfg, dtype=dtype)
-        gen = torch.Generator()
-        gen.manual_seed(0)
-        sparams = api.init(gen, c)
-        sinit = train_loop.make_step_fns(c, tc)[0]
-        for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
-            st = sinit(tree_map(lambda p, w=where: p.to(w, copy=True), sparams))
-            before, before_f32 = fa.bwd_launches, fa.launches - fa.tc_launches
-            st, losses = train_loop.train(c, tc, make_batches(c, 4, 16, device=where),
-                                          n_steps, relaxed=True, state=st, device=where)
-            smoke[dtype, name] = (losses, [p.detach().float().cpu() for p in
-                                           tree_leaves(st["dense"])],
-                                  st["embed"]["table"].float().cpu())
-            if dtype == "float32" and name == "card":
-                launches["flash_attention_bwd_f32"] = fa.bwd_launches - before
-                launches["flash_attention_f32"] = (fa.launches - fa.tc_launches
-                                                   - before_f32)
-    (lc, dc, tc_), (lp, dp, tp) = smoke["float32", "card"], smoke["float32", "cpu"]
+
+    def fa_counts():
+        return {"bwd": fa.bwd_launches, "f32": fa.launches - fa.tc_launches}
+    smoke = smoke_train_card_vs_cpu(torch, dev, "tinyllama-1.1b", "float32", 5, fa_counts)
+    launches["flash_attention_bwd_f32"] = smoke["card_counts"]["bwd"]
+    launches["flash_attention_f32"] = smoke["card_counts"]["f32"]
+    (lc, dc, tc_), (lp, dp, tp) = smoke["card"], smoke["cpu"]
     dense_diff = max((a - b).abs().max().item() for a, b in zip(dc, dp, strict=True))
     print(f"[lm-train] smoke f32 losses card {lc} cpu {lp}; dense params max abs "
           f"difference {dense_diff:.3g}; table {(tc_ - tp).abs().max().item():.3g}")
@@ -1305,13 +1574,79 @@ def lm_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
     # logits, agree within two such roundings, 2^-8 relative. The params are
     # printed, not held: an element near 0 moves by lr times a gradient that
     # the two routes round at different places.
-    (lc, dc, tc_), (lp, dp, tp) = smoke["bfloat16", "card"], smoke["bfloat16", "cpu"]
+    smoke = smoke_train_card_vs_cpu(torch, dev, "tinyllama-1.1b", "bfloat16", 2)
+    (lc, dc, tc_), (lp, dp, tp) = smoke["card"], smoke["cpu"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp, strict=True))
     dense_diff = max((a - b).abs().max().item() for a, b in zip(dc, dp, strict=True))
     print(f"[lm-train] smoke bf16 step: losses card {lc} cpu {lp} (largest relative "
           f"difference {rel:.3g}, limit {2**-8:.3g}); table max abs difference "
           f"{(tc_ - tp).abs().max().item():.3g}; dense params {dense_diff:.3g}")
     check(rel <= 2**-8, f"smoke bf16 step: losses differ by {rel:.3g} relative")
+    return launches, step, timing
+
+
+def rwkv_train_phase(torch, np, dev, check_bag, check_update, check_update_logged,
+                     check_gather):
+    """Phase 16: full-width rwkv6-3b training. Returns (the launch counts of
+    the relaxed run, with the strict run's updates as
+    "scatter_update_strict", the step metrics, the sparse kernels' timings
+    at the step's shapes)."""
+    import functools
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+
+    cfg = get_arch("rwkv6-3b").model
+    L = cfg.num_layers
+    # per step: 32 wkv6 forwards (chunked route) and 32 more in the remat
+    # recompute, and one backward a layer
+    launches, step, batches = lm_train_runs(torch, dev, "rwkv6-3b", {
+        "wkv6": 2 * L, "wkv6_bwd": L})
+    print(f"[rwkv6-3b-train] peak device memory {step['peak_device_gb']:.2f} GB")
+    timing = lm_sparse_timing(torch, dev, cfg, batches, check_bag, check_update,
+                              check_update_logged, check_gather, "rwkv_")
+    # smoke rwkv6 on the card and on the CPU from the same params: 5 relaxed
+    # steps in f32 (TF32 off for the matmuls). The card's wkv6 forward takes
+    # its products in TF32 split hi + lo (within 3e-4 of f32, phase 9), its
+    # backward in f32. AdamW divides each moment by its own magnitude, so
+    # where a gradient is near 0 a relative difference of 1e-2 in it moves
+    # the param by about lr x 1e-2 = 1e-5. The card is compared with a plain
+    # f32 CPU run and with one whose forward emulates the split
+    # (ref.wkv6_ref(..., tf32="split")). The losses are held at phase 12's
+    # 1e-5 against both, and so are the dense params, all but at most one
+    # element in 10^4, which must still lie within 1e-4.
+    @contextlib.contextmanager
+    def split_forward():
+        plain = ref.wkv6_ref
+        ref.wkv6_ref = functools.partial(plain, tf32="split")
+        try:
+            yield
+        finally:
+            ref.wkv6_ref = plain
+    smoke = smoke_train_card_vs_cpu(
+        torch, dev, "rwkv6-3b", "float32", 5,
+        lambda: {"wkv6": wk.launches, "wkv6_bwd": wk.bwd_launches},
+        {"cpu": contextlib.nullcontext, "cpu_split": split_forward})
+    scfg = get_arch("rwkv6-3b", smoke=True).model
+    check(smoke["card_counts"] == {"wkv6": 5 * scfg.num_layers * (2 if scfg.remat else 1),
+                                   "wkv6_bwd": 5 * scfg.num_layers},
+          f"smoke rwkv6 launches {smoke['card_counts']}")
+    lc, dc, tc_ = smoke["card"]
+    card = torch.cat([p.flatten() for p in dc])
+    for name in ("cpu", "cpu_split"):
+        lp, dp, tp = smoke[name]
+        cpu = torch.cat([p.flatten() for p in dp])
+        outside = int((~torch.isclose(card, cpu, rtol=1e-5, atol=1e-5)).sum())
+        print(f"[rwkv6-3b-train] smoke f32 losses card {lc} {name} {lp}; dense params "
+              f"max abs difference {(card - cpu).abs().max().item():.3g}, {outside} of "
+              f"{card.numel()} elements beyond 1e-5; table "
+              f"{(tc_ - tp).abs().max().item():.3g}")
+        # phase 12's tolerance for tinyllama
+        np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=0)
+        check(outside <= card.numel() // 10_000, f"smoke rwkv6 vs {name}: {outside} "
+              f"dense elements beyond 1e-5, at most {card.numel() // 10_000} allowed")
+        torch.testing.assert_close(card, cpu, rtol=1e-5, atol=1e-4)
     return launches, step, timing
 
 
@@ -1916,10 +2251,25 @@ def main():
     print(f"[examples] each one's end, s after the start: {json.dumps(ex_wall)}")
     print(f"[examples] phase 14 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 15. the wkv6 backward on the card -------------------------------------------
+    t0 = time.perf_counter()
+    err["wkv6_bwd"], wkv_bwd_timing = wkv6_bwd_phase(torch, dev)
+    timing.update(wkv_bwd_timing)
+    print(f"[wkv6-bwd] phase 15 wall time {time.perf_counter() - t0:.1f}s")
+
+    # -- 16. training full rwkv6-3b ----------------------------------------------------
+    t0 = time.perf_counter()
+    rw_launches, rw_step, rw_timing = rwkv_train_phase(torch, np, dev, check_bag,
+                                                       check_update, check_update_logged,
+                                                       check_gather)
+    timing.update(rw_timing)
+    print(f"[rwkv6-3b-train] phase 16 wall time {time.perf_counter() - t0:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
-    # for the gather, flash attention and wkv6, phase 12's relaxed run for
-    # the LM training path and phase 13's full-width run for its checkpoint
+    # for the gather, flash attention and wkv6, phases 12's and 16's relaxed
+    # runs for the LM training paths and phase 13's full-width run for its
+    # checkpoint
     gather_src = ("src/repro_torch/csrc/gather_rows.cu",
                   "src/repro/kernels/embedding_bag.py:73")
     wkv6_src = ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:65")
@@ -1981,12 +2331,28 @@ def main():
             ("scatter_update_logged", "dlrm-rm1 train", "update_logged_bf16",
              launches["scatter_update_logged"], *logged_src),
             ("scatter_update_logged", "tinyllama-1.1b train", "lm_update_logged_bf16",
-             lm_launches["scatter_update_logged"], *logged_src)):
+             lm_launches["scatter_update_logged"], *logged_src),
+            ("wkv6", "rwkv6-3b train", "wkv6_train", rw_launches["wkv6"], *wkv6_src),
+            # no Pallas kernel: XLA differentiates the reference's wkv6_chunked
+            ("wkv6_bwd", "rwkv6-3b train", "wkv6_bwd", rw_launches["wkv6_bwd"],
+             "src/repro_torch/csrc/wkv6_bwd.cu", "src/repro/models/rwkv6.py:97"),
+            ("gather_rows", "rwkv6-3b train", "gather_rwkv_prefill",
+             rw_launches["gather_rows"], *gather_src),
+            ("embedding_bag", "rwkv6-3b train", "rwkv_bag_combine",
+             rw_launches["embedding_bag"], "src/repro_torch/csrc/embedding_bag.cu",
+             "src/repro/kernels/embedding_bag.py:40"),
+            ("scatter_update", "rwkv6-3b train", "rwkv_update_f32",
+             rw_launches["scatter_update"], *update_src),
+            ("scatter_update", "rwkv6-3b train (strict)", "rwkv_update_bf16",
+             rw_launches["scatter_update_strict"], *update_src),
+            ("scatter_update_logged", "rwkv6-3b train", "rwkv_update_logged_bf16",
+             rw_launches["scatter_update_logged"], *logged_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
     print(f"[train] full dlrm-rm1 batch {Bsz}: {json.dumps(step)}")
     print(f"[lm-train] full tinyllama-1.1b batch 4 x 1024: {json.dumps(lm_step)}")
+    print(f"[rwkv6-3b-train] full rwkv6-3b batch 4 x 1024: {json.dumps(rw_step)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -120,7 +120,9 @@ def resume_train_state(rec: RecoveredState, init_state: dict) -> tuple[dict, int
 
     Every recovered leaf becomes a new tensor on the device of the leaf it
     replaces, in that leaf's dtype (the f32 mirror of a bf16 table holds
-    bf16 values, so the cast is exact). ``init_state`` is not modified.
+    bf16 values, so the cast is exact). ``init_state`` is not modified,
+    but where no dense snapshot was recovered the state keeps its dense
+    leaves and moments, which training then updates in place.
     Returns (state, resume_step).
     """
     def like(tgt: torch.Tensor, src) -> torch.Tensor:

@@ -57,6 +57,10 @@ KERNELS = {
     # r, k, v, logw, u, s0 (may be null), y, s_fin, dtype, B, S, H, r/k/v/logw
     # strides (batch, seq, head), stream
     "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 4 + [_I64] * 12 + [_P]),
+    # r, k, v, logw, u, s0, dy, ds_fin (s0, ds_fin may be null), dr, dk, dv,
+    # dlogw, du_part, du, ds0 (may be null), states scratch, dtype, B, S, H,
+    # r/k/v/logw strides (batch, seq, head), stream
+    "wkv6_bwd": ("wkv6_bwd_launch", [_P] * 16 + [_I] * 4 + [_I64] * 12 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -80,11 +80,31 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 def wkv6(r, k, v, logw, u, s0=None, *, s_out=None):
     """Chunked RWKV-6 time-mix: r, k, v (B, S, H, 64), logw (B, S, H, 64)
     f32, u (H, 64) f32, s0 (B, H, 64, 64) f32 or None -> (y (B, S, H, 64)
-    f32, final state); ``s_out`` receives the final state (it may be s0)."""
+    f32, final state); ``s_out`` receives the final state (it may be s0).
+    Differentiable: when grad is on and an input needs it, the call goes
+    through ``WKV6``, whose backward is the backward kernel (or its plain
+    version on the CPU); such a call takes no ``s_out``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (r, k, v, logw, u, s0)):
+        if s_out is not None:
+            raise ValueError("wkv6: a differentiable call returns its final "
+                             "state and writes no s_out")
+        return wk.WKV6.apply(r, k, v, logw, u, s0)
     if r.is_cuda:
         return wk.wkv6_cuda(r, k, v, logw, u, s0, s_out=s_out)
     _plain_ok(r, "wkv6")
     return ref.wkv6_ref(r, k, v, logw, u, s0, s_out=s_out)
+
+
+def wkv6_bwd(r, k, v, logw, u, s0, dy, ds_fin=None):
+    """Gradients of ``wkv6`` from its inputs, dy (B, S, H, 64) f32 and
+    ds_fin (B, H, 64, 64) f32 or None: (dr, dk, dv) in r's dtype, dlogw
+    f32, du (H, 64) f32 and ds0 (None when s0 is None)."""
+    if r.is_cuda:
+        return wk.wkv6_bwd_cuda(r, k, v, logw, u, s0, dy, ds_fin)
+    _plain_ok(r, "wkv6_bwd")
+    dr, dk, dv, dlogw, du, ds0 = ref.wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin)
+    return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dlogw, du, ds0
 
 
 def scatter_update(table, idx, delta):

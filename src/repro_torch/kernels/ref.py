@@ -267,3 +267,93 @@ def wkv6_ref(r, k, v, logw, u, s0=None, *, s_out=None, tf32=None):
     if s_out is not None:
         s = s_out.copy_(s)
     return y, s
+
+
+def wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin=None):
+    """The backward of ``wkv6_ref`` (f32 route), written out (no autograd).
+
+    r, k, v, logw, u, s0 as ``wkv6_ref`` takes them; dy (B, S, H, K), the
+    gradient of y; ds_fin (B, H, K, K) that of the final state, or None for
+    zero. Over the same 16-row chunks from the start, with L the cumulative
+    log decay within a chunk, r_f = r e^{L_excl}, k_f = k e^{-L_incl}, kd =
+    k e^{L_end - L_incl}, A = tril(r_f k_f^T, -1) and G_n the gradient of
+    the state after chunk n (G_last = ds_fin):
+
+        G_{n-1} = diag(e^{L_end}) G_n + r_f^T dy      (the reverse walk)
+        dkd = v G^T    dv = A^T dy + (r u k) dy + kd G
+        dA = tril(dy v^T, -1)   dr_f = dA k_f + dy S_prev^T   dk_f = dA^T r_f
+        dr = dr_f e^{L_excl} + (dy.v) u k    dk = dk_f e^{-L_incl} + dkd
+             e^{L_end - L_incl} + (dy.v) u r
+
+    and dlogw from dL_excl = dr_f r_f, dL_incl = -dk_f k_f - dkd kd (plus,
+    at the chunk's last row, dL_end = e^{L_end} sum_w S_prev G + sum_j dkd
+    kd) by a reverse cumulative sum down the chunk, less dL_excl.
+
+    Returns (dr, dk, dv, dlogw) of (B, S, H, K), du (H, K) summed over
+    batch and time, and ds0 (B, H, K, K), None when s0 is None; all f32
+    (the caller casts dr, dk, dv to the inputs' dtype).
+    """
+    B, S, H, K = r.shape
+    chunk = WKV6_CHUNK
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+
+    def chunks(x):
+        x = x.float()
+        if pad:
+            x = torch.cat([x, x.new_zeros((B, pad, H, K))], dim=1)
+        return x.reshape(B, nc, chunk, H, K)
+
+    def unchunk(x):
+        return x.reshape(B, nc * chunk, H, K)[:, :S]
+    rc, kc, vc, lw, dyc = (chunks(x) for x in (r, k, v, logw, dy))
+    u = u.float()
+    cum_incl = torch.cumsum(lw, dim=2)
+    e_excl = torch.exp(cum_incl - lw)
+    e_nincl = torch.exp(-cum_incl)
+    r_f, k_f = rc * e_excl, kc * e_nincl
+    lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                  device=r.device), diagonal=-1)
+    scores = torch.einsum("bnthk,bnjhk->bnhtj", r_f, k_f).masked_fill(~lower, 0.0)
+    bonus = torch.einsum("bnthk,hk,bnthk->bnth", rc, u, kc)
+    l_end = cum_incl[:, :, -1]                          # (B, nc, H, K)
+    chunk_dec = torch.exp(l_end)
+    e_kd = torch.exp(l_end[:, :, None] - cum_incl)
+    kd = kc * e_kd
+    st_c = torch.einsum("bnjhk,bnjhw->bnhkw", kd, vc)
+    s = (torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    s_prev = []
+    for n in range(nc):
+        s_prev.append(s)
+        s = s * chunk_dec[:, n, :, :, None] + st_c[:, n]
+    s_prev = torch.stack(s_prev, dim=1)                 # (B, nc, H, K, K)
+    rdy = torch.einsum("bnthk,bnthw->bnhkw", r_f, dyc)
+    g = (torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
+         if ds_fin is None else ds_fin.float())
+    g_after = [None] * nc
+    for n in reversed(range(nc)):
+        g_after[n] = g
+        g = g * chunk_dec[:, n, :, :, None] + rdy[:, n]
+    ds0 = None if s0 is None else g
+    G = torch.stack(g_after, dim=1)                     # (B, nc, H, K, K)
+    d_kd = torch.einsum("bnjhw,bnhkw->bnjhk", vc, G)
+    d_lend = chunk_dec * torch.einsum("bnhkw,bnhkw->bnhk", s_prev, G) \
+        + (d_kd * kd).sum(2)
+    d_scores = torch.einsum("bnthw,bnjhw->bnhtj", dyc, vc).masked_fill(~lower, 0.0)
+    d_bonus = (dyc * vc).sum(-1)                        # (B, nc, chunk, H)
+    dv = (torch.einsum("bnjhk,bnhkw->bnjhw", kd, G)
+          + torch.einsum("bnhtj,bnthw->bnjhw", scores, dyc)
+          + bonus[..., None] * dyc)
+    d_rf = (torch.einsum("bnhtj,bnjhk->bnthk", d_scores, k_f)
+            + torch.einsum("bnthw,bnhkw->bnthk", dyc, s_prev))
+    d_kf = torch.einsum("bnhtj,bnthk->bnjhk", d_scores, r_f)
+    ub = d_bonus[..., None] * u
+    dr = d_rf * e_excl + ub * kc
+    dk = d_kf * e_nincl + d_kd * e_kd + ub * rc
+    du = (d_bonus[..., None] * rc * kc).sum((0, 1, 2))
+    d_excl = d_rf * r_f
+    d_incl = d_excl - d_kf * k_f - d_kd * kd
+    d_incl[:, :, -1] += d_lend
+    dlw = torch.flip(torch.cumsum(torch.flip(d_incl, [2]), dim=2), [2]) - d_excl
+    return (unchunk(dr), unchunk(dk), unchunk(dv), unchunk(dlw), du, ds0)

@@ -8,7 +8,7 @@
         --arch tinyllama-1.1b --train --batch 4 --seq 1024 [--steps 3] [--strict]
 
 (``--arch`` also takes qwen3-0.6b and rwkv6-3b.) For a DLRM id, or an LM id
-with ``--train`` (dense transformers only): makes every batch first
+with ``--train``: makes every batch first
 (set-up), runs one warm-up step, then profiles ``--steps`` training steps.
 For an LM id otherwise: runs one warm-up generation, then profiles one
 prefill of the prompt and ``--steps`` greedy decode steps after it, each

@@ -7,9 +7,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --seq 64 [... the same options]
 
-``--arch`` takes the DLRM ids and the dense transformer ids (tinyllama-1.1b,
-qwen3-0.6b); an LM trains on synthetic zipf token batches of ``--batch`` x
-``--seq``. Runs the relaxed (paper) schedule by default, on the card;
+``--arch`` takes the DLRM ids, the dense transformer ids (tinyllama-1.1b,
+qwen3-0.6b) and rwkv6-3b; an LM trains on synthetic zipf token batches of
+``--batch`` x ``--seq``. Runs the relaxed (paper) schedule by default, on the card;
 ``--device cpu`` runs the kernels' plain versions on the CPU. With
 ``--ckpt-dir`` every relaxed step is checkpointed into the emulated pool by
 the two-tier manager; ``--resume`` recovers from that directory and goes on
@@ -32,10 +32,9 @@ from repro_torch.pool.device import NOT_PORTED, PoolError, check_backend
 from repro_torch.training import train_loop
 
 
-# the ids the port trains: DLRM and the dense transformers (RWKV-6 training
-# needs the wkv6 backward, not ported yet)
-TRAIN_IDS = DLRM_IDS + [a for a in LM_IDS
-                        if get_arch(a, smoke=True).model.arch_type == "transformer"]
+# the ids the port trains: DLRM, the dense transformers and RWKV-6
+TRAIN_IDS = DLRM_IDS + [a for a in LM_IDS if get_arch(a, smoke=True).model.arch_type
+                        in ("transformer", "rwkv6")]
 
 
 def main(argv=None):

@@ -20,6 +20,19 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def layer_params(blocks, num_layers: int) -> list:
+    """The stacked block tree as one tree per layer. ``unbind`` gives views
+    whose backward stacks the layers' grads once (indexing each layer would
+    build a zero tensor of the whole stack per layer)."""
+    parts = [a.unbind(0) for a in tree_leaves(blocks)]
+    out = []
+    for i in range(num_layers):
+        it = iter([p[i] for p in parts])
+        out.append(tree_map(lambda _, it=it: next(it), blocks))
+    return out
 
 
 def uniform_init(gen: torch.Generator, shape, scale: float, dtype):

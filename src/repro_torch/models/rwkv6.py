@@ -13,11 +13,19 @@ The recurrent cache keeps the reference's layout, ``{"tmix": {"shift":
 in place: ``prefill`` and ``decode_step`` return the cache they were given.
 Its size does not grow with the sequence. Matmuls in f32 run without TF32
 (torch's default), which the decay LoRA's f32 product relies on.
+
+Training differentiates ``lm_loss`` with torch autograd; ``ops.wkv6`` is
+then the ``WKV6`` function, whose backward is the wkv6 backward kernel.
+With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``, as the
+reference wraps its block in ``jax.checkpoint`` with ``nothing_saveable``
+(``src/repro/models/rwkv6.py:233-235``): only the block's input is kept,
+and the block (its wkv6 forward included) runs again in the backward.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
 from repro_torch.kernels import ops, ref
@@ -152,27 +160,37 @@ def _block(p, cfg, x, state):
     return x + o
 
 
-def forward_hidden(params, cfg, tokens, *, caches=None):
+def forward_hidden(params, cfg, tokens, *, caches=None, embed_rows=None):
     """tokens: (B, S) -> (hidden (B, S, d), caches), the caches (if any)
     carried from their state and updated in place.
 
-    The token embedding goes through the row-gather kernel. The
-    reference's relaxed lookup (pre-gathered ``embed_rows``) comes with LM
-    training.
+    The token embedding goes through the row-gather kernel, unless
+    ``embed_rows`` gives the (B, S, d) rows already gathered (the relaxed
+    lookup's prefetch). With grad on and ``cfg.remat``, each block is
+    checkpointed.
     """
     _check_supported(cfg)
-    x = embedding_ops.lookup(params["embed"]["table"], tokens)
+    if embed_rows is not None:
+        x = embed_rows.to(cfg.activation_dtype)
+    else:
+        x = embedding_ops.lookup(params["embed"]["table"], tokens)
     x = layers.rms_norm(x, params["norm_in"], cfg.norm_eps)
-    for i in range(cfg.num_layers):
-        bp = tree_map(lambda a, i=i: a[i], params["blocks"])
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    for i, bp in enumerate(layers.layer_params(params["blocks"], cfg.num_layers)):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda bp, x: _block(bp, cfg, x, None), bp, x, use_reentrant=False)
+            continue
         st = None if caches is None else tree_map(lambda a, i=i: a[i], caches)
         x = _block(bp, cfg, x, st)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 
 
 def lm_loss(params, cfg, batch):
-    """Mean token cross-entropy (forward). batch: tokens (B, S), labels (B, S)."""
-    hidden, _ = forward_hidden(params, cfg, batch["tokens"])
+    """Mean token cross-entropy. batch: tokens (B, S), labels (B, S) [,
+    embed_rows (the relaxed lookup's prefetched rows)]."""
+    hidden, _ = forward_hidden(params, cfg, batch["tokens"],
+                               embed_rows=batch.get("embed_rows"))
     loss, count = layers.chunked_softmax_xent(
         hidden, params["lm_head"], batch["labels"], chunk=cfg.loss_chunk)
     return loss / torch.clamp(count, min=1.0)

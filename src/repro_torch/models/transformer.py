@@ -24,7 +24,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
 from repro_torch.models import layers
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_map
 
 
 def _check_supported(cfg) -> None:
@@ -67,19 +67,6 @@ def _block_fwd(p, cfg, x, positions, cache=None, cache_index=None):
     return x + layers.mlp_fwd(p["mlp"], cfg, h), cache
 
 
-def _layer_params(blocks, num_layers: int) -> list:
-    """The stacked block tree as one tree per layer. ``unbind`` gives views
-    whose backward stacks the layers' grads once (indexing each layer would
-    build a zero tensor of the whole stack per layer)."""
-    leaves = tree_leaves(blocks)
-    parts = [a.unbind(0) for a in leaves]
-    out = []
-    for i in range(num_layers):
-        it = iter([p[i] for p in parts])
-        out.append(tree_map(lambda _, it=it: next(it), blocks))
-    return out
-
-
 def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
                    vision_embeds=None, embed_rows=None):
     """tokens: (B, S) -> (hidden (B, S, d), caches).
@@ -99,7 +86,7 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
         x = embedding_ops.lookup(params["embed"]["table"], tokens)
     positions = (cache_index or 0) + torch.arange(S, device=tokens.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
-    for i, bp in enumerate(_layer_params(params["blocks"], cfg.num_layers)):
+    for i, bp in enumerate(layers.layer_params(params["blocks"], cfg.num_layers)):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 lambda bp, x: _block_fwd(bp, cfg, x, positions)[0], bp, x,

@@ -6,20 +6,45 @@ Two tiers, matching the paper:
     update rules, which is what makes the relaxed embedding lookup exact.
 
 ``update(grads, state, params) -> (updates, state)`` returns f32 updates;
-the caller adds them as ``(p.f32 + u).to(p.dtype)``.
+the caller adds them as ``(p.f32 + u).to(p.dtype)``. AdamW also has
+``update_inplace(grads, state, params) -> state``, which writes the same
+bits into the params and the moments in place (the trainer's dense tier
+uses it), so that no second copy of the moments, no f32 update tree and no
+second param tree is ever held.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.tree import tree_leaves, tree_map
 
+# A leaf of more elements than this is updated in place a slice of its
+# leading axis at a time (a stacked leaf a layer or a few at a time), so
+# that each f32 temporary stays near this size: rwkv6-3b's stacked
+# cmix.wk, (32, 2560, 8960), would otherwise take 2.9 GB per temporary.
+SLICE_ELEMS = 1 << 25
+
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]                # params -> state
     update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (updates, state)
+    # (grads, state, params) -> state, params and moments updated in place
+    update_inplace: Optional[Callable[[Any, Any, Any], Any]] = None
+
+
+def leaf_slices(*leaves):
+    """Aligned views of same-shaped leaves that cover them: the leaves
+    themselves, or for a leaf of more than ``SLICE_ELEMS`` elements runs of
+    its leading axis of about that many elements each."""
+    t = leaves[0]
+    if t.dim() < 2 or t.numel() <= SLICE_ELEMS:
+        yield leaves
+        return
+    step = max(1, SLICE_ELEMS // (t.numel() // t.shape[0]))
+    for i in range(0, t.shape[0], step):
+        yield tuple(x[i:i + step] for x in leaves)
 
 
 def _zeros_f32(p):
@@ -66,7 +91,29 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
         return tree_map(upd, m, v, params), {"m": m, "v": v, "t": t}
 
-    return Optimizer(init, update)
+    def update_inplace(grads, state, params):
+        """``update`` and ``(p.f32 + u).to(p.dtype)`` written into params,
+        m and v in place, with the same per-element operations in the same
+        order (so the same bits), leaf by leaf and slice by slice."""
+        t = state["t"] + 1
+        bc1 = 1 - b1 ** t.float()
+        bc2 = 1 - b2 ** t.float()
+        for leaf in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                        tree_leaves(state["v"]), tree_leaves(params), strict=True):
+            for g, m, v, p in leaf_slices(*leaf):
+                g32 = g.float()
+                m.mul_(b1).add_((1 - b1) * g32)
+                v.mul_(b2).add_((1 - b2) * torch.square(g32))
+                u = (m / bc1).mul_(-lr).div_(torch.sqrt(v / bc2).add_(eps))
+                if weight_decay:
+                    u.sub_(lr * weight_decay * p.float())
+                if p.dtype == torch.float32:
+                    p.add_(u)
+                else:
+                    p.copy_(p.float().add_(u))
+        return {"m": state["m"], "v": state["v"], "t": t}
+
+    return Optimizer(init, update, update_inplace)
 
 
 def rowwise_adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
@@ -113,13 +160,27 @@ def make_optimizer(name: str, lr: float, cfg=None) -> Optimizer:
     raise ValueError(name)
 
 
+def _clip_scale(grads, max_norm: float):
+    """(global f32 L2 norm of grads, the f32 scale that clips it)."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads)))
+    return norm, torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
 def global_norm_clip(grads, max_norm: float):
     """Scale grads so their global f32 L2 norm is at most ``max_norm``.
 
     Returns (clipped grads, norm); the scale is cast to each grad's dtype
     before the multiply, as the JAX package does.
     """
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    norm, scale = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+def global_norm_clip_(grads, max_norm: float):
+    """``global_norm_clip`` in place: scales each grad leaf with ``mul_``
+    (the same bits as ``g * scale.to(g.dtype)``) and returns the norm."""
+    norm, scale = _clip_scale(grads, max_norm)
+    for g in tree_leaves(grads):
+        g.mul_(scale.to(g.dtype))
+    return norm

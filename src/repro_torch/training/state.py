@@ -23,6 +23,8 @@ def merge_params(dense: dict, embed: dict) -> dict:
 
 
 def make_state(params: dict, dense_opt, embed_opt) -> dict:
+    """The state holds the caller's param tensors, not copies; training
+    updates them in place (a caller that reuses a param tree clones it)."""
     dense, embed = split_params(params)
     return {
         "dense": dense,

@@ -22,8 +22,12 @@ is tied to the table (its dense table gradient would bypass the sparse
 tier). The dense tier is the rest of the tree (an LM's blocks, final norm
 and head) under ``train_cfg.optimizer``.
 
-The table is updated in place, so a step returns a state that shares it
-with the state it was given.
+The table, the dense params and the dense optimizer's moments are all
+updated in place (the dense tier through ``update_inplace`` where the
+optimizer has one, else its f32 updates added leaf by leaf), so a step
+returns a state that shares them with the state it was given; a caller
+that needs an earlier state clones it. At full width no second copy of
+the dense tier or its moments is ever held.
 """
 from __future__ import annotations
 
@@ -41,8 +45,10 @@ from repro_torch.training import state as st
 from repro_torch.tree import tree_leaves, tree_map
 
 
-def _add_updates(params, updates):
-    return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params, updates)
+def _add_updates_(params, updates) -> None:
+    """p = (p.f32 + u).to(p.dtype), in place, leaf by leaf."""
+    for p, u in zip(tree_leaves(params), tree_leaves(updates), strict=True):
+        p.copy_(p.float() + u)
 
 
 def make_step_fns(cfg, train_cfg):
@@ -81,12 +87,18 @@ def make_step_fns(cfg, train_cfg):
         return loss.detach(), tree_map(lambda _: next(it), dense), grads[-1]
 
     def update_dense(state, g_dense):
+        """In place: clips the fresh grads, then updates the dense params
+        and the optimizer's moments. Returns (dense, opt state, norm)."""
         if train_cfg.grad_clip:
-            g_dense, gnorm = opt.global_norm_clip(g_dense, train_cfg.grad_clip)
+            gnorm = opt.global_norm_clip_(g_dense, train_cfg.grad_clip)
         else:
             gnorm = torch.zeros(())
-        upd_d, od = dense_opt.update(g_dense, state["opt_dense"], state["dense"])
-        return _add_updates(state["dense"], upd_d), od, gnorm
+        if dense_opt.update_inplace is not None:
+            od = dense_opt.update_inplace(g_dense, state["opt_dense"], state["dense"])
+        else:
+            upd_d, od = dense_opt.update(g_dense, state["opt_dense"], state["dense"])
+            _add_updates_(state["dense"], upd_d)
+        return state["dense"], od, gnorm
 
     def sparse_update(state, batch, g_rows):
         """SGD at the touched rows: (uniq row ids, f32 row updates, opt state)."""

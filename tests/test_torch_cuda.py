@@ -534,6 +534,73 @@ def test_wkv6_refuses_other_head_sizes(cuda):
         ops.wkv6(r, r, r, r, torch.zeros((2, 32), device=cuda))
 
 
+# the wkv6 backward's tolerance, scaled by each gradient's largest magnitude:
+# the kernel and its plain version are both f32, the sums in other orders
+# (and the kernel's multiply-adds fused); dr, dk and dv in bf16 also carry
+# one rounding of their own, 2^-8 relative
+WKV6_BWD_TOL = 1e-4
+
+
+def _wkv_bwd_inputs(dev, B, S, H, dtype, with_state, seed=0):
+    r, k, v, logw, u, s0 = _wkv_inputs(dev, B, S, H, dtype, with_state, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn((B, S, H, 64), generator=g, device=dev)
+    ds_fin = torch.randn((B, H, 64, 64), generator=g, device=dev) if with_state else None
+    return r, k, v, logw, u, s0, dy, ds_fin
+
+
+def _assert_wkv_grads_close(got, want, dtype):
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got, want,
+                          strict=True):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == (dtype if name in ("dr", "dk", "dv") else torch.float32)
+        rtol = 2**-8 if g.dtype == torch.bfloat16 else 0.0
+        torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                   atol=WKV6_BWD_TOL * w.abs().max().item() + 1e-30,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 64, 100, 1024])
+@pytest.mark.parametrize("B,H", [(2, 2), (4, 40)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_bwd_matches_plain(cuda, dtype, S, B, H, with_state):
+    """dr, dk, dv, dlogw, du and ds0 against ``ref.wkv6_bwd_ref`` on the same
+    inputs within WKV6_BWD_TOL of each gradient's largest magnitude, ragged
+    last chunks and S = 1 included; one launch a call, and a second call
+    gives the same bits (no atomics; du summed over the batch in order)."""
+    x = _wkv_bwd_inputs(cuda, B, S, H, dtype, with_state)
+    before = wk.bwd_launches
+    got = ops.wkv6_bwd(*x)
+    again = ops.wkv6_bwd(*x)
+    assert wk.bwd_launches == before + 2
+    for a, b in zip(got, again, strict=True):
+        assert (a is None and b is None) or torch.equal(a, b)
+    _assert_wkv_grads_close(got, ref.wkv6_bwd_ref(*x), dtype)
+
+
+@pytest.mark.gpu
+def test_wkv6_autograd_runs_the_kernels(cuda, monkeypatch):
+    """With grad on, ``ops.wkv6`` on the card launches the forward and the
+    backward kernels and never reaches a plain version; its gradients are
+    the backward kernel's, bitwise."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(ref, "wkv6_ref", refuse)
+    monkeypatch.setattr(ref, "wkv6_bwd_ref", refuse)
+    r, k, v, logw, u, s0, dy, _ = _wkv_bwd_inputs(cuda, 2, 70, 3, torch.bfloat16, True)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, logw, u, s0)]
+    before = (wk.launches, wk.bwd_launches)
+    y, _ = ops.wkv6(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (wk.launches, wk.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = ops.wkv6_bwd(r, k, v, logw, u, s0, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
 # the backward's tolerance, scaled by each gradient's largest magnitude: f32
 # 1e-4; f16 and bf16 the rtol the forward's tests take (torch's defaults, one
 # rounding of the output). The 1e-5 floor covers S = 1 (and row 0 under a

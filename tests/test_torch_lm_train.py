@@ -326,14 +326,6 @@ def test_cli_tinyllama_without_card_raises():
     assert r.returncode != 0 and "no CUDA card" in r.stderr
 
 
-def test_rwkv_training_raises():
-    cfg = get_arch("rwkv6-3b", smoke=True).model
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        train_loop.make_step_fns(cfg, TrainConfig())
-    r = _cli("--arch", "rwkv6-3b", "--device", "cpu", "--steps", "1")
-    assert r.returncode != 0 and "invalid choice" in r.stderr
-
-
 def test_tied_head_training_raises():
     cfg = get_arch("tinyllama-1.1b", smoke=True).model.replace(tie_embeddings=True)
     with pytest.raises(NotImplementedError, match="tied"):
