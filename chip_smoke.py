@@ -93,12 +93,18 @@ Phases, each of which exits non-zero on failure:
      crash drills, train_dlrm_e2e at 20 steps, quickstart, and
      serve_batched for tinyllama-1.1b and rwkv6-3b; each must exit 0 and
      print its marker line;
- 15. hold the wkv6 backward kernel against its plain version on the card
-     (r, k, v in f32 and bf16; S in {1, 15, 16, 17, 64, 100, 1024}; 2 heads
-     and rwkv6-3b's 40; zero and random initial state and final-state
-     gradient; every gradient; each case repeated bitwise, its launch
-     counted), and time kernel and plain version at full rwkv6-3b's
-     training shape beside the bound (autograd through the plain forward
+ 15. hold the wkv6 backward kernel against its plain version and the plain
+     emulation of its TF32 split on the card (r, k, v in f32 and bf16; S in
+     {1, 15, 16, 17, 64, 100, 1024}; 2 heads and rwkv6-3b's 40; zero and
+     random initial state and final-state gradient; then f16, one head at
+     S around the kernel's stage edges (31-33, 47-49) in all three types,
+     and r, k, v and logw as strided views, bitwise the contiguous call;
+     every gradient; each case repeated bitwise, its launch counted), and
+     time kernel and plain version at full rwkv6-3b's training shape beside
+     the bound (the bytes: its products run on the tensor cores), device
+     only beside its share of the bound, the tensor-core time of its split,
+     the f32 CUDA-core time of the same operations and the floor its
+     scratch of chunk-start states sets (autograd through the plain forward
      printed as a reference point), and the forward there too;
  16. train full-width rwkv6-3b (bf16, 32 layers, remat) at batch 4 x 1024
      as phase 12 trains tinyllama: bitwise-equal relaxed and strict losses,
@@ -144,6 +150,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM f32 rate outside the tensor cores
 BF16_TENSOR_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate
+TF32_TENSOR_OPS_PER_S = 495e12   # H100 SXM dense TF32 tensor-core rate
 SPIN_CYCLES = 2_000_000      # about 1 ms at the H100's clock
 
 
@@ -670,7 +677,8 @@ def wkv6_bwd_phase(torch, dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    K, err = 64, 0.0
+    K, err, emul_gap = 64, 0.0, 0.0
+    out_rtol = {torch.float32: 0.0, torch.float16: 2**-11, torch.bfloat16: 2**-8}
 
     def rand(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -684,54 +692,88 @@ def wkv6_bwd_phase(torch, dev):
         return (r, k, v, logw, rand(H, K, scale=0.3), s0, rand(B, S, H, K),
                 rand(B, H, K, K) if with_state else None)
 
-    def compare(got, want, dtype, what):
+    def compare(got, want, what, atol_share=1e-4, track=True):
         # 1e-4 of each gradient's largest magnitude: both f32, the sums in
-        # other orders; dr, dk, dv in bf16 also one rounding, 2^-8 relative
-        # (tests/test_torch_cuda.py's WKV6_BWD_TOL)
-        nonlocal err
+        # other orders; dr, dk, dv in bf16 (f16) also one rounding, 2^-8
+        # (2^-11) relative (tests/test_torch_cuda.py's WKV6_BWD_TOL). Against
+        # the emulation of the kernel's TF32 split, 1e-5 (WKV6_BWD_EMUL_TOL)
+        nonlocal err, emul_gap
         for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got, want,
                               strict=True):
             if w is None:
                 check(g is None, f"wkv6_bwd {what}: {name} given without s0")
                 continue
-            rtol = 2**-8 if g.dtype == torch.bfloat16 else 0.0
+            scale = w.abs().max().item() + 1e-30
             try:
-                torch.testing.assert_close(g.float(), w, rtol=rtol,
-                                           atol=1e-4 * w.abs().max().item() + 1e-30)
+                torch.testing.assert_close(g.float(), w, rtol=out_rtol[g.dtype],
+                                           atol=atol_share * scale)
             except AssertionError as e:
                 fail(f"wkv6_bwd {what} {name}: {e}")
-            err = max(err, (g.float() - w).abs().max().item())
+            if track:
+                err = max(err, (g.float() - w).abs().max().item())
+            elif g.dtype == torch.float32:
+                # the gap to the emulation, in f32 outputs, of the largest magnitude
+                emul_gap = max(emul_gap, (g - w).abs().max().item() / scale)
 
-    # every case twice: one launch a call and the same bits both times
+    def twice(x, what):
+        # one launch a call and the same bits both times
+        before = wk.bwd_launches
+        got = ops.wkv6_bwd(*x)
+        again = ops.wkv6_bwd(*x)
+        check(wk.bwd_launches == before + 2, f"wkv6_bwd {what}: want 2 launches")
+        torch.cuda.synchronize()
+        check(all((a is None and b is None) or torch.equal(a, b)
+                  for a, b in zip(got, again, strict=True)),
+              f"wkv6_bwd {what}: two calls differ")
+        return got
+
+    def case(x, what):
+        got = twice(x, what)
+        compare(got, ref.wkv6_bwd_ref(*x), what)
+        compare(got, ref.wkv6_bwd_ref(*x, tf32="split"), what + " (TF32 emulation)",
+                atol_share=1e-5, track=False)
+
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1, 15, 16, 17, 64, 100, 1024):
             for with_state in (False, True):
                 for B, H in ((2, 2), (4, 40)):
-                    what = f"{dtype} B={B} S={S} H={H} state={with_state}"
-                    x = inputs(B, S, H, dtype, with_state)
-                    before = wk.bwd_launches
-                    got = ops.wkv6_bwd(*x)
-                    again = ops.wkv6_bwd(*x)
-                    check(wk.bwd_launches == before + 2, f"wkv6_bwd {what}: want 2 launches")
-                    want = ref.wkv6_bwd_ref(*x)
-                    torch.cuda.synchronize()
-                    check(all((a is None and b is None) or torch.equal(a, b)
-                              for a, b in zip(got, again, strict=True)),
-                          f"wkv6_bwd {what}: two calls differ")
-                    compare(got, want, dtype, what)
+                    case(inputs(B, S, H, dtype, with_state),
+                         f"{dtype} B={B} S={S} H={H} state={with_state}")
                     n += 1
-                    del x, got, again, want
+    # f16; the design's edges (one head, S around the ring of three 16-row
+    # input stages and the two output stages); r, k, v as head-strided
+    # views and logw sequence-strided, bitwise the contiguous call
+    for S in (1, 17, 100, 1024):
+        for with_state in (False, True):
+            case(inputs(2, S, 3, torch.float16, with_state),
+                 f"f16 B=2 S={S} H=3 state={with_state}")
+            n += 1
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for S in (31, 32, 33, 47, 48, 49):
+            case(inputs(1, S, 1, dtype, True), f"{dtype} B=1 S={S} H=1 state=True")
+            n += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (37, 1024):
+            x = inputs(2, S, 3, dtype, True)
+            wide = torch.cat([t.float() for t in x[:3]], dim=-1).to(dtype)
+            logw = torch.cat([x[3], torch.zeros_like(x[3])], dim=1)[:, :S]
+            got = twice((wide[..., :K], wide[..., K:2 * K], wide[..., 2 * K:], logw, *x[4:]),
+                        f"strided {dtype} S={S}")
+            check(all(torch.equal(a, b) for a, b in zip(got, ops.wkv6_bwd(*x), strict=True)),
+                  f"wkv6_bwd strided {dtype} S={S}: differs from the contiguous call")
+            n += 1
     torch.cuda.empty_cache()
-    print(f"[wkv6-bwd] {n} cases against the plain version (each repeated bitwise): "
-          f"ok; max abs err {err:.3g}")
+    print(f"[wkv6-bwd] {n} cases against the plain version and the emulation of its "
+          f"TF32 split (each repeated bitwise): ok; max abs err {err:.3g}; largest gap to "
+          f"the emulation in an f32 output {emul_gap:.3g} of its largest magnitude")
 
     # full rwkv6-3b training: B=4, S=1024, H=40, bf16 r, k, v, no state in
     # and no gradient of the final state, as each layer's call in a step
     B, S, H = 4, 1024, 40
     r, k, v, logw, u, _, dy, _ = inputs(B, S, H, torch.bfloat16, False)
     compare(ops.wkv6_bwd(r, k, v, logw, u, None, dy),
-            ref.wkv6_bwd_ref(r, k, v, logw, u, None, dy), torch.bfloat16,
+            ref.wkv6_bwd_ref(r, k, v, logw, u, None, dy),
             "rwkv6-3b training shape (timed inputs)")
     chunks = [16] * (S // 16) + ([S % 16] if S % 16 else [])
     # bytes: r, k, v read and dr, dk, dv written once (bf16), logw and dy
@@ -744,22 +786,37 @@ def wkv6_bwd_phase(torch, dev):
     nbytes = B * S * H * K * (6 * 2 + 3 * 4) + 2 * H * K * 4
     nops = sum(2 * (5 * c * K * K + 3 * c * (c + 1) // 2 * K + 2 * c * (c - 1) // 2 * K)
                * B * H for c in chunks)
-    b_ms, b_by = bound(nbytes, nops)
+    # the kernel does every product on the tensor cores as three TF32
+    # products (hi hi + hi lo + lo hi), so they run at the TF32 rate; the
+    # f32 CUDA-core time of the same operations is printed beside it. The
+    # scratch of chunk-start states (written once, read once) sets the
+    # design's own floor
+    b_ms, b_by = bound(nbytes, 3 * nops, TF32_TENSOR_OPS_PER_S)
+    scratch = B * H * len(chunks) * K * K * 4
+    floor_ms = (nbytes + 2 * scratch) / HBM_BYTES_PER_S * 1e3
     leaves = [t.detach().requires_grad_() for t in (r, k, v, logw, u)]
 
     def autograd_plain():
         y, _ = ref.wkv6_ref(*leaves)
         return torch.autograd.grad(y, leaves, dy)
+
+    def kern():
+        return ops.wkv6_bwd(r, k, v, logw, u, None, dy)
     timing = {"wkv6_bwd": {
-        "ms": time_ms(torch, lambda: ops.wkv6_bwd(r, k, v, logw, u, None, dy)),
+        "ms": time_ms(torch, kern),
         "plain_ms": time_ms(torch, lambda: ref.wkv6_bwd_ref(r, k, v, logw, u, None, dy)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}}
-    device_only = {"ms": time_ms(torch, lambda: ops.wkv6_bwd(r, k, v, logw, u, None, dy),
-                                 hide_host=True)}
+    dev_ms = time_ms(torch, kern, hide_host=True)
     reference_ms = time_ms(torch, autograd_plain)
     print(f"[wkv6-bwd] rwkv6-3b training shape B={B} S={S} H={H} K={K} bf16 "
           f"({nops / 1e9:.4f} GFLOP, {nbytes / 1e6:.1f} MB): "
-          + json.dumps(timing["wkv6_bwd"]) + "; device only: " + json.dumps(device_only)
+          + json.dumps(timing["wkv6_bwd"]) + "; " + json.dumps({
+              "device_only_ms": dev_ms, "share_of_bound": b_ms / dev_ms,
+              "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "tf32_split_tensor_core_ms": 3 * nops / TF32_TENSOR_OPS_PER_S * 1e3,
+              "f32_cuda_core_ms": nops / F32_OPS_PER_S * 1e3,
+              "share_of_f32_cuda_core_ms": nops / F32_OPS_PER_S * 1e3 / dev_ms,
+              "scratch_mb": scratch / 1e6, "scratch_floor_ms": floor_ms})
           + "; library: none (no single PyTorch call computes it); reference point "
           f"only, not a library call: autograd through ref.wkv6_ref, forward and "
           f"backward, {reference_ms:.4f} ms")

@@ -269,7 +269,7 @@ def wkv6_ref(r, k, v, logw, u, s0=None, *, s_out=None, tf32=None):
     return y, s
 
 
-def wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin=None):
+def wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin=None, *, tf32=None):
     """The backward of ``wkv6_ref`` (f32 route), written out (no autograd).
 
     r, k, v, logw, u, s0 as ``wkv6_ref`` takes them; dy (B, S, H, K), the
@@ -292,6 +292,13 @@ def wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin=None):
     Returns (dr, dk, dv, dlogw) of (B, S, H, K), du (H, K) summed over
     batch and time, and ds0 (B, H, K, K), None when s0 is None; all f32
     (the caller casts dr, dk, dv to the inputs' dtype).
+
+    ``tf32`` (tests only) emulates the CUDA kernel's arithmetic: the bonus
+    sits on the scores' diagonal for dv, and every product the kernel takes
+    on the tensor cores (the state's recompute kd^T v, the scores, dA,
+    r_f^T dy, v G^T, kd G, A^T dy, dA k_f, dy S_prev^T, dA^T r_f) takes its
+    operands rounded to TF32, split in two terms (``"split"``, the
+    kernel's) or once (``"single"``); see ``_tf32_product``.
     """
     B, S, H, K = r.shape
     chunk = WKV6_CHUNK
@@ -306,6 +313,11 @@ def wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin=None):
 
     def unchunk(x):
         return x.reshape(B, nc * chunk, H, K)[:, :S]
+
+    def product(eq, a, b):
+        if tf32 is None:
+            return torch.einsum(eq, a, b)
+        return _tf32_product(eq, a, b, tf32)
     rc, kc, vc, lw, dyc = (chunks(x) for x in (r, k, v, logw, dy))
     u = u.float()
     cum_incl = torch.cumsum(lw, dim=2)
@@ -314,13 +326,13 @@ def wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin=None):
     r_f, k_f = rc * e_excl, kc * e_nincl
     lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                   device=r.device), diagonal=-1)
-    scores = torch.einsum("bnthk,bnjhk->bnhtj", r_f, k_f).masked_fill(~lower, 0.0)
+    scores = product("bnthk,bnjhk->bnhtj", r_f, k_f).masked_fill(~lower, 0.0)
     bonus = torch.einsum("bnthk,hk,bnthk->bnth", rc, u, kc)
     l_end = cum_incl[:, :, -1]                          # (B, nc, H, K)
     chunk_dec = torch.exp(l_end)
     e_kd = torch.exp(l_end[:, :, None] - cum_incl)
     kd = kc * e_kd
-    st_c = torch.einsum("bnjhk,bnjhw->bnhkw", kd, vc)
+    st_c = product("bnjhk,bnjhw->bnhkw", kd, vc)
     s = (torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
          if s0 is None else s0.float())
     s_prev = []
@@ -328,7 +340,7 @@ def wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin=None):
         s_prev.append(s)
         s = s * chunk_dec[:, n, :, :, None] + st_c[:, n]
     s_prev = torch.stack(s_prev, dim=1)                 # (B, nc, H, K, K)
-    rdy = torch.einsum("bnthk,bnthw->bnhkw", r_f, dyc)
+    rdy = product("bnthk,bnthw->bnhkw", r_f, dyc)
     g = (torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
          if ds_fin is None else ds_fin.float())
     g_after = [None] * nc
@@ -337,17 +349,22 @@ def wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin=None):
         g = g * chunk_dec[:, n, :, :, None] + rdy[:, n]
     ds0 = None if s0 is None else g
     G = torch.stack(g_after, dim=1)                     # (B, nc, H, K, K)
-    d_kd = torch.einsum("bnjhw,bnhkw->bnjhk", vc, G)
+    d_kd = product("bnjhw,bnhkw->bnjhk", vc, G)
     d_lend = chunk_dec * torch.einsum("bnhkw,bnhkw->bnhk", s_prev, G) \
         + (d_kd * kd).sum(2)
-    d_scores = torch.einsum("bnthw,bnjhw->bnhtj", dyc, vc).masked_fill(~lower, 0.0)
+    d_scores = product("bnthw,bnjhw->bnhtj", dyc, vc).masked_fill(~lower, 0.0)
     d_bonus = (dyc * vc).sum(-1)                        # (B, nc, chunk, H)
-    dv = (torch.einsum("bnjhk,bnhkw->bnjhw", kd, G)
-          + torch.einsum("bnhtj,bnthw->bnjhw", scores, dyc)
-          + bonus[..., None] * dyc)
-    d_rf = (torch.einsum("bnhtj,bnjhk->bnthk", d_scores, k_f)
-            + torch.einsum("bnthw,bnhkw->bnthk", dyc, s_prev))
-    d_kf = torch.einsum("bnhtj,bnthk->bnjhk", d_scores, r_f)
+    if tf32 is None:
+        dv = (torch.einsum("bnjhk,bnhkw->bnjhw", kd, G)
+              + torch.einsum("bnhtj,bnthw->bnjhw", scores, dyc)
+              + bonus[..., None] * dyc)
+    else:
+        scores = scores + torch.diag_embed(bonus.permute(0, 1, 3, 2))
+        dv = (product("bnhtj,bnthw->bnjhw", scores, dyc)
+              + product("bnjhk,bnhkw->bnjhw", kd, G))
+    d_rf = (product("bnhtj,bnjhk->bnthk", d_scores, k_f)
+            + product("bnthw,bnhkw->bnthk", dyc, s_prev))
+    d_kf = product("bnhtj,bnthk->bnjhk", d_scores, r_f)
     ub = d_bonus[..., None] * u
     dr = d_rf * e_excl + ub * kc
     dk = d_kf * e_nincl + d_kd * e_kd + ub * rc

@@ -90,21 +90,22 @@ def wkv6_bwd_cuda(r, k, v, logw, u, s0, dy, ds_fin=None):
     """Gradients of ``wkv6_cuda``'s (y, s_fin); see ``ref.wkv6_bwd_ref``.
 
     r, k, v, logw, u, s0 as ``wkv6_cuda`` takes them (the same checks);
-    dy: (B, S, H, 64) f32, contiguous; ds_fin: contiguous (B, H, 64, 64)
-    f32 or None for zero. Returns (dr, dk, dv) in r's dtype, dlogw (B, S,
-    H, 64) f32, du (H, 64) f32 summed over the batch in a fixed order, and
-    ds0 (B, H, 64, 64) f32 (None when s0 is None). The wrapper allocates the
-    kernel's scratch: the state at each 16-row chunk's start, B H
-    ceil(S / 16) x 16 KB.
+    dy: (B, S, H, 64) f32, contiguous and 16-byte aligned (the kernel reads
+    it by TMA too); ds_fin: contiguous (B, H, 64, 64) f32 or None for zero.
+    Returns (dr, dk, dv) in r's dtype, dlogw (B, S, H, 64) f32, du (H, 64)
+    f32 summed over the batch in a fixed order, and ds0 (B, H, 64, 64) f32
+    (None when s0 is None). The wrapper allocates the kernel's scratch: the
+    state at each 16-row chunk's start, B H ceil(S / 16) x 16 KB.
     """
     global bwd_launches
     strides = _checked_strides("wkv6_bwd", r, k, v, logw, u, s0)
     B, S, H, K = r.shape
     for name, t, shape in (("dy", dy, (B, S, H, K)), ("ds_fin", ds_fin, (B, H, K, K))):
         if t is not None and (t.shape != shape or t.dtype != torch.float32
-                              or t.device != r.device or not t.is_contiguous()):
-            raise ValueError(f"wkv6_bwd: {name} must be a contiguous {shape} f32 "
-                             f"tensor on {r.device}")
+                              or t.device != r.device or not t.is_contiguous()
+                              or t.data_ptr() % 16):
+            raise ValueError(f"wkv6_bwd: {name} must be a contiguous, 16-byte "
+                             f"aligned {shape} f32 tensor on {r.device}")
     dr, dk, dv = (torch.empty((B, S, H, K), dtype=r.dtype, device=r.device)
                   for _ in range(3))
     dlogw = torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)

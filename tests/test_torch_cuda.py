@@ -536,9 +536,10 @@ def test_wkv6_refuses_other_head_sizes(cuda):
 
 # the wkv6 backward's tolerance, scaled by each gradient's largest magnitude:
 # the kernel and its plain version are both f32, the sums in other orders
-# (and the kernel's multiply-adds fused); dr, dk and dv in bf16 also carry
-# one rounding of their own, 2^-8 relative
+# (and the kernel's multiply-adds fused); dr, dk and dv in bf16 (f16) also
+# carry one rounding of their own, 2^-8 (2^-11) relative
 WKV6_BWD_TOL = 1e-4
+WKV6_BWD_OUT_RTOL = {torch.float32: 0.0, torch.float16: 2**-11, torch.bfloat16: 2**-8}
 
 
 def _wkv_bwd_inputs(dev, B, S, H, dtype, with_state, seed=0):
@@ -549,37 +550,80 @@ def _wkv_bwd_inputs(dev, B, S, H, dtype, with_state, seed=0):
     return r, k, v, logw, u, s0, dy, ds_fin
 
 
-def _assert_wkv_grads_close(got, want, dtype):
+# the backward kernel against the plain emulation of its arithmetic
+# (ref.wkv6_bwd_ref(..., tf32="split")): both round the same tensor-core
+# operands to TF32 hi + lo, so they differ only in the order of the sums and
+# in the kernel's exponentials (ex2.approx); chip_smoke.py phase 15 prints
+# the largest gap in an f32 output (about 1e-6 of the gradient's largest
+# magnitude on an H100), so 1e-5 of it. dr, dk, dv in f16 or bf16 also carry
+# their own rounding (WKV6_BWD_OUT_RTOL).
+WKV6_BWD_EMUL_TOL = 1e-5
+
+
+def _assert_wkv_grads_close(got, want, dtype, tol=WKV6_BWD_TOL):
     for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got, want,
                           strict=True):
         if w is None:
             assert g is None, name
             continue
         assert g.dtype == (dtype if name in ("dr", "dk", "dv") else torch.float32)
-        rtol = 2**-8 if g.dtype == torch.bfloat16 else 0.0
+        rtol = WKV6_BWD_OUT_RTOL[g.dtype]
         torch.testing.assert_close(g.float(), w, rtol=rtol,
-                                   atol=WKV6_BWD_TOL * w.abs().max().item() + 1e-30,
+                                   atol=tol * w.abs().max().item() + 1e-30,
                                    msg=lambda m, name=name: f"{name}: {m}")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [1, 15, 16, 17, 64, 100, 1024])
-@pytest.mark.parametrize("B,H", [(2, 2), (4, 40)])
-@pytest.mark.parametrize("with_state", [False, True])
-def test_wkv6_bwd_matches_plain(cuda, dtype, S, B, H, with_state):
-    """dr, dk, dv, dlogw, du and ds0 against ``ref.wkv6_bwd_ref`` on the same
-    inputs within WKV6_BWD_TOL of each gradient's largest magnitude, ragged
-    last chunks and S = 1 included; one launch a call, and a second call
-    gives the same bits (no atomics; du summed over the batch in order)."""
-    x = _wkv_bwd_inputs(cuda, B, S, H, dtype, with_state)
+def _wkv_bwd_twice(x):
+    """Two calls of the kernel on ``x``: one launch each and the same bits
+    (no atomics; du summed over the batch in order)."""
     before = wk.bwd_launches
     got = ops.wkv6_bwd(*x)
     again = ops.wkv6_bwd(*x)
     assert wk.bwd_launches == before + 2
     for a, b in zip(got, again, strict=True):
         assert (a is None and b is None) or torch.equal(a, b)
+    return got
+
+
+# S: one row; ragged and whole first chunks (15-17); around the two 16-row
+# output stages (31-33) and the ring of three 16-row input stages (47-49);
+# many chunks. (B, H) = (1, 1) is one block alone
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 64, 100, 1024, 31, 32, 33, 47, 48, 49])
+@pytest.mark.parametrize("B,H", [(2, 2), (4, 40), (1, 1)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_bwd_matches_plain(cuda, dtype, S, B, H, with_state):
+    """dr, dk, dv, dlogw, du and ds0 against ``ref.wkv6_bwd_ref`` on the same
+    inputs within WKV6_BWD_TOL of each gradient's largest magnitude, and
+    against its emulation of the kernel's TF32 hi + lo products within
+    WKV6_BWD_EMUL_TOL; ragged last chunks and S = 1 included; one launch a
+    call, and a second call gives the same bits."""
+    x = _wkv_bwd_inputs(cuda, B, S, H, dtype, with_state)
+    got = _wkv_bwd_twice(x)
     _assert_wkv_grads_close(got, ref.wkv6_bwd_ref(*x), dtype)
+    _assert_wkv_grads_close(got, ref.wkv6_bwd_ref(*x, tf32="split"), dtype,
+                            tol=WKV6_BWD_EMUL_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [37, 1024])
+def test_wkv6_bwd_strided_views(cuda, dtype, S):
+    """r, k, v read through head strides (views of one (B, S, H, 3 x 64)
+    tensor, as a fused projection gives them) and logw through a sequence
+    stride: the same gradients as from contiguous copies, bitwise, and the
+    same bits twice."""
+    B, H = 2, 3
+    x = _wkv_bwd_inputs(cuda, B, S, H, dtype, True)
+    wide = torch.cat([t.float() for t in x[:3]], dim=-1).to(dtype)
+    r, k, v = wide[..., :64], wide[..., 64:128], wide[..., 128:]
+    lw_wide = torch.cat([x[3], torch.zeros_like(x[3])], dim=1)   # (B, 2 S, H, 64)
+    logw = lw_wide[:, :S]
+    assert not r.is_contiguous() and logw.stride(0) != S * H * 64
+    got = _wkv_bwd_twice((r, k, v, logw, *x[4:]))
+    want = ops.wkv6_bwd(*x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
 
 
 @pytest.mark.gpu

@@ -167,6 +167,55 @@ def test_wkv6_bwd_casts_to_the_inputs_dtype(rng):
     assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
 
 
+# the backward kernel's gate (tests/test_torch_cuda.py's WKV6_BWD_TOL): 1e-4
+# of each gradient's largest magnitude
+WKV6_BWD_TOL = 1e-4
+
+
+# small heads and a short sequence with a state (whole chunks, and S = 33,
+# which the JAX function groups in chunks of 11), and one sequence of 64
+# chunks with no state, as training calls it
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,with_state", [(2, 64, 2, True), (2, 33, 2, True),
+                                              (1, 1024, 1, False)])
+def test_wkv6_bwd_tf32_split_emulation_within_gate(rng, dtype, B, S, H, with_state):
+    """The backward kernel's arithmetic (every tensor-core product's
+    operands as TF32 hi + lo terms; ``ref.wkv6_bwd_ref(..., tf32="split")``)
+    against ``jax.vjp`` of ``wkv6_chunked`` on the same inputs, logw
+    log-uniform over the whole clamp range [-5, -1e-4] and r, k, v rounded
+    to ``dtype``: within WKV6_BWD_TOL of each gradient's largest magnitude.
+    Prints the share of the gate the split uses and the share one TF32
+    rounding of each operand would use (run with -s)."""
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, K)).astype(np.float32)
+                                * 0.5).to(dtype).float().numpy() for _ in range(3))
+    logw = -np.exp(rng.uniform(np.log(1e-4), np.log(-rwkv6.LOG_W_MIN),
+                               (B, S, H, K))).astype(np.float32)
+    u = rng.standard_normal((H, K)).astype(np.float32) * 0.3
+    s0 = rng.standard_normal((B, H, K, K)).astype(np.float32) * 0.1
+    dy = rng.standard_normal((B, S, H, K)).astype(np.float32)
+    ds_fin = rng.standard_normal((B, H, K, K)).astype(np.float32)
+    if not with_state:
+        s0, ds_fin = np.zeros_like(s0), np.zeros_like(ds_fin)
+    _, vjp = jax.vjp(jrwkv.wkv6_chunked, *(jnp.asarray(a) for a in (r, k, v, logw, u, s0)))
+    want = [np.asarray(w, np.float64)
+            for w in vjp((jnp.asarray(dy), jnp.asarray(ds_fin)))]
+    args = [_t(a) for a in (r, k, v, logw, u)]
+    state = (_t(s0), _t(dy), _t(ds_fin)) if with_state else (None, _t(dy), None)
+    shares = {}
+    for mode in ("split", "single"):
+        got = ref.wkv6_bwd_ref(*args, *state, tf32=mode)
+        pairs = zip(got if with_state else got[:5], want if with_state else want[:5],
+                    strict=True)
+        shares[mode] = max(
+            float(np.abs(g.double().numpy() - w).max()
+                  / (WKV6_BWD_TOL * max(np.abs(w).max(), 1e-30)))
+            for g, w in pairs)
+    print(f"wkv6 backward TF32 emulation, {dtype} {B, S, H} state={with_state}: share "
+          f"of the 1e-4 gate used by the split {shares['split']:.4f}, by a single "
+          f"rounding {shares['single']:.2f}")
+    assert shares["split"] <= 1.0
+
+
 # -- the in-place dense AdamW --------------------------------------------------
 
 def _leaves(rng, dtype, stacked):
