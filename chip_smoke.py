@@ -114,8 +114,24 @@ Phases, each of which exits non-zero on failure:
      the card against the CPU (5 f32 steps: losses within 1e-5 and the
      AdamW-trained dense params, all but one element in 10^4 within 1e-5
      and every one within 1e-4, against a plain CPU run and one whose
-     forward emulates the wkv6 kernel's TF32 split).
-Phases 7 to 16 print their wall time. Phases 4, 8, 10, 12 and 16 also
+     forward emulates the wkv6 kernel's TF32 split);
+ 17. serve from the trainer's pool mirror (files under build/, removed):
+     full tinyllama-1.1b and rwkv6-3b as in phases 8 and 10, every token
+     lookup read from a pmem pool mirror of the table (f32) through the
+     hot-row serving tier; tokens and logits bitwise equal to phases 8 and
+     10, the sequence mixer's launches counted per part, none of the row
+     gather's; prefill and decode ms of each route in turns (gather, pool,
+     pool, gather), the tier's hit rate, p50 and p99, the link and
+     host-to-card bytes. Then full dlrm-rm1 trains 3 relaxed steps into a
+     pmem pool while the tier serves from the same mirror, kept coherent by
+     the manager's commit hook: after each commit the rows served (the
+     step's touched rows and 4096 others) equal the card's tables bitwise
+     and the invalidations equal the cached touched rows exactly; then one
+     rm1 forward through the pool route (an EmbeddingPoolMirror of the
+     stacked tables, the bags reduced near the data) against the bag
+     kernel's: f32 bags within 1e-5, click probabilities within
+     DLRM_POOL_PROB_TOL (0: bitwise, the gap measured).
+Phases 7 to 17 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13 and 16 every scatter_update_logged launch (su.wide_launches_logged).
@@ -127,8 +143,9 @@ six: each training path's relaxed run, on the f32 scratch, and its
 strict run, on the bf16 table; the logged update on the three training
 paths; wkv6 forward on rwkv6-3b's prefill, decode and training, its
 backward on training; each flash direction's tensor-core route on the
-bf16 paths and its f32 route in phase 12's f32 smoke training); the last
-line is
+bf16 paths and its f32 route in phase 12's f32 smoke training; phase 17's
+pool-served tinyllama prefill (flash) and rwkv6-3b prefill and decode
+(wkv6) as paths of their own); the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
 Imports nothing of JAX.
@@ -842,12 +859,59 @@ def wkv6_bwd_phase(torch, dev):
     return err, timing
 
 
+def serve_counts(mixer, gr, zero=False):
+    """The serving path's launch counters: the sequence mixer's (flash
+    attention also counts its tensor-core route, which bf16 serving must
+    take, wkv6 its decode route, a decode step's S = 1) and the row
+    gather's. With ``zero`` they are set to 0 first."""
+    mix = mixer.__name__.rsplit(".", 1)[1]
+    names = {mix: "launches", mix + "_tc": "tc_launches",
+             mix + "_decode": "decode_launches"}
+    counters = [(k, mixer, a) for k, a in names.items() if hasattr(mixer, a)]
+    counters.append(("gather_rows", gr, "launches"))
+    if zero:
+        for _, mod, attr in counters:
+            setattr(mod, attr, 0)
+    return {k: getattr(mod, attr) for k, mod, attr in counters}
+
+
+def serve_want(mixer, cfg, per_step, new, gathers):
+    """The launches each part of a served generation of ``new`` tokens must
+    make: the sequence mixer once a layer in the prefill (all on the
+    tensor-core route where it has one, none on a decode route) and
+    ``per_step`` times a decode step (all on a decode route where it has
+    one); ``gathers`` row gathers a forward pass."""
+    mix = mixer.__name__.rsplit(".", 1)[1]
+    want = {"prefill": {mix: cfg.num_layers, "gather_rows": gathers},
+            "decode": {mix: per_step * (new - 1), "gather_rows": gathers * (new - 1)}}
+    if hasattr(mixer, "tc_launches"):
+        for part in want.values():
+            part[mix + "_tc"] = part[mix]
+    if hasattr(mixer, "decode_launches"):
+        want["prefill"][mix + "_decode"] = 0
+        want["decode"][mix + "_decode"] = want["decode"][mix]
+    return want
+
+
+def part_counter(parts, read):
+    """A ``greedy_generate`` part hook that stores in ``parts[name]`` how
+    much each counter of ``read()`` (a dict) moved over that part."""
+    @contextlib.contextmanager
+    def count(name):
+        before = read()
+        yield
+        parts[name] = {k: v - before[k] for k, v in read().items()}
+    return count
+
+
 def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     """Phases 8 and 10: serve full ``arch``. ``mixer`` is the wrapper module
     of the path's sequence-mixer kernel (flash attention, wkv6), launched
     once per layer in the prefill and ``per_step`` times in each decode
     step. Returns the serving run's launch counts for each part ("prefill",
-    "decode") and the row gather's timings at each part's shape."""
+    "decode"), the row gather's timings at each part's shape, and the run's
+    tokens and logits (on the host), which phase 17 holds the pool-served
+    run to."""
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import make_batches
     from repro_torch.kernels import gather_rows as gr
@@ -874,32 +938,12 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     parts = {}
-
-    def counts():
-        # flash attention also counts its tensor-core route (bf16 serving
-        # must take it), wkv6 its decode route (a decode step's S = 1)
-        c = {mix: mixer.launches, "gather_rows": gr.launches}
-        if hasattr(mixer, "tc_launches"):
-            c[mix + "_tc"] = mixer.tc_launches
-        if hasattr(mixer, "decode_launches"):
-            c[mix + "_decode"] = mixer.decode_launches
-        return c
-
-    @contextlib.contextmanager
-    def count(name):
-        # the launches of each part, read around it
-        before = counts()
-        yield
-        parts[name] = {k: v - before[k] for k, v in counts().items()}
-    mixer.launches = gr.launches = gr.wide_launches = 0
-    if hasattr(mixer, "tc_launches"):
-        mixer.tc_launches = 0
-    if hasattr(mixer, "decode_launches"):
-        mixer.decode_launches = 0
+    serve_counts(mixer, gr, zero=True)
+    gr.wide_launches = 0
     stats = {}
     toks = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=stats,
-                           part=count)
-    launches = counts()
+                           part=part_counter(parts, lambda: serve_counts(mixer, gr)))
+    launches = serve_counts(mixer, gr)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     metrics = {"prefill_ms": 1e3 * stats["prefill_s"],
                "decode_ms_per_token": 1e3 * stats["decode_s"] / (new - 1),
@@ -908,15 +952,7 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     print(f"[serve] batch {B}, prompt {S}, {new} new tokens: {json.dumps(metrics)}; "
           f"launches {launches}, by part {parts}")
     print(f"[serve] tokens[0] {toks[0].tolist()}")
-    want = {"prefill": {mix: cfg.num_layers, "gather_rows": 1},
-            "decode": {mix: per_step * (new - 1), "gather_rows": new - 1}}
-    if hasattr(mixer, "tc_launches"):
-        for part in want.values():
-            part[mix + "_tc"] = part[mix]
-    if hasattr(mixer, "decode_launches"):
-        want["prefill"][mix + "_decode"] = 0
-        want["decode"][mix + "_decode"] = want["decode"][mix]
-    check(parts == want
+    check(parts == serve_want(mixer, cfg, per_step, new, gathers=1)
           and launches == {k: parts["prefill"][k] + parts["decode"][k] for k in launches},
           f"serve: want {cfg.num_layers} {mix} launches in the prefill (all on the "
           f"tensor-core route where it has one, none on a decode route), {per_step} "
@@ -933,6 +969,7 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     check(torch.equal(toks, toks2) and torch.equal(stats["logits"], again["logits"]),
           "serve: a second run gave other tokens or logits")
     del again
+    served = (toks.cpu(), stats["logits"].cpu())
 
     # the row gather at the shapes serving gives it: the token table with
     # the prompt's B * S ids (prefill) and with the first decode step's B ids
@@ -999,7 +1036,7 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     check(torch.equal(out["card"][0], out["cpu"][0]), "serve smoke: tokens differ")
     np.testing.assert_allclose(out["card"][1].numpy(), out["cpu"][1].numpy(),
                                rtol=1e-4, atol=1e-5)
-    return parts, timing
+    return parts, timing, served
 
 
 def flash_bwd_phase(torch, dev):
@@ -1908,6 +1945,313 @@ def examples_phase():
     return wall
 
 
+def pool_serve_phase(torch, np, dev, arch, mixer, per_step, served):
+    """Phase 17 (a): serve full ``arch`` as phases 8 and 10 do, with every
+    token lookup read from a pmem pool mirror of the table (f32, in
+    ``embedding-mirror/rows``) through the hot-row serving tier
+    (``pool_serving``; the tier's default cache of 4096 rows). Tokens and
+    logits must equal ``served``, the device-gather run of phase 8 or 10,
+    bitwise: the bf16 rows round-trip through f32 exactly. The sequence
+    mixer's launches are counted per part as there, and the row gather's
+    must not move. Each route is timed in turns (gather, pool, pool,
+    gather). Returns the pool run's launch counts for each part and the
+    phase's numbers."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.launch.serve import build_tier
+    from repro_torch.models.registry import get_api
+    from repro_torch.training.serve_loop import greedy_generate, pool_serving
+
+    cfg = get_arch(arch).model
+    B, S, new = 4, 1024, 32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)            # phases 8 and 10's params and prompt
+    params = get_api(cfg).init(gen, cfg)
+    prompt = make_batches(cfg, B, S, device=dev).next(0)["tokens"]
+    table = params["embed"]["table"]
+    V, d = table.shape
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="pool-serve-", dir=build)
+    try:
+        t = time.perf_counter()
+        tier = build_tier(table, "pmem", pool_dir=work)
+        print(f"[pool-serve] {arch}: f32 mirror {V * d * 4 / 1e6:.1f} MB ({V} x {d}) "
+              f"in a pmem pool image of "
+              f"{os.path.getsize(os.path.join(work, 'pool.img'))} bytes, written and "
+              f"fsynced in {time.perf_counter() - t:.2f}s; hot-row cache "
+              f"{tier.cache.capacity} rows")
+
+        def generate(pool, stats=None, part=None, n=new):
+            with pool_serving(tier) if pool else contextlib.nullcontext():
+                return greedy_generate(cfg, params, prompt, n, max_seq=S + new,
+                                       stats=stats, part=part)
+
+        def read():
+            # the launches and the pool's link bytes
+            return {**serve_counts(mixer, gr),
+                    "link_bytes": tier.pool.metrics.link_bytes()}
+        cold, parts = {}, {}
+        generate(True, n=2, part=part_counter(cold, read))   # warm-up, cold cache
+        serve_counts(mixer, gr, zero=True)
+        stats = {}
+        toks = generate(True, stats, part=part_counter(parts, read))
+        link = {k: v.pop("link_bytes") for k, v in parts.items()}
+        want = serve_want(mixer, cfg, per_step, new, gathers=0)
+        print(f"[pool-serve] {arch} pool route launches by part {parts}; pool link "
+              f"bytes by part {link}")
+        check(parts == want, f"pool serve {arch}: want {want} launches by part "
+              f"(the sequence mixer as on the gather route, no row gather), got "
+              f"{parts}")
+        want_toks, want_logits = served
+        check(torch.equal(toks.cpu(), want_toks)
+              and torch.equal(stats["logits"].cpu(), want_logits),
+              f"pool serve {arch}: tokens or logits differ from the device-gather "
+              "run's (phases 8, 10) by at least one bit")
+        del stats
+
+        # each route in turns; every run's tokens and logits bitwise served's
+        times = {"gather": [], "pool": []}
+        for route in ("gather", "pool", "pool", "gather"):
+            st = {}
+            tk = generate(route == "pool", st)
+            check(torch.equal(tk.cpu(), want_toks)
+                  and torch.equal(st["logits"].cpu(), want_logits),
+                  f"pool serve {arch}: the {route} route's timed run differs from "
+                  "phases 8, 10")
+            times[route].append((1e3 * st["prefill_s"],
+                                 1e3 * st["decode_s"] / (new - 1)))
+        s = tier.stats()
+        # what each lookup pays while the pool has no undo ring: the look-up
+        # of the ring's meta, against the readonly attach that fails, which
+        # every lookup used to retry
+        from repro_torch.pool import PoolError
+        from repro_torch.serve import CommitTailer
+
+        def failed_attach():
+            try:
+                CommitTailer.attach(tier.pool, tier.cache)
+            except PoolError:
+                return
+            raise AssertionError("the LM pool holds no undo ring")
+
+        def median_ms(fn, n=200):
+            ts = []
+            for _ in range(n):
+                t = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t)
+            return 1e3 * statistics.median(ts)
+        check(tier.tailer is None and not tier._attach_tailer(),
+              f"pool serve {arch}: a tailer attached to a pool with no undo ring")
+        out = {
+            "attach_check_ms": median_ms(tier._attach_tailer),
+            "failed_attach_ms": median_ms(failed_attach),
+            "prefill_ms": {r: [round(p, 3) for p, _ in v] for r, v in times.items()},
+            "decode_ms_per_token": {r: [round(q, 3) for _, q in v]
+                                    for r, v in times.items()},
+            "tier_lookups": s["requests"], "tier_rows": s["rows"],
+            "hit_rate": s["hit_rate"], "lookup_p50_ms": s["p50_ms"],
+            "lookup_p99_ms": s["p99_ms"],
+            "link_bytes_cold_prefill": cold["prefill"]["link_bytes"],
+            "link_bytes_prefill": link["prefill"],
+            "link_bytes_decode_step": link["decode"] / (new - 1),
+            "host_to_card_bytes_prefill": B * S * d * 4}
+        print(f"[pool-serve] {arch}, batch {B}, prompt {S}, {new} new tokens, "
+              f"routes in turns (gather, pool, pool, gather): {json.dumps(out)}")
+        print(f"[pool-serve] {arch}: tokens and logits of every pool-served run "
+              f"bitwise equal to the device-gather run's")
+        print(tier.pool.metrics.report())
+        tier.pool.close()
+        del params, tier
+        torch.cuda.empty_cache()
+        return parts, out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# click probabilities of full rm1 through the pool route against the bag
+# kernel's route. The limit is the gap measured on an H100 80GB HBM3: 0.
+# numpy sums a bag's 80 rows in item order, in f32, as the kernel sums a bag
+# of at most 80 items, so the bags, and all that follows them, agree bit
+# for bit
+DLRM_POOL_PROB_TOL = 0.0
+
+
+def dlrm_pool_serve_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
+    """Phase 17 (b): full dlrm-rm1 trains into a pmem pool (3 relaxed
+    steps, tier-E only) while the serving tier serves rows from the same
+    mirror, kept coherent by the manager's commit hook. Serving traffic is
+    requests of one sample each (its T x L zipf ids, as training draws
+    them), two a batch, before the first step and after each commit: the
+    cache then holds hot rows that the next step touches. After each
+    ``flush()`` a check batch holds the step's touched rows and 4096 it
+    did not touch; every row served must equal the card's tables (as f32)
+    bitwise, and the invalidations must equal exactly the touched rows
+    that were cached. Then one rm1 forward with ``lookup_mode("pool")`` over an
+    ``EmbeddingPoolMirror`` of the stacked tables (a dram pool): its f32
+    bags within the bag's 1e-5 of the bag kernel's, its click
+    probabilities within DLRM_POOL_PROB_TOL of the kernel route's. Returns
+    the phase's numbers."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.core import embedding_ops
+    from repro_torch.core.checkpoint.manager import CheckpointManager, touched_rows
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import DLRMBatches
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+    from repro_torch.pool import DramPool, EmbeddingPoolMirror
+    from repro_torch.pool.allocator import DATA_START
+    from repro_torch.serve import EmbeddingServeTier, make_commit_hook
+    from repro_torch.training import state as st
+    from repro_torch.training import train_loop
+
+    T, R, d = cfg.dlrm_num_tables, cfg.dlrm_rows_per_table, cfg.dlrm_bottom_mlp[-1]
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="pool-dlrm-", dir=build)
+    out = {}
+    try:
+        cc = dataclasses.replace(tc.checkpoint, directory=work, dense_interval=0,
+                                 pool_backend="pmem")
+        tcp = dataclasses.replace(tc, checkpoint=cc)
+        state = fresh_state()
+        t = time.perf_counter()
+        mgr = CheckpointManager(cfg, cc, embed_init=state["embed"])
+        tier = EmbeddingServeTier(mgr.pool)
+        check(tier.tailer is not None, "pool dlrm: the tier found no undo ring")
+        mgr.add_commit_hook(make_commit_hook(tier.cache, tier.tailer))
+        print(f"[pool-dlrm] manager + mirror load ({T * R * d * 4 / 1e9:.2f} GB f32, "
+              f"pmem) and tier: {time.perf_counter() - t:.2f}s; cache "
+              f"{tier.cache.capacity} rows")
+        rng = np.random.default_rng(1)
+        flat_tab = state["embed"]["emb_tables"].view(-1, d)
+        offs = (np.arange(T) * R)[None, :, None]
+        requests = DLRMBatches(cfg, 2, seed=1, device=dev)
+        log, request_ms = [], []
+
+        def check_rows(ids, got, what):
+            want = flat_tab[torch.from_numpy(ids).to(dev)].float().cpu().numpy()
+            check(got.tobytes() == want.tobytes(),
+                  f"pool dlrm {what}: served rows differ from the card's tables")
+
+        def serve_requests(n):
+            # two requests of one sample each: its bags' flat row ids
+            ids = requests.next(n)["sparse"].cpu().numpy().astype(np.int64) + offs
+            t = time.perf_counter()
+            rows = tier.serve_batch([ids[0], ids[1]])
+            request_ms.append(1e3 * (time.perf_counter() - t))
+            for i, got in zip(ids, rows, strict=True):
+                check_rows(i.reshape(-1), got.reshape(-1, d), f"requests {n}")
+        serve_requests(0)
+        real_on_step = mgr.on_step
+
+        def on_step(step, stt, feed):
+            _, idx = touched_rows(feed)
+            cached = sum(1 for i in idx.tolist() if i in tier.cache)
+            before = tier.metrics.cache_invalidations
+            real_on_step(step, stt, feed)
+            t = time.perf_counter()
+            mgr.flush()
+            flush_ms = 1e3 * (time.perf_counter() - t)
+            inval = tier.metrics.cache_invalidations - before
+            other = np.setdiff1d(rng.integers(0, T * R, 4096), idx)
+            t = time.perf_counter()
+            rows = tier.serve_batch([idx, other])
+            serve_ms = 1e3 * (time.perf_counter() - t)
+            for ids, got in zip((idx, other), rows, strict=True):
+                check_rows(ids, got, f"step {step}")
+            serve_requests(step + 1)
+            check(inval == cached, f"pool dlrm step {step}: {inval} rows "
+                  f"invalidated, {cached} of the touched rows were cached")
+            log.append({"step": step, "touched": int(idx.size),
+                        "untouched": int(other.size), "cached_touched": cached,
+                        "invalidated": inval, "flush_ms": round(flush_ms, 1),
+                        "check_batch_ms": round(serve_ms, 2),
+                        "request_batch_ms": round(request_ms[-1], 3)})
+        mgr.on_step = on_step
+        batches = LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev), cfg,
+                                    depth=4)
+        train_loop.train(cfg, tcp, batches, 3, relaxed=True, state=state,
+                         ckpt_manager=mgr)
+        s = tier.stats()
+        check(len(log) == 3 and s["watermark"] == 2, f"pool dlrm: {log}, {s}")
+        check(all(x["invalidated"] > 0 for x in log),
+              "pool dlrm: a commit invalidated no cached row")
+        print(f"[pool-dlrm] after each commit: {json.dumps(log)}")
+        print(f"[pool-dlrm] tier {json.dumps(s)}")
+        out["after_commit"] = log
+        out["tier"] = {k: s[k] for k in ("requests", "rows", "p50_ms", "p99_ms",
+                                         "hit_rate", "invalidations")}
+        out["request_batch_ms"] = request_ms
+        mgr.close()
+        del mgr, tier
+        gc.collect()
+
+        # one rm1 forward through the pool route over the stacked tables
+        tabs = state["embed"]["emb_tables"]
+        t = time.perf_counter()
+        host = tabs.float().cpu().numpy()
+        pool = DramPool(DATA_START + host.nbytes + (1 << 20))
+        mirror = EmbeddingPoolMirror(pool, host)
+        del host
+        print(f"[pool-dlrm] EmbeddingPoolMirror {tuple(mirror.shape)} f32 in a dram "
+              f"pool: {time.perf_counter() - t:.2f}s")
+        batch = DLRMBatches(cfg, Bsz, seed=0, device=dev).next(0)
+        t = time.perf_counter()
+        pool_bags = mirror.bag_lookup(batch["sparse"].cpu().numpy())
+        bag_ms = 1e3 * (time.perf_counter() - t)
+        flat, seg = embedding_ops.bag_items(batch["sparse"], R)
+        kern_bags = ops.embedding_bag(tabs.view(T * R, d), flat, seg, Bsz * T)
+        kern_bags = kern_bags.view(Bsz, T, d).cpu().numpy()
+        bag_err = float(np.abs(pool_bags - kern_bags).max())
+        np.testing.assert_allclose(pool_bags, kern_bags, rtol=1e-5, atol=1e-5)
+        same_bf16 = int((torch.from_numpy(pool_bags).to(tabs.dtype)
+                         == torch.from_numpy(kern_bags).to(tabs.dtype))
+                        .all(-1).sum())
+        params = st.merge_params(state["dense"], state["embed"])
+        with torch.no_grad():
+            p_kern = torch.sigmoid(dlrm.forward(params, cfg, batch).float())
+            bag_launches = eb.launches
+            embedding_ops.attach_pool(mirror)
+            try:
+                with embedding_ops.lookup_mode("pool"):
+                    t = time.perf_counter()
+                    p_pool = torch.sigmoid(dlrm.forward(params, cfg, batch).float())
+                    torch.cuda.synchronize()
+                    fwd_ms = 1e3 * (time.perf_counter() - t)
+            finally:
+                embedding_ops.detach_pool()
+        check(eb.launches == bag_launches, "pool dlrm: the pool route launched "
+              "the bag kernel")
+        gap = (p_pool - p_kern).abs().max().item()
+        out.update(bag_max_abs_err=bag_err, bags_equal_in_bf16=same_bf16,
+                   bag_lookup_ms=bag_ms, prob_gap=gap, prob_tol=DLRM_POOL_PROB_TOL,
+                   pool_forward_ms=fwd_ms)
+        print(f"[pool-dlrm] rm1 forward, batch {Bsz}, pool route against the bag "
+              f"kernel's: f32 bags max abs diff {bag_err:.3g} (gate 1e-5), equal "
+              f"once rounded to bf16 in {same_bf16} of {Bsz * T}; click "
+              f"probabilities max abs diff {gap:.3g} (limit {DLRM_POOL_PROB_TOL}); "
+              f"the mirror's bag_lookup {bag_ms:.1f} ms, the pool-route forward "
+              f"{fwd_ms:.1f} ms")
+        check(gap <= DLRM_POOL_PROB_TOL, f"pool dlrm: probabilities differ by {gap}")
+        pool.close()
+        del state, mirror, pool, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -2261,8 +2605,8 @@ def main():
 
     # -- 8. serving full tinyllama-1.1b ------------------------------------------
     t0 = time.perf_counter()
-    sv_parts, sv_gather = serve_phase(torch, np, dev, check_gather, "tinyllama-1.1b",
-                                      fa, 0)
+    sv_parts, sv_gather, sv_served = serve_phase(torch, np, dev, check_gather,
+                                                 "tinyllama-1.1b", fa, 0)
     timing["gather_prefill"], timing["gather_decode"] = (sv_gather["prefill"],
                                                          sv_gather["decode"])
     print(f"[serve] phase 8 wall time {time.perf_counter() - t0:.1f}s")
@@ -2276,8 +2620,9 @@ def main():
 
     # -- 10. serving full rwkv6-3b -----------------------------------------------
     t0 = time.perf_counter()
-    rw_parts, rw_gather = serve_phase(torch, np, dev, check_gather, "rwkv6-3b", wk,
-                                      get_arch("rwkv6-3b").model.num_layers)
+    rw_parts, rw_gather, rw_served = serve_phase(
+        torch, np, dev, check_gather, "rwkv6-3b", wk,
+        get_arch("rwkv6-3b").model.num_layers)
     timing["gather_rwkv_prefill"], timing["gather_rwkv_decode"] = (
         rw_gather["prefill"], rw_gather["decode"])
     print(f"[serve] phase 10 wall time {time.perf_counter() - t0:.1f}s")
@@ -2321,6 +2666,19 @@ def main():
                                                        check_gather)
     timing.update(rw_timing)
     print(f"[rwkv6-3b-train] phase 16 wall time {time.perf_counter() - t0:.1f}s")
+
+    # -- 17. serving from the trainer's pool mirror --------------------------------------
+    t0 = time.perf_counter()
+    pool_parts, pool_out = {}, {}
+    for arch, mixer, per_step, served in (
+            ("tinyllama-1.1b", fa, 0, sv_served),
+            ("rwkv6-3b", wk, get_arch("rwkv6-3b").model.num_layers, rw_served)):
+        pool_parts[arch], pool_out[arch] = pool_serve_phase(torch, np, dev, arch, mixer,
+                                                            per_step, served)
+    del sv_served, rw_served
+    pool_out["dlrm-rm1"] = dlrm_pool_serve_phase(torch, np, cfg, tc, Bsz, dev,
+                                                 fresh_state)
+    print(f"[pool-serve] phase 17 wall time {time.perf_counter() - t0:.1f}s")
 
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
@@ -2403,13 +2761,23 @@ def main():
             ("scatter_update", "rwkv6-3b train (strict)", "rwkv_update_bf16",
              rw_launches["scatter_update_strict"], *update_src),
             ("scatter_update_logged", "rwkv6-3b train", "rwkv_update_logged_bf16",
-             rw_launches["scatter_update_logged"], *logged_src)):
+             rw_launches["scatter_update_logged"], *logged_src),
+            # phase 17: the token lookups read from a pmem pool mirror
+            ("flash_attention_tc", "tinyllama-1.1b prefill (pool-served)", "flash_bf16",
+             pool_parts["tinyllama-1.1b"]["prefill"]["flash_attention_tc"],
+             "src/repro_torch/csrc/flash_attention_tc.cu",
+             "src/repro/kernels/flash_attention.py:62"),
+            ("wkv6", "rwkv6-3b prefill (pool-served)", "wkv6_prefill",
+             pool_parts["rwkv6-3b"]["prefill"]["wkv6"], *wkv6_src),
+            ("wkv6", "rwkv6-3b decode (pool-served)", "wkv6_decode",
+             pool_parts["rwkv6-3b"]["decode"]["wkv6"], *wkv6_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
     print(f"[train] full dlrm-rm1 batch {Bsz}: {json.dumps(step)}")
     print(f"[lm-train] full tinyllama-1.1b batch 4 x 1024: {json.dumps(lm_step)}")
     print(f"[rwkv6-3b-train] full rwkv6-3b batch 4 x 1024: {json.dumps(rw_step)}")
+    print(f"[pool-serve] served from the pool mirror: {json.dumps(pool_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,10 +25,12 @@ serialized to a CRC'd blob (bf16 leaves as their raw bits) and written to
 the dense slot the manifest does NOT point at; the manifest flips to it
 only after the blob persists. May trail tier-E by up to K steps.
 
-Pool work runs on a background writer thread; ``flush()`` drains it. The
-JAX package's manifest witnesses, placement records, rebalancing, commit
-hooks and replication serve its sharded pools and serving tier, and are
-not ported.
+Pool work runs on a background writer thread; ``flush()`` drains it.
+``add_commit_hook(fn)`` registers ``fn(step, idx)``, called on the writer
+thread once a tier-E commit's manifest advance is durable: the serving tier
+evicts exactly the touched rows from its hot-row cache there. The JAX
+package's manifest witnesses, placement records, rebalancing and
+replication serve its sharded pools, and are not ported.
 """
 from __future__ import annotations
 
@@ -127,6 +129,7 @@ class CheckpointManager:
         self.ring: Optional[UndoRing] = None
         self.manifest: Optional[JsonRegion] = None
         self.nmp: Optional[NmpQueue] = None
+        self._commit_hooks: list = []
         self._q: queue.Queue = queue.Queue(maxsize=8)
         self._err: Optional[BaseException] = None
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -205,6 +208,13 @@ class CheckpointManager:
         self._man_write(man, point="manifest-init")
 
     # -- hooks ---------------------------------------------------------------
+    def add_commit_hook(self, fn):
+        """Register fn(step, idx) to run on the writer thread right after a
+        tier-E commit's manifest advance, the point at which step N's rows
+        are durably applied to the mirror. The serving tier uses this to
+        invalidate exactly the touched hot-cache rows."""
+        self._commit_hooks.append(fn)
+
     def _raise_writer_err(self):
         if self._err is not None:
             err = self._err
@@ -280,6 +290,8 @@ class CheckpointManager:
         self.stats["bytes_e"] += idx.nbytes + new_rows.nbytes
         self.stats["undo_raw_bytes"] += info.get("raw", 0)
         self.stats["undo_stored_bytes"] += info.get("stored", 0)
+        for hook in self._commit_hooks:
+            hook(step, idx)
 
     def _do_tier_m(self, step: int, dense_np: dict, t_enq: float):
         if (self.ccfg.writer_deadline_s

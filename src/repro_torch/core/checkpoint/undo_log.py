@@ -29,9 +29,12 @@ words are never touched. Once the flip is durable the outgrown generation
 is freed; a generation leaked by a crash in that window is reclaimed by the
 open-time sweep, which frees by name and so can never double-free.
 
-The JAX package's host-driven ``append``, the readers for the serving tier
-(``read_many``, ``committed_after``) and the replication unit
-(``slot_image``) are not ported.
+The serving tier reads the ring too: ``committed_after`` (its tailer's
+poll) and ``read_many`` decode several committed steps in one header scan
+and one batched payload read. ``open_ring(device, readonly=True)`` opens
+it as a pure reader, which never sweeps, grows or writes. The JAX
+package's host-driven ``append`` and its replication unit (``slot_image``)
+are not ported.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ import numpy as np
 
 from repro_torch.pool import undo_codec as uc
 from repro_torch.pool.allocator import Domain, JsonRegion, PoolAllocator, Region
-from repro_torch.pool.device import PoolDevice
+from repro_torch.pool.device import PoolDevice, TenantIsolationError
 from repro_torch.pool.nmp import NmpQueue
 
 _ALIGN = 64
@@ -74,7 +77,10 @@ class UndoRing:
         else:
             self.slot_bytes = 0
             self.gen = -1
-        self._sweep_stale_rings()
+        # a readonly opener (the serving tier tailing commits) may not free
+        # anything: leaked generations are the writer's to reclaim
+        if not getattr(alloc, "readonly", False):
+            self._sweep_stale_rings()
 
     # -- layout --------------------------------------------------------------
     def _sweep_stale_rings(self):
@@ -125,10 +131,15 @@ class UndoRing:
             self._grow(raw_need)
 
     # -- write path ----------------------------------------------------------
+    def _check_writer(self, op: str):
+        if getattr(self.alloc, "readonly", False):
+            raise TenantIsolationError(f"readonly undo ring: {op} denied")
+
     def log_and_apply(self, step: int, mirror: Region, idx: np.ndarray,
                       new_rows: np.ndarray) -> dict:
         """Tier-E hot path: capture + log + COMMIT + apply in one
         near-memory op. Returns the op's {"stored", "raw"} byte counts."""
+        self._check_writer("log_and_apply")
         idx = np.asarray(idx).reshape(-1)
         new_rows = np.asarray(new_rows, np.float32).reshape(idx.size, -1)
         self._ensure_capacity(uc.slot_nbytes(idx.size, new_rows.shape[-1],
@@ -211,6 +222,50 @@ class UndoRing:
             return None
         return uc.decode_payload(stored, n, d, flags)
 
+    def _read_payloads(self, hits) -> dict:
+        """hits = [(step, slot, hdr), ...] -> {step: payload or None}. ONE
+        batched ``read_batch`` moves every stored payload; a CRC miss (the
+        slot GC'd or overwritten since the scan) maps to None."""
+        reqs = [(self.ring.off + slot * self.slot_bytes + uc.HDR.size,
+                 hdr[4]) for _, slot, hdr in hits]
+        blobs = self.device.read_batch(reqs, tag="undo-read")
+        out = {}
+        for (s, _, hdr), stored in zip(hits, blobs, strict=True):
+            _, n, d, flags, stored_len, crc = hdr
+            stored = bytes(stored)
+            out[s] = uc.decode_payload(stored, n, d, flags) \
+                if zlib.crc32(stored) == crc else None
+        return out
+
+    def read_many(self, steps) -> dict:
+        """{step: decoded payload} for several committed steps: ONE header
+        scan locates them, ONE batched read moves the payloads. CRC-failed
+        entries are dropped, as ``read`` drops them."""
+        steps = [int(s) for s in steps]
+        if self.ring is None or not steps:
+            return {}
+        want = set(steps)
+        hits = [(hdr[0], slot, hdr) for slot, hdr in self._scan_headers()
+                if hdr[0] in want]
+        if not hits:
+            return {}
+        return {s: p for s, p in self._read_payloads(hits).items()
+                if p is not None}
+
+    def committed_after(self, watermark: int) -> dict:
+        """{step: payload or None} for every committed step > watermark, in
+        one header scan and one batched read: the serving tier's tailer
+        poll. None marks a step whose slot was GC'd or overwritten between
+        the scan and the read (the caller still sees the step and can
+        advance its watermark)."""
+        if self.ring is None:
+            return {}
+        hits = [(hdr[0], slot, hdr) for slot, hdr in self._scan_headers()
+                if hdr[0] > watermark]
+        if not hits:
+            return {}
+        return self._read_payloads(hits)
+
     def committed_steps(self) -> list[int]:
         return sorted(hdr[0] for _, hdr in self._scan_headers())
 
@@ -222,6 +277,7 @@ class UndoRing:
         """Invalidate committed entries older than keep_from (both tiers
         durable, paper step 4) in one batched ``slot_clear``. Only the first
         gc after attaching to a pre-existing ring pays a header scan."""
+        self._check_writer("gc")
         if self.ring is None:
             return
         if self._live is None:
@@ -234,3 +290,11 @@ class UndoRing:
                                 point="undo-gc")
             for slot in expired:
                 del self._live[slot]
+
+
+def open_ring(device: PoolDevice, max_logs: int = 64,
+              readonly: bool = False) -> UndoRing:
+    """Attach to an existing undo domain. With ``readonly`` the ring is a
+    pure reader (the serving tier's commit tailer): it never sweeps, grows
+    or writes."""
+    return UndoRing(PoolAllocator(device, readonly=readonly), max_logs)

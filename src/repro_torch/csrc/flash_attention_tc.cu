@@ -633,7 +633,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const int64_t n_items = static_cast<int64_t>((Sq + kBQ - 1) / kBQ) * B * Hq;
   if (n_items > 0x7fffffff) return -3;
   int dev = 0, n_sm = 0;
+  // the encoder below is a libcuda call and needs a current context, which
+  // a thread that has made no runtime call yet (autograd's, say) lacks:
+  // setting the current device makes its primary context current
   cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap mq, mk, mv;

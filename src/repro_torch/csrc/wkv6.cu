@@ -678,6 +678,12 @@ int launch(const void* r, const void* k, const void* v, const float* logw,
         logw, u, s0, y, s_fin, H, rs, ks, vs, ws);
     return static_cast<int>(cudaGetLastError());
   }
+  // the encoder is a libcuda call and needs a current context, which a
+  // thread that has made no runtime call yet (autograd's, say) lacks:
+  // setting the current device makes its primary context current
+  int device;
+  if (cudaGetDevice(&device) != cudaSuccess || cudaSetDevice(device) != cudaSuccess)
+    return -3;
   Maps maps;
   if (!encode<T>(&maps.r, r, B, S, H, rs) || !encode<T>(&maps.k, k, B, S, H, ks) ||
       !encode<T>(&maps.v, v, B, S, H, vs) || !encode<float>(&maps.w, logw, B, S, H, ws))

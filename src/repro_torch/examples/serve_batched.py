@@ -1,18 +1,29 @@
-"""Batched serving (counterpart of the LM loop of the JAX package's
+"""Batched serving (counterpart of the JAX package's
 ``examples/serve_batched.py``): prefill a batch of prompts, then decode
 with a shared stepped loop (``training.serve_loop.greedy_generate``).
 
     PYTHONPATH=src python -m repro_torch.examples.serve_batched \\
         [--arch tinyllama-1.1b|qwen3-0.6b|rwkv6-3b] [--device cuda|cpu]
 
-Smoke-size model with random weights from seed 0. The JAX example's
-``--pool-backend`` drill (serving lookups from the trainer's pool) is not
-ported and raises.
+Smoke-size model with random weights from seed 0.
+
+With ``--pool-backend dram|pmem`` the example becomes the pool-serving
+drill instead: embedding rows are served straight from the trainer's
+pool-resident mirror through ``repro_torch.serve.EmbeddingServeTier``
+(batched deduplicated gathers, a trainer-coherent hot-row cache). Trainer
+commits are interleaved with serving; each commit must evict exactly the
+cached rows it touched, and the rows served after it must be the committed
+ones, bit for bit. The JAX drill's ``remote`` and ``sharded`` backends (a
+memory node in its own process, a read replica on another shard) are not
+ported and raise.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -20,6 +31,82 @@ from repro_torch.configs import LM_IDS, get_arch
 from repro_torch.data.synthetic import make_batches
 from repro_torch.models.registry import get_api
 from repro_torch.training.serve_loop import greedy_generate
+
+_NOT_PORTED = {"remote": "the remote pool (ROADMAP queue 1 item 3)",
+               "sharded": "the sharded pool and its read replica (ROADMAP "
+                          "queue 1 item 6)"}
+
+
+def pool_main(args):
+    from repro_torch.core.checkpoint.undo_log import UndoRing
+    from repro_torch.pool import DramPool, PmemPool, PoolAllocator
+    from repro_torch.serve import EmbeddingServeTier
+
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory(prefix="serve_pool_") as root:
+        pool = (DramPool(1 << 20) if args.pool_backend == "dram"
+                else PmemPool(os.path.join(root, "pool.img"), 1 << 20))
+        alloc = PoolAllocator(pool)
+
+        # the trainer's mirror: V x d rows living in the pool
+        V, d = 1 << 12, 32
+        table = rng.standard_normal((V, d)).astype(np.float32)
+        region = alloc.domain("embedding-mirror").alloc(
+            "rows", shape=(V, d), dtype="float32")
+        region.write_array(table)
+        region.persist(point="mirror-load")
+        ring = UndoRing(PoolAllocator(pool), max_logs=16)
+
+        tier = EmbeddingServeTier(pool, cache_rows=args.cache_rows)
+        print(f"[pool-serve] backend={args.pool_backend} table={V}x{d} "
+              f"cache={args.cache_rows} rows")
+
+        # hot-skewed request stream: 80% of the ids from a hot set of 256
+        hot = rng.choice(V, size=256, replace=False)
+
+        def make_requests(n):
+            reqs = []
+            for _ in range(n):
+                k = int(rng.integers(4, 32))
+                ids = np.where(rng.random(k) < 0.8, rng.choice(hot, k),
+                               rng.integers(0, V, k))
+                reqs.append(ids.astype(np.int64))
+            return reqs
+
+        for step in range(args.steps):
+            # serve a few batches...
+            for _ in range(4):
+                reqs = make_requests(args.batch)
+                for r, ids in zip(tier.serve_batch(reqs), reqs, strict=True):
+                    if not np.array_equal(r, table[ids]):
+                        raise SystemExit("served rows differ from the mirror")
+            # ...then the trainer commits step N touching a known row set
+            touched = np.unique(rng.choice(hot, 8))
+            inval_before = tier.metrics.cache_invalidations
+            expect = sum(1 for i in touched if i in tier.cache)
+            new_rows = rng.standard_normal((touched.size, d)).astype(np.float32)
+            ring.log_and_apply(step, region, touched, new_rows)
+            tier.poll_coherence()
+            got = tier.metrics.cache_invalidations - inval_before
+            if got != expect:
+                raise SystemExit(f"step {step}: {got} rows invalidated, "
+                                 f"{expect} of the touched rows were cached")
+            # the reads after the commit see the new rows, bit for bit
+            rows = tier.serve_batch([touched])[0]
+            if rows.tobytes() != new_rows.tobytes():
+                raise SystemExit(f"step {step}: served rows differ from the "
+                                 "committed ones")
+            table[touched] = new_rows
+            print(f"[pool-serve] step {step}: commit touched {touched.size} "
+                  f"rows, evicted exactly {got} cached")
+
+        s = tier.stats()
+        print(f"[pool-serve] {s['requests']} requests, {s['rows']} rows | "
+              f"qps={s['qps']:.0f} p50={s['p50_ms']:.2f}ms "
+              f"p99={s['p99_ms']:.2f}ms | hit_rate={s['hit_rate']:.2f} "
+              f"inval={s['invalidations']}")
+        pool.close()
+    print("pool-serving drill PASSED")
 
 
 def main(argv=None):
@@ -29,17 +116,28 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--pool-backend", default="",
-                    help="the pool-serving drill: not ported yet, raises")
+                    help="dram|pmem: run the pool-serving drill instead of "
+                         "the LM decode loop (remote, sharded: not ported "
+                         "yet, raise)")
+    ap.add_argument("--cache-rows", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=4,
+                    help="pool drill: trainer commits interleaved with "
+                         "serving")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no silent fallback")
     args = ap.parse_args(argv)
-    if args.pool_backend:
+    if args.pool_backend in _NOT_PORTED:
         raise NotImplementedError(
-            f"--pool-backend {args.pool_backend}: serving lookups from the "
-            "pool is not ported yet (ROADMAP queue 1 item 2)")
+            f"--pool-backend {args.pool_backend}: serving from "
+            f"{_NOT_PORTED[args.pool_backend]} is not ported yet")
+    if args.pool_backend not in ("", "dram", "pmem"):
+        ap.error(f"unknown pool backend {args.pool_backend!r}")
     if args.prompt_len < 1 or args.new_tokens < 1:
         ap.error("--prompt-len and --new-tokens must be at least 1")
     device = resolve_device(args.device)
+    if args.pool_backend:
+        pool_main(args)
+        return
 
     cfg = get_arch(args.arch, smoke=True).model
     gen = torch.Generator(device=device)

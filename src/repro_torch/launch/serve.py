@@ -3,7 +3,8 @@ generation.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         [--smoke | --full] --batch 4 --prompt-len 16 --new-tokens 16 \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--pool-backend dram|pmem [--pool-dir DIR]
+        [--pool-cache-rows N]]
 
 ``--arch`` is any LM id the port registers: the dense transformers
 tinyllama-1.1b and qwen3-0.6b (flash attention on prefill, plain attention
@@ -15,12 +16,23 @@ fallback). Params are random, from ``--seed``; the prompt is the synthetic
 zipf token stream's first batch. One short warm-up generation (the kernels'
 build and load, the library handles) runs before the timed one, which prints
 the prefill time, the decode time per token and the tokens generated per
-second. ``--pool-backend`` (serving embeddings from the pool) is not ported
-yet and raises.
+second.
+
+``--pool-backend`` routes the model's token lookups through the pool-backed
+serving tier (``repro_torch.serve.EmbeddingServeTier``): the table is
+mirrored in f32 into the pool's ``embedding-mirror/rows`` region (a pmem
+pool's image is ``<--pool-dir>/pool.img``) and every lookup becomes a
+batched, hot-row-cached near-memory gather on the host; the tier's stats
+line follows the timings. The remote and sharded backends and
+``--pool-readonly`` (a read-only tenant of a remote pool) are not ported
+and raise.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+import tempfile
 
 import torch
 
@@ -28,7 +40,36 @@ from repro_torch import resolve_device
 from repro_torch.configs import LM_IDS, get_arch
 from repro_torch.data.synthetic import make_batches
 from repro_torch.models.registry import get_api
-from repro_torch.training.serve_loop import greedy_generate
+from repro_torch.pool.device import NOT_PORTED, PoolError, check_backend
+from repro_torch.training.serve_loop import greedy_generate, pool_serving
+
+_LOAD_BYTES = 64 << 20   # f32 bytes of the table widened per copy
+
+
+def build_tier(table, backend: str, *, pool_dir: str = "",
+               cache_rows: int = 4096):
+    """The serving tier over a pool that holds ``table`` (V, d), as the
+    trainer's checkpoint manager lays it out: f32 rows in
+    ``embedding-mirror/rows``. The pool is sized to the table, and the rows
+    are widened and written a bounded chunk at a time. A pmem pool's image
+    is ``<pool_dir>/pool.img``."""
+    from repro_torch.pool import PoolAllocator, make_pool
+    from repro_torch.pool.allocator import DATA_START
+    from repro_torch.serve import EmbeddingServeTier
+
+    V, d = table.shape
+    row_bytes = 4 * d
+    pool = make_pool(backend,
+                     path=os.path.join(pool_dir, "pool.img") if pool_dir else None,
+                     capacity=DATA_START + V * row_bytes + (1 << 20))
+    region = PoolAllocator(pool).domain("embedding-mirror").alloc(
+        "rows", shape=(V, d), dtype="float32")
+    step = max(1, _LOAD_BYTES // row_bytes)
+    for s in range(0, V, step):
+        rows = table[s:s + step].detach().float().cpu().numpy()
+        pool.write(region.off + s * row_bytes, rows, tag="mirror-load")
+    region.persist(point="mirror-load")
+    return EmbeddingServeTier(pool, cache_rows=cache_rows)
 
 
 def main(argv=None):
@@ -41,14 +82,27 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pool-backend", default="",
-                    help="serve embedding lookups from the pool: not ported "
+                    choices=["", "dram", "pmem", *NOT_PORTED],
+                    help="serve token lookups from the pool through the "
+                         f"hot-row-cached tier ({', '.join(NOT_PORTED)}: not "
+                         "ported yet, raises)")
+    ap.add_argument("--pool-dir", default="",
+                    help="pmem backend: directory for the pool image")
+    ap.add_argument("--pool-cache-rows", type=int, default=4096)
+    ap.add_argument("--pool-readonly", action="store_true",
+                    help="a read-only tenant of a remote pool: not ported "
                          "yet, raises")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no silent fallback")
     args = ap.parse_args(argv)
     if args.pool_backend:
-        ap.error(f"--pool-backend {args.pool_backend}: serving from the pool "
-                 "is not ported yet")
+        try:
+            check_backend(args.pool_backend)
+        except PoolError as e:
+            ap.error(str(e))
+    if args.pool_readonly:
+        ap.error("--pool-readonly: a read-only tenant needs the remote pool, "
+                 "which is not ported yet (ROADMAP queue 1 item 3)")
     if args.prompt_len < 1 or args.new_tokens < 1:
         ap.error("--prompt-len and --new-tokens must be at least 1")
 
@@ -60,11 +114,25 @@ def main(argv=None):
     prompt = make_batches(cfg, args.batch, args.prompt_len,
                           device=device).next(0)["tokens"]
     max_seq = args.prompt_len + args.new_tokens
-
-    greedy_generate(cfg, params, prompt, min(2, args.new_tokens), max_seq=max_seq)
-    stats = {}
-    toks = greedy_generate(cfg, params, prompt, args.new_tokens,
-                           max_seq=max_seq, stats=stats)
+    with contextlib.ExitStack() as stack:
+        tier = None
+        if args.pool_backend:
+            pool_dir = args.pool_dir
+            if args.pool_backend == "pmem" and not pool_dir:
+                # an image without --pool-dir lives as long as the run
+                pool_dir = stack.enter_context(
+                    tempfile.TemporaryDirectory(prefix="serve_pool_"))
+            tier = build_tier(params["embed"]["table"], args.pool_backend,
+                              pool_dir=pool_dir, cache_rows=args.pool_cache_rows)
+            stack.callback(tier.pool.close)
+            stack.enter_context(pool_serving(tier))
+        greedy_generate(cfg, params, prompt, min(2, args.new_tokens),
+                        max_seq=max_seq)
+        stats = {}
+        toks = greedy_generate(cfg, params, prompt, args.new_tokens,
+                               max_seq=max_seq, stats=stats)
+        tier_stats = None if tier is None else (
+            tier.stats(), tier.pool.metrics.link_bytes())
     total_s = stats["prefill_s"] + stats["decode_s"]
     decode = (f"{1e3 * stats['decode_s'] / (args.new_tokens - 1):.2f} ms per token"
               if args.new_tokens > 1 else "no step")
@@ -73,6 +141,12 @@ def main(argv=None):
     print(f"[serve] prefill {1e3 * stats['prefill_s']:.2f} ms, decode "
           f"{decode}, {args.batch * args.new_tokens / total_s:.1f} tokens/s")
     print("[serve] sample:", toks[0].tolist())
+    if tier_stats is not None:
+        s, link = tier_stats
+        print(f"[serve] pool tier ({args.pool_backend}): {s['requests']} "
+              f"lookups, hit_rate={s['hit_rate']:.2f} p50={s['p50_ms']:.2f}ms "
+              f"p99={s['p99_ms']:.2f}ms inval={s['invalidations']} link "
+              f"bytes={link}")
 
 
 if __name__ == "__main__":

@@ -20,8 +20,11 @@ slots all live in separate domains of one pool.
 ``JsonRegion`` layers the same A/B trick inside a single region for small,
 frequently-rewritten metadata (the manifest).
 
-The JAX package's tenants, quotas, read-only openers and remote proxy mode
-serve its memory-node server and are not ported.
+``PoolAllocator(device, readonly=True)`` is the serving tier's posture: it
+may reopen regions that exist, and anything that would change the
+directory (a new region, a free) raises ``TenantIsolationError``. The JAX
+package's tenants, quotas and remote proxy mode serve its memory-node
+server and are not ported.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.pool.device import PoolDevice, PoolError
+from repro_torch.pool.device import PoolDevice, PoolError, TenantIsolationError
 
 _MAGIC = b"RPPL"
 SUPER_SLOT = 32 << 10
@@ -73,6 +76,10 @@ class Region:
     dtype: str
     shape: tuple
 
+    def read_array(self, tag: str = "read") -> np.ndarray:
+        buf = self.device.read(self.off, self.nbytes, tag=tag)
+        return np.frombuffer(bytes(buf), dtype=self.dtype).reshape(self.shape)
+
     def write_array(self, arr: np.ndarray, tag: str = "write"):
         arr = np.ascontiguousarray(arr, dtype=self.dtype)
         if arr.nbytes > self.nbytes:
@@ -110,13 +117,17 @@ class Domain:
     def regions(self) -> dict[str, Region]:
         return self._alloc._regions(self.name)
 
+    def free(self, point: str = "superblock") -> bool:
+        return self._alloc.free_domain(self.name, point=point)
+
     def free_region(self, name: str, point: str = "superblock") -> bool:
         return self._alloc._free_region(self.name, name, point)
 
 
 class PoolAllocator:
-    def __init__(self, device: PoolDevice):
+    def __init__(self, device: PoolDevice, readonly: bool = False):
         self.device = device
+        self.readonly = bool(readonly)
         found = self._read_directory()
         if found is None:
             self.seq = 0
@@ -127,7 +138,9 @@ class PoolAllocator:
             self.seq, self.directory = found
 
     # -- directory persistence ----------------------------------------------
-    def _read_directory(self):
+    def _read_directory(self, newer_than: int = -1):
+        """The newest valid directory slot as (seq, directory), or None if
+        there is none newer than ``newer_than`` (then no JSON is parsed)."""
         if self.device.capacity < DATA_START:
             return None
         best = None
@@ -136,7 +149,7 @@ class PoolAllocator:
             got = _unpack(buf)
             if got and (best is None or got[0] > best[0]):
                 best = got
-        if best is None:
+        if best is None or best[0] <= newer_than:
             return None
         return best[0], json.loads(best[1].decode())
 
@@ -144,8 +157,8 @@ class PoolAllocator:
         """Re-read the on-device directory if it advanced: several live
         allocator handles over one device (checkpoint manager, undo ring,
         recovery) must not hand out overlapping regions from stale copies."""
-        found = self._read_directory()
-        if found is not None and found[0] > self.seq:
+        found = self._read_directory(newer_than=self.seq)
+        if found is not None:
             self.seq, self.directory = found
 
     def _write_directory(self, point: str = "superblock"):
@@ -171,6 +184,10 @@ class PoolAllocator:
         ent = dom.get(rname)
         if ent and ent["dtype"] == dtype and tuple(ent["shape"]) == shape:
             return self._region(dname, rname, ent)   # idempotent reopen
+        if self.readonly:
+            raise TenantIsolationError(
+                f"readonly tenant: alloc of new region {dname}/{rname} "
+                f"denied (only idempotent reopens are allowed)")
         off = -(-self.directory["alloc_ptr"] // _ALIGN) * _ALIGN
         self.device.ensure(off + nbytes)
         dom[rname] = {"off": off, "nbytes": nbytes, "dtype": dtype,
@@ -193,9 +210,24 @@ class PoolAllocator:
         """Drop ONE region's directory entry (its bytes are leaked, as in
         the emulator): a caller that outgrows a region frees, then
         allocates, so the directory never silently orphans the old entry."""
+        if self.readonly:
+            raise TenantIsolationError(
+                f"readonly tenant: free of region {dname}/{rname} denied")
         self._sync()
         dom = self.directory["domains"].get(dname, {})
         if dom.pop(rname, None) is None:
+            return False
+        self._write_directory(point)
+        return True
+
+    def free_domain(self, dname: str, point: str = "superblock") -> bool:
+        """Drop a domain's directory entries (the data bytes are leaked, as
+        in the emulator)."""
+        if self.readonly:
+            raise TenantIsolationError(
+                f"readonly tenant: free of domain {dname} denied")
+        self._sync()
+        if self.directory["domains"].pop(dname, None) is None:
             return False
         self._write_directory(point)
         return True

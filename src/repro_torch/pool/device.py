@@ -39,6 +39,11 @@ class PoolError(RuntimeError):
     """Base class for every pool-layer failure."""
 
 
+class TenantIsolationError(PoolError):
+    """A tenant addressed bytes (or a domain) it does not own: here, a
+    readonly allocator asked to allocate or free."""
+
+
 class PoolDevice:
     """Common cache/media/dirty-range machinery; subclasses provide media."""
 
@@ -114,6 +119,13 @@ class PoolDevice:
         ``mark_dirty`` what it mutates and account its own traffic."""
         self._check(off, nbytes)
         return self._cache[off:off + nbytes]
+
+    def read_batch(self, reqs, tag: str = "read") -> list:
+        """[(off, nbytes), ...] -> [bytes, ...], each read charged as
+        ``read`` charges it (one round trip on the JAX package's remote
+        backends)."""
+        return [bytes(self.read(off, nbytes, tag=tag))
+                for off, nbytes in reqs]
 
     def mark_dirty(self, off: int, nbytes: int):
         # append-only on the hot path; ranges are sorted and merged at the

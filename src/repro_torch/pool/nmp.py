@@ -2,16 +2,21 @@
 ``repro.pool.nmp``, local devices only).
 
 Ops execute against region cache views inside the pool device, so only the
-operands (indices, new rows) cross the host link; undo images never do.
-Each op charges the device's ``PoolMetrics``: media traffic at Table-2
-random-access latency/bandwidth, and link traffic for whatever enters or
+operands (indices, gradients, new rows) and the *results* (gathered rows or
+bag-reduced vectors) cross the host link; undo images never do. Each op
+charges the device's ``PoolMetrics`` as the JAX package's does: media
+traffic at Table-2 random-access latency/bandwidth, the near-memory adder
+array's busy time for reductions, and link traffic for whatever enters or
 leaves the pool.
 
-The ops here are the ones checkpointing and recovery run: the fused undo-log
-append, the row update of a rollback, the undo-ring header scan and GC, and
-the compressed blob write of a dense snapshot. The JAX package's remote
-dispatch, lookup ops (gather, bag_gather, scatter_add), region migration and
-``EmbeddingPoolMirror`` serve paths the port does not have yet.
+The ops: the lookups serving runs (``gather``, ``bag_gather``), the
+near-memory update (``scatter_add``), the round-trip undo capture
+(``undo_snapshot``), and the ones checkpointing and recovery run (the fused
+undo-log append, the row update of a rollback, the undo-ring header scan
+and GC, the compressed blob write of a dense snapshot).
+``EmbeddingPoolMirror`` is a table in the pool behind the ``pool`` lookup
+strategy of ``core.embedding_ops``. The JAX package's remote dispatch and
+region migration serve its remote and sharded pools and are not ported.
 """
 from __future__ import annotations
 
@@ -55,6 +60,42 @@ class NmpQueue:
                               int(e - s + 1) * row_bytes)
 
     # -- ops -----------------------------------------------------------------
+    def gather(self, region: Region, idx) -> np.ndarray:
+        """rows[idx] -> host. The link carries idx in and the raw rows out."""
+        idx = np.asarray(idx)
+        flat, row_bytes = self._rows_meta(region)
+        out = flat[idx.reshape(-1)].reshape(*idx.shape, flat.shape[-1]).copy()
+        m = self.device.metrics
+        m.record("gather", idx.size * row_bytes,
+                 self.device.profile.t_random_read(idx.size, row_bytes))
+        m.record_link("link_in", idx.nbytes)
+        m.record_link("link_out", out.nbytes)
+        return out
+
+    def bag_gather(self, region: Region, idx, combine: str = "sum") -> np.ndarray:
+        """Reduce rows[idx] over the last idx axis pool-side; only the
+        reduced (..., d) vectors cross the link. On a stacked (T, R, d)
+        region, idx is (..., T, L) with each table's own row ids, and each
+        table's row offset t * R is added to them first."""
+        idx = np.asarray(idx)
+        if len(region.shape) == 3:
+            T, R, _ = region.shape
+            if idx.ndim < 2 or idx.shape[-2] != T:
+                raise ValueError(f"bag ids {idx.shape} do not index the "
+                                 f"{T} stacked tables of {region.shape}")
+            idx = idx + (np.arange(T)[:, None] * R).astype(idx.dtype)
+        flat, row_bytes = self._rows_meta(region)
+        rows = flat[idx.reshape(-1)].reshape(*idx.shape, flat.shape[-1])
+        red = rows.sum(axis=-2) if combine == "sum" else rows.mean(axis=-2)
+        red = np.ascontiguousarray(red)
+        m = self.device.metrics
+        m.record("bag_gather", idx.size * row_bytes,
+                 self.device.profile.t_random_read(idx.size, row_bytes))
+        m.record_ndp(idx.size * flat.shape[-1])          # adder array
+        m.record_link("link_in", idx.nbytes)
+        m.record_link("link_out", red.nbytes)
+        return red
+
     def row_update(self, region: Region, idx, rows,
                    point: Optional[str] = None):
         """rows -> pool at idx (the embedding apply). Idempotent writes."""
@@ -69,6 +110,37 @@ class NmpQueue:
         m.record_link("link_in", idx.nbytes + rows.nbytes)
         if point is not None:
             region.persist(point=point)
+
+    def scatter_add(self, region: Region, idx, delta,
+                    point: Optional[str] = None):
+        """Accumulate gradient rows pool-side (read-modify-write)."""
+        idx = np.asarray(idx).reshape(-1)
+        delta = np.asarray(delta)
+        flat, row_bytes = self._rows_meta(region)
+        np.add.at(flat, idx, delta.reshape(idx.size, -1).astype(flat.dtype))
+        self._mark_rows_dirty(region, idx, row_bytes)
+        m = self.device.metrics
+        t = (self.device.profile.t_random_read(idx.size, row_bytes)
+             + self.device.profile.t_random_write(idx.size, row_bytes))
+        m.record("scatter_add", 2 * idx.size * row_bytes, t)
+        m.record_ndp(idx.size * flat.shape[-1])
+        m.record_link("link_in", idx.nbytes + delta.nbytes)
+        if point is not None:
+            region.persist(point=point)
+
+    def undo_snapshot(self, region: Region, idx) -> np.ndarray:
+        """The pre-update image of rows[idx], returned to the host: the
+        round-trip capture, whose old rows cross the link out. The paper's
+        design is ``undo_log_append``, which never ships the image."""
+        idx = np.asarray(idx).reshape(-1)
+        flat, row_bytes = self._rows_meta(region)
+        old = np.array(flat[idx])
+        m = self.device.metrics
+        m.record("undo_snapshot", idx.size * row_bytes,
+                 self.device.profile.t_random_read(idx.size, row_bytes))
+        m.record_link("link_in", idx.nbytes)
+        m.record_link("link_out", old.nbytes)
+        return old
 
     def undo_log_append(self, mirror: Region, log: Region, *, step: int,
                         slot_off: int, slot_bytes: int, idx,
@@ -175,3 +247,53 @@ class NmpQueue:
         self.device.write(region.off, framed, tag="dense")
         self.device.persist(region.off, len(framed), point=point)
         return len(framed)
+
+
+class EmbeddingPoolMirror:
+    """Host-visible handle to an embedding table living in a pool domain:
+    the substrate behind ``core.embedding_ops``' ``pool`` lookup strategy.
+
+    ``table`` may be (V, d) or stacked DLRM (T, R, d), held in f32; bag
+    lookups on the stacked form add per-table row offsets pool-side
+    (``NmpQueue.bag_gather``).
+    """
+
+    DOMAIN = "embedding-ops"
+
+    def __init__(self, device: PoolDevice, table: np.ndarray,
+                 name: str = "table"):
+        from repro_torch.pool.allocator import PoolAllocator
+        self.device = device
+        self.alloc = PoolAllocator(device)
+        table = np.asarray(table, dtype=np.float32)
+        self.region = self.alloc.domain(self.DOMAIN).alloc(
+            name, shape=table.shape, dtype="float32")
+        self.region.write_array(table, tag="mirror-load")
+        self.region.persist(point="mirror-load")
+        self.nmp = NmpQueue(device)
+
+    @property
+    def shape(self):
+        return self.region.shape
+
+    @property
+    def metrics(self):
+        return self.device.metrics
+
+    def sync_from(self, table: np.ndarray):
+        self.region.write_array(np.asarray(table, np.float32),
+                                tag="mirror-load")
+        self.region.persist(point="mirror-load")
+
+    def lookup(self, ids: np.ndarray) -> np.ndarray:
+        return self.nmp.gather(self.region, np.asarray(ids))
+
+    def bag_lookup(self, ids: np.ndarray, combine: str = "sum") -> np.ndarray:
+        return self.nmp.bag_gather(self.region, np.asarray(ids), combine)
+
+    def apply_grad(self, idx: np.ndarray, grad_rows: np.ndarray,
+                   lr: float = 1.0):
+        """Near-memory SGD update: rows[idx] -= lr * grad."""
+        self.nmp.scatter_add(self.region, idx,
+                             -lr * np.asarray(grad_rows, np.float32),
+                             point="mirror-apply")

@@ -1,8 +1,8 @@
 """Device profiles the emulated pool charges its traffic to (paper Table 2).
 
 The part of ``repro.sim.devices`` that the pool reads: the DRAM and PMEM
-memory profiles, the CXL link and the power figures of the energy model
-(Fig. 13). The simulator itself is not ported.
+memory profiles, the CXL link, the near-memory adder array and the power
+figures of the energy model (Fig. 13). The simulator itself is not ported.
 
 | device | read lat | write lat | read BW | write BW |
 | PMEM   |   3x     |   7x      |  0.6x   |  0.1x    |
@@ -60,9 +60,20 @@ class Link:
 CXL_LINK = Link("cxl", 32e9)
 
 
-# Active power (W) of the pool's media and compression engine (Fig. 13).
+@dataclass(frozen=True)
+class Compute:
+    name: str
+    flops: float
+
+
+NDP_LOGIC = Compute("cxl-mem-logic", 1.2e12)  # adder/mult array near PMEM
+
+
+# Active power (W) of the pool's media, near-memory logic and compression
+# engine (Fig. 13).
 POWER = {
     "dram_access_w": 12.0,
     "pmem_read_w": 10.0, "pmem_write_w": 15.0,
+    "ndp_logic_w": 15.0,
     "comp_engine_w": 2.0,   # in-controller (de)compression block
 }

@@ -2,15 +2,23 @@
 fills the KV caches, decode adds one token against them, and
 ``greedy_generate`` runs both in a host loop.
 
-The decode position is a host int, so the loop never waits for the card to
-read it; the next token stays on the card. ``pool_serving`` and
-``make_pool_serve_fns`` (the pool-backed serving tier) are not ported yet.
+The decode position is a host int, so on the kernels' route the loop never
+waits for the card to read it; the next token stays on the card.
+
+``pool_serving`` / ``make_pool_serve_fns`` hook the pool-backed embedding
+serving tier (``repro_torch.serve``) into the model path: inside the
+context, every ``embedding_ops.lookup`` / ``bag_lookup`` the models issue
+reads the trainer's pool-resident mirror through the tier's batched,
+cached path. That route reads its ids on the host, so each prefill and
+each decode step waits once for the card to produce its tokens (one sync a
+step, as the JAX package's host callback makes).
 """
 from __future__ import annotations
 
 import contextlib
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.models.registry import get_api
@@ -34,6 +42,37 @@ def make_serve_fns(cfg):
         return api.init_cache(cfg, batch, max_seq, device)
 
     return prefill_step, decode_step, init_cache
+
+
+@contextlib.contextmanager
+def pool_serving(tier):
+    """Route embedding lookups through a pool-backed serving tier
+    (``repro_torch.serve.EmbeddingServeTier``, or any
+    ``EmbeddingPoolMirror``-compatible object) for the duration of the
+    context."""
+    from repro_torch.core import embedding_ops
+    embedding_ops.attach_pool(tier)
+    try:
+        with embedding_ops.lookup_mode("pool"):
+            yield tier
+    finally:
+        embedding_ops.detach_pool()
+
+
+def make_pool_serve_fns(tier):
+    """Host-side embedding serving closures over a pool-backed tier:
+    (lookup, bag_lookup, serve_batch), for request frontends that batch ids
+    themselves."""
+    def lookup(ids):
+        return tier.lookup(np.asarray(ids))
+
+    def bag_lookup(ids, combine: str = "sum"):
+        return tier.bag_lookup(np.asarray(ids), combine=combine)
+
+    def serve_batch(requests):
+        return tier.serve_batch([np.asarray(r) for r in requests])
+
+    return lookup, bag_lookup, serve_batch
 
 
 def _sync(device: torch.device) -> None:

@@ -534,6 +534,52 @@ def test_wkv6_refuses_other_head_sizes(cuda):
         ops.wkv6(r, r, r, r, torch.zeros((2, 32), device=cuda))
 
 
+def _on_fresh_thread(fn):
+    """fn() on a new host thread, which has made no runtime call yet; what
+    it returned, or raises what it raised."""
+    import threading
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:   # re-raised on the caller's thread
+            out["error"] = e
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["wkv6", "flash_attention_tc"])
+def test_tma_forwards_launch_from_a_fresh_thread(cuda, kernel):
+    """The two forwards that encode TMA tensor maps (wkv6's chunked kernel,
+    flash attention's tensor-core route) launch from a thread that has made
+    no runtime call yet, as autograd's device thread may be, and give the
+    main thread's bits. The encoder needs a current context, which such a
+    thread lacks until the wrapper sets the device."""
+    if kernel == "wkv6":
+        x = _wkv_inputs(cuda, 2, 100, 4, torch.bfloat16, True)
+        counter, call = "launches", lambda: ops.wkv6(*x)
+        mod = wk
+    else:
+        g = torch.Generator(device=cuda).manual_seed(0)
+        q, k, v = (torch.randn((2, 130, h, 64), generator=g, device=cuda)
+                   .to(torch.bfloat16) for h in (8, 2, 2))
+        counter, call = "tc_launches", lambda: ops.flash_attention(q, k, v)
+        mod = fa
+    torch.cuda.synchronize()
+    before = getattr(mod, counter)
+    got = _on_fresh_thread(lambda: (call(), torch.cuda.synchronize())[0])
+    assert getattr(mod, counter) == before + 1
+    want = call()
+    got, want = (tuple(t) if isinstance(t, tuple) else (t,) for t in (got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
 # the wkv6 backward's tolerance, scaled by each gradient's largest magnitude:
 # the kernel and its plain version are both f32, the sums in other orders
 # (and the kernel's multiply-adds fused); dr, dk and dv in bf16 (f16) also

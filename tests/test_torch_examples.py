@@ -2,8 +2,8 @@
 
 Each runs as a subprocess with ``--device cpu``, as a user runs it, and
 must exit 0 with its marker line. What the examples do not run (the JAX
-demo's remote and sharded drills, pool serving, a CUDA device without a
-card) must raise.
+demos' remote and sharded drills, a CUDA device without a card) must
+raise.
 """
 import os
 import subprocess
@@ -67,10 +67,26 @@ def test_serve_batched(tmp_path, arch):
     assert "[decode] 8x8 tokens" in out and "[sample]" in out
 
 
+@pytest.mark.parametrize("backend", ["dram", "pmem"])
+def test_serve_batched_pool_drill(tmp_path, backend):
+    """Serving from the pool with commits interleaved: each commit evicts
+    exactly the cached rows it touched (the JAX drill's counts), the rows
+    after it are the committed ones bitwise, and no file is left behind."""
+    out = _run("serve_batched", "--pool-backend", backend, tmp_path=tmp_path)
+    assert f"[pool-serve] backend={backend} table=4096x32 cache=512 rows" in out
+    for step, n in enumerate((7, 8, 8, 8)):
+        assert f"step {step}: commit touched 8 rows, evicted exactly {n} " \
+            "cached" in out
+    assert "132 requests, 2435 rows" in out and "inval=31" in out
+    assert out.rstrip().endswith("pool-serving drill PASSED")
+    assert os.listdir(tmp_path) == []
+
+
 @pytest.mark.parametrize("name,args,msg", [
     ("fault_tolerance_demo", ["--pool-backend", "remote"], "queue 1 item 6"),
     ("fault_tolerance_demo", ["--pool-backend", "sharded"], "queue 1 item 6"),
-    ("serve_batched", ["--pool-backend", "dram"], "queue 1 item 2"),
+    ("serve_batched", ["--pool-backend", "remote"], "queue 1 item 3"),
+    ("serve_batched", ["--pool-backend", "sharded"], "queue 1 item 6"),
 ])
 def test_unported_options_raise(name, args, msg):
     with pytest.raises(NotImplementedError, match=msg):

@@ -265,5 +265,10 @@ def test_serve_cli_without_card_raises():
 
 
 def test_serve_cli_pool_backend_not_ported():
-    r = _run(["--device", "cpu", "--pool-backend", "pmem"])
-    assert r.returncode != 0 and "not ported yet" in r.stderr
+    """The pool backends the port does not have, and a read-only tenant
+    (remote pools only), raise; dram and pmem serve
+    (``tests/test_torch_serve.py``)."""
+    for args in (["--pool-backend", "remote"], ["--pool-backend", "sharded"],
+                 ["--pool-backend", "pmem", "--pool-readonly"]):
+        r = _run(["--device", "cpu", *args])
+        assert r.returncode != 0 and "not ported yet" in r.stderr, args
