@@ -89,8 +89,10 @@ Phases, each of which exits non-zero on failure:
      COMMIT and the mirror apply, bitwise recovery and a resume with the
      uninterrupted run's losses;
  14. run the port's examples on the card as a user does, one process each,
-     all at once (python -m repro_torch.examples.<name>): the pmem and dram
-     crash drills, train_dlrm_e2e at 20 steps, quickstart, and
+     all at once (python -m repro_torch.examples.<name>): the crash drills
+     (remote, the default: a memory node and a trainer in processes of
+     their own; pmem; dram), shared_pool_demo (two trainer tenants with
+     quotas on one node), train_dlrm_e2e at 20 steps, quickstart, and
      serve_batched for tinyllama-1.1b and rwkv6-3b; each must exit 0 and
      print its marker line;
  15. hold the wkv6 backward kernel against its plain version and the plain
@@ -130,11 +132,31 @@ Phases, each of which exits non-zero on failure:
      rm1 forward through the pool route (an EmbeddingPoolMirror of the
      stacked tables, the bags reduced near the data) against the bag
      kernel's: f32 bags within 1e-5, click probabilities within
-     DLRM_POOL_PROB_TOL (0: bitwise, the gap measured).
-Phases 7 to 17 print their wall time. Phases 4, 8, 10, 12 and 16 also
+     DLRM_POOL_PROB_TOL (0: bitwise, the gap measured);
+ 18. full-width dlrm-rm1 checkpointed into a memory node in a process of
+     its own (python -m repro_torch.pool.server, a pmem image under build/,
+     a unix socket; removed at the end), the paper's arrangement. Run A, in
+     this process: the manager loads the 2.56 GB f32 mirror over the
+     socket (seconds and frames printed: it exceeds one frame's 1 GiB cap),
+     4 relaxed steps are checkpointed, each step's undo image captured on
+     the card must equal the node's bitwise, each tier-E step's link bytes
+     must stay within idx + new rows + 4 KB while its media bytes exceed
+     them (its ms printed beside phase 6's pmem pool), and the mirror
+     recovered over a fresh connection must equal the tables bitwise. The
+     drill, on a fresh node: the train CLI (python -m
+     repro_torch.launch.train --full --pool-backend remote ...) in a
+     subprocess is SIGKILLed once the node's manifest shows 3 committed
+     steps; the node must be alive, the mirror recovered from POOL.json
+     over a fresh connection must equal a clean replay on the card
+     bitwise, and 2 resumed steps (a manager on the recovered connection)
+     must give the losses of the replay's twin (its tables and dense tree
+     at the recovered steps, the relaxed carry rebuilt); the trainer's
+     launch counts per kernel, read from its last log line, must be those
+     of its relaxed steps.
+Phases 7 to 18 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
-13 and 16 every scatter_update_logged launch (su.wide_launches_logged).
+13, 16 and 18 every scatter_update_logged launch (su.wide_launches_logged).
 
 The line before the last is {"kernels": [...]}, one entry per kernel and
 path (the row gather runs on eight: each checkpoint, each served model's
@@ -145,7 +167,9 @@ paths; wkv6 forward on rwkv6-3b's prefill, decode and training, its
 backward on training; each flash direction's tensor-core route on the
 bf16 paths and its f32 route in phase 12's f32 smoke training; phase 17's
 pool-served tinyllama prefill (flash) and rwkv6-3b prefill and decode
-(wkv6) as paths of their own); the last line is
+(wkv6) as paths of their own; phase 18's run A, the rm1 path checkpointed
+into the memory node, as one more for the bag, both updates and the
+gather); the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
 Imports nothing of JAX.
@@ -224,7 +248,8 @@ def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
 
 def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
                      plain_step_ms):
-    """Phase 6. Returns the launch counts of run A, the checkpointed path."""
+    """Phase 6. Returns the launch counts of run A, the checkpointed path,
+    and its writer's tier-E ms per step."""
     import contextlib
     import dataclasses
     import gc
@@ -460,7 +485,7 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         gc.collect()
         torch.cuda.empty_cache()
         print("[ckpt] crash, bitwise recovery and resume: ok")
-        return launches
+        return launches, times["_do_tier_e"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1896,7 +1921,11 @@ def examples_phase():
     os.makedirs(build, exist_ok=True)
     work = tempfile.mkdtemp(prefix="examples-smoke-", dir=build)
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    runs = (("fault_tolerance_demo pmem", "fault_tolerance_demo",
+    runs = (("fault_tolerance_demo (remote, its default)", "fault_tolerance_demo",
+             ["--work-dir", work], "fault-tolerance demo PASSED"),
+            ("shared_pool_demo", "shared_pool_demo", ["--work-dir", work],
+             "shared-pool demo PASSED"),
+            ("fault_tolerance_demo pmem", "fault_tolerance_demo",
              ["--pool-backend", "pmem", "--work-dir", work], "fault-tolerance demo PASSED"),
             ("fault_tolerance_demo dram", "fault_tolerance_demo",
              ["--pool-backend", "dram", "--work-dir", work], "fault-tolerance demo PASSED"),
@@ -1931,7 +1960,7 @@ def examples_phase():
                 out = log.read()
             lines = [ln for ln in out.splitlines()
                      if ln.startswith(("==", "[prefill]", "[decode]", "strict", "loss:",
-                                       "fault-tolerance"))]
+                                       "fault-tolerance", "shared-pool", "-- tenant"))]
             print(f"[examples] {label}: exit {rc}, done at {wall[label]:.1f}s; "
                   + " | ".join(lines[-4:]))
             check(rc == 0 and marker in out,
@@ -2250,6 +2279,327 @@ def dlrm_pool_serve_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
         return out
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
+                            pmem_tier_e_ms):
+    """Phase 18: full-width dlrm-rm1 checkpointed into a memory node in a
+    process of its own (``python -m repro_torch.pool.server``, pmem, on a
+    unix socket), the paper's arrangement. Returns run A's launch counts
+    and the numbers it printed."""
+    import ast
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.core.checkpoint import recovery
+    from repro_torch.core.checkpoint.manager import (CheckpointManager,
+                                                     check_undo_images,
+                                                     undo_image)
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import DLRMBatches
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import scatter_update as su
+    from repro_torch.pool import PoolAllocator, PoolError, RemotePool
+    from repro_torch.pool.allocator import JsonRegion
+    from repro_torch.pool.server import start_node, unix_addr
+    from repro_torch.tree import tree_map
+
+    T, R, d = cfg.dlrm_num_tables, cfg.dlrm_rows_per_table, cfg.dlrm_bottom_mlp[-1]
+    mirror_bytes = T * R * d * 4
+    mirror_gb = mirror_bytes / 1e9
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with open("/proc/meminfo") as f:
+        avail_gb = next(int(ln.split()[1]) for ln in f
+                        if ln.startswith("MemAvailable:")) / 1e6
+    disk_gb = shutil.disk_usage(build).free / 1e9
+    print(f"[remote] before: host RAM available {avail_gb:.1f} GB, disk free "
+          f"{disk_gb:.1f} GB under build/")
+    # RAM: the node's cache and page cache (2 x mirror each), the trainer's
+    # f32 copy, the recovered mirror and the replay's tables on the host.
+    # Disk: one node image at a time (run A's node is gone before the drill)
+    check(avail_gb >= 8 * mirror_gb, f"remote phase needs {8 * mirror_gb:.0f} GB "
+          f"of free host RAM, {avail_gb:.1f} GB available")
+    check(disk_gb >= 2 * mirror_gb, f"remote phase needs {2 * mirror_gb:.0f} GB "
+          f"of free disk under {build}, {disk_gb:.1f} GB free")
+    work = tempfile.mkdtemp(prefix="remote-ckpt-", dir=build)
+    addr = unix_addr(work)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    procs = {}
+    out = {}
+
+    def node_up(name):
+        # the node sized for one tenant's mirror, ring and dense slots
+        try:
+            procs["node"] = start_node(addr, path=os.path.join(work, f"{name}.img"),
+                                       capacity=2 * mirror_bytes + (64 << 20),
+                                       env=env)
+        except PoolError as e:
+            fail(f"remote: the memory node did not start: {e}")
+        print(f"[remote] memory node ({name}) up at {addr}, pid {procs['node'].pid}")
+
+    def node_down():
+        node = procs.pop("node")
+        check(node.poll() is None, f"remote: the memory node exited early "
+              f"(exit {node.returncode})")
+        node.terminate()
+        node.wait(timeout=60)
+        node.stdout.close()
+
+    def wire_stalls(name, pool):
+        # reply pauses past the reader's tick that the channel waited out
+        st = pool.wire_stats()
+        out.setdefault("wire_stalls", {})[name] = {
+            k: st[k] for k in ("stalls", "stall_s_total", "stall_s_max")}
+        print(f"[remote] {name}: reply stalls waited out {out['wire_stalls'][name]}")
+
+    def host_tables(state):
+        t = state["embed"]["emb_tables"]
+        return t.to("cpu", torch.float32, copy=True).numpy().reshape(-1, d)
+
+    try:
+        # -- run A, in process: 4 relaxed steps over the unix socket -------
+        node_up("A")
+        cca = dataclasses.replace(tc.checkpoint, directory=os.path.join(work, "A"),
+                                  dense_interval=4, pool_backend="remote",
+                                  pool_addr=addr, pool_tenant="A")
+        tca = dataclasses.replace(tc, checkpoint=cca)
+        batches = LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev),
+                                    cfg, depth=5)
+        state = fresh_state()
+        t = time.perf_counter()
+        mgr = CheckpointManager(cfg, cca, embed_init=state["embed"])
+        out["mirror_load_s"] = time.perf_counter() - t
+        out["mirror_load_frames"] = mgr.pool.frames_split
+        print(f"[remote] manager start + mirror load over the socket "
+              f"({mirror_gb:.2f} GB f32, persisted on the node): "
+              f"{out['mirror_load_s']:.2f}s in {out['mirror_load_frames']} frames "
+              f"(wire v{mgr.pool.wire})")
+        steps = []
+        tier_e = mgr._do_tier_e
+
+        def measured_tier_e(step, idx, new_rows):
+            # the writer thread's tier-E, between two snapshots of the
+            # tenant's counters on the node (nothing else uses the pool
+            # while it runs: tier-M runs on the same thread)
+            before = mgr.pool.metrics
+            t = time.perf_counter()
+            tier_e(step, idx, new_rows)
+            ms = 1e3 * (time.perf_counter() - t)
+            after = mgr.pool.metrics
+            steps.append({"step": step, "ms": ms, "idx_bytes": idx.nbytes,
+                          "new_rows_bytes": new_rows.nbytes,
+                          "link_bytes": after.link_bytes() - before.link_bytes(),
+                          "media_bytes": after.media_bytes() - before.media_bytes()})
+        mgr._do_tier_e = measured_tier_e
+        images = {}
+
+        def on_metrics(n, m):
+            images[n] = undo_image(m["ckpt_feed"])
+
+        eb.launches = su.launches = su.launches_logged = gr.launches = 0
+        su.wide_launches_logged = 0
+        _, la = train_loop_train(cfg, tca, batches, 4, state, mgr, on_metrics)
+        launches = {"embedding_bag": eb.launches, "scatter_update": su.launches,
+                    "scatter_update_logged": su.launches_logged,
+                    "gather_rows": gr.launches}
+        print(f"[remote] run A losses {la}; launches {launches}")
+        check(launches == {"embedding_bag": (1 + 4 * 3) * eb.PASSES,
+                           "scatter_update": 4 * 2, "scatter_update_logged": 4,
+                           "gather_rows": 4},
+              f"remote run A: unexpected launch counts {launches}")
+        check(su.wide_launches_logged == su.launches_logged, "remote run A: the "
+              "logged updates did not all move 16-byte chunks")
+        checked = check_undo_images(mgr.ring, images)
+        check(checked == 4, f"remote run A: {checked} undo entries checked, want 4")
+        print(f"[remote] run A: the undo images of all {checked} steps, captured "
+              "on the card by the logged update, equal the node's bitwise")
+        del images
+        for s_ in steps:
+            print(f"[remote] tier-E step {s_['step']}: {s_['ms']:.1f} ms, link "
+                  f"{s_['link_bytes']} B (idx {s_['idx_bytes']} + new rows "
+                  f"{s_['new_rows_bytes']} B), media {s_['media_bytes']} B")
+            check(s_["link_bytes"] <= s_["idx_bytes"] + s_["new_rows_bytes"] + 4096,
+                  f"remote tier-E step {s_['step']}: {s_['link_bytes']} link "
+                  "bytes exceed idx + new rows + 4 KB")
+            check(s_["media_bytes"] > s_["link_bytes"],
+                  f"remote tier-E step {s_['step']}: media bytes do not exceed "
+                  "the link bytes")
+        out["tier_e_ms"] = [s_["ms"] for s_ in steps]
+        out["tier_e_link_bytes"] = [s_["link_bytes"] for s_ in steps]
+        out["tier_e_media_bytes"] = [s_["media_bytes"] for s_ in steps]
+        print(f"[remote] tier-E ms per step {out['tier_e_ms']}; phase 6's pmem pool "
+              f"in process {pmem_tier_e_ms}")
+        print(f"[ckpt-remote] stats {json.dumps(mgr.stats)}")
+        print(mgr.pool.metrics.report())
+        wire_stalls("run A load + steps", mgr.pool)
+        mgr.close()
+        final = host_tables(state)
+        del mgr, state
+        gc.collect()
+        t = time.perf_counter()
+        rec = recovery.recover(os.path.join(work, "A"))
+        out["recover_a_s"] = time.perf_counter() - t
+        print(f"[remote] run A recover over a fresh connection: "
+              f"{out['recover_a_s']:.2f}s")
+        check(rec.mirror_step == 3 and not rec.rolled_back,
+              f"remote run A recovered mirror@{rec.mirror_step}")
+        check(np.array_equal(rec.embed_rows.view(np.uint32), final.view(np.uint32)),
+              "remote run A: recovered mirror differs from the final tables")
+        wire_stalls("run A recover", rec.pool)
+        rec.pool.close()
+        del rec, final
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the emulated allocator never reuses freed bytes (a bump pointer),
+        # so the drill gets a node of its own on a fresh image
+        node_down()
+        os.remove(os.path.join(work, "A.img"))
+
+        # -- the drill: the CLI trainer in a subprocess, kill -9 ------------
+        node_up("drill")
+        ck = os.path.join(work, "drill")
+        with open(os.path.join(work, "trainer.log"), "w") as log:
+            procs["trainer"] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 "dlrm-rm1", "--full", "--batch", str(Bsz), "--steps", "1000",
+                 "--lr", str(tc.learning_rate), "--embed-lr",
+                 str(tc.embed_learning_rate), "--ckpt-dir", ck,
+                 "--pool-backend", "remote", "--pool-addr", addr,
+                 "--pool-tenant", "drill"],
+                env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                text=True, start_new_session=True)
+        watcher = RemotePool(addr, tenant="drill", readonly=True, timeout=60.0)
+        t0, committed = time.perf_counter(), -1
+        while committed < 2:
+            trainer = procs["trainer"]
+            if trainer.poll() is not None:
+                with open(os.path.join(work, "trainer.log")) as f:
+                    fail(f"remote drill: the trainer exited (exit "
+                         f"{trainer.returncode}) before it was killed:\n"
+                         f"{f.read()[-6000:]}")
+            check(time.perf_counter() - t0 < 600, "remote drill: fewer than 3 "
+                  "committed steps within 600 s")
+            region = PoolAllocator(watcher).domain("manifest").get("manifest")
+            man = JsonRegion(region).read() if region is not None else None
+            committed = man["mirror_step"] if man else -1
+            time.sleep(0.2)
+        os.killpg(procs["trainer"].pid, signal.SIGKILL)    # kill -9
+        procs.pop("trainer").wait()
+        watcher.close()
+        out["killed_after_s"] = time.perf_counter() - t0
+        check(procs["node"].poll() is None, "remote drill: the memory node died "
+              "with the trainer")
+        with open(os.path.join(work, "trainer.log")) as f:
+            lines = f.read().splitlines()
+        logged = [ln for ln in lines if ln.startswith("[train] step")]
+        print(f"[remote] drill: trainer SIGKILLed {out['killed_after_s']:.1f}s after "
+              f"its start, the node's manifest at step {committed}; the memory "
+              f"node is alive. Trainer's last lines: {' | '.join(logged[-3:])}")
+        check(logged and "launches {" in logged[-1], "remote drill: the trainer "
+              "reported no launch counts")
+        child = ast.literal_eval(logged[-1].split("launches ", 1)[1])
+        n_child = int(logged[-1].split()[2]) + 1
+        out["trainer_launches"] = child
+        print(f"[remote] drill: the trainer subprocess's launch counts after "
+              f"{n_child} steps: {child}")
+        check(child["scatter_update_logged"] == n_child
+              and child["gather_rows"] == n_child
+              and child["scatter_update"] == 2 * n_child
+              and child["embedding_bag"] == (1 + 3 * n_child) * eb.PASSES,
+              f"remote drill: the trainer's launch counts {child} are not "
+              f"those of {n_child} relaxed steps")
+        t = time.perf_counter()
+        rec = recovery.recover(ck)
+        out["recover_s"] = time.perf_counter() - t
+        m, ds = rec.mirror_step, rec.dense_step
+        print(f"[remote] drill recover over a fresh connection (POOL.json): "
+              f"{out['recover_s']:.2f}s, mirror@{m} dense@{ds} gap={rec.gap} "
+              f"rolled_back={rec.rolled_back}")
+        check(m >= 2 and 0 <= ds <= m, f"remote drill: recovered mirror@{m} "
+              f"dense@{ds}")
+        wire_stalls("drill recover", rec.pool)
+
+        # the clean replay on the card: the CLI's trainer (params from
+        # tc.seed, batches of seed 0) to step m, keeping the dense tree as
+        # it was after step ds
+        class Replay:
+            dense = None
+
+            def on_step(self, n, st, feed):
+                if n == ds:
+                    self.dense = tree_map(torch.clone, {
+                        k: st[k] for k in ("dense", "opt_dense", "opt_embed")})
+
+            def flush(self):
+                pass
+
+        replay = Replay()
+        state, _ = train_loop_train(
+            cfg, tc, LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev),
+                                       cfg, depth=m + 2), m + 1, fresh_state(),
+            replay, None)
+        check(np.array_equal(rec.embed_rows.view(np.uint32),
+                             host_tables(state).view(np.uint32)),
+              "remote drill: the recovered mirror differs from a clean replay")
+        print(f"[remote] drill: recovered mirror is BIT-IDENTICAL to a clean "
+              f"replay on the card through step {m}")
+        # the replay's twin of the recovered state: its tables at m, its
+        # dense tree at ds, the relaxed carry rebuilt
+        twin = {**state, **replay.dense, "prefetch": None,
+                "step": torch.tensor(m + 1, dtype=torch.int32, device=dev)}
+        _, lt = train_loop_train(
+            cfg, tc, LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev),
+                                       cfg, depth=3, start_step=m + 1),
+            2, twin, None, None, start=m + 1)
+        del state, twin, replay
+        gc.collect()
+        torch.cuda.empty_cache()
+        # resume as the CLI does: a manager on the recovered connection
+        ccd = dataclasses.replace(tc.checkpoint, directory=ck, pool_backend="remote",
+                                  pool_addr=addr, pool_tenant="drill")
+        tcd = dataclasses.replace(tc, checkpoint=ccd)
+        state, start = recovery.resume_train_state(rec, fresh_state())
+        check(start == m + 1, f"remote drill: resume step {start}")
+        mgr = CheckpointManager(cfg, ccd, pool=rec.pool)
+        mgr.init_mirror(state["embed"], step=m)
+        del rec
+        _, lb = train_loop_train(
+            cfg, tcd, LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev),
+                                        cfg, depth=3, start_step=start),
+            2, state, mgr, None, start=start)
+        mgr.close()
+        print(f"[remote] drill: resumed at step {start}, losses {lb}; the replay's "
+              f"twin (tables at {m}, dense at {ds}, carry rebuilt) {lt}")
+        check(lb == lt, "remote drill: resumed losses differ from the replay's")
+        check(procs["node"].poll() is None, "remote drill: the memory node exited")
+        del mgr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        node_down()
+        print("[remote] memory node in its own process: checkpoint, kill -9, "
+              "bitwise recovery and resume: ok")
+        return launches, out
+    finally:
+        # none outlives the phase: the trainer's process group, the node
+        with contextlib.suppress(ProcessLookupError):
+            if "trainer" in procs:
+                os.killpg(procs["trainer"].pid, signal.SIGKILL)
+        for proc in procs.values():
+            with contextlib.suppress(ProcessLookupError):
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_loop_train(cfg, tc, batches, steps, state, mgr, on_metrics, start=0):
+    """``train_loop.train`` of relaxed steps on the card."""
+    from repro_torch.training import train_loop
+    return train_loop.train(cfg, tc, batches, steps, relaxed=True, state=state,
+                            start_step=start, ckpt_manager=mgr,
+                            on_metrics=on_metrics)
 
 
 def main():
@@ -2593,8 +2943,9 @@ def main():
     # -- 6. checkpointed training, crash, recovery and resume ---------------------
     step = {"relaxed_ms_median": statistics.median(rt[1:]),
             "strict_ms_median": statistics.median(stt)}
-    ck_launches = checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
-                                   step["relaxed_ms_median"])
+    ck_launches, ck_tier_e_ms = checkpoint_phase(torch, np, cfg, tc, Bsz, dev,
+                                                 fresh_state,
+                                                 step["relaxed_ms_median"])
     # -- 7. the flash-attention kernel on the card ---------------------------------
     t0 = time.perf_counter()
     flash_err, flash_t = flash_phase(torch, dev)
@@ -2679,6 +3030,12 @@ def main():
     pool_out["dlrm-rm1"] = dlrm_pool_serve_phase(torch, np, cfg, tc, Bsz, dev,
                                                  fresh_state)
     print(f"[pool-serve] phase 17 wall time {time.perf_counter() - t0:.1f}s")
+
+    # -- 18. full rm1 checkpointed into a memory node in its own process ------------
+    t0 = time.perf_counter()
+    remote_launches, remote_out = remote_checkpoint_phase(
+        torch, np, cfg, tc, Bsz, dev, fresh_state, ck_tier_e_ms)
+    print(f"[remote] phase 18 wall time {time.perf_counter() - t0:.1f}s")
 
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
@@ -2770,7 +3127,18 @@ def main():
             ("wkv6", "rwkv6-3b prefill (pool-served)", "wkv6_prefill",
              pool_parts["rwkv6-3b"]["prefill"]["wkv6"], *wkv6_src),
             ("wkv6", "rwkv6-3b decode (pool-served)", "wkv6_decode",
-             pool_parts["rwkv6-3b"]["decode"]["wkv6"], *wkv6_src)):
+             pool_parts["rwkv6-3b"]["decode"]["wkv6"], *wkv6_src),
+            # phase 18: run A, checkpointed into a memory node over a socket
+            ("embedding_bag", "dlrm-rm1 train (memory node)", "bag_fwd",
+             remote_launches["embedding_bag"], "src/repro_torch/csrc/embedding_bag.cu",
+             "src/repro/kernels/embedding_bag.py:40"),
+            ("scatter_update", "dlrm-rm1 train (memory node)", "update_f32",
+             remote_launches["scatter_update"], *update_src),
+            ("scatter_update_logged", "dlrm-rm1 train (memory node)",
+             "update_logged_bf16", remote_launches["scatter_update_logged"],
+             *logged_src),
+            ("gather_rows", "dlrm-rm1 checkpoint (memory node)", "gather_bf16",
+             remote_launches["gather_rows"], *gather_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -2778,6 +3146,7 @@ def main():
     print(f"[lm-train] full tinyllama-1.1b batch 4 x 1024: {json.dumps(lm_step)}")
     print(f"[rwkv6-3b-train] full rwkv6-3b batch 4 x 1024: {json.dumps(rw_step)}")
     print(f"[pool-serve] served from the pool mirror: {json.dumps(pool_out)}")
+    print(f"[remote] memory node: {json.dumps(remote_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

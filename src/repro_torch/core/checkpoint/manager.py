@@ -28,9 +28,14 @@ only after the blob persists. May trail tier-E by up to K steps.
 Pool work runs on a background writer thread; ``flush()`` drains it.
 ``add_commit_hook(fn)`` registers ``fn(step, idx)``, called on the writer
 thread once a tier-E commit's manifest advance is durable: the serving tier
-evicts exactly the touched rows from its hot-row cache there. The JAX
-package's manifest witnesses, placement records, rebalancing and
-replication serve its sharded pools, and are not ported.
+evicts exactly the touched rows from its hot-row cache there.
+
+``pool_backend="remote"`` checkpoints into a memory node in another process
+(``repro_torch.pool.server`` at ``pool_addr``) as tenant ``pool_tenant``:
+the fused op runs inside the node, so per step only (step, idx, new_rows)
+and a few headers cross the socket. The JAX package's manifest witnesses,
+placement records, rebalancing and replication serve its sharded pools,
+and are not ported.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ from repro_torch.core.checkpoint.undo_log import UndoRing
 from repro_torch.kernels import ops
 from repro_torch.pool import compress as pool_compress
 from repro_torch.pool.allocator import JsonRegion, PoolAllocator
-from repro_torch.pool.device import (PoolDevice, check_backend,
+from repro_torch.pool.device import (PoolDevice, PoolError, check_backend,
                                      check_checker_off, make_pool)
 from repro_torch.pool.faults import FaultSchedule, InjectedCrash
 from repro_torch.pool.nmp import NmpQueue
@@ -117,9 +122,12 @@ class CheckpointManager:
         self.cfg = cfg
         self.ccfg = ckpt_cfg
         self.root = ckpt_cfg.directory
-        if pool is None:    # refuse what is not ported before anything starts
-            check_backend(getattr(ckpt_cfg, "pool_backend", "pmem"))
+        if pool is None:    # refuse what cannot open before anything starts
+            backend = check_backend(getattr(ckpt_cfg, "pool_backend", "pmem"))
             check_checker_off()
+            if backend == "remote" and not getattr(ckpt_cfg, "pool_addr", ""):
+                raise PoolError("remote backend needs a server addr "
+                                "(unix:/path or tcp:host:port)")
         os.makedirs(self.root, exist_ok=True)
         self.pool = pool
         self.faults = faults
@@ -145,14 +153,23 @@ class CheckpointManager:
     def _open_pool(self, capacity_hint: int):
         if self.pool is None:
             backend = getattr(self.ccfg, "pool_backend", "pmem")
+            addr = getattr(self.ccfg, "pool_addr", "")
+            tenant = getattr(self.ccfg, "pool_tenant", "default")
+            quota = getattr(self.ccfg, "pool_quota", 0)
             self.pool = make_pool(
                 backend, path=os.path.join(self.root, "pool.img"),
-                capacity=capacity_hint, faults=self.faults)
-            # POOL.json lets recovery reopen the same pool; the keys are the
-            # JAX package's, so either package reads the other's
-            info = {"backend": backend, "addr": "",
-                    "tenant": getattr(self.ccfg, "pool_tenant", "default"),
-                    "quota": 0, "manifest_quorum": False, "ckpt_replica": -1}
+                capacity=capacity_hint, faults=self.faults, addr=addr,
+                tenant=tenant, quota=quota,
+                secret=getattr(self.ccfg, "pool_secret", ""),
+                timeout=getattr(self.ccfg, "pool_timeout", None))
+            # POOL.json lets recovery reopen the same pool: pmem by its
+            # image, remote by reconnecting to the node that outlived the
+            # trainer, as the same tenant with the same quota (the tcp
+            # secret is read from the environment again, never stored).
+            # The keys are the JAX package's: either package reads them.
+            info = {"backend": backend, "addr": addr, "tenant": tenant,
+                    "quota": quota, "manifest_quorum": False,
+                    "ckpt_replica": -1}
             store.write_json_atomic(
                 os.path.join(self.root, "POOL.json"), info)
         self._alloc = PoolAllocator(self.pool)

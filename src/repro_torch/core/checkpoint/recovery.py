@@ -1,8 +1,9 @@
 """Recovery and restart from the emulated memory pool (counterpart of
-``repro.core.checkpoint.recovery``, pmem and dram pools).
+``repro.core.checkpoint.recovery``; pmem, dram and remote pools).
 
 On restart after a failure:
-  1. reopen the pool (pmem: the mmap'd image survives process death; dram:
+  1. reopen the pool (pmem: the mmap'd image survives process death;
+     remote: reconnect to the memory node that outlived the trainer; dram:
      the caller passes the surviving in-process device) and read the A/B
      manifest, always a consistent snapshot;
   2. if the undo ring holds a COMMITted entry for step > manifest.mirror_step,
@@ -51,11 +52,20 @@ class RecoveredState:
 def open_pool(root: str,
               pool: Optional[PoolDevice] = None) -> PoolDevice:
     """Reopen the checkpoint pool for `root`. A surviving in-process device
-    (dram backend, or an already-open pmem handle) takes precedence."""
+    (dram backend, or an already-open pmem handle) takes precedence. A
+    remote pool is reopened over a fresh connection to the node POOL.json
+    names, as the same tenant: the dead trainer's connection held nothing
+    the node needs (every committed byte lives in the node's directory)."""
     if pool is not None:
         return pool
     info = store.read_json(os.path.join(root, "POOL.json"))
-    if check_backend(info["backend"]) != "pmem":
+    backend = check_backend(info["backend"])
+    if backend == "remote":
+        check_checker_off()
+        from repro_torch.pool.remote import RemotePool
+        return RemotePool(info["addr"], tenant=info.get("tenant", "default"),
+                          quota=info.get("quota", 0))
+    if backend != "pmem":
         raise PoolError(
             f"pool backend {info['backend']!r} is volatile across processes; "
             "pass the surviving PoolDevice to recover(root, pool=...)")
@@ -107,8 +117,10 @@ def recover(root: str, pool: Optional[PoolDevice] = None) -> RecoveredState:
         except (store.CorruptError, pool_compress.BlobCorruptError):
             dense, dense_step = None, -1
 
+    rows = mirror.view_array()   # remote: already a local copy
     return RecoveredState(
-        embed_rows=np.array(mirror.view_array()), table_name=man["table_name"],
+        embed_rows=rows if getattr(dev, "remote", False) else np.array(rows),
+        table_name=man["table_name"],
         table_shape=tuple(man["table_shape"]), dense=dense,
         mirror_step=mirror_step, dense_step=dense_step, rolled_back=rolled,
         gap=mirror_step - dense_step if dense_step >= 0 else -1,

@@ -32,9 +32,11 @@ open-time sweep, which frees by name and so can never double-free.
 The serving tier reads the ring too: ``committed_after`` (its tailer's
 poll) and ``read_many`` decode several committed steps in one header scan
 and one batched payload read. ``open_ring(device, readonly=True)`` opens
-it as a pure reader, which never sweeps, grows or writes. The JAX
-package's host-driven ``append`` and its replication unit (``slot_image``)
-are not ported.
+it as a pure reader, which never sweeps, grows or writes. Over a remote
+pool (a memory node) the fused append, the committed-set scan and the GC
+are one wire round trip each; a read-only tenant's ring reads and never
+writes. The JAX package's host-driven ``append`` and its replication unit
+(``slot_image``) are not ported.
 """
 from __future__ import annotations
 

@@ -1,28 +1,35 @@
 """Fault-tolerance drills over the emulated CXL/PMEM memory pool
 (counterpart of the JAX package's ``examples/fault_tolerance_demo.py``).
 
-Two drills on smoke dlrm-rm1, selected by the pool backend:
+Three drills on smoke dlrm-rm1, selected by the pool backend:
 
-  * ``--pool-backend pmem`` (default): process death. A trainer subprocess
-    checkpoints every relaxed step into a pmem pool file and is SIGKILLed
-    after 12 reported steps; recovery reopens the pool image from disk, like
-    a power-cycled PMEM module.
+  * ``--pool-backend remote`` (default): the paper's arrangement, the
+    memory node in a process of its own. A ``python -m
+    repro_torch.pool.server`` process holds a pmem image; a trainer
+    subprocess checkpoints every relaxed step into it over a unix socket
+    and is SIGKILLed after 12 reported steps. The node must outlive it;
+    recovery reconnects to the node that POOL.json names, and the resumed
+    trainer checkpoints into the same living node.
+  * ``--pool-backend pmem``: process death without a node. The trainer
+    subprocess checkpoints into a pmem pool file and is SIGKILLed after 12
+    reported steps; recovery reopens the pool image from disk, like a
+    power-cycled PMEM module.
   * ``--pool-backend dram``: in process. A fault schedule crashes the writer
     between the undo COMMIT and the mirror apply of the 9th logged step, the
     device drops its unpersisted cache (power loss), and recovery rolls the
     interrupted apply back.
 
-Both then replay the trainer from the same seed on a scratch dram pool up to
-the recovered step and require the recovered mirror to equal the replay's
-bit for bit. During the replay, each step's undo image, captured on the
-device by the fused update (``feed["old_rows"]``), is held bitwise against
-the image the pool captured from its mirror. Then training resumes for 10
-steps. The demo prints ``fault-tolerance demo PASSED`` only if every check
-held. The JAX demo's remote and sharded drills need the pool server, which
-is not ported.
+Each then replays the trainer from the same seed on a scratch dram pool up
+to the recovered step and requires the recovered mirror to equal the
+replay's bit for bit. During the replay, each step's undo image, captured on
+the device by the fused update (``feed["old_rows"]``), is held bitwise
+against the image the pool captured from its mirror. Then training resumes
+for 10 steps. The demo prints ``fault-tolerance demo PASSED`` only if every
+check held. The JAX demo's sharded drill (several memory nodes) is not
+ported and raises.
 
     PYTHONPATH=src python -m repro_torch.examples.fault_tolerance_demo \\
-        [--pool-backend pmem|dram] [--device cuda|cpu] [--work-dir DIR]
+        [--pool-backend remote|pmem|dram] [--device cuda|cpu] [--work-dir DIR]
 """
 from __future__ import annotations
 
@@ -44,28 +51,32 @@ from repro_torch.core.checkpoint.manager import (CheckpointManager,
 from repro_torch.data.synthetic import make_batches
 from repro_torch.pool import FaultSchedule, InjectedCrash
 from repro_torch.pool.device import NOT_PORTED
+from repro_torch.pool.server import start_node, unix_addr
 from repro_torch.training import train_loop
 
 SRC = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-KILL_AFTER = 12        # pmem drill: steps the trainer reports before SIGKILL
+KILL_AFTER = 12        # subprocess drills: steps reported before SIGKILL
 CRASH_AT = 9           # dram drill: the logged step whose apply is cut
 RESUME_STEPS = 10
 
 
-def setup(directory: str, backend: str, device):
-    """The drill's trainer: smoke dlrm-rm1, batch 16, data seed 11."""
+def setup(directory: str, backend: str, device, addr: str = ""):
+    """The drill's trainer: smoke dlrm-rm1, batch 16, data seed 11 (a
+    remote pool's tenant is "trainer")."""
     cfg = get_arch("dlrm-rm1", smoke=True).model
     cc = CheckpointConfig(directory=directory, dense_interval=3,
-                          pool_backend=backend)
+                          pool_backend=backend, pool_addr=addr,
+                          pool_tenant="trainer")
     tc = TrainConfig(learning_rate=3e-4, embed_learning_rate=0.01,
                      checkpoint=cc)
     return cfg, tc, make_batches(cfg, 16, 0, seed=11, device=device)
 
 
-def trainer(directory: str, device: str) -> None:
-    """The pmem drill's subprocess: trains and checkpoints until killed,
+def trainer(directory: str, device: str, backend: str = "pmem",
+            addr: str = "") -> None:
+    """The subprocess drills' trainer: trains and checkpoints until killed,
     printing one line per step."""
-    cfg, tc, data = setup(directory, "pmem", device)
+    cfg, tc, data = setup(directory, backend, device, addr)
     state = train_loop.init_state(cfg, tc, device)
     mgr = CheckpointManager(cfg, tc.checkpoint, embed_init=state["embed"])
     train_loop.train(cfg, tc, data, 1000, relaxed=True, state=state,
@@ -75,10 +86,11 @@ def trainer(directory: str, device: str) -> None:
                          flush=True))
 
 
-def crash_pmem_subprocess(directory: str, device: str):
-    print("== launching trainer subprocess (pmem pool) ==", flush=True)
+def crash_subprocess(directory: str, device: str, backend: str = "pmem",
+                     addr: str = ""):
+    print(f"== launching trainer subprocess ({backend} pool) ==", flush=True)
     code = ("from repro_torch.examples.fault_tolerance_demo import trainer; "
-            f"trainer({directory!r}, {device!r})")
+            f"trainer({directory!r}, {device!r}, {backend!r}, {addr!r})")
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(
                [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
@@ -99,7 +111,36 @@ def crash_pmem_subprocess(directory: str, device: str):
         raise RuntimeError(f"the trainer ended after {seen} steps "
                            f"(exit {proc.returncode}) before it was killed")
     print(f"== SIGKILLed trainer after {seen} reported steps ==")
-    return None          # recovery reopens the pool image from disk
+    return None     # recovery reopens the pool image or reconnects the node
+
+
+def crash_remote_subprocess(work: str, directory: str, device: str):
+    """The memory node in a process of its own, a trainer in another that
+    is SIGKILLed; the node must survive it. Returns the node's process."""
+    addr = unix_addr(work)
+    print(f"== starting the memory node (pool-server, pmem) at {addr} ==",
+          flush=True)
+    node = start_node(addr, path=os.path.join(work, "node.img"))
+    try:
+        crash_subprocess(directory, device, "remote", addr)
+        if node.poll() is not None:
+            raise RuntimeError(f"the memory node died with the trainer "
+                               f"(exit {node.returncode})")
+        print("== memory node still alive ==", flush=True)
+    except BaseException:
+        stop_node(node)
+        raise
+    return node
+
+
+def stop_node(node) -> None:
+    node.terminate()
+    try:
+        node.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        node.kill()
+        node.wait()
+    node.stdout.close()
 
 
 def crash_dram_inprocess(directory: str, device):
@@ -193,8 +234,8 @@ def run_recovery(work: str, backend: str, device, surviving_pool) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--pool-backend", default="pmem",
-                    choices=["pmem", "dram", *NOT_PORTED])
+    ap.add_argument("--pool-backend", default="remote",
+                    choices=["remote", "pmem", "dram", *NOT_PORTED])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no silent fallback")
     ap.add_argument("--work-dir", default=None,
@@ -203,19 +244,28 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.pool_backend in NOT_PORTED:
         raise NotImplementedError(
-            f"--pool-backend {args.pool_backend}: the pool server and the "
-            "remote and sharded pools are not ported yet (ROADMAP queue 1 "
-            "item 6)")
+            f"--pool-backend {args.pool_backend}: the sharded pool (several "
+            "memory nodes) is not ported yet (ROADMAP queue 1 item 6)")
     device = resolve_device(args.device)
     work = tempfile.mkdtemp(prefix="ft-demo-", dir=args.work_dir)
+    node = None
     try:
         drill = os.path.join(work, "drill")
-        if args.pool_backend == "pmem":
-            surviving = crash_pmem_subprocess(drill, str(device))
+        if args.pool_backend == "remote":
+            node = crash_remote_subprocess(work, drill, str(device))
+            surviving = None     # recovery reconnects to the node
+        elif args.pool_backend == "pmem":
+            surviving = crash_subprocess(drill, str(device))
         else:
             surviving = crash_dram_inprocess(drill, device)
         run_recovery(work, args.pool_backend, device, surviving)
+        if node is not None and node.poll() is not None:
+            raise RuntimeError(f"the memory node exited during the drill "
+                               f"(exit {node.returncode})")
     finally:
+        if node is not None:
+            stop_node(node)
+            print("== memory node shut down ==")
         shutil.rmtree(work, ignore_errors=True)
     print("fault-tolerance demo PASSED")
 

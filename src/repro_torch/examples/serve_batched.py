@@ -4,18 +4,22 @@ with a shared stepped loop (``training.serve_loop.greedy_generate``).
 
     PYTHONPATH=src python -m repro_torch.examples.serve_batched \\
         [--arch tinyllama-1.1b|qwen3-0.6b|rwkv6-3b] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.examples.serve_batched \\
+        --pool-backend dram|pmem|remote [--pool-addr A] [--pool-readonly]
 
 Smoke-size model with random weights from seed 0.
 
-With ``--pool-backend dram|pmem`` the example becomes the pool-serving
-drill instead: embedding rows are served straight from the trainer's
-pool-resident mirror through ``repro_torch.serve.EmbeddingServeTier``
+With ``--pool-backend dram|pmem|remote`` the example becomes the
+pool-serving drill instead: embedding rows are served straight from the
+trainer's pool-resident mirror through ``repro_torch.serve.EmbeddingServeTier``
 (batched deduplicated gathers, a trainer-coherent hot-row cache). Trainer
 commits are interleaved with serving; each commit must evict exactly the
 cached rows it touched, and the rows served after it must be the committed
-ones, bit for bit. The JAX drill's ``remote`` and ``sharded`` backends (a
-memory node in its own process, a read replica on another shard) are not
-ported and raise.
+ones, bit for bit. ``remote`` serves from a memory node: the one at
+``--pool-addr``, or one started in this process on a unix socket; with
+``--pool-readonly`` the tier reads through a read-only connection of its
+own, on which the node denies every write. The JAX drill's ``sharded``
+backend (a read replica on another shard) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -32,20 +36,40 @@ from repro_torch.data.synthetic import make_batches
 from repro_torch.models.registry import get_api
 from repro_torch.training.serve_loop import greedy_generate
 
-_NOT_PORTED = {"remote": "the remote pool (ROADMAP queue 1 item 3)",
-               "sharded": "the sharded pool and its read replica (ROADMAP "
+_NOT_PORTED = {"sharded": "the sharded pool and its read replica (ROADMAP "
                           "queue 1 item 6)"}
+
+
+def _pools(args, root: str):
+    """(the trainer's pool, the tier's pool, the servers started here): one
+    device for dram and pmem; for remote a writable connection for the
+    trainer and, with ``--pool-readonly``, a read-only one for the tier."""
+    from repro_torch.pool import DramPool, PmemPool, PoolServer, make_pool
+    if args.pool_backend == "dram":
+        pool = DramPool(1 << 20)
+        return pool, pool, []
+    if args.pool_backend == "pmem":
+        pool = PmemPool(os.path.join(root, "pool.img"), 1 << 20)
+        return pool, pool, []
+    servers, addr = [], args.pool_addr
+    if not addr:
+        servers.append(PoolServer(DramPool(1 << 20),
+                                  f"unix:{root}/pool.sock").start())
+        addr = servers[0].addr
+    pool = make_pool("remote", addr=addr)
+    tier_pool = (make_pool("remote", addr=addr, readonly=True)
+                 if args.pool_readonly else pool)
+    return pool, tier_pool, servers
 
 
 def pool_main(args):
     from repro_torch.core.checkpoint.undo_log import UndoRing
-    from repro_torch.pool import DramPool, PmemPool, PoolAllocator
+    from repro_torch.pool import PoolAllocator
     from repro_torch.serve import EmbeddingServeTier
 
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory(prefix="serve_pool_") as root:
-        pool = (DramPool(1 << 20) if args.pool_backend == "dram"
-                else PmemPool(os.path.join(root, "pool.img"), 1 << 20))
+        pool, tier_pool, servers = _pools(args, root)
         alloc = PoolAllocator(pool)
 
         # the trainer's mirror: V x d rows living in the pool
@@ -57,7 +81,7 @@ def pool_main(args):
         region.persist(point="mirror-load")
         ring = UndoRing(PoolAllocator(pool), max_logs=16)
 
-        tier = EmbeddingServeTier(pool, cache_rows=args.cache_rows)
+        tier = EmbeddingServeTier(tier_pool, cache_rows=args.cache_rows)
         print(f"[pool-serve] backend={args.pool_backend} table={V}x{d} "
               f"cache={args.cache_rows} rows")
 
@@ -105,7 +129,11 @@ def pool_main(args):
               f"qps={s['qps']:.0f} p50={s['p50_ms']:.2f}ms "
               f"p99={s['p99_ms']:.2f}ms | hit_rate={s['hit_rate']:.2f} "
               f"inval={s['invalidations']}")
+        if tier_pool is not pool:
+            tier_pool.close()
         pool.close()
+        for srv in servers:
+            srv.shutdown(close_device=True)
     print("pool-serving drill PASSED")
 
 
@@ -116,9 +144,15 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--pool-backend", default="",
-                    help="dram|pmem: run the pool-serving drill instead of "
-                         "the LM decode loop (remote, sharded: not ported "
-                         "yet, raise)")
+                    help="dram|pmem|remote: run the pool-serving drill "
+                         "instead of the LM decode loop (sharded: not "
+                         "ported yet, raises)")
+    ap.add_argument("--pool-addr", default="",
+                    help="remote: the memory node to serve from (default: "
+                         "one started in this process)")
+    ap.add_argument("--pool-readonly", action="store_true",
+                    help="remote: the tier reads through a read-only "
+                         "connection")
     ap.add_argument("--cache-rows", type=int, default=512)
     ap.add_argument("--steps", type=int, default=4,
                     help="pool drill: trainer commits interleaved with "
@@ -130,8 +164,11 @@ def main(argv=None):
         raise NotImplementedError(
             f"--pool-backend {args.pool_backend}: serving from "
             f"{_NOT_PORTED[args.pool_backend]} is not ported yet")
-    if args.pool_backend not in ("", "dram", "pmem"):
+    if args.pool_backend not in ("", "dram", "pmem", "remote"):
         ap.error(f"unknown pool backend {args.pool_backend!r}")
+    if args.pool_readonly and args.pool_backend != "remote":
+        ap.error("--pool-readonly: a read-only tenant needs "
+                 "--pool-backend remote")
     if args.prompt_len < 1 or args.new_tokens < 1:
         ap.error("--prompt-len and --new-tokens must be at least 1")
     device = resolve_device(args.device)

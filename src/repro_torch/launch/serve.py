@@ -3,7 +3,8 @@ generation.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         [--smoke | --full] --batch 4 --prompt-len 16 --new-tokens 16 \\
-        [--device cuda|cpu] [--pool-backend dram|pmem [--pool-dir DIR]
+        [--device cuda|cpu] [--pool-backend dram|pmem|remote [--pool-dir DIR]
+        [--pool-addr unix:/path|tcp:host:port [--pool-readonly]]
         [--pool-cache-rows N]]
 
 ``--arch`` is any LM id the port registers: the dense transformers
@@ -23,9 +24,12 @@ serving tier (``repro_torch.serve.EmbeddingServeTier``): the table is
 mirrored in f32 into the pool's ``embedding-mirror/rows`` region (a pmem
 pool's image is ``<--pool-dir>/pool.img``) and every lookup becomes a
 batched, hot-row-cached near-memory gather on the host; the tier's stats
-line follows the timings. The remote and sharded backends and
-``--pool-readonly`` (a read-only tenant of a remote pool) are not ported
-and raise.
+line follows the timings. ``--pool-backend remote --pool-addr A`` serves
+from a memory node (``python -m repro_torch.pool.server --addr A ...``);
+with ``--pool-readonly`` the connection is a read-only tenant, which
+writes nothing and serves the mirror a trainer (or an earlier serving run
+without the flag) left in the node: the node denies every mutating op on
+that connection. The sharded backend is not ported and raises.
 """
 from __future__ import annotations
 
@@ -47,12 +51,14 @@ _LOAD_BYTES = 64 << 20   # f32 bytes of the table widened per copy
 
 
 def build_tier(table, backend: str, *, pool_dir: str = "",
-               cache_rows: int = 4096):
+               cache_rows: int = 4096, addr: str = "",
+               readonly: bool = False):
     """The serving tier over a pool that holds ``table`` (V, d), as the
     trainer's checkpoint manager lays it out: f32 rows in
     ``embedding-mirror/rows``. The pool is sized to the table, and the rows
     are widened and written a bounded chunk at a time. A pmem pool's image
-    is ``<pool_dir>/pool.img``."""
+    is ``<pool_dir>/pool.img``; a remote pool is the node at ``addr``. A
+    ``readonly`` tenant writes nothing: the rows must be in the node."""
     from repro_torch.pool import PoolAllocator, make_pool
     from repro_torch.pool.allocator import DATA_START
     from repro_torch.serve import EmbeddingServeTier
@@ -61,7 +67,10 @@ def build_tier(table, backend: str, *, pool_dir: str = "",
     row_bytes = 4 * d
     pool = make_pool(backend,
                      path=os.path.join(pool_dir, "pool.img") if pool_dir else None,
-                     capacity=DATA_START + V * row_bytes + (1 << 20))
+                     capacity=DATA_START + V * row_bytes + (1 << 20),
+                     addr=addr, readonly=readonly)
+    if readonly:
+        return EmbeddingServeTier(pool, cache_rows=cache_rows)
     region = PoolAllocator(pool).domain("embedding-mirror").alloc(
         "rows", shape=(V, d), dtype="float32")
     step = max(1, _LOAD_BYTES // row_bytes)
@@ -82,16 +91,18 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pool-backend", default="",
-                    choices=["", "dram", "pmem", *NOT_PORTED],
+                    choices=["", "dram", "pmem", "remote", *NOT_PORTED],
                     help="serve token lookups from the pool through the "
                          f"hot-row-cached tier ({', '.join(NOT_PORTED)}: not "
                          "ported yet, raises)")
+    ap.add_argument("--pool-addr", default="",
+                    help="remote backend: unix:/path or tcp:host:port")
     ap.add_argument("--pool-dir", default="",
                     help="pmem backend: directory for the pool image")
     ap.add_argument("--pool-cache-rows", type=int, default=4096)
     ap.add_argument("--pool-readonly", action="store_true",
-                    help="a read-only tenant of a remote pool: not ported "
-                         "yet, raises")
+                    help="connect to a remote pool as a read-only tenant "
+                         "(the mirror must already be in the node)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no silent fallback")
     args = ap.parse_args(argv)
@@ -100,9 +111,12 @@ def main(argv=None):
             check_backend(args.pool_backend)
         except PoolError as e:
             ap.error(str(e))
-    if args.pool_readonly:
-        ap.error("--pool-readonly: a read-only tenant needs the remote pool, "
-                 "which is not ported yet (ROADMAP queue 1 item 3)")
+    if args.pool_readonly and args.pool_backend != "remote":
+        ap.error("--pool-readonly: a read-only tenant needs "
+                 "--pool-backend remote")
+    if args.pool_backend == "remote" and not args.pool_addr:
+        ap.error("--pool-backend remote needs --pool-addr (start one: "
+                 "python -m repro_torch.pool.server --addr ...)")
     if args.prompt_len < 1 or args.new_tokens < 1:
         ap.error("--prompt-len and --new-tokens must be at least 1")
 
@@ -123,7 +137,8 @@ def main(argv=None):
                 pool_dir = stack.enter_context(
                     tempfile.TemporaryDirectory(prefix="serve_pool_"))
             tier = build_tier(params["embed"]["table"], args.pool_backend,
-                              pool_dir=pool_dir, cache_rows=args.pool_cache_rows)
+                              pool_dir=pool_dir, cache_rows=args.pool_cache_rows,
+                              addr=args.pool_addr, readonly=args.pool_readonly)
             stack.callback(tier.pool.close)
             stack.enter_context(pool_serving(tier))
         greedy_generate(cfg, params, prompt, min(2, args.new_tokens),

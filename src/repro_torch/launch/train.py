@@ -2,7 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm1 --smoke \\
         --steps 100 [--strict] [--device cuda|cpu] \\
-        [--ckpt-dir /tmp/ckpt [--resume]] [--pool-backend pmem|dram] \\
+        [--ckpt-dir /tmp/ckpt [--resume]] [--pool-backend pmem|dram|remote] \\
+        [--pool-addr unix:/path|tcp:host:port] [--pool-tenant T] \\
+        [--pool-quota BYTES] [--pool-secret S] \\
         [--pool-compress none|zlib|int8] [--dense-interval K]
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --seq 64 [... the same options]
@@ -13,12 +15,18 @@ qwen3-0.6b) and rwkv6-3b; an LM trains on synthetic zipf token batches of
 ``--device cpu`` runs the kernels' plain versions on the CPU. With
 ``--ckpt-dir`` every relaxed step is checkpointed into the emulated pool by
 the two-tier manager; ``--resume`` recovers from that directory and goes on
-from the step after the last consistent one. The remote and sharded pool
-backends are not ported and raise.
+from the step after the last consistent one. ``--pool-backend remote``
+checkpoints into a memory node in another process (start one with
+``python -m repro_torch.pool.server --addr unix:/tmp/pool.sock --backend
+pmem --path /tmp/pool.img``) as tenant ``--pool-tenant``; at the end the
+CLI prints the tenant's counters as the node attributed them. The sharded
+backend is not ported and raises. Every 10th step's line gives the loss
+and the kernels' launch counts so far.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 from repro_torch import resolve_device
@@ -28,6 +36,7 @@ from repro_torch.core.checkpoint import recovery
 from repro_torch.core.checkpoint.manager import CheckpointManager
 from repro_torch.data.lookahead import LookaheadIterator
 from repro_torch.data.synthetic import make_batches
+from repro_torch.kernels import embedding_bag, gather_rows, scatter_update
 from repro_torch.pool.device import NOT_PORTED, PoolError, check_backend
 from repro_torch.training import train_loop
 
@@ -35,6 +44,14 @@ from repro_torch.training import train_loop
 # the ids the port trains: DLRM, the dense transformers and RWKV-6
 TRAIN_IDS = DLRM_IDS + [a for a in LM_IDS if get_arch(a, smoke=True).model.arch_type
                         in ("transformer", "rwkv6")]
+
+
+def launch_counts() -> dict:
+    """The training path's kernel launches so far in this process."""
+    return {"embedding_bag": embedding_bag.launches,
+            "scatter_update": scatter_update.launches,
+            "scatter_update_logged": scatter_update.launches_logged,
+            "gather_rows": gather_rows.launches}
 
 
 def main(argv=None):
@@ -49,9 +66,21 @@ def main(argv=None):
     ap.add_argument("--strict", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--pool-backend", default="pmem",
-                    choices=["dram", "pmem", *NOT_PORTED],
+                    choices=["dram", "pmem", "remote", *NOT_PORTED],
                     help="emulated memory-pool backend for checkpoints "
                          f"({', '.join(NOT_PORTED)}: not ported yet, raises)")
+    ap.add_argument("--pool-addr", default="",
+                    help="remote backend: pool-server address "
+                         "(unix:/path or tcp:host:port)")
+    ap.add_argument("--pool-tenant", default="default",
+                    help="remote backend: tenant namespace on the pool node")
+    ap.add_argument("--pool-quota", type=int, default=0,
+                    help="remote backend: byte quota (0 = unlimited)")
+    ap.add_argument("--pool-secret",
+                    default=os.environ.get("REPRO_POOL_SECRET", ""),
+                    help="shared secret for the memory-node tcp handshake "
+                         "(HMAC challenge; env REPRO_POOL_SECRET; unix "
+                         "sockets are exempt)")
     ap.add_argument("--pool-compress", choices=["none", "zlib", "int8"],
                     default="zlib",
                     help="pool-side compression for undo payloads and dense "
@@ -69,7 +98,11 @@ def main(argv=None):
         ap.error(str(e))
     if args.resume and args.pool_backend == "dram":
         ap.error("--resume needs a pool that survives process death; "
-                 "the dram backend is volatile: use --pool-backend pmem")
+                 "the dram backend is volatile: use --pool-backend "
+                 "pmem or remote")
+    if args.pool_backend == "remote" and not args.pool_addr:
+        ap.error("--pool-backend remote needs --pool-addr "
+                 "(start one: python -m repro_torch.pool.server --addr ...)")
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch, smoke=args.smoke).model
@@ -77,7 +110,11 @@ def main(argv=None):
                             directory=args.ckpt_dir or "/tmp/repro_ckpt",
                             dense_interval=args.dense_interval,
                             pool_backend=args.pool_backend,
-                            pool_compress=args.pool_compress)
+                            pool_addr=args.pool_addr,
+                            pool_tenant=args.pool_tenant,
+                            pool_quota=args.pool_quota,
+                            pool_compress=args.pool_compress,
+                            pool_secret=args.pool_secret)
     tc = TrainConfig(learning_rate=args.lr, embed_learning_rate=args.embed_lr,
                      checkpoint=ckpt)
 
@@ -103,21 +140,24 @@ def main(argv=None):
     def on_metrics(n, m):
         if n % 10 == 0:
             print(f"[train] step {n:5d} loss {float(m['loss']):.4f} "
-                  f"({(time.time()-t0):.1f}s)")
+                  f"({(time.time()-t0):.1f}s) launches {launch_counts()}",
+                  flush=True)
 
     try:
         _, losses = train_loop.train(cfg, tc, batches, args.steps,
                                      relaxed=not args.strict, state=state,
                                      start_step=start, ckpt_manager=mgr,
                                      on_metrics=on_metrics, device=device)
+        print(f"[train] done on {device}: {len(losses)} steps, "
+              f"final loss {losses[-1]:.4f}")
+        if mgr is not None:
+            print(f"[train] checkpoint stats: {mgr.stats}")
+            # a remote pool's counters are the tenant's, as the node
+            # attributed them
+            print(mgr.pool.metrics.report())
     finally:
         if mgr is not None:
             mgr.pool.close()
-    print(f"[train] done on {device}: {len(losses)} steps, "
-          f"final loss {losses[-1]:.4f}")
-    if mgr is not None:
-        print(f"[train] checkpoint stats: {mgr.stats}")
-        print(mgr.pool.metrics.report())
 
 
 if __name__ == "__main__":

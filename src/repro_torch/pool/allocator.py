@@ -1,5 +1,5 @@
 """Named persistence domains + region allocation over a ``PoolDevice``
-(counterpart of ``repro.pool.allocator``, single tenant, local device).
+(counterpart of ``repro.pool.allocator``).
 
 Layout:
 
@@ -22,9 +22,19 @@ frequently-rewritten metadata (the manifest).
 
 ``PoolAllocator(device, readonly=True)`` is the serving tier's posture: it
 may reopen regions that exist, and anything that would change the
-directory (a new region, a free) raises ``TenantIsolationError``. The JAX
-package's tenants, quotas and remote proxy mode serve its memory-node
-server and are not ported.
+directory (a new region, a free) raises ``TenantIsolationError``. Over a
+remote device the posture also rides on the connection's hello, and the
+memory node enforces it on the wire.
+
+Multi-tenancy: ``PoolAllocator(device, tenant="a", quota=...)`` namespaces
+every domain under ``a::<domain>`` in the shared directory, so several
+trainers carve disjoint regions out of one memory node. A non-zero quota
+bounds the tenant's allocated bytes (``QuotaExceededError``), and
+``owned_ranges()`` is the byte-range view the node checks raw reads and
+writes against. With a remote device the allocator is a thin proxy: alloc,
+get, regions and free are wire ops run by the node's tenant-scoped
+allocator, and the regions it returns read and write through the remote
+device.
 """
 from __future__ import annotations
 
@@ -36,7 +46,9 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.pool.device import PoolDevice, PoolError, TenantIsolationError
+from repro_torch.pool.device import (PoolDevice, PoolError,
+                                     QuotaExceededError,
+                                     TenantIsolationError)
 
 _MAGIC = b"RPPL"
 SUPER_SLOT = 32 << 10
@@ -125,9 +137,23 @@ class Domain:
 
 
 class PoolAllocator:
-    def __init__(self, device: PoolDevice, readonly: bool = False):
+    def __init__(self, device: PoolDevice, tenant: Optional[str] = None,
+                 quota: int = 0, readonly: bool = False):
         self.device = device
-        self.readonly = bool(readonly)
+        self.tenant = tenant
+        self.quota = int(quota)
+        # read-only posture (the serving tier); a readonly remote connection
+        # makes its allocators readonly too
+        self.readonly = bool(readonly) or bool(getattr(device, "readonly",
+                                                       False))
+        if getattr(device, "remote", False):
+            # proxy mode: the node's tenant-scoped allocator owns the
+            # directory; every alloc/get/regions/free is a wire op
+            self._proxy = device
+            self.seq = 0
+            self.directory = {"alloc_ptr": DATA_START, "domains": {}}
+            return
+        self._proxy = None
         found = self._read_directory()
         if found is None:
             self.seq = 0
@@ -136,6 +162,9 @@ class PoolAllocator:
             self._write_directory()
         else:
             self.seq, self.directory = found
+
+    def _key(self, dname: str) -> str:
+        return f"{self.tenant}::{dname}" if self.tenant else dname
 
     # -- directory persistence ----------------------------------------------
     def _read_directory(self, newer_than: int = -1):
@@ -157,6 +186,8 @@ class PoolAllocator:
         """Re-read the on-device directory if it advanced: several live
         allocator handles over one device (checkpoint manager, undo ring,
         recovery) must not hand out overlapping regions from stale copies."""
+        if self._proxy is not None:
+            return
         found = self._read_directory(newer_than=self.seq)
         if found is not None:
             self.seq, self.directory = found
@@ -178,9 +209,20 @@ class PoolAllocator:
     def _alloc(self, dname: str, rname: str, shape, dtype: str,
                point: str) -> Region:
         shape = tuple(int(s) for s in np.atleast_1d(np.asarray(shape, int)))
+        if self._proxy is not None:
+            if self.readonly:      # a reopen only; the node checks it too
+                ent = self._proxy.get_region(dname, rname)
+                if not (ent and ent["dtype"] == dtype
+                        and tuple(ent["shape"]) == shape):
+                    raise TenantIsolationError(
+                        f"readonly tenant: alloc of new region "
+                        f"{dname}/{rname} denied (only idempotent reopens "
+                        f"are allowed)")
+            ent = self._proxy.alloc_region(dname, rname, shape, dtype, point)
+            return self._region(dname, rname, ent)
         self._sync()
         nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
-        dom = self.directory["domains"].setdefault(dname, {})
+        dom = self.directory["domains"].setdefault(self._key(dname), {})
         ent = dom.get(rname)
         if ent and ent["dtype"] == dtype and tuple(ent["shape"]) == shape:
             return self._region(dname, rname, ent)   # idempotent reopen
@@ -188,6 +230,14 @@ class PoolAllocator:
             raise TenantIsolationError(
                 f"readonly tenant: alloc of new region {dname}/{rname} "
                 f"denied (only idempotent reopens are allowed)")
+        if self.tenant and self.quota:
+            # net growth: a reshaped region replaces (leaks) the old entry
+            used = self.tenant_used() - (ent["nbytes"] if ent else 0)
+            if used + nbytes > self.quota:
+                raise QuotaExceededError(
+                    f"tenant {self.tenant!r}: alloc {dname}/{rname} "
+                    f"({nbytes}B) would exceed quota "
+                    f"({used}B used of {self.quota}B)")
         off = -(-self.directory["alloc_ptr"] // _ALIGN) * _ALIGN
         self.device.ensure(off + nbytes)
         dom[rname] = {"off": off, "nbytes": nbytes, "dtype": dtype,
@@ -197,13 +247,19 @@ class PoolAllocator:
         return self._region(dname, rname, dom[rname])
 
     def _get(self, dname: str, rname: str) -> Optional[Region]:
+        if self._proxy is not None:
+            ent = self._proxy.get_region(dname, rname)
+            return self._region(dname, rname, ent) if ent else None
         self._sync()
-        ent = self.directory["domains"].get(dname, {}).get(rname)
+        ent = self.directory["domains"].get(self._key(dname), {}).get(rname)
         return self._region(dname, rname, ent) if ent else None
 
     def _regions(self, dname: str) -> dict[str, Region]:
-        self._sync()
-        ents = self.directory["domains"].get(dname, {})
+        if self._proxy is not None:
+            ents = self._proxy.list_regions(dname)
+        else:
+            self._sync()
+            ents = self.directory["domains"].get(self._key(dname), {})
         return {n: self._region(dname, n, e) for n, e in ents.items()}
 
     def _free_region(self, dname: str, rname: str, point: str) -> bool:
@@ -213,8 +269,10 @@ class PoolAllocator:
         if self.readonly:
             raise TenantIsolationError(
                 f"readonly tenant: free of region {dname}/{rname} denied")
+        if self._proxy is not None:
+            return self._proxy.free_remote_region(dname, rname, point)
         self._sync()
-        dom = self.directory["domains"].get(dname, {})
+        dom = self.directory["domains"].get(self._key(dname), {})
         if dom.pop(rname, None) is None:
             return False
         self._write_directory(point)
@@ -226,14 +284,60 @@ class PoolAllocator:
         if self.readonly:
             raise TenantIsolationError(
                 f"readonly tenant: free of domain {dname} denied")
+        if self._proxy is not None:
+            return self._proxy.free_remote_domain(dname, point)
         self._sync()
-        if self.directory["domains"].pop(dname, None) is None:
+        if self.directory["domains"].pop(self._key(dname), None) is None:
             return False
         self._write_directory(point)
         return True
 
     def domain(self, name: str) -> Domain:
         return Domain(self, name)
+
+    # -- tenancy -------------------------------------------------------------
+    def _tenant_entries(self, tenant: Optional[str] = None):
+        t = tenant if tenant is not None else self.tenant
+        if t is None:
+            for dom in self.directory["domains"].values():
+                yield from dom.values()
+            return
+        pre = f"{t}::"
+        for key, dom in self.directory["domains"].items():
+            if key.startswith(pre):
+                yield from dom.values()
+
+    def tenant_used(self, tenant: Optional[str] = None) -> int:
+        """Bytes currently allocated to ``tenant`` (quota accounting)."""
+        self._sync()
+        return sum(e["nbytes"] for e in self._tenant_entries(tenant))
+
+    def used_bytes(self) -> int:
+        """Live bytes across ALL tenants (the node-fill gauge). Counts
+        directory entries, not the bump pointer."""
+        if self._proxy is not None:
+            raise PoolError("used_bytes is a node-side gauge")
+        self._sync()
+        return sum(e["nbytes"] for dom in self.directory["domains"].values()
+                   for e in dom.values())
+
+    def owned_ranges(self, tenant: Optional[str] = None) -> list[tuple]:
+        """[start, end) byte ranges the tenant may address directly: the
+        node checks every raw read/write/persist/nmp request against
+        these."""
+        self._sync()
+        return [(e["off"], e["off"] + e["nbytes"])
+                for e in self._tenant_entries(tenant)]
+
+    def tenant_domains(self, tenant: Optional[str] = None) -> list[str]:
+        """The tenant's domain names (every domain without a tenant)."""
+        self._sync()
+        t = tenant if tenant is not None else self.tenant
+        if t is None:
+            return list(self.directory["domains"])
+        pre = f"{t}::"
+        return [k[len(pre):] for k in self.directory["domains"] if
+                k.startswith(pre)]
 
 
 class JsonRegion:

@@ -1,5 +1,5 @@
 """Byte-addressable pool backends behind one ``PoolDevice`` API (counterpart
-of ``repro.pool.device``, local backends only).
+of ``repro.pool.device``).
 
 The emulation models the paper's two-level persistence pipeline explicitly:
 
@@ -19,9 +19,10 @@ Table-2 device profiles, and every persist barrier is a named fault point
 (``faults.py``): a schedule can drop it, tear it mid-range, or crash
 before/after it.
 
-The remote and sharded backends (a memory-node server behind a wire
-protocol) and the crash-consistency checker are not ported: asking for
-them raises.
+``make_pool("remote", addr=...)`` connects to a memory node in another
+process (``repro_torch.pool.server``) through ``remote.RemotePool``. The
+sharded backend (several nodes behind a placement map) and the
+crash-consistency checker are not ported: asking for them raises.
 """
 from __future__ import annotations
 
@@ -36,12 +37,17 @@ from repro_torch.sim import devices as dv
 
 
 class PoolError(RuntimeError):
-    """Base class for every pool-layer failure."""
+    """Base class for every pool-layer failure (all subtypes are typed, so
+    callers and the wire protocol can tell them apart)."""
+
+
+class QuotaExceededError(PoolError):
+    """A tenant's allocation would exceed its byte quota."""
 
 
 class TenantIsolationError(PoolError):
-    """A tenant addressed bytes (or a domain) it does not own: here, a
-    readonly allocator asked to allocate or free."""
+    """A tenant addressed bytes (or a domain) it does not own, or a
+    readonly allocator or connection asked to allocate, free or write."""
 
 
 class PoolDevice:
@@ -120,12 +126,37 @@ class PoolDevice:
         self._check(off, nbytes)
         return self._cache[off:off + nbytes]
 
+    # -- async / scatter-gather forms ----------------------------------------
+    # Local devices resolve these at once; RemotePool overrides them with
+    # pipelined futures and single-round-trip batch frames.
+    def read_async(self, off: int, nbytes: int, tag: str = "read"):
+        from repro_torch.pool.protocol import CompletedFuture
+        return CompletedFuture(self.read(off, nbytes, tag=tag))
+
+    def write_async(self, off: int, data, tag: str = "write"):
+        from repro_torch.pool.protocol import CompletedFuture
+        self.write(off, data, tag=tag)
+        return CompletedFuture(None)
+
     def read_batch(self, reqs, tag: str = "read") -> list:
         """[(off, nbytes), ...] -> [bytes, ...], each read charged as
-        ``read`` charges it (one round trip on the JAX package's remote
-        backends)."""
+        ``read`` charges it (one round trip on a remote pool)."""
         return [bytes(self.read(off, nbytes, tag=tag))
                 for off, nbytes in reqs]
+
+    def nmp_batch(self, calls) -> list:
+        """[(kind, region, kwargs), ...] run through the protocol's op
+        registry: in order here, as ONE scatter-gather frame remotely."""
+        from repro_torch.pool.nmp import NmpQueue
+        from repro_torch.pool.protocol import NMP_OPS
+        q = NmpQueue(self)
+        out = []
+        for kind, region, kw in calls:
+            spec = NMP_OPS.get(kind)
+            if spec is None:
+                raise PoolError(f"unknown nmp kind {kind!r}")
+            out.append(spec.run(q, region, **kw))
+        return out
 
     def mark_dirty(self, off: int, nbytes: int):
         # append-only on the hot path; ranges are sorted and merged at the
@@ -285,13 +316,13 @@ class PmemPool(PoolDevice):
         super().close()
 
 
-BACKENDS = ("dram", "pmem")
-NOT_PORTED = ("remote", "sharded")
+BACKENDS = ("dram", "pmem", "remote")
+NOT_PORTED = ("sharded",)
 
 
 def check_backend(backend: str) -> str:
-    """``backend`` if the port has it; raises for the JAX package's remote
-    and sharded backends rather than running on another one."""
+    """``backend`` if the port has it; raises for the JAX package's sharded
+    backend rather than running on another one."""
     if backend in NOT_PORTED:
         raise PoolError(f"pool backend {backend!r} is not ported yet; the "
                         f"port has {BACKENDS}")
@@ -313,12 +344,30 @@ def check_checker_off() -> None:
 
 def make_pool(backend: str, *, path: Optional[str] = None,
               capacity: int = 1 << 20,
-              faults: Optional[FaultSchedule] = None) -> PoolDevice:
-    """A dram or pmem pool (pmem needs the image ``path``)."""
+              faults: Optional[FaultSchedule] = None,
+              addr: Optional[str] = None, tenant: str = "default",
+              quota: int = 0, secret: str = "", readonly: bool = False,
+              timeout=None, wire=None) -> PoolDevice:
+    """A dram or pmem pool (pmem needs the image ``path``), or a tenant of
+    the memory node at ``addr`` (remote). ``timeout`` (remote only): a
+    float rescales the per-op-class wire deadlines around it, a
+    ``protocol.Timeouts`` pins them; None keeps the registry's defaults.
+    ``wire`` pins the protocol revision to offer (1, 2 or 3); None honours
+    ``REPRO_POOL_WIRE`` and otherwise asks for v3."""
     check_backend(backend)
     check_checker_off()
     if backend == "dram":
         return DramPool(capacity, faults)
-    if not path:
-        raise PoolError("pmem backend needs a file path")
-    return PmemPool(path, capacity, faults)
+    if backend == "pmem":
+        if not path:
+            raise PoolError("pmem backend needs a file path")
+        return PmemPool(path, capacity, faults)
+    if not addr:
+        raise PoolError("remote backend needs a server addr "
+                        "(unix:/path or tcp:host:port)")
+    from repro_torch.pool.remote import RemotePool
+    dev = RemotePool(addr, tenant=tenant, quota=quota, secret=secret,
+                     readonly=readonly, timeout=timeout, wire=wire)
+    if faults is not None:
+        dev.faults = faults
+    return dev

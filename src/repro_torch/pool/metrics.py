@@ -1,5 +1,5 @@
 """Traffic / energy accounting for the emulated memory pool (counterpart of
-``repro.pool.metrics``, local counters only).
+``repro.pool.metrics``).
 
 Every ``PoolDevice`` access and every near-memory op records (bytes, modeled
 seconds) under an op kind, split into *media* traffic (bytes moved inside the
@@ -13,12 +13,17 @@ Energy follows the Fig. 13 model in ``sim/devices.POWER``: access energy =
 device read/write power x modeled busy time, plus the near-memory adder
 array, the compression engine, and link energy per busy second. The
 serving tier's hot-row cache counts its hits, misses and invalidations
-here too. The JAX package's replica and wire counters serve its sharded and
-remote pools and are not ported with it.
+here too. A memory node keeps one ``PoolMetrics`` per tenant and ships it as
+a ``snapshot()``; the tenant's client rebuilds it with ``from_snapshot``.
+The wire counters (``bytes_copied``, ``data_frames``) count what crossed a
+frame boundary by copy. The JAX package's replica counters serve its
+sharded pool and are not ported (its ``from_snapshot`` reads them as 0).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
+
 from repro_torch.sim import devices as dv
 
 LINK_W = 5.0  # link power while busy (W)
@@ -50,12 +55,32 @@ class PoolMetrics:
     comp_stored_bytes: int = 0                    # ...and what hit media
     comp_time_s: float = 0.0                      # compression engine busy
     comp: dict = field(default_factory=dict)      # kind -> [raw, stored]
+    used_bytes: int = 0                           # capacity gauges: live
+    capacity_bytes: int = 0                       # bytes / node capacity
     dropped_flushes: int = 0
     torn_writes: int = 0
     crashes: int = 0
     cache_hits: int = 0                           # serve-tier hot-row cache
     cache_misses: int = 0
     cache_invalidations: int = 0                  # rows evicted by commits
+    bytes_copied: int = 0                         # body bytes memcpy'd at the
+    data_frames: int = 0                          # frame boundary / data ops
+
+    def reset(self):
+        """Zero the traffic counters (fault and crash tallies are kept),
+        e.g. to measure steady-state steps without the mirror load."""
+        self.media.clear()
+        self.link.clear()
+        self.ndp_time_s = 0.0
+        self.comp_raw_bytes = 0
+        self.comp_stored_bytes = 0
+        self.comp_time_s = 0.0
+        self.comp.clear()
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.cache_invalidations = 0
+        self.bytes_copied = 0
+        self.data_frames = 0
 
     def record_cache(self, hits: int = 0, misses: int = 0,
                      invalidations: int = 0):
@@ -70,9 +95,10 @@ class PoolMetrics:
     def record(self, kind: str, nbytes: int, time_s: float):
         self.media.setdefault(kind, OpStat()).add(nbytes, time_s)
 
-    def record_link(self, kind: str, nbytes: int):
-        self.link.setdefault(kind, OpStat()).add(nbytes,
-                                                 nbytes / dv.CXL_LINK.bw)
+    def record_link(self, kind: str, nbytes: int,
+                    link: dv.Link = dv.CXL_LINK):
+        """Bytes across the host link, timed at ``link``'s rate."""
+        self.link.setdefault(kind, OpStat()).add(nbytes, nbytes / link.bw)
 
     def record_ndp(self, flops: float):
         """Busy time of the near-memory adder array for ``flops`` adds."""
@@ -90,15 +116,21 @@ class PoolMetrics:
         ent[0] += int(raw_bytes)
         ent[1] += int(stored_bytes)
 
-    def comp_ratio(self) -> float:
-        """stored/raw over everything pool-compressed (1.0 = off)."""
+    def comp_ratio(self, kind: Optional[str] = None) -> float:
+        """stored/raw (1.0 = off or unknown), for one payload kind or over
+        everything pool-compressed when ``kind`` is None."""
+        if kind is not None:
+            raw, stored = self.comp.get(kind, (0, 0))
+            return stored / raw if raw > 0 else 1.0
         if self.comp_raw_bytes <= 0:
             return 1.0
         return self.comp_stored_bytes / self.comp_raw_bytes
 
     # -- aggregates ----------------------------------------------------------
-    def media_bytes(self) -> int:
-        return sum(s.nbytes for s in self.media.values())
+    def media_bytes(self, *kinds) -> int:
+        """Media bytes of the given op kinds, or of every kind."""
+        src = kinds or self.media.keys()
+        return sum(self.media[k].nbytes for k in src if k in self.media)
 
     def link_bytes(self) -> int:
         return sum(s.nbytes for s in self.link.values())
@@ -129,6 +161,60 @@ class PoolMetrics:
         e["total"] = sum(e.values())
         return e
 
+    @classmethod
+    def from_snapshot(cls, snap: dict) -> "PoolMetrics":
+        """Rebuild counters from a ``snapshot()`` dict: how a remote
+        client materialises its tenant's counters on the node, so
+        ``report()`` and ``energy()`` work unchanged."""
+        m = cls(device_name=snap.get("device", "dram"))
+        for side, table in (("media", m.media), ("link", m.link)):
+            for kind, st in (snap.get(side) or {}).items():
+                table[kind] = OpStat(ops=int(st["ops"]),
+                                     nbytes=int(st["nbytes"]),
+                                     time_s=float(st["time_s"]))
+        m.ndp_time_s = float(snap.get("ndp_time_s", 0.0))
+        m.comp_raw_bytes = int(snap.get("comp_raw_bytes", 0))
+        m.comp_stored_bytes = int(snap.get("comp_stored_bytes", 0))
+        m.comp_time_s = float(snap.get("comp_time_s", 0.0))
+        m.comp = {k: [int(v[0]), int(v[1])]
+                  for k, v in (snap.get("comp") or {}).items()}
+        for key in ("used_bytes", "capacity_bytes", "dropped_flushes",
+                    "torn_writes", "crashes", "cache_hits", "cache_misses",
+                    "cache_invalidations", "bytes_copied", "data_frames"):
+            setattr(m, key, int(snap.get(key, 0)))
+        return m
+
+    def snapshot(self) -> dict:
+        """Every counter as plain JSON values (the ``metrics`` op's reply;
+        the keys are the JAX package's)."""
+        return {
+            "device": self.device_name,
+            "media": {k: vars(s) for k, s in self.media.items()},
+            "link": {k: vars(s) for k, s in self.link.items()},
+            "media_bytes": self.media_bytes(),
+            "link_bytes": self.link_bytes(),
+            "media_time_s": self.media_time(),
+            "link_time_s": self.link_time(),
+            "ndp_time_s": self.ndp_time_s,
+            "comp_raw_bytes": self.comp_raw_bytes,
+            "comp_stored_bytes": self.comp_stored_bytes,
+            "comp_ratio": self.comp_ratio(),
+            "comp_time_s": self.comp_time_s,
+            "comp": {k: list(v) for k, v in self.comp.items()},
+            "used_bytes": self.used_bytes,
+            "capacity_bytes": self.capacity_bytes,
+            "dropped_flushes": self.dropped_flushes,
+            "torn_writes": self.torn_writes,
+            "crashes": self.crashes,
+            "cache_hits": self.cache_hits,
+            "cache_misses": self.cache_misses,
+            "cache_invalidations": self.cache_invalidations,
+            "cache_hit_rate": self.cache_hit_rate(),
+            "bytes_copied": self.bytes_copied,
+            "data_frames": self.data_frames,
+            "energy_j": self.energy(),
+        }
+
     def report(self) -> str:
         lines = [f"pool[{self.device_name}] traffic/energy:"]
         for side, table in (("media", self.media), ("link", self.link)):
@@ -150,6 +236,9 @@ class PoolMetrics:
                          f"misses={self.cache_misses} "
                          f"inval={self.cache_invalidations} "
                          f"hit_rate={self.cache_hit_rate():.4f}")
+        if self.data_frames:
+            lines.append(f"  wire: data_frames={self.data_frames} "
+                         f"bytes_copied={self.bytes_copied}")
         if self.dropped_flushes or self.torn_writes or self.crashes:
             lines.append(f"  faults: dropped={self.dropped_flushes} "
                          f"torn={self.torn_writes} crashes={self.crashes}")

@@ -1,5 +1,5 @@
 """Near-memory ops, the CXL-MEM *computing logic* (counterpart of
-``repro.pool.nmp``, local devices only).
+``repro.pool.nmp``).
 
 Ops execute against region cache views inside the pool device, so only the
 operands (indices, gradients, new rows) and the *results* (gathered rows or
@@ -13,10 +13,16 @@ The ops: the lookups serving runs (``gather``, ``bag_gather``), the
 near-memory update (``scatter_add``), the round-trip undo capture
 (``undo_snapshot``), and the ones checkpointing and recovery run (the fused
 undo-log append, the row update of a rollback, the undo-ring header scan
-and GC, the compressed blob write of a dense snapshot).
+and GC, the compressed blob write of a dense snapshot), and the verbatim
+region export and import that move a region between nodes.
 ``EmbeddingPoolMirror`` is a table in the pool behind the ``pool`` lookup
-strategy of ``core.embedding_ops``. The JAX package's remote dispatch and
-region migration serve its remote and sharded pools and are not ported.
+strategy of ``core.embedding_ops``.
+
+Against a ``RemotePool`` every op is shipped as one ``nmp`` wire frame and
+runs inside the memory-node process (``repro_torch.pool.server``), where
+near-memory compute belongs: only operands and results cross the link. The
+op surface (kinds, wire fields, mutability, timeout classes) is described
+once, in ``protocol.NMP_OPS``, which the server dispatches through.
 """
 from __future__ import annotations
 
@@ -32,11 +38,29 @@ from repro_torch.pool.faults import InjectedCrash
 
 
 class NmpQueue:
-    """Near-memory op dispatch on a local device: the ops run in-process on
-    zero-copy cache views."""
+    """Near-memory op dispatch. Against a local device the ops run
+    in-process on zero-copy cache views; against a ``RemotePool`` each op
+    is one ``nmp`` wire frame, executed inside the memory node."""
 
     def __init__(self, device: PoolDevice):
         self.device = device
+        self._remote = getattr(device, "remote", False)
+        self._pending: list = []
+
+    # -- queue machinery -----------------------------------------------------
+    def submit(self, fn, *args, **kw):
+        self._pending.append((fn, args, kw))
+
+    def drain(self) -> list:
+        out = [fn(*args, **kw) for fn, args, kw in self._pending]
+        self._pending = []
+        return out
+
+    def batch(self, calls) -> list:
+        """[(kind, region, kwargs), ...] through the protocol's op registry:
+        ONE scatter-gather wire frame on a remote device (wire v2 and up),
+        an in-order local run otherwise."""
+        return self.device.nmp_batch(calls)
 
     # -- helpers -------------------------------------------------------------
     def _rows_meta(self, region: Region):
@@ -63,6 +87,8 @@ class NmpQueue:
     def gather(self, region: Region, idx) -> np.ndarray:
         """rows[idx] -> host. The link carries idx in and the raw rows out."""
         idx = np.asarray(idx)
+        if self._remote:
+            return self.device.nmp("gather", region, idx=idx)
         flat, row_bytes = self._rows_meta(region)
         out = flat[idx.reshape(-1)].reshape(*idx.shape, flat.shape[-1]).copy()
         m = self.device.metrics
@@ -76,14 +102,25 @@ class NmpQueue:
         """Reduce rows[idx] over the last idx axis pool-side; only the
         reduced (..., d) vectors cross the link. On a stacked (T, R, d)
         region, idx is (..., T, L) with each table's own row ids, and each
-        table's row offset t * R is added to them first."""
+        table's row offset t * R is added to them first.
+
+        Over the wire the ids are flat: this client adds the offsets and
+        names the region by its flat (T * R, d) view, so a node of either
+        package reduces the same rows (the JAX package's server adds no
+        offsets, the port's adds none to a flat region)."""
         idx = np.asarray(idx)
         if len(region.shape) == 3:
-            T, R, _ = region.shape
+            T, R, d = region.shape
             if idx.ndim < 2 or idx.shape[-2] != T:
                 raise ValueError(f"bag ids {idx.shape} do not index the "
                                  f"{T} stacked tables of {region.shape}")
             idx = idx + (np.arange(T)[:, None] * R).astype(idx.dtype)
+            region = Region(region.device, region.domain, region.name,
+                            region.off, region.nbytes, region.dtype,
+                            (T * R, d))
+        if self._remote:
+            return self.device.nmp("bag_gather", region, idx=idx,
+                                   combine=combine)
         flat, row_bytes = self._rows_meta(region)
         rows = flat[idx.reshape(-1)].reshape(*idx.shape, flat.shape[-1])
         red = rows.sum(axis=-2) if combine == "sum" else rows.mean(axis=-2)
@@ -101,6 +138,10 @@ class NmpQueue:
         """rows -> pool at idx (the embedding apply). Idempotent writes."""
         idx = np.asarray(idx).reshape(-1)
         rows = np.asarray(rows)
+        if self._remote:
+            self.device.nmp("row_update", region, idx=idx, rows=rows,
+                            point=point)
+            return
         flat, row_bytes = self._rows_meta(region)
         flat[idx] = rows.reshape(idx.size, -1)
         self._mark_rows_dirty(region, idx, row_bytes)
@@ -116,6 +157,10 @@ class NmpQueue:
         """Accumulate gradient rows pool-side (read-modify-write)."""
         idx = np.asarray(idx).reshape(-1)
         delta = np.asarray(delta)
+        if self._remote:
+            self.device.nmp("scatter_add", region, idx=idx, rows=delta,
+                            point=point)
+            return
         flat, row_bytes = self._rows_meta(region)
         np.add.at(flat, idx, delta.reshape(idx.size, -1).astype(flat.dtype))
         self._mark_rows_dirty(region, idx, row_bytes)
@@ -133,6 +178,8 @@ class NmpQueue:
         round-trip capture, whose old rows cross the link out. The paper's
         design is ``undo_log_append``, which never ships the image."""
         idx = np.asarray(idx).reshape(-1)
+        if self._remote:
+            return self.device.nmp("undo_snapshot", region, idx=idx)
         flat, row_bytes = self._rows_meta(region)
         old = np.array(flat[idx])
         m = self.device.metrics
@@ -153,8 +200,16 @@ class NmpQueue:
         slot, persist payload and COMMIT flag with the two paper barriers,
         then (fused) apply ``new_rows`` to the mirror. Only ``(step, idx,
         new_rows)`` cross the link; the old row images never leave the
-        pool. Returns {"stored", "raw"} byte counts of the logged payload."""
+        pool. Returns {"stored", "raw"} byte counts of the logged payload.
+        On a remote device the op is one frame carrying (step, idx,
+        new_rows) and the slot's place; the node does the rest."""
         idx = np.asarray(idx).reshape(-1)
+        if self._remote:
+            return self.device.nmp(
+                "undo_log_append", mirror, idx=idx, rows=new_rows,
+                point=apply_point, log_region=log, step=int(step),
+                slot_off=int(slot_off), slot_bytes=int(slot_bytes),
+                compress=compress)
         if not (log.off <= slot_off
                 and slot_off + slot_bytes <= log.off + log.nbytes):
             raise PoolError(f"undo slot [{slot_off}, {slot_off + slot_bytes})"
@@ -199,7 +254,12 @@ class NmpQueue:
 
     def slot_headers(self, log: Region, nslots: int, slot_bytes: int,
                      hdr_bytes: int) -> np.ndarray:
-        """Strided gather of every slot header in one op."""
+        """Strided gather of every slot header in one op (one round trip on
+        a remote device)."""
+        if self._remote:
+            return self.device.nmp("slot_headers", log, nslots=int(nslots),
+                                   slot_bytes=int(slot_bytes),
+                                   hdr_bytes=int(hdr_bytes))
         v = self.device.view(log.off, nslots * slot_bytes)
         out = np.lib.stride_tricks.as_strided(
             v, (nslots, hdr_bytes), (slot_bytes, 1)).copy()
@@ -215,6 +275,10 @@ class NmpQueue:
         """Clear the COMMIT words of many expired slots in ONE op, under one
         clipped barrier."""
         slots = np.asarray(slots, np.int64).reshape(-1)
+        if self._remote:
+            return int(self.device.nmp(
+                "slot_clear", log, slots=[int(s) for s in slots],
+                slot_bytes=int(slot_bytes), point=point)["cleared"])
         if slots.size == 0:
             return 0
         for s in slots:
@@ -233,6 +297,11 @@ class NmpQueue:
         raw bytes cross the link in, the *framed, compressed* image hits
         media, and exactly the written range is persisted. Returns the
         stored (framed) length, what a reader must fetch and ``unframe``."""
+        if self._remote:
+            return self.device.nmp("blob_put", region, blob=blob,
+                                   point=point, compress=compress)["stored"]
+        blob = blob if isinstance(blob, (bytes, bytearray, memoryview)) \
+            else memoryview(np.ascontiguousarray(blob)).cast("B")
         framed = pc.frame(blob, mode=compress)
         if len(framed) > region.nbytes:
             raise PoolError(f"blob ({len(framed)}B framed) overflows region "
@@ -247,6 +316,46 @@ class NmpQueue:
         self.device.write(region.off, framed, tag="dense")
         self.device.persist(region.off, len(framed), point=point)
         return len(framed)
+
+    def region_export(self, region: Region, compress: str = "zlib") -> bytes:
+        """Verbatim region image -> one framed, pool-compressed blob (CRC
+        over the stored bytes), the read half of a region's move between
+        nodes: the node compresses before the image leaves it."""
+        if self._remote:
+            out = self.device.nmp("region_export", region, compress=compress)
+            return bytes(np.ascontiguousarray(out).view(np.uint8))
+        raw = bytes(self.device.read(region.off, region.nbytes,
+                                     tag="migrate_export"))
+        framed = pc.frame(raw, mode=compress)
+        m = self.device.metrics
+        if compress != "none":     # engine idle when compression is off
+            m.record_comp(len(raw), len(framed) - pc.FRAME_OVERHEAD,
+                          len(raw) / pc.COMPRESS_BPS, kind="migrate")
+        m.record_link("link_in", 16)
+        m.record_link("link_out", len(framed))
+        return framed
+
+    def region_import(self, region: Region, frame,
+                      point: str = "migrate-import"):
+        """Inverse of ``region_export``: CRC-check and unframe inside the
+        node, land the raw image verbatim in the region, persist exactly
+        that range. The copy is bit-identical to the exported image."""
+        if not isinstance(frame, (bytes, bytearray, memoryview)):
+            frame = memoryview(np.ascontiguousarray(frame)).cast("B")
+        if self._remote:
+            self.device.nmp("region_import", region, blob=frame, point=point)
+            return
+        raw = pc.unframe(frame)                 # BlobCorruptError on a tear
+        if len(raw) != region.nbytes:
+            raise PoolError(f"region_import {region.domain}/{region.name}: "
+                            f"image {len(raw)}B != region {region.nbytes}B")
+        m = self.device.metrics
+        m.record_link("link_in", len(frame))
+        if len(frame) - pc.FRAME_OVERHEAD < len(raw):   # it was compressed
+            m.record_comp(len(raw), len(frame) - pc.FRAME_OVERHEAD,
+                          len(raw) / pc.COMPRESS_BPS, kind="migrate")
+        self.device.write(region.off, raw, tag="migrate_import")
+        self.device.persist(region.off, region.nbytes, point=point)
 
 
 class EmbeddingPoolMirror:

@@ -355,14 +355,17 @@ def test_checkpoint_recovers_in_the_other_package(tmp_path, writer, arch):
         prec.pool.close()
 
 
-# -- what is not ported raises -----------------------------------------------------
+# -- what is not ported, or not given, raises --------------------------------------
 
 @pytest.mark.parametrize("backend", ["remote", "sharded"])
 def test_unported_backends_raise(tmp_path, backend):
-    with pytest.raises(PoolError, match="not ported"):
+    """sharded is not ported; remote is, and without a node's address it
+    raises the JAX package's error, before the manager starts anything."""
+    msg = {"remote": "needs a server addr", "sharded": "not ported"}[backend]
+    with pytest.raises(PoolError, match=msg):
         make_pool(backend, path=str(tmp_path / "p.img"))
     cfg, _, cc, _ = setup_run(str(tmp_path / "ck"), backend=backend)
-    with pytest.raises(PoolError, match="not ported"):
+    with pytest.raises(PoolError, match=msg):
         CheckpointManager(cfg, cc)
 
 
@@ -403,7 +406,7 @@ def test_cli_checkpoint_and_resume(tmp_path, arch):
 
 
 @pytest.mark.parametrize("args,msg", [
-    (["--pool-backend", "remote"], "not ported"),
+    (["--pool-backend", "remote"], "--pool-addr"),
     (["--pool-backend", "dram", "--resume"], "volatile"),
 ])
 def test_cli_refuses(tmp_path, args, msg):

@@ -2,8 +2,7 @@
 
 Each runs as a subprocess with ``--device cpu``, as a user runs it, and
 must exit 0 with its marker line. What the examples do not run (the JAX
-demos' remote and sharded drills, a CUDA device without a card) must
-raise.
+demos' sharded drills, a CUDA device without a card) must raise.
 """
 import os
 import subprocess
@@ -13,12 +12,14 @@ import pytest
 import torch
 
 from repro_torch.examples import (fault_tolerance_demo, quickstart,
-                                  serve_batched, train_dlrm_e2e)
+                                  serve_batched, shared_pool_demo,
+                                  train_dlrm_e2e)
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 EXAMPLES = {"fault_tolerance_demo": fault_tolerance_demo,
             "train_dlrm_e2e": train_dlrm_e2e, "quickstart": quickstart,
-            "serve_batched": serve_batched}
+            "serve_batched": serve_batched,
+            "shared_pool_demo": shared_pool_demo}
 
 
 def _run(name, *args, tmp_path):
@@ -30,21 +31,41 @@ def _run(name, *args, tmp_path):
     return r.stdout
 
 
-@pytest.mark.parametrize("backend", ["pmem", "dram"])
+@pytest.mark.parametrize("backend", ["pmem", "dram", "remote"])
 def test_fault_tolerance_demo(tmp_path, backend):
     """The drill recovers a mirror bitwise equal to a clean replay, whose
-    every logged step's device undo image equals the pool's, and resumes."""
+    every logged step's device undo image equals the pool's, and resumes.
+    remote: a memory node and a trainer in processes of their own, the
+    trainer SIGKILLed and the node alive."""
     out = _run("fault_tolerance_demo", "--pool-backend", backend,
                "--work-dir", str(tmp_path), tmp_path=tmp_path)
     assert "BIT-IDENTICAL to a clean replay" in out
     assert "the device's equal the pool's bitwise" in out
     assert "the mirror equals the tables" in out
     assert out.rstrip().endswith("fault-tolerance demo PASSED")
-    if backend == "pmem":
+    if backend in ("pmem", "remote"):
         assert "SIGKILLed trainer after 12 reported steps" in out
-    else:
+    if backend == "remote":
+        assert "memory node still alive" in out
+        assert "memory node shut down" in out
+    if backend == "dram":
         assert "rolled_back=True" in out
     assert os.listdir(tmp_path) == []      # its pool files are removed
+
+
+def test_shared_pool_demo(tmp_path):
+    """Two trainer tenants with quotas checkpoint into one memory node at
+    once; the node attributes traffic to each, and keeps a third tenant out
+    of their bytes and within its quota."""
+    out = _run("shared_pool_demo", "--work-dir", str(tmp_path),
+               tmp_path=tmp_path)
+    for tenant in ("trainer-a", "trainer-b"):
+        assert f"[{tenant}] done: {{'tier_e': 8" in out
+        assert f"-- tenant '{tenant}': media=" in out
+    assert "cross-tenant read denied" in out
+    assert "over-quota alloc denied" in out
+    assert out.rstrip().endswith("shared-pool demo PASSED")
+    assert os.listdir(tmp_path) == []
 
 
 def test_train_dlrm_e2e(tmp_path):
@@ -67,12 +88,15 @@ def test_serve_batched(tmp_path, arch):
     assert "[decode] 8x8 tokens" in out and "[sample]" in out
 
 
-@pytest.mark.parametrize("backend", ["dram", "pmem"])
+@pytest.mark.parametrize("backend", ["dram", "pmem", "remote"])
 def test_serve_batched_pool_drill(tmp_path, backend):
     """Serving from the pool with commits interleaved: each commit evicts
     exactly the cached rows it touched (the JAX drill's counts), the rows
-    after it are the committed ones bitwise, and no file is left behind."""
-    out = _run("serve_batched", "--pool-backend", backend, tmp_path=tmp_path)
+    after it are the committed ones bitwise, and no file is left behind.
+    remote serves through a read-only tenant of an in-process node."""
+    readonly = ["--pool-readonly"] if backend == "remote" else []
+    out = _run("serve_batched", "--pool-backend", backend, *readonly,
+               tmp_path=tmp_path)
     assert f"[pool-serve] backend={backend} table=4096x32 cache=512 rows" in out
     for step, n in enumerate((7, 8, 8, 8)):
         assert f"step {step}: commit touched 8 rows, evicted exactly {n} " \
@@ -83,9 +107,7 @@ def test_serve_batched_pool_drill(tmp_path, backend):
 
 
 @pytest.mark.parametrize("name,args,msg", [
-    ("fault_tolerance_demo", ["--pool-backend", "remote"], "queue 1 item 6"),
     ("fault_tolerance_demo", ["--pool-backend", "sharded"], "queue 1 item 6"),
-    ("serve_batched", ["--pool-backend", "remote"], "queue 1 item 3"),
     ("serve_batched", ["--pool-backend", "sharded"], "queue 1 item 6"),
 ])
 def test_unported_options_raise(name, args, msg):
@@ -107,7 +129,8 @@ def test_examples_import_no_jax_and_no_reference():
          "import sys\n"
          "import repro_torch.examples.fault_tolerance_demo, "
          "repro_torch.examples.train_dlrm_e2e, repro_torch.examples.quickstart, "
-         "repro_torch.examples.serve_batched\n"
+         "repro_torch.examples.serve_batched, "
+         "repro_torch.examples.shared_pool_demo\n"
          "bad = [m for m in sys.modules if m.split('.')[0] in "
          "('jax', 'ml_dtypes', 'repro')]\n"
          "print(bad); sys.exit(1 if bad else 0)"],

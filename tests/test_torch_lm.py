@@ -265,10 +265,13 @@ def test_serve_cli_without_card_raises():
 
 
 def test_serve_cli_pool_backend_not_ported():
-    """The pool backends the port does not have, and a read-only tenant
-    (remote pools only), raise; dram and pmem serve
-    (``tests/test_torch_serve.py``)."""
-    for args in (["--pool-backend", "remote"], ["--pool-backend", "sharded"],
-                 ["--pool-backend", "pmem", "--pool-readonly"]):
+    """The sharded pool (not ported), a read-only tenant of anything but a
+    remote pool, and a remote pool without a node's address raise; dram,
+    pmem and remote serve (``tests/test_torch_serve.py``,
+    ``tests/test_torch_remote_pool.py``)."""
+    for args, msg in ((["--pool-backend", "sharded"], "not ported yet"),
+                      (["--pool-backend", "pmem", "--pool-readonly"],
+                       "needs --pool-backend remote"),
+                      (["--pool-backend", "remote"], "needs --pool-addr")):
         r = _run(["--device", "cpu", *args])
-        assert r.returncode != 0 and "not ported yet" in r.stderr, args
+        assert r.returncode != 0 and msg in r.stderr, args
