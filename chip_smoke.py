@@ -91,10 +91,14 @@ Phases, each of which exits non-zero on failure:
  14. run the port's examples on the card as a user does, one process each,
      all at once (python -m repro_torch.examples.<name>): the crash drills
      (remote, the default: a memory node and a trainer in processes of
-     their own; pmem; dram), shared_pool_demo (two trainer tenants with
-     quotas on one node), train_dlrm_e2e at 20 steps, quickstart, and
-     serve_batched for tinyllama-1.1b and rwkv6-3b; each must exit 0 and
-     print its marker line;
+     their own; sharded: two memory nodes, the mirror's node killed and
+     restarted, a live migration whose destination is killed mid-copy, a
+     node lost for good and its replica promoted; pmem; dram),
+     shared_pool_demo (two trainer tenants with quotas on one node),
+     train_dlrm_e2e at 20 steps, quickstart, serve_batched for
+     tinyllama-1.1b and rwkv6-3b, and serve_batched's sharded drill (the
+     read replica serving after the primary's node is shut down); each
+     must exit 0 and print its marker line;
  15. hold the wkv6 backward kernel against its plain version and the plain
      emulation of its TF32 split on the card (r, k, v in f32 and bf16; S in
      {1, 15, 16, 17, 64, 100, 1024}; 2 heads and rwkv6-3b's 40; zero and
@@ -152,11 +156,45 @@ Phases, each of which exits non-zero on failure:
      must give the losses of the replay's twin (its tables and dense tree
      at the recovered steps, the relaxed carry rebuilt); the trainer's
      launch counts per kernel, read from its last log line, must be those
-     of its relaxed steps.
-Phases 7 to 18 print their wall time. Phases 4, 8, 10, 12 and 16 also
+     of its relaxed steps;
+ 19. row-wise Adagrad on the sparse tier at full width: full dlrm-rm1
+     (batch 128, embed lr 1e-5) and full tinyllama-1.1b (batch 4 x 1024,
+     0.01), each from the seed's params: 3 relaxed Adagrad steps, 3
+     relaxed sgd steps twice and the Adagrad run again (step ms in turns;
+     the repeat bitwise in losses and accumulator; the loss within twice
+     its first), 2 strict Adagrad steps: tinyllama's within 1e-6 of the
+     relaxed ones, its accumulator bitwise at each step; rm1's equal at
+     step 0, and with f32 tables 2 relaxed and 2 strict steps within 2e-5
+     in losses and accumulator (with bf16 tables the schedules round the
+     update differently from step 1, as the reference does); the Adagrad
+     run's launches are the sgd run's plus exactly the accumulator's, for
+     tinyllama a scatter_update and a gather_rows a step on the narrow
+     route (rm1's per-table accumulator is a masked sum, no kernel), every
+     table launch on the 16-byte route; tinyllama's accumulator kernels at
+     the run's shapes against their plain versions, timed; smoke rm1 and
+     tinyllama, 5 Adagrad steps on the card against the CPU (losses, and
+     the accumulator within 1e-4);
+ 20. full dlrm-rm1 checkpointed into a sharded pool of three memory nodes
+     (python -m repro_torch.pool.server processes, pmem images under
+     build/, unix sockets; removed at the end): the mirror and the
+     manifest's primary pinned to node 0, the dense tier to node 1, the
+     mirror's read replica (every 2 steps), the undo ring's commit-coupled
+     replica and the manifest's quorum witnesses on the others. 4 relaxed
+     steps (each step's undo image on the card equal to node 0's bitwise;
+     the mirror load, each tier-E step, each replica refresh's seconds and
+     link bytes and each node's used bytes printed, no replication
+     failure), then node 0 is SIGKILLed and its image deleted; the
+     survivors reopen (the lost node as typed errors), the manifest is
+     elected 2 of 3, the replica is promoted in one epoch, the recovered
+     mirror equals the card's tables at the replication watermark bitwise
+     (the step after it rolled back from the replica's undo ring), and 2
+     resumed steps give the uninterrupted twin's losses; every client's
+     reply stalls printed.
+Phases 7 to 20 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
-13, 16 and 18 every scatter_update_logged launch (su.wide_launches_logged).
+13, 16, 18 and 20 every scatter_update_logged launch
+(su.wide_launches_logged); phases 18 and 20 every row kernel launch.
 
 The line before the last is {"kernels": [...]}, one entry per kernel and
 path (the row gather runs on eight: each checkpoint, each served model's
@@ -169,7 +207,9 @@ bf16 paths and its f32 route in phase 12's f32 smoke training; phase 17's
 pool-served tinyllama prefill (flash) and rwkv6-3b prefill and decode
 (wkv6) as paths of their own; phase 18's run A, the rm1 path checkpointed
 into the memory node, as one more for the bag, both updates and the
-gather); the last line is
+gather; phase 19's Adagrad runs of rm1 and tinyllama, tinyllama's
+accumulator launches (narrow) as paths of their own; phase 20's rm1 run into the
+sharded pool); the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
 Imports nothing of JAX.
@@ -244,6 +284,24 @@ def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     it; the operations run at ``ops_per_s``, the card's peak for their type."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_shapes(torch, tag, shapes):
+    """Each shape's kernel, plain version and library call timed (medians
+    of 20 single calls, and device only) beside its bound; returns
+    {name: the kernels line's numbers}."""
+    timing = {}
+    for name, (kern, plain, lib, (b_ms, b_by)) in shapes.items():
+        timing[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                        "library_ms": None if lib is None else time_ms(torch, lib),
+                        "bound_ms": b_ms, "bound_by": b_by}
+        device_only = {"ms": time_ms(torch, kern, hide_host=True),
+                       "plain_ms": time_ms(torch, plain, hide_host=True),
+                       "library_ms": None if lib is None
+                       else time_ms(torch, lib, hide_host=True)}
+        print(f"{tag} {name}: " + json.dumps(timing[name]) + "; device only: "
+              + json.dumps(device_only))
+    return timing
 
 
 def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
@@ -395,9 +453,7 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         print(f"[ckpt] stats {json.dumps(mgr.stats)}")
         print(f"[ckpt] pool image {os.path.getsize(os.path.join(work, 'A', 'pool.img'))} "
               f"bytes; launches {launches}")
-        check(launches == {"embedding_bag": (1 + 4 * 3) * eb.PASSES,
-                           "scatter_update": 4 * 2,
-                           "scatter_update_logged": 4, "gather_rows": 4},
+        check(launches == checkpointed_launches(4),
               f"checkpoint run: unexpected launch counts {launches}")
         print(mgr.pool.metrics.report())
         mgr.close()
@@ -1530,18 +1586,9 @@ def lm_sparse_timing(torch, dev, cfg, batches, check_bag, check_update,
                            lambda: torch.index_select(table, 0, touched),
                            bound(n_rows * 4 + 2 * n_rows * d * 2, 0)),
     }
-    timing = {}
-    for name, (kern, plain, lib, (b_ms, b_by)) in shapes.items():
-        key = prefix + name
-        timing[key] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
-                       "library_ms": None if lib is None else time_ms(torch, lib),
-                       "bound_ms": b_ms, "bound_by": b_by}
-        device_only = {"ms": time_ms(torch, kern, hide_host=True),
-                       "plain_ms": time_ms(torch, plain, hide_host=True),
-                       "library_ms": None if lib is None
-                       else time_ms(torch, lib, hide_host=True)}
-        print(f"[{cfg.name}-train] {key} ({N} ids, {n_rows} distinct): "
-              + json.dumps(timing[key]) + "; device only: " + json.dumps(device_only))
+    print(f"[{cfg.name}-train] the sparse tier's shapes: {N} ids, {n_rows} distinct")
+    timing = time_shapes(torch, f"[{cfg.name}-train]",
+                         {prefix + name: v for name, v in shapes.items()})
     del table, t_tab, scratch, g_rows, comb, upd, upd_real, upd_real_f32, touched, real
     torch.cuda.empty_cache()
     return timing
@@ -1929,6 +1976,11 @@ def examples_phase():
              ["--pool-backend", "pmem", "--work-dir", work], "fault-tolerance demo PASSED"),
             ("fault_tolerance_demo dram", "fault_tolerance_demo",
              ["--pool-backend", "dram", "--work-dir", work], "fault-tolerance demo PASSED"),
+            ("fault_tolerance_demo sharded", "fault_tolerance_demo",
+             ["--pool-backend", "sharded", "--work-dir", work],
+             "fault-tolerance demo PASSED"),
+            ("serve_batched sharded", "serve_batched", ["--pool-backend", "sharded"],
+             "pool-serving drill PASSED"),
             ("train_dlrm_e2e", "train_dlrm_e2e", ["--steps", "20", "--work-dir", work],
              "== done: 20 steps"),
             ("quickstart", "quickstart", [], "strict == relaxed: True"),
@@ -1960,7 +2012,8 @@ def examples_phase():
                 out = log.read()
             lines = [ln for ln in out.splitlines()
                      if ln.startswith(("==", "[prefill]", "[decode]", "strict", "loss:",
-                                       "fault-tolerance", "shared-pool", "-- tenant"))]
+                                       "fault-tolerance", "shared-pool", "-- tenant",
+                                       "[pool-serve]", "pool-serving"))]
             print(f"[examples] {label}: exit {rc}, done at {wall[label]:.1f}s; "
                   + " | ".join(lines[-4:]))
             check(rc == 0 and marker in out,
@@ -2281,6 +2334,156 @@ def dlrm_pool_serve_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
         shutil.rmtree(work, ignore_errors=True)
 
 
+ROW_COUNTERS = ("launches", "wide_launches", "narrow_launches")
+
+
+def row_counts():
+    """The sparse tier's launch counters, the row kernels' by route."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import scatter_update as su
+    c = {"embedding_bag": eb.launches,
+         "scatter_update_logged": su.launches_logged,
+         "scatter_update_logged_wide": su.wide_launches_logged}
+    for name, mod in (("scatter_update", su), ("gather_rows", gr)):
+        for k in ROW_COUNTERS:
+            c[f"{name}_{k}".replace("_launches", "")] = getattr(mod, k)
+    return c
+
+
+def zero_row_counts():
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import scatter_update as su
+    eb.launches = su.launches_logged = su.wide_launches_logged = 0
+    su.narrow_launches_logged = 0
+    for mod in (su, gr):
+        for k in ROW_COUNTERS:
+            setattr(mod, k, 0)
+
+
+def checkpointed_launches(n):
+    """The launches of n relaxed rm1 steps under a checkpoint manager: the
+    warm-up bag and 3 bags a step (lookup, combine, correction), the
+    scratch's two updates and one logged table update a step, and the
+    manager's gather of the touched rows."""
+    from repro_torch.kernels import embedding_bag as eb
+    return {"embedding_bag": (1 + 3 * n) * eb.PASSES, "scatter_update": 2 * n,
+            "scatter_update_logged": n, "gather_rows": n}
+
+
+def host_room(tag, what, build, ram_gb, disk_gb):
+    """Fails unless the host has ``ram_gb`` of RAM available and ``disk_gb``
+    free under ``build``."""
+    import shutil
+    with open("/proc/meminfo") as f:
+        avail_gb = next(int(ln.split()[1]) for ln in f
+                        if ln.startswith("MemAvailable:")) / 1e6
+    free_gb = shutil.disk_usage(build).free / 1e9
+    print(f"{tag} before: host RAM available {avail_gb:.1f} GB, disk free "
+          f"{free_gb:.1f} GB under build/")
+    check(avail_gb >= ram_gb, f"{what} needs {ram_gb:.0f} GB of free host RAM, "
+          f"{avail_gb:.1f} GB available")
+    check(free_gb >= disk_gb, f"{what} needs {disk_gb:.0f} GB of free disk under "
+          f"{build}, {free_gb:.1f} GB free")
+
+
+def stop_nodes(procs):
+    """Kills every memory-node process still in ``procs`` and reaps it."""
+    for proc in procs:
+        if proc is not None:
+            with contextlib.suppress(ProcessLookupError):
+                proc.kill()
+            proc.wait()
+            if proc.stdout is not None:
+                proc.stdout.close()
+
+
+def wire_stalls(tag, out, name, pool):
+    """Records and prints the reply pauses past the reader's tick that the
+    pool's channels waited out (a sharded pool: per node)."""
+    def pick(st):
+        return {k: st[k] for k in ("stalls", "stall_s_total", "stall_s_max")}
+    st = pool.wire_stats()
+    got = pick(st) if "stalls" in st else {i: pick(v) for i, v in st.items()}
+    out.setdefault("wire_stalls", {})[name] = got
+    print(f"{tag} {name}: reply stalls waited out {got}")
+
+
+def four_checkpointed_steps(tag, cfg, tc, Bsz, dev, state, mgr, where):
+    """4 relaxed steps of full rm1 checkpointed by ``mgr``: exactly the
+    launches of 4 such steps, every row kernel on the 16-byte route, and
+    each step's undo image, captured on the card by the logged update,
+    equal to the pool's (``where``) bitwise. Returns (state, losses,
+    launches)."""
+    from repro_torch.core.checkpoint.manager import check_undo_images, undo_image
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import DLRMBatches
+    batches = LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev), cfg,
+                                depth=5)
+    images = {}
+
+    def on_metrics(n, m):
+        images[n] = undo_image(m["ckpt_feed"])
+    zero_row_counts()
+    state, losses = train_loop_train(cfg, tc, batches, 4, state, mgr, on_metrics)
+    c = row_counts()
+    launches = {k: c[k] for k in checkpointed_launches(4)}
+    print(f"{tag} 4 relaxed steps, losses {losses}; launches {launches}")
+    check(launches == checkpointed_launches(4),
+          f"{tag} unexpected launch counts {launches}")
+    check(c["scatter_update_wide"] == c["scatter_update"]
+          and c["gather_rows_wide"] == c["gather_rows"]
+          and c["scatter_update_logged_wide"] == c["scatter_update_logged"],
+          f"{tag} a row kernel launch off the 16-byte route: {c}")
+    checked = check_undo_images(mgr.ring, images)
+    check(checked == 4, f"{tag} {checked} undo entries checked, want 4")
+    print(f"{tag} the undo images of all {checked} steps, captured on the card "
+          f"by the logged update, equal {where}'s bitwise")
+    return state, losses, launches
+
+
+def twin_and_resume(tag, cfg, tc, cc, Bsz, dev, fresh_state, rec, twin, m):
+    """The uninterrupted twin, ``twin`` (the tables and the dense tree after
+    step m) with its relaxed carry rebuilt, takes 2 relaxed steps; then the
+    resume as the CLI does it: the state from ``rec``, a manager with
+    ``cc`` on the recovered pool, the mirror re-initialised at m, 2 relaxed
+    steps. Fails unless the two give the same losses. Returns the resumed
+    run's manager, still open, and its mirror load in seconds."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.checkpoint import recovery
+    from repro_torch.core.checkpoint.manager import CheckpointManager
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import DLRMBatches
+
+    def batches(start):
+        return LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev), cfg,
+                                 depth=3, start_step=start)
+    twin = {**twin, "prefetch": None,
+            "step": torch.tensor(m + 1, dtype=torch.int32, device=dev)}
+    _, lt = train_loop_train(cfg, tc, batches(m + 1), 2, twin, None, None,
+                             start=m + 1)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, start = recovery.resume_train_state(rec, fresh_state())
+    check(start == m + 1, f"{tag} resume step {start}, want {m + 1}")
+    t = time.perf_counter()
+    mgr = CheckpointManager(cfg, cc, pool=rec.pool)
+    mgr.init_mirror(state["embed"], step=m)
+    load_s = time.perf_counter() - t
+    _, lb = train_loop_train(cfg, dataclasses.replace(tc, checkpoint=cc),
+                             batches(start), 2, state, mgr, None, start=start)
+    mgr.flush()
+    print(f"{tag} resumed at step {start} (mirror load {load_s:.2f}s): losses "
+          f"{lb}; the uninterrupted twin's {lt}")
+    check(lb == lt, f"{tag} resumed losses differ from the twin's")
+    return mgr, load_s
+
+
 def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
                             pmem_tier_e_ms):
     """Phase 18: full-width dlrm-rm1 checkpointed into a memory node in a
@@ -2293,14 +2496,9 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
     import tempfile
 
     from repro_torch.core.checkpoint import recovery
-    from repro_torch.core.checkpoint.manager import (CheckpointManager,
-                                                     check_undo_images,
-                                                     undo_image)
+    from repro_torch.core.checkpoint.manager import CheckpointManager
     from repro_torch.data.lookahead import LookaheadIterator
     from repro_torch.data.synthetic import DLRMBatches
-    from repro_torch.kernels import embedding_bag as eb
-    from repro_torch.kernels import gather_rows as gr
-    from repro_torch.kernels import scatter_update as su
     from repro_torch.pool import PoolAllocator, PoolError, RemotePool
     from repro_torch.pool.allocator import JsonRegion
     from repro_torch.pool.server import start_node, unix_addr
@@ -2311,19 +2509,10 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
     mirror_gb = mirror_bytes / 1e9
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
-    with open("/proc/meminfo") as f:
-        avail_gb = next(int(ln.split()[1]) for ln in f
-                        if ln.startswith("MemAvailable:")) / 1e6
-    disk_gb = shutil.disk_usage(build).free / 1e9
-    print(f"[remote] before: host RAM available {avail_gb:.1f} GB, disk free "
-          f"{disk_gb:.1f} GB under build/")
     # RAM: the node's cache and page cache (2 x mirror each), the trainer's
     # f32 copy, the recovered mirror and the replay's tables on the host.
     # Disk: one node image at a time (run A's node is gone before the drill)
-    check(avail_gb >= 8 * mirror_gb, f"remote phase needs {8 * mirror_gb:.0f} GB "
-          f"of free host RAM, {avail_gb:.1f} GB available")
-    check(disk_gb >= 2 * mirror_gb, f"remote phase needs {2 * mirror_gb:.0f} GB "
-          f"of free disk under {build}, {disk_gb:.1f} GB free")
+    host_room("[remote]", "remote phase", build, 8 * mirror_gb, 2 * mirror_gb)
     work = tempfile.mkdtemp(prefix="remote-ckpt-", dir=build)
     addr = unix_addr(work)
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
@@ -2348,13 +2537,6 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         node.wait(timeout=60)
         node.stdout.close()
 
-    def wire_stalls(name, pool):
-        # reply pauses past the reader's tick that the channel waited out
-        st = pool.wire_stats()
-        out.setdefault("wire_stalls", {})[name] = {
-            k: st[k] for k in ("stalls", "stall_s_total", "stall_s_max")}
-        print(f"[remote] {name}: reply stalls waited out {out['wire_stalls'][name]}")
-
     def host_tables(state):
         t = state["embed"]["emb_tables"]
         return t.to("cpu", torch.float32, copy=True).numpy().reshape(-1, d)
@@ -2366,8 +2548,6 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
                                   dense_interval=4, pool_backend="remote",
                                   pool_addr=addr, pool_tenant="A")
         tca = dataclasses.replace(tc, checkpoint=cca)
-        batches = LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev),
-                                    cfg, depth=5)
         state = fresh_state()
         t = time.perf_counter()
         mgr = CheckpointManager(cfg, cca, embed_init=state["embed"])
@@ -2394,29 +2574,8 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
                           "link_bytes": after.link_bytes() - before.link_bytes(),
                           "media_bytes": after.media_bytes() - before.media_bytes()})
         mgr._do_tier_e = measured_tier_e
-        images = {}
-
-        def on_metrics(n, m):
-            images[n] = undo_image(m["ckpt_feed"])
-
-        eb.launches = su.launches = su.launches_logged = gr.launches = 0
-        su.wide_launches_logged = 0
-        _, la = train_loop_train(cfg, tca, batches, 4, state, mgr, on_metrics)
-        launches = {"embedding_bag": eb.launches, "scatter_update": su.launches,
-                    "scatter_update_logged": su.launches_logged,
-                    "gather_rows": gr.launches}
-        print(f"[remote] run A losses {la}; launches {launches}")
-        check(launches == {"embedding_bag": (1 + 4 * 3) * eb.PASSES,
-                           "scatter_update": 4 * 2, "scatter_update_logged": 4,
-                           "gather_rows": 4},
-              f"remote run A: unexpected launch counts {launches}")
-        check(su.wide_launches_logged == su.launches_logged, "remote run A: the "
-              "logged updates did not all move 16-byte chunks")
-        checked = check_undo_images(mgr.ring, images)
-        check(checked == 4, f"remote run A: {checked} undo entries checked, want 4")
-        print(f"[remote] run A: the undo images of all {checked} steps, captured "
-              "on the card by the logged update, equal the node's bitwise")
-        del images
+        state, _, launches = four_checkpointed_steps(
+            "[remote] run A:", cfg, tca, Bsz, dev, state, mgr, "the node")
         for s_ in steps:
             print(f"[remote] tier-E step {s_['step']}: {s_['ms']:.1f} ms, link "
                   f"{s_['link_bytes']} B (idx {s_['idx_bytes']} + new rows "
@@ -2434,7 +2593,7 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
               f"in process {pmem_tier_e_ms}")
         print(f"[ckpt-remote] stats {json.dumps(mgr.stats)}")
         print(mgr.pool.metrics.report())
-        wire_stalls("run A load + steps", mgr.pool)
+        wire_stalls("[remote]", out, "run A load + steps", mgr.pool)
         mgr.close()
         final = host_tables(state)
         del mgr, state
@@ -2448,7 +2607,7 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
               f"remote run A recovered mirror@{rec.mirror_step}")
         check(np.array_equal(rec.embed_rows.view(np.uint32), final.view(np.uint32)),
               "remote run A: recovered mirror differs from the final tables")
-        wire_stalls("run A recover", rec.pool)
+        wire_stalls("[remote]", out, "run A recover", rec.pool)
         rec.pool.close()
         del rec, final
         gc.collect()
@@ -2505,10 +2664,7 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         out["trainer_launches"] = child
         print(f"[remote] drill: the trainer subprocess's launch counts after "
               f"{n_child} steps: {child}")
-        check(child["scatter_update_logged"] == n_child
-              and child["gather_rows"] == n_child
-              and child["scatter_update"] == 2 * n_child
-              and child["embedding_bag"] == (1 + 3 * n_child) * eb.PASSES,
+        check(child == checkpointed_launches(n_child),
               f"remote drill: the trainer's launch counts {child} are not "
               f"those of {n_child} relaxed steps")
         t = time.perf_counter()
@@ -2520,7 +2676,7 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
               f"rolled_back={rec.rolled_back}")
         check(m >= 2 and 0 <= ds <= m, f"remote drill: recovered mirror@{m} "
               f"dense@{ds}")
-        wire_stalls("drill recover", rec.pool)
+        wire_stalls("[remote]", out, "drill recover", rec.pool)
 
         # the clean replay on the card: the CLI's trainer (params from
         # tc.seed, batches of seed 0) to step m, keeping the dense tree as
@@ -2547,35 +2703,15 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         print(f"[remote] drill: recovered mirror is BIT-IDENTICAL to a clean "
               f"replay on the card through step {m}")
         # the replay's twin of the recovered state: its tables at m, its
-        # dense tree at ds, the relaxed carry rebuilt
-        twin = {**state, **replay.dense, "prefetch": None,
-                "step": torch.tensor(m + 1, dtype=torch.int32, device=dev)}
-        _, lt = train_loop_train(
-            cfg, tc, LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev),
-                                       cfg, depth=3, start_step=m + 1),
-            2, twin, None, None, start=m + 1)
-        del state, twin, replay
-        gc.collect()
-        torch.cuda.empty_cache()
-        # resume as the CLI does: a manager on the recovered connection
+        # dense tree at ds; the resume as the CLI does it
         ccd = dataclasses.replace(tc.checkpoint, directory=ck, pool_backend="remote",
                                   pool_addr=addr, pool_tenant="drill")
-        tcd = dataclasses.replace(tc, checkpoint=ccd)
-        state, start = recovery.resume_train_state(rec, fresh_state())
-        check(start == m + 1, f"remote drill: resume step {start}")
-        mgr = CheckpointManager(cfg, ccd, pool=rec.pool)
-        mgr.init_mirror(state["embed"], step=m)
-        del rec
-        _, lb = train_loop_train(
-            cfg, tcd, LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev),
-                                        cfg, depth=3, start_step=start),
-            2, state, mgr, None, start=start)
+        mgr, _ = twin_and_resume("[remote] drill:", cfg, tc, ccd, Bsz, dev,
+                                 fresh_state, rec, {**state, **replay.dense}, m)
         mgr.close()
-        print(f"[remote] drill: resumed at step {start}, losses {lb}; the replay's "
-              f"twin (tables at {m}, dense at {ds}, carry rebuilt) {lt}")
-        check(lb == lt, "remote drill: resumed losses differ from the replay's")
+        del state, replay, rec
         check(procs["node"].poll() is None, "remote drill: the memory node exited")
-        del mgr, state
+        del mgr
         gc.collect()
         torch.cuda.empty_cache()
         node_down()
@@ -2587,10 +2723,428 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         with contextlib.suppress(ProcessLookupError):
             if "trainer" in procs:
                 os.killpg(procs["trainer"].pid, signal.SIGKILL)
-        for proc in procs.values():
-            with contextlib.suppress(ProcessLookupError):
-                proc.kill()
-            proc.wait()
+        stop_nodes(procs.values())
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# The embedding rate of phase 19's runs. DLRM's accumulator is per table:
+# the mean of g^2 over the table's R * d elements, so a touched element
+# moves by about lr * sqrt(R / rows touched) on the first step (about 88 lr
+# for rm1), where an LM's per-row accumulator moves it by about lr. rm1's
+# loss descends at 1e-5 (4.57, 2.93, 1.92) and reaches 1e5 at 0.01.
+ADAGRAD_EMBED_LR = {"dlrm-rm1": 1e-5, "tinyllama-1.1b": 0.01}
+
+
+def adagrad_phase(torch, np, dev, check_update, check_gather):
+    """Phase 19: row-wise Adagrad on the sparse tier at full width. For
+    full dlrm-rm1 (bf16, batch 128) and full tinyllama-1.1b (bf16, remat,
+    batch 4 x 1024), each run from the seed's params: 3 relaxed Adagrad
+    steps, 3 relaxed sgd steps twice, the Adagrad run again (bitwise the
+    first: losses and accumulator), 2 strict Adagrad steps. tinyllama's
+    strict losses are within the reference's relaxed-vs-strict tolerance
+    of the relaxed run's, each step's accumulator bitwise the relaxed
+    run's. rm1's bf16 schedules see the same rows only at step 0 (loss
+    and accumulator bitwise there): from step 1 the strict step reads rows
+    rounded to bf16 after the update and the relaxed one the stale rows
+    plus the f32 correction, as the reference rounds them. So rm1 is held
+    at the reference's bag tolerance with f32 tables, 2 relaxed and 2
+    strict steps, losses and accumulators. The loss stays within twice its
+    first value. The Adagrad run's launches must be the
+    sgd run's plus exactly the accumulator's: for an LM a scatter_update
+    and a gather_rows a step on the narrow route; for DLRM none (its per
+    table accumulator is a masked sum, as the reference's is plain jnp).
+    Every table launch stays on the 16-byte route. Then the LM
+    accumulator's kernels at the run's shapes against their plain
+    versions, timed; then smoke dlrm-rm1 and tinyllama, 5 Adagrad steps on
+    the card against the CPU. Returns ({arch: the first Adagrad run's
+    counts}, step ms, timings)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import relaxed as rx
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.registry import get_api
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_map
+
+    ADA = "rowwise_adagrad"
+    tol = {"dlrm-rm1": 2e-5, "tinyllama-1.1b": 1e-6}   # tests/test_relaxed.py's
+    all_counts, all_steps, timing = {}, {}, {}
+    for arch in ("dlrm-rm1", "tinyllama-1.1b"):
+        tag = f"[adagrad {arch}]"
+        cfg = cfg_ = get_arch(arch).model
+        dlrm = cfg.arch_type == "dlrm"
+        B, S, steps = (128, 0, 3) if dlrm else (4, 1024, 3)
+        api = get_api(cfg)
+        leaf = rx.embed_leaf(cfg)
+
+        def run(opt, relaxed, n, f32=False, api=api, B=B, S=S, leaf=leaf):
+            cfg = dataclasses.replace(cfg_, dtype="float32") if f32 else cfg_
+            tc = TrainConfig(learning_rate=1e-3, embed_optimizer=opt,
+                             embed_learning_rate=ADAGRAD_EMBED_LR[arch])
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(tc.seed)
+            state = train_loop.make_step_fns(cfg, tc)[0](api.init(gen, cfg))
+            acc, accs = state["opt_embed"][leaf] if opt == ADA else None, []
+            # every batch of a run is made first (set-up, on the host)
+            batches = LookaheadIterator(make_batches(cfg, B, S, seed=0, device=dev),
+                                        cfg, depth=n + 1)
+            torch.cuda.synchronize()
+            stamps = [time.perf_counter()]
+
+            def on_metrics(n_, m):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                if acc is not None:     # updated in place: this step's
+                    accs.append(acc.clone())
+            zero_row_counts()
+            state, losses = train_loop.train(cfg, tc, batches, n, relaxed=relaxed,
+                                             state=state, on_metrics=on_metrics)
+            counts = row_counts()
+            del state
+            torch.cuda.empty_cache()
+            ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:], strict=True)]
+            return losses, ms, counts, accs
+
+        t0 = time.perf_counter()
+        ada = run(ADA, True, steps)
+        sgd = run("sgd", True, steps)
+        sgd2 = run("sgd", True, steps)
+        ada2 = run(ADA, True, steps)
+        strict = run(ADA, False, 2)
+        print(f"{tag} relaxed losses {ada[0]}; again {ada2[0]}; strict {strict[0]}; "
+              f"sgd {sgd[0]}")
+        print(f"{tag} launches: adagrad relaxed {ada[2]}; sgd relaxed {sgd[2]}; "
+              f"adagrad strict {strict[2]}")
+        check(all(math.isfinite(x) for x in ada[0] + strict[0]),
+              f"{arch} adagrad: non-finite loss")
+        check(ada2[0] == ada[0] and all(torch.equal(a, b) for a, b in
+                                        zip(ada2[3], ada[3], strict=True)),
+              f"{arch} adagrad: the relaxed run is not repeatable bitwise")
+        check(max(ada[0]) <= 2 * ada[0][0], f"{arch} adagrad: the loss leaves its "
+              f"range at embed lr {ADAGRAD_EMBED_LR[arch]}: {ada[0]}")
+
+        def acc_rel(a, b):
+            return ((a - b).abs().max() / b.abs().max()).item()
+        same = [torch.equal(a, b) for a, b in zip(strict[3], ada[3], strict=False)]
+        print(f"{tag} strict vs relaxed: losses max rel diff "
+              f"{max(abs(a - b) / abs(b) for a, b in zip(strict[0], ada[0]))}; "
+              f"accumulator bitwise at each step {same}, max rel diff "
+              f"{[acc_rel(a, b) for a, b in zip(strict[3], ada[3], strict=False)]}")
+        if dlrm:
+            check(strict[0][0] == ada[0][0] and same[0], f"{arch} adagrad: the "
+                  "schedules differ at step 0, on the same rows")
+            r32, s32 = run(ADA, True, 2, f32=True), run(ADA, False, 2, f32=True)
+            rel = [acc_rel(a, b) for a, b in zip(s32[3], r32[3], strict=True)]
+            print(f"{tag} f32 tables: relaxed losses {r32[0]}, strict {s32[0]}; "
+                  f"accumulator max rel diff {rel}")
+            check(np.allclose(s32[0], r32[0], rtol=tol[arch], atol=tol[arch])
+                  and max(rel) <= tol[arch], f"{arch} adagrad, f32 tables: strict "
+                  f"vs relaxed beyond {tol[arch]}")
+            del r32, s32
+        else:
+            check(np.allclose(strict[0], ada[0][:2], rtol=tol[arch], atol=tol[arch]),
+                  f"{arch} adagrad: strict {strict[0]} vs relaxed {ada[0][:2]} "
+                  f"beyond {tol[arch]}")
+            check(len(same) == 2 and all(same), f"{arch} adagrad: the strict run's "
+                  "accumulator differs from the relaxed run's")
+        last = ada[3][-1]
+        want_acc = (cfg.dlrm_num_tables, 1, 1) if dlrm else (cfg.vocab_size, 1)
+        check(tuple(last.shape) == want_acc and bool((last >= 0).all())
+              and bool((last > 0).any()), f"{arch}: accumulator {tuple(last.shape)}")
+        # the accumulator's launches, and only those, on the narrow route
+        acc_n = 0 if dlrm else steps
+        extra = {"scatter_update": acc_n, "scatter_update_narrow": acc_n,
+                 "gather_rows": acc_n, "gather_rows_narrow": acc_n}
+        want = {k: v + extra.get(k, 0) for k, v in sgd[2].items()}
+        check(sgd[2]["scatter_update_narrow"] == sgd[2]["gather_rows_narrow"] == 0,
+              f"{arch} sgd: narrow launches {sgd[2]}")
+        check(ada[2] == want, f"{arch} adagrad relaxed launches {ada[2]}, want the "
+              f"sgd run's plus the accumulator's {want}")
+        check(ada[2]["scatter_update_logged_wide"] == ada[2]["scatter_update_logged"],
+              f"{arch} adagrad: a logged update off the 16-byte route")
+        n_strict, acc_n = 2, 0 if dlrm else 2
+        check(strict[2]["scatter_update_narrow"] == strict[2]["gather_rows_narrow"]
+              == acc_n and strict[2]["scatter_update_wide"] == n_strict
+              and strict[2]["gather_rows_wide"] == (0 if dlrm else n_strict)
+              and strict[2]["scatter_update"] == n_strict + acc_n,
+              f"{arch} adagrad strict launches {strict[2]}")
+        step = {"adagrad_ms": ada[1] + ada2[1], "sgd_ms": sgd[1] + sgd2[1],
+                "adagrad_ms_median": statistics.median(ada[1][1:] + ada2[1][1:]),
+                "sgd_ms_median": statistics.median(sgd[1][1:] + sgd2[1][1:])}
+        step["adagrad_over_sgd"] = step["adagrad_ms_median"] / step["sgd_ms_median"]
+        print(f"{tag} step ms in turns (adagrad, sgd, sgd, adagrad): {json.dumps(step)}; "
+              f"{time.perf_counter() - t0:.1f}s")
+        all_counts[arch], all_steps[arch] = ada[2], step
+
+        # the LM accumulator's kernels at the run's shapes
+        if not dlrm:
+            batch = make_batches(cfg, B, S, seed=0, device=dev).next(0)
+            d = cfg.d_model
+            ids = batch["tokens"].reshape(-1).to(torch.int32).contiguous()
+            N = ids.numel()
+            uniq, g = ops.combine_duplicates(ids, torch.randn((N, d), device=dev) * 1e-3)
+            n_rows = int((uniq >= 0).sum())
+            acc = torch.rand((cfg.vocab_size, 1), device=dev)
+            msq = torch.mean(torch.square(g), dim=1, keepdim=True)
+            clamped = uniq.clamp(min=0)
+            real = uniq[:n_rows].long()
+            check_gather(acc, clamped, "tinyllama adagrad accumulator rows")
+            check_update(acc.clone(), uniq, msq, "tinyllama adagrad accumulator")
+            shapes = {
+                # the ids once, each slot's accumulator read and written
+                "lm_acc_gather": (lambda: ops.gather_rows(acc, clamped),
+                                  lambda: ref.gather_rows_ref(acc, clamped),
+                                  lambda: torch.index_select(acc, 0, clamped),
+                                  bound(N * 4 * 3, 0)),
+                # the ids, each touched row's f32 increment, read and written
+                "lm_acc_update": (lambda: ops.scatter_update(acc, uniq, msq),
+                                  lambda: ref.scatter_update_ref(acc, uniq, msq),
+                                  lambda: acc.index_add_(0, real, msq[:n_rows]),
+                                  bound(N * 4 + n_rows * 4 * 3, n_rows)),
+            }
+            timing.update(time_shapes(torch, tag, shapes))
+
+        # smoke on the card against the CPU, from the same params
+        scfg = get_arch(arch, smoke=True).model
+        stc = TrainConfig(embed_learning_rate=0.01, embed_optimizer=ADA)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        params = get_api(scfg).init(gen, scfg)
+        res = {}
+        for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            st = train_loop.make_step_fns(scfg, stc)[0](
+                tree_map(lambda p, w=where: p.to(w, copy=True), params))
+            st, losses = train_loop.train(scfg, stc, make_batches(scfg, 4, 16, seed=0,
+                                                                  device=where),
+                                          5, relaxed=True, state=st, device=where)
+            res[name] = (np.asarray(losses), st["opt_embed"][leaf].cpu().numpy())
+        (lc, ac), (lh, ah) = res["card"], res["cpu"]
+        rel = np.abs(ac - ah).max() / np.abs(ah).max()
+        print(f"{tag} smoke card vs cpu, 5 adagrad steps: losses {lc.tolist()} vs "
+              f"{lh.tolist()}; accumulator max rel diff {rel:.3g}")
+        # AdamW's first steps amplify float-order differences (phase 5)
+        check(np.allclose(lc, lh, rtol=1e-4, atol=1e-5),
+              f"{arch} smoke adagrad: card losses {lc} vs cpu {lh}")
+        check(rel <= 1e-4, f"{arch} smoke adagrad: accumulator differs by {rel:.3g}")
+    return all_counts, all_steps, timing
+
+
+def sharded_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
+    """Phase 20: full-width dlrm-rm1 checkpointed into a sharded pool of
+    three memory nodes (``python -m repro_torch.pool.server`` processes on
+    pmem images under build/, unix sockets), which survives the permanent
+    loss of the node that holds the mirror and the manifest's primary.
+    Returns the run's launch counts and the numbers it printed."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.core.checkpoint import recovery
+    from repro_torch.core.checkpoint.manager import CheckpointManager
+    from repro_torch.pool import PoolError
+    from repro_torch.pool.server import start_node, unix_addr
+    from repro_torch.tree import tree_map
+
+    T, R, d = cfg.dlrm_num_tables, cfg.dlrm_rows_per_table, cfg.dlrm_bottom_mlp[-1]
+    mirror_gb = T * R * d * 4 / 1e9
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    # RAM: three node caches with their page cache (the mirror, its replica
+    # and the promoted copy), the trainer's f32 load and recovered copies.
+    # Disk: the mirror, its replica and the promoted copy, plus the rings
+    host_room("[sharded]", "sharded phase", build, 10 * mirror_gb, 4 * mirror_gb)
+    work = tempfile.mkdtemp(prefix="sharded-ckpt-", dir=build)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    addrs = [unix_addr(work, f"node{i}.sock") for i in range(3)]
+    images = [os.path.join(work, f"node{i}.img") for i in range(3)]
+    procs = [None] * 3
+    out = {}
+    lost, keep, spare = 0, 1, 2     # the mirror's node, dense's, the replica's
+    ck = os.path.join(work, "ck")
+
+    def used(pool, name):
+        snaps = pool.shard_metrics()
+        out.setdefault("used_bytes", {})[name] = [
+            None if s.get("unreachable") else s["used_bytes"] for s in snaps]
+        print(f"[sharded] {name}: used bytes per node {out['used_bytes'][name]}")
+
+    try:
+        t0 = time.perf_counter()
+        for i in range(3):
+            try:
+                procs[i] = start_node(addrs[i], path=images[i], env=env,
+                                      capacity=(64 << 20))
+            except PoolError as e:
+                fail(f"sharded: memory node {i} did not start: {e}")
+        print(f"[sharded] three memory nodes up in {time.perf_counter() - t0:.1f}s "
+              f"(pmem images, unix sockets); node {lost} holds the mirror and the "
+              f"manifest's primary, node {keep} the dense tier, node {spare} the "
+              f"replicas")
+        # pool_compress none: a zlib refresh of the 2.56 GB mirror runs at the
+        # node's zlib rate, a minute or more (PERF.md)
+        cc = dataclasses.replace(
+            tc.checkpoint, directory=ck, dense_interval=2, max_undo_logs=4,
+            pool_backend="sharded", pool_shards=",".join(addrs),
+            pool_placement=f"embedding-mirror={lost},manifest={lost},dense={keep}",
+            pool_tenant="sharded", pool_compress="none", pool_manifest_quorum=True,
+            pool_replica=spare, pool_replica_every=2, pool_ckpt_replica=spare)
+        tcs = dataclasses.replace(tc, checkpoint=cc)
+        state = fresh_state()
+        t = time.perf_counter()
+        mgr = CheckpointManager(cfg, cc, embed_init=state["embed"])
+        out["mirror_load_s"] = time.perf_counter() - t
+        pool = mgr.pool
+        check(pool.backend == "sharded" and pool.nshards == 3,
+              "sharded: the manager's pool is not the three nodes")
+        check(pool.placement.place("embedding-mirror") == lost
+              and pool.placement.place("undo-log") == lost
+              and pool.placement.place("manifest") == lost,
+              f"sharded: placement {pool.placement.to_json()}")
+        print(f"[sharded] manager start + mirror load onto node {lost} "
+              f"({mirror_gb:.2f} GB f32): {out['mirror_load_s']:.2f}s; witnesses "
+              f"on nodes {[pool.placement.place(f'manifest@w{k}') for k in (1, 2)]}")
+        refreshes, tier_e = [], []
+        replicate = pool.replicate_domain
+
+        def timed_replicate(domain, dst, **kw):
+            t = time.perf_counter()
+            info = replicate(domain, dst, **kw)
+            refreshes.append({"domain": domain, "s": time.perf_counter() - t,
+                              "link_bytes": info["link_bytes"],
+                              "watermark": info["watermark"]})
+            return info
+        pool.replicate_domain = timed_replicate
+        do_tier_e = mgr._do_tier_e
+
+        def timed_tier_e(step, idx, new_rows):
+            n0 = len(refreshes)
+            t = time.perf_counter()
+            do_tier_e(step, idx, new_rows)
+            s = time.perf_counter() - t
+            tier_e.append({"step": step, "s": s, "replication_s": sum(
+                r["s"] for r in refreshes[n0:])})
+        mgr._do_tier_e = timed_tier_e
+        kept = {}
+        on_step = mgr.on_step
+
+        def keeping_on_step(n, st, feed):
+            if n % cc.pool_replica_every == 0:     # a refresh step: the
+                kept[n] = tree_map(torch.clone, {  # twin's state there
+                    k: st[k] for k in ("embed", "dense", "opt_dense",
+                                       "opt_embed")})
+            on_step(n, st, feed)
+        mgr.on_step = keeping_on_step
+        state, _, launches = four_checkpointed_steps(
+            "[sharded]", cfg, tcs, Bsz, dev, state, mgr, f"node {lost}")
+        for s_ in tier_e:
+            print(f"[sharded] tier-E step {s_['step']}: {s_['s']:.2f}s, of which "
+                  f"replication {s_['replication_s']:.2f}s")
+        for r in refreshes:
+            print(f"[sharded] refresh of {r['domain']}@replica on node {spare}: "
+                  f"{r['s']:.2f}s, {r['link_bytes']} link bytes, watermark "
+                  f"{r['watermark']}")
+        out["tier_e_s"] = [s_["s"] for s_ in tier_e]
+        out["replication_s"] = [s_["replication_s"] for s_ in tier_e]
+        out["refreshes"] = refreshes
+        st = dict(mgr.stats)
+        print(f"[sharded] checkpoint stats {json.dumps(st)}")
+        check(st["replica_refresh_failures"] == 0 and st["manifest_witness_failures"] == 0,
+              f"sharded: replication degraded {st}")
+        check(st["replica_refreshes"] == 2 and st["ship_steps"] == 4,
+              f"sharded: {st['replica_refreshes']} mirror refreshes and "
+              f"{st['ship_steps']} ships, want 2 and 4")
+        used(pool, "after 4 steps")
+        wire_stalls("[sharded]", out, "4 steps", pool)
+        last = max(kept)
+        mgr._do_tier_e, mgr.on_step = do_tier_e, on_step
+        pool.replicate_domain = replicate
+
+        # node `lost` dies for good: kill -9, image deleted, never restarted
+        os.kill(procs[lost].pid, signal.SIGKILL)
+        procs[lost].wait()
+        procs[lost].stdout.close()
+        procs[lost] = None
+        os.remove(images[lost])
+        print(f"[sharded] kill -9'd memory node {lost} and DELETED its image")
+        with contextlib.suppress(PoolError, RuntimeError):
+            mgr.close()                    # the trainer goes down with it
+        del mgr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        pool = recovery.open_pool(ck)      # the survivors only
+        out["reopen_s"] = time.perf_counter() - t
+        check(pool.dead_shards() == [lost], f"sharded: dead shards "
+              f"{pool.dead_shards()}")
+        man = recovery._read_manifest(recovery.PoolAllocator(pool), pool)
+        check(man is not None and man["mirror_step"] == 3,
+              f"sharded: the 2-of-3 manifest election gave {man}")
+        print(f"[sharded] reopened with the survivors in {out['reopen_s']:.2f}s; the "
+              f"manifest elected 2 of 3 (witnesses on nodes "
+              f"{[pool.placement.place(f'manifest@w{k}') for k in (1, 2)]}): "
+              f"mirror@{man['mirror_step']} dense@{man['dense_step']}")
+        epoch0 = pool.placement.epoch
+        pool.epoch_sink = lambda pm: recovery.record_placement(ck, pool)
+        t = time.perf_counter()
+        info = pool.promote_replica("embedding-mirror", compress="none")
+        out["promote_s"] = time.perf_counter() - t
+        check(set(info["promoted"]) == {"embedding-mirror", "undo-log"}
+              and info["epoch"] == epoch0 + 1
+              and all(v == spare for v in info["dst"].values()),
+              f"sharded: promotion {info}")
+        print(f"[sharded] promoted embedding-mirror + undo-log to node {spare} in "
+              f"ONE epoch ({info['epoch']}): {out['promote_s']:.2f}s, "
+              f"{info['link_bytes']} link bytes")
+        info = pool.promote_replica("manifest", compress="none",
+                                    from_domain="manifest@w1")
+        print(f"[sharded] the manifest's primary promoted from witness 1 on node "
+              f"{info['dst']['manifest']} (epoch {info['epoch']})")
+        pool.close()
+        t = time.perf_counter()
+        rec = recovery.recover(ck)
+        out["recover_s"] = time.perf_counter() - t
+        m, ds = rec.mirror_step, rec.dense_step
+        print(f"[sharded] recover after the promotion: {out['recover_s']:.2f}s, "
+              f"mirror@{m} dense@{ds} gap={rec.gap} rolled_back={rec.rolled_back}")
+        check(m == last and ds == last and rec.rolled_back,
+              f"sharded: recovered mirror@{m} dense@{ds} rolled_back="
+              f"{rec.rolled_back}, want {last}, {last}, True")
+        want = kept[last]["embed"]["emb_tables"].to("cpu", torch.float32).numpy()
+        check(np.array_equal(rec.embed_rows.view(np.uint32),
+                             want.reshape(-1, d).view(np.uint32)),
+              f"sharded: the promoted mirror differs from the tables at step {m}")
+        print(f"[sharded] the promoted mirror equals the card's tables at step {m} "
+              f"(the replication watermark) BITWISE; step {m + 1} rolled back from "
+              f"the replica's undo ring")
+        wire_stalls("[sharded]", out, "recover", rec.pool)
+        used(rec.pool, "after the promotion")
+        del want
+        # the uninterrupted twin: tables and dense tree at m; the resume
+        # on the survivors, replication off
+        ccr = dataclasses.replace(cc, pool_replica=-1, pool_ckpt_replica=-1)
+        twin = {**fresh_state(), **kept.pop(last)}
+        kept.clear()
+        mgr, out["resume_mirror_load_s"] = twin_and_resume(
+            "[sharded] on the survivors:", cfg, tc, ccr, Bsz, dev, fresh_state, rec,
+            twin, m)
+        del twin, rec
+        check(mgr.stats["replica_refresh_failures"] == 0,
+              "sharded: replication degraded after the resume")
+        wire_stalls("[sharded]", out, "resume", mgr.pool)
+        mgr.close()
+        del mgr
+        gc.collect()
+        torch.cuda.empty_cache()
+        for i in (keep, spare):
+            check(procs[i].poll() is None, f"sharded: memory node {i} exited")
+        print("[sharded] three memory nodes, the mirror's node lost for good: "
+              "promotion, bitwise recovery and resume: ok")
+        return launches, out
+    finally:
+        stop_nodes(procs)      # none outlives the phase
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -2836,17 +3390,7 @@ def main():
                         lambda: torch.index_select(tables, 0, real_ids),
                         bound(n_rows * 4 + 2 * n_rows * d * rows_b, 0)),
     }
-    timing = {}
-    for name, (kern, plain, lib, (b_ms, b_by)) in shapes.items():
-        timing[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
-                        "library_ms": None if lib is None else time_ms(torch, lib),
-                        "bound_ms": b_ms, "bound_by": b_by}
-        device_only = {"ms": time_ms(torch, kern, hide_host=True),
-                       "plain_ms": time_ms(torch, plain, hide_host=True),
-                       "library_ms": None if lib is None
-                       else time_ms(torch, lib, hide_host=True)}
-        print(f"[kernels] {name}: " + json.dumps(timing[name])
-              + "; device only: " + json.dumps(device_only))
+    timing = time_shapes(torch, "[kernels]", shapes)
     del tables, t_tab, scratch, g_rows, g_comb, upd, upd_real_bf16, real_ids
     torch.cuda.empty_cache()
 
@@ -3037,6 +3581,19 @@ def main():
         torch, np, cfg, tc, Bsz, dev, fresh_state, ck_tier_e_ms)
     print(f"[remote] phase 18 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 19. row-wise Adagrad on the sparse tier at full width ---------------------
+    t0 = time.perf_counter()
+    ada_launches, ada_step, ada_timing = adagrad_phase(torch, np, dev, check_update,
+                                                       check_gather)
+    timing.update(ada_timing)
+    print(f"[adagrad] phase 19 wall time {time.perf_counter() - t0:.1f}s")
+
+    # -- 20. full rm1 checkpointed into a sharded pool of three memory nodes ------
+    t0 = time.perf_counter()
+    sharded_launches, sharded_out = sharded_checkpoint_phase(torch, np, cfg, tc, Bsz,
+                                                             dev, fresh_state)
+    print(f"[sharded] phase 20 wall time {time.perf_counter() - t0:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
     # for the gather, flash attention and wkv6, phases 12's and 16's relaxed
@@ -3049,6 +3606,9 @@ def main():
                   "src/repro/kernels/scatter_update.py:24")
     logged_src = ("src/repro_torch/csrc/scatter_update_logged.cu",
                   "src/repro/kernels/scatter_update.py:56")
+    bag_src = ("src/repro_torch/csrc/embedding_bag.cu",
+               "src/repro/kernels/embedding_bag.py:40")
+    ada_rm1, ada_lm = ada_launches["dlrm-rm1"], ada_launches["tinyllama-1.1b"]
     kernels = []
     for name, path, main_shape, n, src, replaces in (
             ("embedding_bag", "dlrm-rm1 train", "bag_fwd", launches["embedding_bag"],
@@ -3138,7 +3698,36 @@ def main():
              "update_logged_bf16", remote_launches["scatter_update_logged"],
              *logged_src),
             ("gather_rows", "dlrm-rm1 checkpoint (memory node)", "gather_bf16",
-             remote_launches["gather_rows"], *gather_src)):
+             remote_launches["gather_rows"], *gather_src),
+            # phase 19: the Adagrad runs, the accumulator's launches apart
+            ("embedding_bag", "dlrm-rm1 train (adagrad)", "bag_fwd",
+             ada_rm1["embedding_bag"], *bag_src),
+            ("scatter_update", "dlrm-rm1 train (adagrad)", "update_f32",
+             ada_rm1["scatter_update"], *update_src),
+            ("scatter_update_logged", "dlrm-rm1 train (adagrad)", "update_logged_bf16",
+             ada_rm1["scatter_update_logged"], *logged_src),
+            ("embedding_bag", "tinyllama-1.1b train (adagrad)", "lm_bag_combine",
+             ada_lm["embedding_bag"], *bag_src),
+            ("gather_rows", "tinyllama-1.1b train (adagrad)", "gather_prefill",
+             ada_lm["gather_rows_wide"], *gather_src),
+            ("gather_rows", "tinyllama-1.1b train (adagrad accumulator)",
+             "lm_acc_gather", ada_lm["gather_rows_narrow"], *gather_src),
+            ("scatter_update", "tinyllama-1.1b train (adagrad)", "lm_update_f32",
+             ada_lm["scatter_update_wide"], *update_src),
+            ("scatter_update", "tinyllama-1.1b train (adagrad accumulator)",
+             "lm_acc_update", ada_lm["scatter_update_narrow"], *update_src),
+            ("scatter_update_logged", "tinyllama-1.1b train (adagrad)",
+             "lm_update_logged_bf16", ada_lm["scatter_update_logged"], *logged_src),
+            # phase 20: rm1 checkpointed into three memory nodes
+            ("embedding_bag", "dlrm-rm1 train (sharded pool)", "bag_fwd",
+             sharded_launches["embedding_bag"], *bag_src),
+            ("scatter_update", "dlrm-rm1 train (sharded pool)", "update_f32",
+             sharded_launches["scatter_update"], *update_src),
+            ("scatter_update_logged", "dlrm-rm1 train (sharded pool)",
+             "update_logged_bf16", sharded_launches["scatter_update_logged"],
+             *logged_src),
+            ("gather_rows", "dlrm-rm1 checkpoint (sharded pool)", "gather_bf16",
+             sharded_launches["gather_rows"], *gather_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -3147,6 +3736,8 @@ def main():
     print(f"[rwkv6-3b-train] full rwkv6-3b batch 4 x 1024: {json.dumps(rw_step)}")
     print(f"[pool-serve] served from the pool mirror: {json.dumps(pool_out)}")
     print(f"[remote] memory node: {json.dumps(remote_out)}")
+    print(f"[adagrad] step ms in turns: {json.dumps(ada_step)}")
+    print(f"[sharded] three memory nodes: {json.dumps(sharded_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

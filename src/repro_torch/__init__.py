@@ -8,7 +8,10 @@ Entry points run on ``cuda`` unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -17,6 +20,7 @@ def resolve_device(device="cuda") -> torch.device:
     A CUDA device with no card present is an error: the caller passes
     ``device="cpu"`` to run the plain versions on the CPU.
     """
+    import torch     # here: a memory node imports this package without it
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

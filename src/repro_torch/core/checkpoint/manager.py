@@ -33,9 +33,21 @@ evicts exactly the touched rows from its hot-row cache there.
 ``pool_backend="remote"`` checkpoints into a memory node in another process
 (``repro_torch.pool.server`` at ``pool_addr``) as tenant ``pool_tenant``:
 the fused op runs inside the node, so per step only (step, idx, new_rows)
-and a few headers cross the socket. The JAX package's manifest witnesses,
-placement records, rebalancing and replication serve its sharded pools,
-and are not ported.
+and a few headers cross the socket.
+
+``pool_backend="sharded"`` spreads the domains over the nodes of
+``pool_shards`` (``pool.sharded.ShardedPool``; ``pool_placement`` pins
+domains). POOL.json records the placement, and every epoch flip publishes
+through ``record_placement``. On the writer thread, after each tier-E
+commit: the read replica of the mirror is refreshed on shard
+``pool_replica`` every ``pool_replica_every`` steps; the committed undo
+slot (and, without a quorum, the manifest) ships to shard
+``pool_ckpt_replica``; the capacity rebalancer (``pool_rebalance``) may
+migrate a domain. With ``pool_manifest_quorum`` on three or more nodes two
+witness copies of the manifest live on other nodes, and recovery elects
+the 2-of-3 majority. A failure of a replica or a witness degrades the
+redundancy (``stats`` counts it, one line is printed) and never stops
+training: the primary has committed.
 """
 from __future__ import annotations
 
@@ -58,6 +70,7 @@ from repro_torch.pool.device import (PoolDevice, PoolError, check_backend,
                                      check_checker_off, make_pool)
 from repro_torch.pool.faults import FaultSchedule, InjectedCrash
 from repro_torch.pool.nmp import NmpQueue
+from repro_torch.pool.placement import RebalancePolicy
 from repro_torch.tree import tree_map
 
 
@@ -128,6 +141,9 @@ class CheckpointManager:
             if backend == "remote" and not getattr(ckpt_cfg, "pool_addr", ""):
                 raise PoolError("remote backend needs a server addr "
                                 "(unix:/path or tcp:host:port)")
+            if backend == "sharded" and not getattr(ckpt_cfg, "pool_shards", ""):
+                raise PoolError("sharded backend needs shard addrs "
+                                "(--pool-shards addr1,addr2,...)")
         os.makedirs(self.root, exist_ok=True)
         self.pool = pool
         self.faults = faults
@@ -138,6 +154,9 @@ class CheckpointManager:
         self.manifest: Optional[JsonRegion] = None
         self.nmp: Optional[NmpQueue] = None
         self._commit_hooks: list = []
+        self._man_witnesses: list = []
+        self._ship_gen: Optional[int] = None
+        self._degraded_warned = False
         self._q: queue.Queue = queue.Queue(maxsize=8)
         self._err: Optional[BaseException] = None
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -145,7 +164,13 @@ class CheckpointManager:
         self.stats = {"tier_e": 0, "tier_m": 0, "tier_m_skipped": 0,
                       "bytes_e": 0, "bytes_m": 0,
                       "undo_raw_bytes": 0, "undo_stored_bytes": 0,
-                      "dense_stored_bytes": 0}
+                      "dense_stored_bytes": 0,
+                      "migrations": 0, "migration_link_bytes": 0,
+                      "replica_refreshes": 0, "replica_link_bytes": 0,
+                      "replica_refresh_failures": 0,
+                      "ship_steps": 0, "ship_link_bytes": 0,
+                      "ship_full_refreshes": 0,
+                      "manifest_witness_failures": 0}
         if embed_init is not None:
             self.init_mirror(embed_init)
 
@@ -160,37 +185,210 @@ class CheckpointManager:
                 backend, path=os.path.join(self.root, "pool.img"),
                 capacity=capacity_hint, faults=self.faults, addr=addr,
                 tenant=tenant, quota=quota,
+                shards=getattr(self.ccfg, "pool_shards", ""),
+                placement=getattr(self.ccfg, "pool_placement", ""),
+                rebalance=float(getattr(self.ccfg, "pool_rebalance", 0.0)
+                                or 0.0),
                 secret=getattr(self.ccfg, "pool_secret", ""),
                 timeout=getattr(self.ccfg, "pool_timeout", None))
             # POOL.json lets recovery reopen the same pool: pmem by its
             # image, remote by reconnecting to the node that outlived the
             # trainer, as the same tenant with the same quota (the tcp
-            # secret is read from the environment again, never stored).
-            # The keys are the JAX package's: either package reads them.
+            # secret is read from the environment again, never stored); a
+            # sharded pool by its resolved placement (record_placement
+            # below), so recovery reconnects every node and replays the
+            # epochs to the same assignment. The keys are the JAX
+            # package's: either package reads them.
             info = {"backend": backend, "addr": addr, "tenant": tenant,
-                    "quota": quota, "manifest_quorum": False,
-                    "ckpt_replica": -1}
+                    "quota": quota,
+                    "manifest_quorum": bool(getattr(
+                        self.ccfg, "pool_manifest_quorum", False)),
+                    "ckpt_replica": int(getattr(
+                        self.ccfg, "pool_ckpt_replica", -1))}
             store.write_json_atomic(
                 os.path.join(self.root, "POOL.json"), info)
+        if self._sharded():
+            # the durable half of every epoch flip goes through here
+            self.pool.epoch_sink = self.record_placement
+            reb = float(getattr(self.ccfg, "pool_rebalance", 0.0) or 0.0)
+            if reb > 0 and self.pool.rebalance is None:
+                self.pool.rebalance = RebalancePolicy(high=reb)
+            self.record_placement()
         self._alloc = PoolAllocator(self.pool)
         self.manifest = JsonRegion.create(self._alloc.domain("manifest"),
                                           "manifest")
         self.compress = getattr(self.ccfg, "pool_compress", "zlib")
+        self._open_witnesses()
         self.ring = UndoRing(self._alloc, self.ccfg.max_undo_logs,
                              compress=self.compress)
         self.nmp = NmpQueue(self.pool)
         self.dense_dom = self._alloc.domain("dense")
 
+    def _sharded(self) -> bool:
+        return getattr(self.pool, "backend", "") == "sharded"
+
+    def _open_witnesses(self):
+        """The 2-of-3 manifest quorum (sharded, three nodes or more): two
+        witness copies of the manifest (``manifest@w1``, ``manifest@w2``)
+        are pinned to the two shards after the primary's, so the three
+        copies live on distinct nodes and the loss of any one leaves a
+        majority. The pins ride in the published placement; recovery finds
+        the witnesses there and elects by sealed sequence number."""
+        self._man_witnesses = []
+        if not bool(getattr(self.ccfg, "pool_manifest_quorum", False)) \
+                or not self._sharded() or self.pool.nshards < 3:
+            return
+        primary = self.pool.placement.place("manifest")
+        pinned = False
+        for k in (1, 2):
+            wdom = f"manifest@w{k}"
+            if self.pool.placement.explicit(wdom) is None:
+                self.pool.placement = self.pool.placement.with_pin(
+                    wdom, (primary + k) % self.pool.nshards)
+                pinned = True
+            try:
+                self._man_witnesses.append(
+                    JsonRegion.create(self._alloc.domain(wdom), "manifest"))
+            except PoolError as e:      # a lost witness shard: 2 of 3 hold
+                self._degraded("manifest_witness_failures", e)
+        if pinned:
+            self.record_placement()
+
     def _man_write(self, man: dict, point: str):
-        """Advance the manifest (the primary copy: the port has no quorum
-        witnesses)."""
+        """Advance the manifest: the primary copy first (the one a recovery
+        without a quorum elects), then the witnesses. A dead witness is
+        counted and skipped, never fatal."""
         self.manifest.write(man, point=point)
+        for w in self._man_witnesses:
+            try:
+                w.write(man, point="manifest-witness")
+            except PoolError as e:
+                self._degraded("manifest_witness_failures", e)
+
+    def _degraded(self, key: str, err: BaseException):
+        """A failure on the replication side (a dead replica destination,
+        a lost witness shard) degrades the redundancy, never training: the
+        primary has committed, only the extra copy is behind. Counted each
+        time, printed once."""
+        self.stats[key] += 1
+        if not self._degraded_warned:
+            self._degraded_warned = True
+            print(f"[ckpt] replication degraded (training continues): {err}")
 
     def _hit(self, point: str):
         """Manager-level fault point (between pipeline stages)."""
         if self.faults is not None:
             if self.faults.hit(point) == "crash-after":
                 raise InjectedCrash(point, self.faults.counts[point])
+
+    def record_placement(self, placement=None):
+        """Publish the pool's placement map into POOL.json, the commit point
+        of every epoch flip: the whole new file replaces the old one in one
+        atomic rename, and every epoch record carries its own CRC, so
+        recovery reads either the placement before the flip or the one
+        after it (a torn tail record falls back to the previous epoch)."""
+        pm = placement if placement is not None else self.pool.placement
+        path = os.path.join(self.root, "POOL.json")
+        try:
+            info = store.read_json(path)
+        except (OSError, ValueError):
+            info = {"backend": "sharded",
+                    "tenant": getattr(self.ccfg, "pool_tenant", "default"),
+                    "quota": getattr(self.ccfg, "pool_quota", 0)}
+        pj = pm.to_json()
+        info.update(shards=pj["shards"], placement=pj["pin"],
+                    epochs=pj["epochs"])
+        store.write_json_atomic(path, info)
+
+    def _maybe_rebalance(self, step: int):
+        """Capacity-watermark rebalancing (writer thread, after a tier-E
+        commit): at the policy's cadence, read the shards' used/capacity
+        gauges and run any migration it proposes (copy, epoch flip through
+        ``record_placement``, source GC), then rebind the region handles
+        the move invalidated."""
+        pol = getattr(self.pool, "rebalance", None)
+        if pol is None or not pol.due(step):
+            return
+        for mig in pol.propose(self.pool):
+            info = self.pool.migrate_domain(mig.domain, mig.dst,
+                                            compress=self.compress)
+            self.rebind_domains(info["moved"])
+            self.stats["migrations"] += 1
+            self.stats["migration_link_bytes"] += info["link_bytes"]
+
+    def _maybe_replicate(self, step: int):
+        """Refresh the read replica of the mirror on shard ``pool_replica``
+        (sharded only) every ``pool_replica_every`` committed steps, and
+        stamp it with the commit's step: the cadence is the replica's
+        declared staleness bound. A dead destination degrades; an injected
+        crash is not caught (it is the drill's power event)."""
+        if not self._sharded():
+            return
+        dst = int(getattr(self.ccfg, "pool_replica", -1))
+        every = max(1, int(getattr(self.ccfg, "pool_replica_every", 1)))
+        if dst >= 0 and step % every == 0:
+            try:
+                info = self.pool.replicate_domain("embedding-mirror", dst,
+                                                  compress=self.compress,
+                                                  watermark=step)
+                self.stats["replica_refreshes"] += 1
+                self.stats["replica_link_bytes"] += info["link_bytes"]
+                self.pool.metrics.record_replica(info["link_bytes"])
+            except PoolError as e:
+                self._degraded("replica_refresh_failures", e)
+        self._maybe_ship(step)
+
+    def _maybe_ship(self, step: int):
+        """Commit-coupled replication of the checkpoint domains onto shard
+        ``pool_ckpt_replica`` (sharded only): ``undo-log``, and the
+        manifest when no quorum stands. The first ship, and any ring
+        regrowth, copies the whole ring (``replicate_domain``); every
+        commit after it ships only the committed slot's bytes
+        (``UndoRing.slot_image``) and the small manifest image, so the
+        replica trails the primary by at most the step in flight."""
+        dst = int(getattr(self.ccfg, "pool_ckpt_replica", -1))
+        if dst < 0 or not self._sharded():
+            return
+        try:
+            if self._ship_gen != self.ring.gen:
+                info = self.pool.replicate_domain("undo-log", dst,
+                                                  compress=self.compress,
+                                                  watermark=step)
+                self.stats["ship_full_refreshes"] += 1
+                self.stats["ship_link_bytes"] += info["link_bytes"]
+                self._ship_gen = self.ring.gen
+            else:
+                img = self.ring.slot_image(step)
+                if img is None:
+                    raise PoolError(f"undo slot for step {step} vanished "
+                                    "before shipping")
+                name, slot_off, buf = img
+                self.stats["ship_link_bytes"] += \
+                    self.pool.ship_slot("undo-log", name, slot_off, buf)
+            if not self._man_witnesses:
+                info = self.pool.replicate_domain("manifest", dst,
+                                                  compress=self.compress,
+                                                  watermark=step)
+                self.stats["ship_link_bytes"] += info["link_bytes"]
+            self.stats["ship_steps"] += 1
+        except PoolError as e:
+            self._degraded("replica_refresh_failures", e)
+
+    def rebind_domains(self, moved):
+        """Resolve the region handles again after the ``moved`` domains
+        changed shards (their global offsets name the new node)."""
+        moved = set(moved)
+        if "embedding-mirror" in moved \
+                and getattr(self, "mirror_region", None) is not None:
+            self.mirror_region = \
+                self._alloc.domain("embedding-mirror").get("rows")
+        if "undo-log" in moved and self.ring is not None:
+            self.ring = UndoRing(self._alloc, self.ccfg.max_undo_logs,
+                                 compress=self.compress)
+        if "manifest" in moved and self.manifest is not None:
+            region = self._alloc.domain("manifest").get("manifest")
+            if region is not None:
+                self.manifest = JsonRegion(region)
 
     @property
     def mirror_rows(self) -> np.ndarray:
@@ -213,6 +411,11 @@ class CheckpointManager:
         if self._alloc is None:
             self._open_pool(2 * flat.nbytes + (1 << 20))
         dom = self._alloc.domain("embedding-mirror")
+        # a promoted mirror still carries the replica's watermark; once
+        # training re-anchors the mirror at ``step`` that stamp is stale,
+        # and left in place it would clamp a later recovery back to it
+        if dom.get("watermark") is not None:
+            dom.free_region("watermark")
         self.mirror_region = dom.alloc("rows", shape=flat.shape,
                                        dtype="float32")
         self.mirror_region.write_array(flat, tag="mirror-load")
@@ -309,6 +512,8 @@ class CheckpointManager:
         self.stats["undo_stored_bytes"] += info.get("stored", 0)
         for hook in self._commit_hooks:
             hook(step, idx)
+        self._maybe_replicate(step)
+        self._maybe_rebalance(step)
 
     def _do_tier_m(self, step: int, dense_np: dict, t_enq: float):
         if (self.ccfg.writer_deadline_s

@@ -1,11 +1,16 @@
 """Recovery and restart from the emulated memory pool (counterpart of
-``repro.core.checkpoint.recovery``; pmem, dram and remote pools).
+``repro.core.checkpoint.recovery``).
 
 On restart after a failure:
   1. reopen the pool (pmem: the mmap'd image survives process death;
-     remote: reconnect to the memory node that outlived the trainer; dram:
-     the caller passes the surviving in-process device) and read the A/B
-     manifest, always a consistent snapshot;
+     remote: reconnect to the memory node that outlived the trainer;
+     sharded: reconnect every node of POOL.json's placement, replaying its
+     epochs, a lost node kept as typed errors; dram: the caller passes the
+     surviving in-process device) and read the A/B manifest, always a
+     consistent snapshot (with quorum witnesses, the 2-of-3 majority). A
+     mirror promoted from a read replica is consistent at the replica's
+     watermark W: the undo ring shipped with it rolls back every committed
+     step after W;
   2. if the undo ring holds a COMMITted entry for step > manifest.mirror_step,
      the mirror apply may have been interrupted mid-write: roll the logged
      rows back (an idempotent near-memory row update);
@@ -55,7 +60,13 @@ def open_pool(root: str,
     (dram backend, or an already-open pmem handle) takes precedence. A
     remote pool is reopened over a fresh connection to the node POOL.json
     names, as the same tenant: the dead trainer's connection held nothing
-    the node needs (every committed byte lives in the node's directory)."""
+    the node needs (every committed byte lives in the node's directory). A
+    sharded pool reconnects every node of the recorded placement in order
+    and replays its epoch records, so every domain is found where it last
+    lived (never placed again, never hashed again); a node that no longer
+    answers keeps its index and raises ``PoolConnectionError`` for every op
+    that reaches it, and the open-time sweep reclaims any copy a crashed
+    migration stranded on the wrong side of its flip."""
     if pool is not None:
         return pool
     info = store.read_json(os.path.join(root, "POOL.json"))
@@ -65,6 +76,26 @@ def open_pool(root: str,
         from repro_torch.pool.remote import RemotePool
         return RemotePool(info["addr"], tenant=info.get("tenant", "default"),
                           quota=info.get("quota", 0))
+    if backend == "sharded":
+        check_checker_off()
+        from repro_torch.pool.placement import PlacementMap
+        from repro_torch.pool.sharded import ShardedPool
+        pmap = PlacementMap.from_json({"shards": info.get("shards"),
+                                       "pin": info.get("placement"),
+                                       "epochs": info.get("epochs")})
+        dev = ShardedPool(list(pmap.shards),
+                          tenant=info.get("tenant", "default"),
+                          quota=info.get("quota", 0), placement=pmap,
+                          allow_unreachable=True)
+        dead = dev.dead_shards()
+        if dead:
+            print(f"[recovery] shard(s) {dead} permanently unreachable: "
+                  "continuing with the survivors")
+        swept = dev.sweep_stale_domains()
+        if swept:
+            print("[recovery] swept stale migration copies: "
+                  + ", ".join(f"{d}@shard{i}" for d, i in swept))
+        return dev
     if backend != "pmem":
         raise PoolError(
             f"pool backend {info['backend']!r} is volatile across processes; "
@@ -73,22 +104,77 @@ def open_pool(root: str,
     return PmemPool.open(os.path.join(root, "pool.img"))
 
 
-def _read_manifest(alloc: PoolAllocator) -> Optional[dict]:
-    """The newest sealed manifest (the port keeps one copy, no witnesses)."""
-    region = alloc.domain("manifest").get("manifest")
-    return None if region is None else JsonRegion(region).read()
+def record_placement(root: str, pool) -> None:
+    """Publish ``pool``'s placement into POOL.json (the manager's epoch
+    sink, for recovery-side flips too): set it as ``pool.epoch_sink``
+    before ``promote_replica`` so that the promotion's epoch is durable at
+    its flip."""
+    path = os.path.join(root, "POOL.json")
+    try:
+        info = store.read_json(path)
+    except (OSError, ValueError):
+        info = {"backend": "sharded"}
+    pj = pool.placement.to_json()
+    info.update(shards=pj["shards"], placement=pj["pin"],
+                epochs=pj["epochs"])
+    store.write_json_atomic(path, info)
+
+
+def _read_manifest(alloc: PoolAllocator, dev) -> Optional[dict]:
+    """The manifest election over the primary and any pinned quorum
+    witnesses (``manifest@w*``): of every copy that can be reached, the
+    highest sealed sequence number that at least two copies agree on (the
+    2-of-3 majority), else the single highest (no quorum configured, or
+    one copy left). A copy on a lost shard is absent from the vote."""
+    doms = ["manifest"]
+    pmap = getattr(dev, "placement", None)
+    if pmap is not None:
+        doms += sorted(d for d in pmap.pin if d.startswith("manifest@w"))
+    copies: list[tuple[int, dict]] = []
+    for dom in doms:
+        try:
+            region = alloc.domain(dom).get("manifest")
+            if region is None:
+                continue
+            jr = JsonRegion(region)
+            man = jr.read()
+            if man is not None:
+                copies.append((jr.read_seq(), man))
+        except PoolError:
+            continue
+    if not copies:
+        return None
+    counts: dict[int, int] = {}
+    for seq, _ in copies:
+        counts[seq] = counts.get(seq, 0) + 1
+    quorum = [seq for seq, n in counts.items() if n >= 2]
+    if quorum:
+        best = max(quorum)
+        return next(man for seq, man in copies if seq == best)
+    return max(copies, key=lambda c: c[0])[1]
 
 
 def recover(root: str, pool: Optional[PoolDevice] = None) -> RecoveredState:
     dev = open_pool(root, pool)
     alloc = PoolAllocator(dev)
-    man = _read_manifest(alloc)
+    man = _read_manifest(alloc, dev)
     if man is None:
         raise store.CorruptError(f"{root}: no valid manifest in pool")
-    mirror = alloc.domain("embedding-mirror").get("rows")
+    mirror_dom = alloc.domain("embedding-mirror")
+    mirror = mirror_dom.get("rows")
     if mirror is None:
         raise store.CorruptError(f"{root}: no embedding mirror region")
     mirror_step = man["mirror_step"]
+    # a promoted mirror carries the replica's watermark: the copy is
+    # consistent at W, which may trail the manifest's last commit M.
+    # Clamping to W makes the rollback below undo every committed step in
+    # (W, M] from the replica's undo ring (commit-coupled, so it covers
+    # that range), rows a torn refresh left newer included
+    wm_region = mirror_dom.get("watermark")
+    if wm_region is not None:
+        wm = JsonRegion(wm_region).read() or {}
+        if "step" in wm:
+            mirror_step = min(int(mirror_step), int(wm["step"]))
 
     # step 2: roll back committed-but-unapplied logs (newest first)
     ring = UndoRing(alloc, man.get("max_undo_logs", 64))

@@ -35,8 +35,9 @@ and one batched payload read. ``open_ring(device, readonly=True)`` opens
 it as a pure reader, which never sweeps, grows or writes. Over a remote
 pool (a memory node) the fused append, the committed-set scan and the GC
 are one wire round trip each; a read-only tenant's ring reads and never
-writes. The JAX package's host-driven ``append`` and its replication unit
-(``slot_image``) are not ported.
+writes. ``slot_image`` is the sharded pool's commit-coupled replication
+unit (``ShardedPool.ship_slot``). The JAX package's host-driven ``append``
+is not ported.
 """
 from __future__ import annotations
 
@@ -166,6 +167,18 @@ class UndoRing:
         if zlib.crc32(stored) != crc:
             return None
         return uc.HDR.pack(step, n, d, flags, stored_len, crc, 0) + stored
+
+    def slot_image(self, step: int) -> Optional[tuple[str, int, bytes]]:
+        """The commit-coupled replication unit of a committed step: (ring
+        region name, slot offset within the region, verbatim slot bytes),
+        ready for ``ShardedPool.ship_slot``, which reruns the two-barrier
+        commit at the same offset of the replica's ring. None when the
+        step's slot is gone (GC'd, overwritten or torn): the shipper then
+        refreshes the whole ring."""
+        buf = self._read_slot_verbatim(step)
+        if buf is None:
+            return None
+        return (f"ring{self.gen}", (step % self.nslots) * self.slot_bytes, buf)
 
     def _grow(self, need: int):
         """Entry outgrew the slot: allocate a bigger ring, carry the

@@ -5,11 +5,12 @@ with a shared stepped loop (``training.serve_loop.greedy_generate``).
     PYTHONPATH=src python -m repro_torch.examples.serve_batched \\
         [--arch tinyllama-1.1b|qwen3-0.6b|rwkv6-3b] [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.examples.serve_batched \\
-        --pool-backend dram|pmem|remote [--pool-addr A] [--pool-readonly]
+        --pool-backend dram|pmem|remote|sharded [--pool-addr A] \\
+        [--pool-readonly]
 
 Smoke-size model with random weights from seed 0.
 
-With ``--pool-backend dram|pmem|remote`` the example becomes the
+With ``--pool-backend dram|pmem|remote|sharded`` the example becomes the
 pool-serving drill instead: embedding rows are served straight from the
 trainer's pool-resident mirror through ``repro_torch.serve.EmbeddingServeTier``
 (batched deduplicated gathers, a trainer-coherent hot-row cache). Trainer
@@ -18,8 +19,11 @@ cached rows it touched, and the rows served after it must be the committed
 ones, bit for bit. ``remote`` serves from a memory node: the one at
 ``--pool-addr``, or one started in this process on a unix socket; with
 ``--pool-readonly`` the tier reads through a read-only connection of its
-own, on which the node denies every write. The JAX drill's ``sharded``
-backend (a read replica on another shard) is not ported and raises.
+own, on which the node denies every write. ``sharded`` puts the mirror
+on one of two memory nodes started in this process; after the commits its
+read replica is refreshed on the other node, the primary's node is shut
+down, and the tier must go on serving the committed rows from the replica
+(a failover counted) within its declared staleness of one commit.
 """
 from __future__ import annotations
 
@@ -36,15 +40,19 @@ from repro_torch.data.synthetic import make_batches
 from repro_torch.models.registry import get_api
 from repro_torch.training.serve_loop import greedy_generate
 
-_NOT_PORTED = {"sharded": "the sharded pool and its read replica (ROADMAP "
-                          "queue 1 item 6)"}
-
-
 def _pools(args, root: str):
     """(the trainer's pool, the tier's pool, the servers started here): one
     device for dram and pmem; for remote a writable connection for the
-    trainer and, with ``--pool-readonly``, a read-only one for the tier."""
-    from repro_torch.pool import DramPool, PmemPool, PoolServer, make_pool
+    trainer and, with ``--pool-readonly``, a read-only one for the tier;
+    for sharded one pool over two nodes."""
+    from repro_torch.pool import (DramPool, PmemPool, PoolServer, ShardedPool,
+                                  make_pool)
+    if args.pool_backend == "sharded":
+        servers = [PoolServer(DramPool(1 << 20),
+                              f"unix:{root}/serve{i}.sock").start()
+                   for i in range(2)]
+        pool = ShardedPool([srv.addr for srv in servers])
+        return pool, pool, servers
     if args.pool_backend == "dram":
         pool = DramPool(1 << 20)
         return pool, pool, []
@@ -65,7 +73,7 @@ def _pools(args, root: str):
 def pool_main(args):
     from repro_torch.core.checkpoint.undo_log import UndoRing
     from repro_torch.pool import PoolAllocator
-    from repro_torch.serve import EmbeddingServeTier
+    from repro_torch.serve import EmbeddingServeTier, ReplicaReader
 
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory(prefix="serve_pool_") as root:
@@ -124,17 +132,45 @@ def pool_main(args):
             print(f"[pool-serve] step {step}: commit touched {touched.size} "
                   f"rows, evicted exactly {got} cached")
 
+        if args.pool_backend == "sharded":
+            failover(pool, tier, servers, table, make_requests(args.batch),
+                     args.steps - 1, ReplicaReader)
         s = tier.stats()
         print(f"[pool-serve] {s['requests']} requests, {s['rows']} rows | "
               f"qps={s['qps']:.0f} p50={s['p50_ms']:.2f}ms "
               f"p99={s['p99_ms']:.2f}ms | hit_rate={s['hit_rate']:.2f} "
-              f"inval={s['invalidations']}")
+              f"inval={s['invalidations']} failovers={s['failovers']}")
         if tier_pool is not pool:
             tier_pool.close()
         pool.close()
         for srv in servers:
             srv.shutdown(close_device=True)
     print("pool-serving drill PASSED")
+
+
+def failover(pool, tier, servers, table, reqs, last_commit, replica_reader):
+    """The sharded drill's last act: refresh the mirror's read replica on
+    the other node at the last commit, shut the primary's node down, and
+    serve ``reqs`` from the replica: the rows the trainer committed, bit
+    for bit, within one commit of staleness."""
+    primary = pool.placement.place("embedding-mirror")
+    dst = 1 - primary
+    pool.replicate_domain("embedding-mirror", dst, watermark=last_commit)
+    tier.replica = replica_reader(pool)
+    print(f"[pool-serve] replica on shard {dst} (watermark step {last_commit})")
+    servers[primary].shutdown()            # the primary's node is gone
+    print(f"[pool-serve] killed primary shard {primary}")
+    for r, ids in zip(tier.serve_batch(reqs), reqs, strict=True):
+        if r.tobytes() != table[ids].tobytes():
+            raise SystemExit("rows served from the replica differ from the "
+                             "committed ones")
+    lag = tier.staleness_bound()
+    if tier.failovers < 1:
+        raise SystemExit("no read failed over to the replica")
+    if lag > 1:
+        raise SystemExit(f"staleness {lag} commits > the declared bound of 1")
+    print(f"[pool-serve] replica served {len(reqs)} requests after the "
+          f"primary's death (staleness <= {lag} commit)")
 
 
 def main(argv=None):
@@ -144,9 +180,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--pool-backend", default="",
-                    help="dram|pmem|remote: run the pool-serving drill "
-                         "instead of the LM decode loop (sharded: not "
-                         "ported yet, raises)")
+                    help="dram|pmem|remote|sharded: run the pool-serving "
+                         "drill instead of the LM decode loop")
     ap.add_argument("--pool-addr", default="",
                     help="remote: the memory node to serve from (default: "
                          "one started in this process)")
@@ -160,11 +195,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no silent fallback")
     args = ap.parse_args(argv)
-    if args.pool_backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--pool-backend {args.pool_backend}: serving from "
-            f"{_NOT_PORTED[args.pool_backend]} is not ported yet")
-    if args.pool_backend not in ("", "dram", "pmem", "remote"):
+    if args.pool_backend not in ("", "dram", "pmem", "remote", "sharded"):
         ap.error(f"unknown pool backend {args.pool_backend!r}")
     if args.pool_readonly and args.pool_backend != "remote":
         ap.error("--pool-readonly: a read-only tenant needs "

@@ -3,9 +3,9 @@ generation.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         [--smoke | --full] --batch 4 --prompt-len 16 --new-tokens 16 \\
-        [--device cuda|cpu] [--pool-backend dram|pmem|remote [--pool-dir DIR]
-        [--pool-addr unix:/path|tcp:host:port [--pool-readonly]]
-        [--pool-cache-rows N]]
+        [--device cuda|cpu] [--pool-backend dram|pmem|remote|sharded
+        [--pool-dir DIR] [--pool-addr unix:/path|tcp:host:port
+        [--pool-readonly]] [--pool-shards A1,A2,...] [--pool-cache-rows N]]
 
 ``--arch`` is any LM id the port registers: the dense transformers
 tinyllama-1.1b and qwen3-0.6b (flash attention on prefill, plain attention
@@ -29,7 +29,8 @@ from a memory node (``python -m repro_torch.pool.server --addr A ...``);
 with ``--pool-readonly`` the connection is a read-only tenant, which
 writes nothing and serves the mirror a trainer (or an earlier serving run
 without the flag) left in the node: the node denies every mutating op on
-that connection. The sharded backend is not ported and raises.
+that connection. ``--pool-backend sharded --pool-shards A1,A2,...`` puts
+the mirror on the node its placement names among several.
 """
 from __future__ import annotations
 
@@ -44,7 +45,6 @@ from repro_torch import resolve_device
 from repro_torch.configs import LM_IDS, get_arch
 from repro_torch.data.synthetic import make_batches
 from repro_torch.models.registry import get_api
-from repro_torch.pool.device import NOT_PORTED, PoolError, check_backend
 from repro_torch.training.serve_loop import greedy_generate, pool_serving
 
 _LOAD_BYTES = 64 << 20   # f32 bytes of the table widened per copy
@@ -52,13 +52,14 @@ _LOAD_BYTES = 64 << 20   # f32 bytes of the table widened per copy
 
 def build_tier(table, backend: str, *, pool_dir: str = "",
                cache_rows: int = 4096, addr: str = "",
-               readonly: bool = False):
+               readonly: bool = False, shards: str = ""):
     """The serving tier over a pool that holds ``table`` (V, d), as the
     trainer's checkpoint manager lays it out: f32 rows in
     ``embedding-mirror/rows``. The pool is sized to the table, and the rows
     are widened and written a bounded chunk at a time. A pmem pool's image
-    is ``<pool_dir>/pool.img``; a remote pool is the node at ``addr``. A
-    ``readonly`` tenant writes nothing: the rows must be in the node."""
+    is ``<pool_dir>/pool.img``; a remote pool is the node at ``addr``, a
+    sharded one the nodes of ``shards``. A ``readonly`` tenant writes
+    nothing: the rows must be in the node."""
     from repro_torch.pool import PoolAllocator, make_pool
     from repro_torch.pool.allocator import DATA_START
     from repro_torch.serve import EmbeddingServeTier
@@ -68,7 +69,7 @@ def build_tier(table, backend: str, *, pool_dir: str = "",
     pool = make_pool(backend,
                      path=os.path.join(pool_dir, "pool.img") if pool_dir else None,
                      capacity=DATA_START + V * row_bytes + (1 << 20),
-                     addr=addr, readonly=readonly)
+                     addr=addr, readonly=readonly, shards=shards)
     if readonly:
         return EmbeddingServeTier(pool, cache_rows=cache_rows)
     region = PoolAllocator(pool).domain("embedding-mirror").alloc(
@@ -91,12 +92,13 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pool-backend", default="",
-                    choices=["", "dram", "pmem", "remote", *NOT_PORTED],
+                    choices=["", "dram", "pmem", "remote", "sharded"],
                     help="serve token lookups from the pool through the "
-                         f"hot-row-cached tier ({', '.join(NOT_PORTED)}: not "
-                         "ported yet, raises)")
+                         "hot-row-cached tier")
     ap.add_argument("--pool-addr", default="",
                     help="remote backend: unix:/path or tcp:host:port")
+    ap.add_argument("--pool-shards", default="",
+                    help="sharded backend: comma list of node addrs")
     ap.add_argument("--pool-dir", default="",
                     help="pmem backend: directory for the pool image")
     ap.add_argument("--pool-cache-rows", type=int, default=4096)
@@ -106,17 +108,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no silent fallback")
     args = ap.parse_args(argv)
-    if args.pool_backend:
-        try:
-            check_backend(args.pool_backend)
-        except PoolError as e:
-            ap.error(str(e))
     if args.pool_readonly and args.pool_backend != "remote":
         ap.error("--pool-readonly: a read-only tenant needs "
                  "--pool-backend remote")
     if args.pool_backend == "remote" and not args.pool_addr:
         ap.error("--pool-backend remote needs --pool-addr (start one: "
                  "python -m repro_torch.pool.server --addr ...)")
+    if args.pool_backend == "sharded" and not args.pool_shards:
+        ap.error("--pool-backend sharded needs --pool-shards addr1,addr2,...")
     if args.prompt_len < 1 or args.new_tokens < 1:
         ap.error("--prompt-len and --new-tokens must be at least 1")
 
@@ -138,7 +137,8 @@ def main(argv=None):
                     tempfile.TemporaryDirectory(prefix="serve_pool_"))
             tier = build_tier(params["embed"]["table"], args.pool_backend,
                               pool_dir=pool_dir, cache_rows=args.pool_cache_rows,
-                              addr=args.pool_addr, readonly=args.pool_readonly)
+                              addr=args.pool_addr, readonly=args.pool_readonly,
+                              shards=args.pool_shards)
             stack.callback(tier.pool.close)
             stack.enter_context(pool_serving(tier))
         greedy_generate(cfg, params, prompt, min(2, args.new_tokens),

@@ -2,9 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm1 --smoke \\
         --steps 100 [--strict] [--device cuda|cpu] \\
-        [--ckpt-dir /tmp/ckpt [--resume]] [--pool-backend pmem|dram|remote] \\
+        [--ckpt-dir /tmp/ckpt [--resume]] \\
+        [--pool-backend pmem|dram|remote|sharded] \\
         [--pool-addr unix:/path|tcp:host:port] [--pool-tenant T] \\
         [--pool-quota BYTES] [--pool-secret S] \\
+        [--pool-shards A1,A2,... [--pool-placement dom=i,...] \\
+         [--pool-rebalance HIGH] [--pool-replica I] [--pool-ckpt-replica I] \\
+         [--pool-manifest-quorum]] \\
         [--pool-compress none|zlib|int8] [--dense-interval K]
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --seq 64 [... the same options]
@@ -19,9 +23,13 @@ from the step after the last consistent one. ``--pool-backend remote``
 checkpoints into a memory node in another process (start one with
 ``python -m repro_torch.pool.server --addr unix:/tmp/pool.sock --backend
 pmem --path /tmp/pool.img``) as tenant ``--pool-tenant``; at the end the
-CLI prints the tenant's counters as the node attributed them. The sharded
-backend is not ported and raises. Every 10th step's line gives the loss
-and the kernels' launch counts so far.
+CLI prints the tenant's counters as the node attributed them.
+``--pool-backend sharded --pool-shards A1,A2,...`` spreads the checkpoint
+over several such nodes (``repro_torch.pool.sharded``), with pins, a
+capacity rebalancer, a read replica of the mirror, a commit-coupled replica
+of the undo ring and manifest, and a 2-of-3 manifest quorum on request.
+Every 10th step's line gives the loss and the kernels' launch counts so
+far.
 """
 from __future__ import annotations
 
@@ -37,7 +45,6 @@ from repro_torch.core.checkpoint.manager import CheckpointManager
 from repro_torch.data.lookahead import LookaheadIterator
 from repro_torch.data.synthetic import make_batches
 from repro_torch.kernels import embedding_bag, gather_rows, scatter_update
-from repro_torch.pool.device import NOT_PORTED, PoolError, check_backend
 from repro_torch.training import train_loop
 
 
@@ -66,12 +73,18 @@ def main(argv=None):
     ap.add_argument("--strict", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--pool-backend", default="pmem",
-                    choices=["dram", "pmem", "remote", *NOT_PORTED],
-                    help="emulated memory-pool backend for checkpoints "
-                         f"({', '.join(NOT_PORTED)}: not ported yet, raises)")
+                    choices=["dram", "pmem", "remote", "sharded"],
+                    help="emulated memory-pool backend for checkpoints")
     ap.add_argument("--pool-addr", default="",
                     help="remote backend: pool-server address "
                          "(unix:/path or tcp:host:port)")
+    ap.add_argument("--pool-shards", default="",
+                    help="sharded backend: comma-separated pool-server "
+                         "addresses (one per memory node)")
+    ap.add_argument("--pool-placement", default="",
+                    help="sharded backend: explicit domain pins, e.g. "
+                         "'manifest=1,dense=1' (unpinned domains hash "
+                         "deterministically over the shard list)")
     ap.add_argument("--pool-tenant", default="default",
                     help="remote backend: tenant namespace on the pool node")
     ap.add_argument("--pool-quota", type=int, default=0,
@@ -85,6 +98,26 @@ def main(argv=None):
                     default="zlib",
                     help="pool-side compression for undo payloads and dense "
                          "snapshot blobs (int8 is lossy: relaxed rollback)")
+    ap.add_argument("--pool-rebalance", type=float, default=0.0,
+                    metavar="HIGH",
+                    help="sharded backend: capacity-watermark rebalancing; "
+                         "when a node's used/capacity crosses HIGH (e.g. "
+                         "0.75), live-migrate its largest unpinned domain "
+                         "group to the emptiest node (0 = off)")
+    ap.add_argument("--pool-replica", type=int, default=-1, metavar="SHARD",
+                    help="sharded backend: keep a read replica of the "
+                         "embedding mirror on this shard index, refreshed "
+                         "at the commit watermark (-1 = off)")
+    ap.add_argument("--pool-ckpt-replica", type=int, default=-1,
+                    metavar="SHARD",
+                    help="sharded backend: commit-coupled replica of the "
+                         "checkpoint domains (undo-log + manifest) on this "
+                         "shard index; survives the permanent loss of the "
+                         "primary by replica promotion (-1 = off)")
+    ap.add_argument("--pool-manifest-quorum", action="store_true",
+                    help="sharded backend (3 nodes or more): keep 3 "
+                         "manifest copies on distinct shards; recovery "
+                         "takes the 2-of-3 majority by sealed seq")
     ap.add_argument("--dense-interval", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -92,10 +125,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no silent fallback")
     args = ap.parse_args(argv)
-    try:
-        check_backend(args.pool_backend)
-    except PoolError as e:
-        ap.error(str(e))
     if args.resume and args.pool_backend == "dram":
         ap.error("--resume needs a pool that survives process death; "
                  "the dram backend is volatile: use --pool-backend "
@@ -103,6 +132,9 @@ def main(argv=None):
     if args.pool_backend == "remote" and not args.pool_addr:
         ap.error("--pool-backend remote needs --pool-addr "
                  "(start one: python -m repro_torch.pool.server --addr ...)")
+    if args.pool_backend == "sharded" and not args.pool_shards:
+        ap.error("--pool-backend sharded needs --pool-shards addr1,addr2,... "
+                 "(one pool server per memory node)")
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch, smoke=args.smoke).model
@@ -111,9 +143,15 @@ def main(argv=None):
                             dense_interval=args.dense_interval,
                             pool_backend=args.pool_backend,
                             pool_addr=args.pool_addr,
+                            pool_shards=args.pool_shards,
+                            pool_placement=args.pool_placement,
                             pool_tenant=args.pool_tenant,
                             pool_quota=args.pool_quota,
                             pool_compress=args.pool_compress,
+                            pool_rebalance=args.pool_rebalance,
+                            pool_replica=args.pool_replica,
+                            pool_ckpt_replica=args.pool_ckpt_replica,
+                            pool_manifest_quorum=args.pool_manifest_quorum,
                             pool_secret=args.pool_secret)
     tc = TrainConfig(learning_rate=args.lr, embed_learning_rate=args.embed_lr,
                      checkpoint=ckpt)

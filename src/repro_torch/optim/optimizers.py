@@ -11,6 +11,14 @@ the caller adds them as ``(p.f32 + u).to(p.dtype)``. AdamW also has
 bits into the params and the moments in place (the trainer's dense tier
 uses it), so that no second copy of the moments, no f32 update tree and no
 second param tree is ever held.
+
+The sparse tier's rules also have ``update_rows(uniq, g, state,
+table_shape) -> (updates, state)``, the touched-rows form the trainer
+runs: ``uniq`` are the flat row ids a step touched (ascending, then -1
+pads), ``g`` their (N, d) f32 gradients, and the f32 updates of those rows
+equal the dense ``update``'s there (a row with no gradient gets a zero
+update and keeps its state). SGD with momentum has none: its momentum
+moves rows that the batch did not touch.
 """
 from __future__ import annotations
 
@@ -32,6 +40,9 @@ class Optimizer(NamedTuple):
     update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (updates, state)
     # (grads, state, params) -> state, params and moments updated in place
     update_inplace: Optional[Callable[[Any, Any, Any], Any]] = None
+    # (uniq, g, state, table_shape) -> (row updates, state): the sparse
+    # tier's touched-rows form, its state updated in place
+    update_rows: Optional[Callable[[Any, Any, Any, tuple], tuple]] = None
 
 
 def leaf_slices(*leaves):
@@ -63,7 +74,11 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
         new_m = tree_map(lambda m, g: momentum * m + g.float(), state, grads)
         return tree_map(lambda m: -lr * m, new_m), new_m
 
-    return Optimizer(init, update)
+    def update_rows(uniq, g, state, table_shape):
+        return -lr * g, state
+
+    return Optimizer(init, update,
+                     update_rows=update_rows if momentum == 0.0 else None)
 
 
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -117,7 +132,10 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
 
 def rowwise_adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
-    """Row-wise Adagrad for embedding tables (one accumulator per row).
+    """Row-wise Adagrad for embedding tables: the accumulator keeps the
+    param's leading axis, so an LM's (V, d) table has one per row (V, 1)
+    and DLRM's stacked (T, R, d) tables one per table (T, 1, 1), as the
+    JAX package shapes it (``repro/optim/optimizers.py:78-88``).
 
     The row delta uses the accumulator read before the batch plus this
     batch's mean squared gradient, as the JAX package does.
@@ -142,7 +160,39 @@ def rowwise_adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
                        grads, new_a)
         return ups, new_a
 
-    return Optimizer(init, update)
+    def update_rows(uniq, g, state, table_shape):
+        """The update at the touched rows; the accumulator is updated in
+        place.
+
+        (V, 1), an LM: a = gather_rows(acc, uniq), then scatter_update
+        writes a + msq (the row's mean of g squared) in f32, the same sum
+        the row's update divides by. (T, 1, 1), DLRM: table t's increment
+        is the sum of g squared over its touched rows (flat id // R), over
+        R * d, one masked sum a table in a fixed order (no atomics, so a
+        run repeats bitwise); the JAX package computes it in plain jnp,
+        with no kernel. Its dense ``update`` takes the same mean over the
+        whole table gradient, zeros included, so the two differ only in
+        the f32 order of the sum. Pads (-1) carry a zero gradient and are
+        not written."""
+        from repro_torch.kernels import ops
+        (acc,) = tree_leaves(state)
+        g32 = g.float()
+        if acc.dim() == 2:
+            a = ops.gather_rows(acc, uniq.clamp(min=0))
+            msq = torch.mean(torch.square(g32), dim=1, keepdim=True)
+            ops.scatter_update(acc, uniq, msq)
+            return -lr * g32 / (torch.sqrt(a + msq) + eps), state
+        T, R, d = table_shape
+        table = torch.where(uniq >= 0, torch.div(uniq, R, rounding_mode="floor"),
+                            T - 1).long()
+        ssq = torch.sum(torch.square(g32), dim=1)
+        mine = table == torch.arange(T, device=uniq.device)[:, None]    # (T, N)
+        per_table = acc.view(T)
+        per_table.add_(torch.where(mine, ssq, 0.0).sum(dim=1) / (R * d))
+        a = per_table[table].unsqueeze(1)
+        return -lr * g32 / (torch.sqrt(a) + eps), state
+
+    return Optimizer(init, update, update_rows=update_rows)
 
 
 def make_optimizer(name: str, lr: float, cfg=None) -> Optimizer:

@@ -23,11 +23,16 @@ Layering (bottom up):
                 handshake on tcp), splitting reads and writes above one
                 frame's worth
   server.py     the memory node: one process serving many trainer tenants
+  placement.py  epoch-versioned PlacementMap (domain -> shard, CRC-sealed
+                move records) + capacity-watermark RebalancePolicy
+  sharded.py    ShardedPool: N memory nodes behind one device, placement-
+                routed domain ops, live migration, read replicas and
+                promotion after a node's loss, per-shard fault drills,
+                merged and per-shard metrics
 
 Every byte these modules write, and every frame they send, is the JAX
 package's, so a pool image or a memory node made by either package serves
-the other. The sharded pool (several nodes behind a placement map) is not
-ported.
+the other.
 """
 from repro_torch.pool.allocator import JsonRegion, PoolAllocator, Region
 from repro_torch.pool.device import (BACKENDS, DramPool, PmemPool, PoolDevice,
@@ -36,21 +41,28 @@ from repro_torch.pool.device import (BACKENDS, DramPool, PmemPool, PoolDevice,
 from repro_torch.pool.faults import FaultEvent, FaultSchedule, InjectedCrash
 from repro_torch.pool.metrics import PoolMetrics
 from repro_torch.pool.nmp import EmbeddingPoolMirror, NmpQueue
+from repro_torch.pool.placement import (Migration, PlacementEpoch,
+                                        PlacementMap, PoolTopology,
+                                        RebalancePolicy)
 from repro_torch.pool.protocol import (NMP_OPS, OPS, WIRE_V1, WIRE_V2,
                                        WIRE_V3, PoolChannel,
                                        PoolTimeoutError, Timeouts,
                                        wire_from_env)
 from repro_torch.pool.remote import (PoolAuthError, PoolConnectionError,
                                      RemotePool, WireError, parse_addr)
+from repro_torch.pool.sharded import (REPLICA_SUFFIX, ShardedPool,
+                                      replica_domain)
 
 __all__ = [
     "BACKENDS", "DramPool", "EmbeddingPoolMirror", "FaultEvent",
-    "FaultSchedule", "InjectedCrash", "JsonRegion", "NMP_OPS", "NmpQueue",
-    "OPS", "PmemPool", "PoolAllocator", "PoolAuthError", "PoolChannel",
-    "PoolConnectionError", "PoolDevice", "PoolError", "PoolMetrics",
-    "PoolTimeoutError", "QuotaExceededError", "Region", "RemotePool",
-    "TenantIsolationError", "Timeouts", "WIRE_V1", "WIRE_V2", "WIRE_V3",
-    "WireError", "make_pool", "parse_addr", "wire_from_env",
+    "FaultSchedule", "InjectedCrash", "JsonRegion", "Migration", "NMP_OPS",
+    "NmpQueue", "OPS", "PlacementEpoch", "PlacementMap", "PmemPool",
+    "PoolAllocator", "PoolAuthError", "PoolChannel", "PoolConnectionError",
+    "PoolDevice", "PoolError", "PoolMetrics", "PoolTimeoutError",
+    "PoolTopology", "QuotaExceededError", "REPLICA_SUFFIX", "Region",
+    "RebalancePolicy", "RemotePool", "ShardedPool", "TenantIsolationError",
+    "Timeouts", "WIRE_V1", "WIRE_V2", "WIRE_V3", "WireError", "make_pool",
+    "parse_addr", "replica_domain", "wire_from_env",
 ]
 # "PoolServer" is importable too, through the lazy __getattr__ below
 

@@ -20,9 +20,10 @@ Table-2 device profiles, and every persist barrier is a named fault point
 before/after it.
 
 ``make_pool("remote", addr=...)`` connects to a memory node in another
-process (``repro_torch.pool.server``) through ``remote.RemotePool``. The
-sharded backend (several nodes behind a placement map) and the
-crash-consistency checker are not ported: asking for them raises.
+process (``repro_torch.pool.server``) through ``remote.RemotePool``;
+``make_pool("sharded", shards=...)`` puts several nodes behind a placement
+map (``sharded.ShardedPool``). The crash-consistency checker is not
+ported: asking for it raises.
 """
 from __future__ import annotations
 
@@ -316,16 +317,12 @@ class PmemPool(PoolDevice):
         super().close()
 
 
-BACKENDS = ("dram", "pmem", "remote")
-NOT_PORTED = ("sharded",)
+BACKENDS = ("dram", "pmem", "remote", "sharded")
 
 
 def check_backend(backend: str) -> str:
-    """``backend`` if the port has it; raises for the JAX package's sharded
-    backend rather than running on another one."""
-    if backend in NOT_PORTED:
-        raise PoolError(f"pool backend {backend!r} is not ported yet; the "
-                        f"port has {BACKENDS}")
+    """``backend`` if the port has it; raises for any other rather than
+    running on another one."""
     if backend not in BACKENDS:
         raise PoolError(f"unknown pool backend {backend!r} (want one of "
                         f"{BACKENDS})")
@@ -346,14 +343,18 @@ def make_pool(backend: str, *, path: Optional[str] = None,
               capacity: int = 1 << 20,
               faults: Optional[FaultSchedule] = None,
               addr: Optional[str] = None, tenant: str = "default",
-              quota: int = 0, secret: str = "", readonly: bool = False,
-              timeout=None, wire=None) -> PoolDevice:
-    """A dram or pmem pool (pmem needs the image ``path``), or a tenant of
-    the memory node at ``addr`` (remote). ``timeout`` (remote only): a
-    float rescales the per-op-class wire deadlines around it, a
-    ``protocol.Timeouts`` pins them; None keeps the registry's defaults.
-    ``wire`` pins the protocol revision to offer (1, 2 or 3); None honours
-    ``REPRO_POOL_WIRE`` and otherwise asks for v3."""
+              quota: int = 0, shards=None, placement=None,
+              rebalance: float = 0.0, secret: str = "",
+              readonly: bool = False, timeout=None, wire=None) -> PoolDevice:
+    """A dram or pmem pool (pmem needs the image ``path``), a tenant of
+    the memory node at ``addr`` (remote), or a tenant of every node in
+    ``shards`` (sharded: addresses, a list or one comma-separated string;
+    ``placement`` pins domains, ``dom=idx,...`` or a dict; ``rebalance`` > 0
+    arms the capacity-watermark rebalancer at that fill). ``timeout``
+    (remote and sharded): a float rescales the per-op-class wire deadlines
+    around it, a ``protocol.Timeouts`` pins them; None keeps the registry's
+    defaults. ``wire`` pins the protocol revision to offer (1, 2 or 3);
+    None honours ``REPRO_POOL_WIRE`` and otherwise asks for v3."""
     check_backend(backend)
     check_checker_off()
     if backend == "dram":
@@ -362,12 +363,25 @@ def make_pool(backend: str, *, path: Optional[str] = None,
         if not path:
             raise PoolError("pmem backend needs a file path")
         return PmemPool(path, capacity, faults)
-    if not addr:
-        raise PoolError("remote backend needs a server addr "
-                        "(unix:/path or tcp:host:port)")
-    from repro_torch.pool.remote import RemotePool
-    dev = RemotePool(addr, tenant=tenant, quota=quota, secret=secret,
-                     readonly=readonly, timeout=timeout, wire=wire)
+    if backend == "sharded":
+        if not shards:
+            raise PoolError("sharded backend needs shard addrs "
+                            "(--pool-shards addr1,addr2,...)")
+        from repro_torch.pool.placement import PlacementMap, RebalancePolicy
+        from repro_torch.pool.sharded import ShardedPool
+        pmap = PlacementMap.parse(shards, placement)
+        dev = ShardedPool(list(pmap.shards), tenant=tenant, quota=quota,
+                          placement=pmap, secret=secret, readonly=readonly,
+                          timeout=timeout, wire=wire)
+        if rebalance:
+            dev.rebalance = RebalancePolicy(high=float(rebalance))
+    else:
+        if not addr:
+            raise PoolError("remote backend needs a server addr "
+                            "(unix:/path or tcp:host:port)")
+        from repro_torch.pool.remote import RemotePool
+        dev = RemotePool(addr, tenant=tenant, quota=quota, secret=secret,
+                         readonly=readonly, timeout=timeout, wire=wire)
     if faults is not None:
         dev.faults = faults
     return dev

@@ -16,8 +16,8 @@ serving tier's hot-row cache counts its hits, misses and invalidations
 here too. A memory node keeps one ``PoolMetrics`` per tenant and ships it as
 a ``snapshot()``; the tenant's client rebuilds it with ``from_snapshot``.
 The wire counters (``bytes_copied``, ``data_frames``) count what crossed a
-frame boundary by copy. The JAX package's replica counters serve its
-sharded pool and are not ported (its ``from_snapshot`` reads them as 0).
+frame boundary by copy. The replica counters (``replica_refreshes``,
+``replica_bytes``) count the sharded pool's read-replica refreshes.
 """
 from __future__ import annotations
 
@@ -63,6 +63,8 @@ class PoolMetrics:
     cache_hits: int = 0                           # serve-tier hot-row cache
     cache_misses: int = 0
     cache_invalidations: int = 0                  # rows evicted by commits
+    replica_refreshes: int = 0                    # read-replica copy rounds
+    replica_bytes: int = 0                        # ...and bytes they moved
     bytes_copied: int = 0                         # body bytes memcpy'd at the
     data_frames: int = 0                          # frame boundary / data ops
 
@@ -79,6 +81,8 @@ class PoolMetrics:
         self.cache_hits = 0
         self.cache_misses = 0
         self.cache_invalidations = 0
+        self.replica_refreshes = 0
+        self.replica_bytes = 0
         self.bytes_copied = 0
         self.data_frames = 0
 
@@ -87,6 +91,10 @@ class PoolMetrics:
         self.cache_hits += int(hits)
         self.cache_misses += int(misses)
         self.cache_invalidations += int(invalidations)
+
+    def record_replica(self, nbytes: int):
+        self.replica_refreshes += 1
+        self.replica_bytes += int(nbytes)
 
     def cache_hit_rate(self) -> float:
         tot = self.cache_hits + self.cache_misses
@@ -180,7 +188,8 @@ class PoolMetrics:
                   for k, v in (snap.get("comp") or {}).items()}
         for key in ("used_bytes", "capacity_bytes", "dropped_flushes",
                     "torn_writes", "crashes", "cache_hits", "cache_misses",
-                    "cache_invalidations", "bytes_copied", "data_frames"):
+                    "cache_invalidations", "replica_refreshes",
+                    "replica_bytes", "bytes_copied", "data_frames"):
             setattr(m, key, int(snap.get(key, 0)))
         return m
 
@@ -210,6 +219,8 @@ class PoolMetrics:
             "cache_misses": self.cache_misses,
             "cache_invalidations": self.cache_invalidations,
             "cache_hit_rate": self.cache_hit_rate(),
+            "replica_refreshes": self.replica_refreshes,
+            "replica_bytes": self.replica_bytes,
             "bytes_copied": self.bytes_copied,
             "data_frames": self.data_frames,
             "energy_j": self.energy(),
@@ -236,6 +247,9 @@ class PoolMetrics:
                          f"misses={self.cache_misses} "
                          f"inval={self.cache_invalidations} "
                          f"hit_rate={self.cache_hit_rate():.4f}")
+        if self.replica_refreshes:
+            lines.append(f"  replica: refreshes={self.replica_refreshes} "
+                         f"bytes={self.replica_bytes}")
         if self.data_frames:
             lines.append(f"  wire: data_frames={self.data_frames} "
                          f"bytes_copied={self.bytes_copied}")

@@ -1,6 +1,5 @@
 """Pool-backed embedding serving tier (counterpart of
-``repro.serve.frontend``, local pools): the disaggregated pool doing double
-duty. The trainer checkpoints INTO it, the serving fleet reads OUT of it,
+``repro.serve.frontend``): the disaggregated pool doing double duty. The trainer checkpoints INTO it, the serving fleet reads OUT of it,
 with no export or reload in between.
 
 ``EmbeddingServeTier`` reads the trainer's ``embedding-mirror/rows`` region
@@ -10,12 +9,15 @@ directly:
     fetched with one ``gather`` near-memory op (``serve.batcher``);
   * hot-row cache: an LRU over row bytes kept trainer-coherent by evicting
     exactly the rows each committed step touched (``serve.coherence``: the
-    in-process commit hook, or the undo-log tailer across processes).
+    in-process commit hook, or the undo-log tailer across processes);
+  * replica failover: with a ``ReplicaReader`` attached (a sharded pool), a
+    read that fails on the primary with a ``PoolError`` is served from the
+    pinned replica shard instead, whose watermark bounds how stale the
+    rows may be (``staleness_bound``).
 
 The tier is API-compatible with ``EmbeddingPoolMirror`` (``lookup`` /
 ``bag_lookup`` / ``shape`` / ``metrics``), so ``embedding_ops.attach_pool``
-accepts it and the models read the pool through the cache. The JAX
-package's replica failover serves its sharded pools and is not ported.
+accepts it and the models read the pool through the cache.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.pool.nmp import NmpQueue
 from repro_torch.serve.batcher import RequestBatcher
 from repro_torch.serve.cache import HotRowCache
 from repro_torch.serve.coherence import CommitTailer
+from repro_torch.serve.replica import ReplicaReader
 
 _LAT_WINDOW = 10000        # latency samples kept for the percentile stats
 
@@ -40,11 +43,9 @@ class EmbeddingServeTier:
     DOMAIN, REGION = "embedding-mirror", "rows"    # the trainer's mirror
 
     def __init__(self, pool: PoolDevice, *, cache_rows: int = 4096,
-                 replica=False):
-        if replica:
-            raise NotImplementedError(
-                "serving from a read replica needs the sharded pool, which "
-                "is not ported yet (ROADMAP queue 1 item 6)")
+                 replica: "bool | ReplicaReader" = False):
+        """``replica``: a ``ReplicaReader``, or True for one over ``pool``'s
+        replica of the mirror, to fail reads over to."""
         self.pool = pool
         self.metrics = PoolMetrics(device_name="serve")
         self.alloc = PoolAllocator(pool)
@@ -55,6 +56,13 @@ class EmbeddingServeTier:
         self.batcher = RequestBatcher(self._gather, self.cache)
         self.tailer: Optional[CommitTailer] = None
         self._attach_tailer()
+        self.replica: Optional[ReplicaReader] = None
+        if isinstance(replica, ReplicaReader):
+            self.replica = replica
+        elif replica:
+            self.replica = ReplicaReader(pool, domain=self.DOMAIN,
+                                         name=self.REGION)
+        self.failovers = 0
         self.requests = 0
         self.rows_served = 0
         self._serve_time_s = 0.0
@@ -66,9 +74,9 @@ class EmbeddingServeTier:
         trainer's first commit): attach lazily, at the first batch that
         finds the ring's meta in the pool's directory. While the directory
         is unchanged that look-up parses nothing."""
-        if self.alloc.domain(undo_log.DOMAIN).get("meta") is None:
-            return False
         try:
+            if self.alloc.domain(undo_log.DOMAIN).get("meta") is None:
+                return False
             self.tailer = CommitTailer.attach(self.pool, self.cache)
             return True
         except PoolError:
@@ -83,7 +91,16 @@ class EmbeddingServeTier:
         return self.region
 
     def _gather(self, idx: np.ndarray) -> np.ndarray:
-        return self.nmp.gather(self._resolve(), idx)
+        """The primary's gather, failing over to the replica: a dead or
+        cut-off primary shard fails the op, and the replica's region routes
+        (by offset) to its own node."""
+        try:
+            return self.nmp.gather(self._resolve(), idx)
+        except PoolError:
+            if self.replica is None:
+                raise
+            self.failovers += 1
+            return self.replica.gather(idx)
 
     def poll_coherence(self) -> dict:
         """Tail the trainer's committed steps and evict exactly their rows.
@@ -91,7 +108,14 @@ class EmbeddingServeTier:
         tighter staleness control."""
         if self.tailer is None and not self._attach_tailer():
             return {"steps": 0, "evicted": 0, "watermark": -1}
-        return self.tailer.poll()
+        try:
+            return self.tailer.poll()
+        except PoolError:
+            # the undo ring lives with the primary mirror: with the primary
+            # down there are no new commits to tail either, so the cache
+            # stays coherent at the last polled watermark
+            return {"steps": 0, "evicted": 0,
+                    "watermark": self.tailer.watermark}
 
     # -- serving -------------------------------------------------------------
     def serve_batch(self, requests: Sequence) -> list[np.ndarray]:
@@ -121,11 +145,28 @@ class EmbeddingServeTier:
     def bag_lookup(self, ids: np.ndarray, combine: str = "sum") -> np.ndarray:
         """Bag lookups reduce pool-side. The reduced vectors are request-
         specific, not row-cacheable, so they bypass the cache but keep the
-        coherence poll. On a stacked (T, R, d) region ``bag_gather`` adds
-        the tables' row offsets (the JAX package's tier adds none)."""
+        coherence poll and the replica failover. On a stacked (T, R, d)
+        region ``bag_gather`` adds the tables' row offsets (the JAX
+        package's tier adds none)."""
         self.poll_coherence()
-        return self.nmp.bag_gather(self._resolve(), np.asarray(ids),
-                                   combine=combine)
+        ids = np.asarray(ids)
+        try:
+            return self.nmp.bag_gather(self._resolve(), ids, combine=combine)
+        except PoolError:
+            if self.replica is None:
+                raise
+            self.failovers += 1
+            return self.replica.bag_gather(ids, combine=combine)
+
+    def staleness_bound(self) -> int:
+        """Commits the replica may trail the primary by now: the latest
+        tailed commit minus the replica's watermark (0 with no replica)."""
+        if self.replica is None or self.tailer is None:
+            return 0
+        wm = self.replica.watermark()
+        if wm < 0 or self.tailer.watermark < 0:
+            return 0
+        return max(0, self.tailer.watermark - wm)
 
     # -- observability -------------------------------------------------------
     def stats(self) -> dict:
@@ -145,10 +186,13 @@ class EmbeddingServeTier:
             "invalidations": self.metrics.cache_invalidations,
             "watermark": self.tailer.watermark
             if self.tailer is not None else -1,
+            "failovers": self.failovers,
             "wire": self.wire_stats(),
         }
 
     def wire_stats(self) -> dict:
-        """The pool connection's transport counters: {} on the in-process
-        pools the port has."""
-        return {}
+        """The pool connection's transport counters (remote and sharded
+        pools): negotiated wire revision, keepalives, per-request timeouts,
+        stalls; {} on an in-process pool."""
+        ws = getattr(self.pool, "wire_stats", None)
+        return ws() if callable(ws) else {}

@@ -16,14 +16,16 @@ Both steps take the loss's gradient with respect to the looked-up rows (a
 DLRM's bag vectors, an LM's token rows), spread it over the touched table
 rows with duplicates combined in a fixed order, and update the table in
 place at those rows only (``core.relaxed``). No table-sized gradient or
-update is ever built. The embedding tier therefore takes the additive SGD
-rule only; other embedding optimizers raise, and so does an LM whose head
+update is ever built. The embedding tier therefore takes the rules that
+have a touched-rows form (``Optimizer.update_rows``): SGD and row-wise
+Adagrad, whose accumulator is updated in place too. SGD with momentum
+raises (its momentum moves untouched rows), and so does an LM whose head
 is tied to the table (its dense table gradient would bypass the sparse
 tier). The dense tier is the rest of the tree (an LM's blocks, final norm
 and head) under ``train_cfg.optimizer``.
 
-The table, the dense params and the dense optimizer's moments are all
-updated in place (the dense tier through ``update_inplace`` where the
+The table, the embedding optimizer's state, the dense params and the dense
+optimizer's moments are all updated in place (the dense tier through ``update_inplace`` where the
 optimizer has one, else its f32 updates added leaf by leaf), so a step
 returns a state that shares them with the state it was given; a caller
 that needs an earlier state clones it. At full width no second copy of
@@ -64,13 +66,15 @@ def make_step_fns(cfg, train_cfg):
             f"{cfg.name}: a head tied to the embedding table is not trained "
             "by the port (its dense table gradient bypasses the sparse tier)")
     leaf = rx.embed_leaf(cfg)
-    if train_cfg.embed_optimizer != "sgd":
+    embed_opt = opt.make_optimizer(train_cfg.embed_optimizer,
+                                   train_cfg.embed_learning_rate)
+    if embed_opt.update_rows is None:
         raise NotImplementedError(
-            f"embed_optimizer={train_cfg.embed_optimizer!r}: the sparse "
-            "embedding update supports 'sgd' only so far")
+            f"embed_optimizer={train_cfg.embed_optimizer!r} has no "
+            "touched-rows form (it moves rows the batch did not touch); the "
+            "sparse embedding update takes 'sgd' and 'rowwise_adagrad'")
     dense_opt = opt.make_optimizer(train_cfg.optimizer, train_cfg.learning_rate,
                                    train_cfg)
-    embed_opt = opt.make_optimizer("sgd", train_cfg.embed_learning_rate)
 
     def init_fn(params):
         return st.make_state(params, dense_opt, embed_opt)
@@ -101,10 +105,12 @@ def make_step_fns(cfg, train_cfg):
         return state["dense"], od, gnorm
 
     def sparse_update(state, batch, g_rows):
-        """SGD at the touched rows: (uniq row ids, f32 row updates, opt state)."""
+        """The embedding optimizer at the touched rows: (uniq row ids, f32
+        row updates, opt state)."""
         uniq, g_emb = rx.sparse_rows_grad(state["embed"], cfg, batch, g_rows)
-        upd, oe = embed_opt.update({leaf: g_emb}, state["opt_embed"], None)
-        return uniq, upd[leaf], oe
+        upd, oe = embed_opt.update_rows(uniq, g_emb, state["opt_embed"],
+                                        tuple(state["embed"][leaf].shape))
+        return uniq, upd, oe
 
     # -- strict ------------------------------------------------------------
     @torch.no_grad()

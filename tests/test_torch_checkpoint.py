@@ -359,9 +359,10 @@ def test_checkpoint_recovers_in_the_other_package(tmp_path, writer, arch):
 
 @pytest.mark.parametrize("backend", ["remote", "sharded"])
 def test_unported_backends_raise(tmp_path, backend):
-    """sharded is not ported; remote is, and without a node's address it
-    raises the JAX package's error, before the manager starts anything."""
-    msg = {"remote": "needs a server addr", "sharded": "not ported"}[backend]
+    """remote without a node's address, and sharded without the nodes'
+    addresses, raise the JAX package's errors, before the manager starts
+    anything."""
+    msg = {"remote": "needs a server addr", "sharded": "needs shard addrs"}[backend]
     with pytest.raises(PoolError, match=msg):
         make_pool(backend, path=str(tmp_path / "p.img"))
     cfg, _, cc, _ = setup_run(str(tmp_path / "ck"), backend=backend)
@@ -407,6 +408,7 @@ def test_cli_checkpoint_and_resume(tmp_path, arch):
 
 @pytest.mark.parametrize("args,msg", [
     (["--pool-backend", "remote"], "--pool-addr"),
+    (["--pool-backend", "sharded"], "--pool-shards"),
     (["--pool-backend", "dram", "--resume"], "volatile"),
 ])
 def test_cli_refuses(tmp_path, args, msg):

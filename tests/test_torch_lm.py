@@ -265,11 +265,12 @@ def test_serve_cli_without_card_raises():
 
 
 def test_serve_cli_pool_backend_not_ported():
-    """The sharded pool (not ported), a read-only tenant of anything but a
-    remote pool, and a remote pool without a node's address raise; dram,
-    pmem and remote serve (``tests/test_torch_serve.py``,
-    ``tests/test_torch_remote_pool.py``)."""
-    for args, msg in ((["--pool-backend", "sharded"], "not ported yet"),
+    """A sharded pool without its nodes' addresses, a read-only tenant of
+    anything but a remote pool, and a remote pool without a node's address
+    raise; dram, pmem, remote and sharded serve
+    (``tests/test_torch_serve.py``, ``tests/test_torch_remote_pool.py``,
+    ``tests/test_torch_sharded_pool.py``)."""
+    for args, msg in ((["--pool-backend", "sharded"], "needs --pool-shards"),
                       (["--pool-backend", "pmem", "--pool-readonly"],
                        "needs --pool-backend remote"),
                       (["--pool-backend", "remote"], "needs --pool-addr")):

@@ -415,8 +415,10 @@ def test_tailer_follows_ring_growth(backend, tmp_path):
 def test_tier_before_the_trainer_and_without_a_mirror(tmp_path):
     """Serving may come up before the trainer's first commit: the tailer
     attaches at the next batch. With no mirror region the tier raises
-    ``PoolError``, as the JAX package's does; a replica raises, naming what
-    is not ported."""
+    ``PoolError``, as the JAX package's does. A tier asked for a replica
+    takes a ``ReplicaReader`` over the pool, not ready while no replica
+    exists (the failover itself: ``tests/test_torch_sharded_pool.py`` and
+    the serve_batched sharded drill)."""
     pool = DramPool(1 << 18)
     with pytest.raises(PoolError, match="embedding-mirror/rows"):
         EmbeddingServeTier(pool).serve_batch([np.array([1])])
@@ -429,8 +431,9 @@ def test_tier_before_the_trainer_and_without_a_mirror(tmp_path):
     got = tier.serve_batch([np.array([3, 4])])[0]
     assert tier.tailer is not None and tier.metrics.cache_invalidations == 1
     assert (got[0] == 1).all() and got[1].tobytes() == rows[4].tobytes()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        EmbeddingServeTier(pool, replica=True)
+    tier = EmbeddingServeTier(pool, replica=True)
+    assert tier.replica is not None and not tier.replica.ready
+    assert tier.staleness_bound() == 0 and tier.stats()["failovers"] == 0
 
 
 def test_commit_during_a_gather_leaves_no_stale_row(rng):

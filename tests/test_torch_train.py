@@ -82,9 +82,13 @@ def test_relaxed_prefetch_matches_updated_tables():
 
 
 def test_sparse_update_only_supports_sgd():
+    """The sparse tier takes the rules with a touched-rows form, sgd and
+    rowwise_adagrad (tests/test_torch_adagrad.py); sgdm has none (its
+    momentum moves untouched rows) and raises."""
     cfg = get_arch("dlrm-rm1", smoke=True).model
-    with pytest.raises(NotImplementedError, match="sgd"):
-        train_loop.make_step_fns(cfg, TrainConfig(embed_optimizer="rowwise_adagrad"))
+    train_loop.make_step_fns(cfg, TrainConfig(embed_optimizer="rowwise_adagrad"))
+    with pytest.raises(NotImplementedError, match="'sgdm' has no touched-rows"):
+        train_loop.make_step_fns(cfg, TrainConfig(embed_optimizer="sgdm"))
 
 
 def _run(code_or_args, module=False):
