@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure:
      small ragged shapes and at the shapes full dlrm-rm1 gives it, and time
      kernel, plain version and one library call beside the kernel's bound
      (the logged update, bitwise in the table and its undo rows, in f32,
-     f16 and bf16, beside the index_select + index_add_ pair);
+     f16 and bf16, beside the index_select + index_add_ pair; rm1's bag,
+     logged update and gather on f32 tables too, phase 21's path);
   4. train full-width dlrm-rm1 (bf16, 20 x 1M x 32 tables) at batch 128:
      5 relaxed steps then 2 strict ones, with the kernels' launch counts
      read around that run (a relaxed step updates the table through the
@@ -20,7 +21,9 @@ Phases, each of which exits non-zero on failure:
   5. train dlrm-rm1 smoke on the card and on the CPU from the same params
      and require the loss curves to agree;
   6. checkpointed training at full rm1 on a pmem pool (in a temporary
-     directory under build/, removed at the end): run A checkpoints 4
+     directory under build/, removed at the end; pool_compress none, as in
+     phases 20 and 21: zlib is driven at full width by phase 18, and its
+     tier-M of the dense tree took 13-22 s a step here): run A checkpoints 4
      relaxed steps and recovers a mirror equal to its tables; run B
      crashes between the undo COMMIT and the mirror apply of step 2,
      recovers the step-1 mirror bitwise, and resumes with losses equal to
@@ -97,8 +100,10 @@ Phases, each of which exits non-zero on failure:
      shared_pool_demo (two trainer tenants with quotas on one node),
      train_dlrm_e2e at 20 steps, quickstart, serve_batched for
      tinyllama-1.1b and rwkv6-3b, and serve_batched's sharded drill (the
-     read replica serving after the primary's node is shut down); each
-     must exit 0 and print its marker line;
+     read replica serving after the primary's node is shut down), and the
+     seeded fault soak under the checker (REPRO_POOL_CHECK=1: pmem, remote
+     and sharded cells over 3 seeds, a migration, a serving and a
+     node-loss cell); each must exit 0 and print its marker line;
  15. hold the wkv6 backward kernel against its plain version and the plain
      emulation of its TF32 split on the card (r, k, v in f32 and bf16; S in
      {1, 15, 16, 17, 64, 100, 1024}; 2 heads and rwkv6-3b's 40; zero and
@@ -145,7 +150,8 @@ Phases, each of which exits non-zero on failure:
      4 relaxed steps are checkpointed, each step's undo image captured on
      the card must equal the node's bitwise, each tier-E step's link bytes
      must stay within idx + new rows + 4 KB while its media bytes exceed
-     them (its ms printed beside phase 6's pmem pool), and the mirror
+     them (its ms printed beside phase 6's pmem pool, which does not
+     compress), and the mirror
      recovered over a fresh connection must equal the tables bitwise. The
      drill, on a fresh node: the train CLI (python -m
      repro_torch.launch.train --full --pool-backend remote ...) in a
@@ -189,8 +195,24 @@ Phases, each of which exits non-zero on failure:
      mirror equals the card's tables at the replication watermark bitwise
      (the step after it rolled back from the replica's undo ring), and 2
      resumed steps give the uninterrupted twin's losses; every client's
-     reply stalls printed.
-Phases 7 to 20 print their wall time. Phases 4, 8, 10, 12 and 16 also
+     reply stalls printed;
+ 21. full dlrm-rm1 with f32 tables trained under the crash-consistency
+     checker (REPRO_POOL_CHECK=1) into a pmem pool under build/ (removed),
+     relaxed, dense_interval=1, pool_compress none: run U checkpoints 4
+     steps (launch counts, 16-byte routes, the mirror equal to the
+     tables), then an undo-commit persisted over a dirty payload in its
+     ring must raise CommitBeforePayloadError; its state after step 0,
+     the relaxed carry dropped, is the twin, which takes steps 1-3 without
+     a manager. A crash run (seed 1) and a torn run (seed 32) under
+     FaultSchedule.seeded(seed, the soak's POINTS, every=4) fault in step
+     1's tier-E, are power-cycled, recovered under the checker (step 0,
+     gap 0, the mirror bitwise the twin's tables) and resumed to step 4:
+     losses bitwise the twin's and within the reference soak's gap-0
+     bound (rtol 1e-5) of run U's, the mirror bitwise the twin's tables.
+     The fault that fired, each run's seconds, the checked tier-E seconds
+     beside phase 6's unchecked ones, the seconds inside the tracker and
+     its most dirty intervals printed.
+Phases 6 to 21 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13, 16, 18 and 20 every scatter_update_logged launch
@@ -209,7 +231,8 @@ pool-served tinyllama prefill (flash) and rwkv6-3b prefill and decode
 into the memory node, as one more for the bag, both updates and the
 gather; phase 19's Adagrad runs of rm1 and tinyllama, tinyllama's
 accumulator launches (narrow) as paths of their own; phase 20's rm1 run into the
-sharded pool); the last line is
+sharded pool; phase 21's run U, rm1 on f32 tables under the checker); the
+last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
 Imports nothing of JAX.
@@ -304,6 +327,22 @@ def time_shapes(torch, tag, shapes):
     return timing
 
 
+def time_manager(mgr, times):
+    """Times each call of ``mgr``'s on_step, flush and writer items into
+    ``times`` (ms lists by name): the wrappers shadow the methods that the
+    writer thread looks up on the instance."""
+    for name in ("on_step", "flush", "_do_tier_e", "_do_tier_m"):
+        fn = getattr(mgr, name)
+
+        def wrapper(*a, _fn=fn, _name=name):
+            t = time.perf_counter()
+            try:
+                return _fn(*a)
+            finally:
+                times.setdefault(_name, []).append(1e3 * (time.perf_counter() - t))
+        setattr(mgr, name, wrapper)
+
+
 def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
                      plain_step_ms):
     """Phase 6. Returns the launch counts of run A, the checkpointed path,
@@ -354,27 +393,13 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
     try:
         def config(name):
             cc = dataclasses.replace(tc.checkpoint, directory=os.path.join(work, name),
-                                     dense_interval=1, pool_backend="pmem")
+                                     dense_interval=1, pool_backend="pmem",
+                                     pool_compress="none")
             return dataclasses.replace(tc, checkpoint=cc)
 
         def host_tables(state):
             t = state["embed"]["emb_tables"]   # updated in place: copy
             return t.to("cpu", torch.float32, copy=True).numpy().reshape(-1, d)
-
-        def timed(mgr, times):
-            # the writer's two items too: the wrappers shadow the methods the
-            # writer thread looks up on the instance
-            for name in ("on_step", "flush", "_do_tier_e", "_do_tier_m"):
-                fn = getattr(mgr, name)
-
-                def wrapper(*a, _fn=fn, _name=name):
-                    t = time.perf_counter()
-                    try:
-                        return _fn(*a)
-                    finally:
-                        times.setdefault(_name, []).append(
-                            1e3 * (time.perf_counter() - t))
-                setattr(mgr, name, wrapper)
 
         # run A: 4 relaxed steps, every step checkpointed, dense_interval=1
         tca = config("A")
@@ -385,7 +410,7 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         print(f"[ckpt] manager start + mirror load (2.56 GB f32 written and "
               f"fsynced): {load_s:.2f}s")
         times, after1, stamps = {}, {"s": 0.0}, [time.perf_counter()]
-        timed(mgr, times)
+        time_manager(mgr, times)
         timed_on_step = mgr.on_step
 
         def on_step(step, st, feed):
@@ -1987,7 +2012,14 @@ def examples_phase():
             ("serve_batched tinyllama-1.1b", "serve_batched",
              ["--arch", "tinyllama-1.1b"], "[decode] 8x32 tokens"),
             ("serve_batched rwkv6-3b", "serve_batched", ["--arch", "rwkv6-3b"],
-             "[decode] 8x32 tokens"))
+             "[decode] 8x32 tokens"),
+            # the seeded soak, under the checker as its nightly run is
+            ("pool_soak (REPRO_POOL_CHECK=1)", "pool_soak",
+             ["--backends", "pmem,remote,sharded", "--seeds", "3", "--migrations", "1",
+              "--serve", "1", "--node-loss", "1",
+              "--out", os.path.join(work, "soak_metrics.json")],
+             "soak: 12 ok, 0 failed"))
+    checked = {**env, "REPRO_POOL_CHECK": "1"}
     procs, wall = {}, {}
     t0 = time.perf_counter()
     try:
@@ -1997,8 +2029,8 @@ def examples_phase():
             with open(os.path.join(work, f"{i}.log"), "w") as log:
                 procs[label] = subprocess.Popen(
                     [sys.executable, "-m", f"repro_torch.examples.{name}", *args],
-                    env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True,
-                    start_new_session=True)
+                    env=checked if name == "pool_soak" else env, cwd=ROOT, stdout=log,
+                    stderr=subprocess.STDOUT, text=True, start_new_session=True)
         while len(wall) < len(procs):
             check(time.perf_counter() - t0 < 300, "examples: not all exited within "
                   f"300 s: {sorted(set(procs) - set(wall))}")
@@ -2006,16 +2038,16 @@ def examples_phase():
                 if label not in wall and proc.poll() is not None:
                     wall[label] = time.perf_counter() - t0
             time.sleep(0.1)
-        for i, (label, _, _, marker) in enumerate(runs):
+        for i, (label, name, _, marker) in enumerate(runs):
             rc = procs[label].returncode
             with open(os.path.join(work, f"{i}.log")) as log:
                 out = log.read()
             lines = [ln for ln in out.splitlines()
                      if ln.startswith(("==", "[prefill]", "[decode]", "strict", "loss:",
                                        "fault-tolerance", "shared-pool", "-- tenant",
-                                       "[pool-serve]", "pool-serving"))]
+                                       "[pool-serve]", "pool-serving", "soak"))]
             print(f"[examples] {label}: exit {rc}, done at {wall[label]:.1f}s; "
-                  + " | ".join(lines[-4:]))
+                  + " | ".join(lines[-13:] if name == "pool_soak" else lines[-4:]))
             check(rc == 0 and marker in out,
                   f"example {label}: exit {rc}, no {marker!r}:\n{out[-6000:]}")
     finally:
@@ -2590,7 +2622,7 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         out["tier_e_link_bytes"] = [s_["link_bytes"] for s_ in steps]
         out["tier_e_media_bytes"] = [s_["media_bytes"] for s_ in steps]
         print(f"[remote] tier-E ms per step {out['tier_e_ms']}; phase 6's pmem pool "
-              f"in process {pmem_tier_e_ms}")
+              f"in process (pool_compress none) {pmem_tier_e_ms}")
         print(f"[ckpt-remote] stats {json.dumps(mgr.stats)}")
         print(mgr.pool.metrics.report())
         wire_stalls("[remote]", out, "run A load + steps", mgr.pool)
@@ -3148,6 +3180,304 @@ def sharded_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Phase 21's faulted runs. FaultSchedule.seeded(seed, POINTS, every=SOAK_STEPS)
+# arms each of the soak's points, which fire once a step at dense_interval=1,
+# at occurrence crc32(f"{seed}:{point}") % SOAK_STEPS + 1. For these two seeds
+# no point is armed before its second occurrence, and the first to come due
+# fires in step 1's tier-E, after step 0 was committed: seed 1 crashes before
+# step 1's undo payload persists (nothing to roll back), seed 32 tears step
+# 1's mirror apply (the committed entry rolls the torn rows back). Both
+# recover step SOAK_RECOVERED with the dense tier caught up (gap 0).
+SOAK_SEEDS = (("crash", 1), ("torn", 32))
+SOAK_STEPS = 4
+SOAK_RECOVERED = 0
+
+
+def clock_tracker(tracker):
+    """Adds up the seconds spent in ``tracker``'s event methods (the
+    checker's own cost, on whichever thread calls them) and the most dirty
+    intervals it held at a mirror-apply persist. Returns the dict it
+    fills."""
+    clock = {"s": 0.0, "dirty_intervals_max": 0, "mirror_applies": 0}
+    for name in ("note_write", "note_read", "note_persist", "note_crash",
+                 "note_alloc", "note_free"):
+        fn = getattr(tracker, name)
+
+        def wrapper(*a, _fn=fn, _name=name, **k):
+            if _name == "note_persist" and k.get("point") == "mirror-apply":
+                clock["dirty_intervals_max"] = max(clock["dirty_intervals_max"],
+                                                   sum(1 for _ in tracker.dirty))
+                clock["mirror_applies"] += 1
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                clock["s"] += time.perf_counter() - t
+        setattr(tracker, name, wrapper)
+    return clock
+
+
+def checked_soak_phase(torch, np, cfg, tc, Bsz, dev, pmem_tier_e_ms):
+    """Phase 21: full dlrm-rm1 with f32 tables trained under the
+    crash-consistency checker (``REPRO_POOL_CHECK=1``, as a user sets it)
+    into a pmem pool under build/, relaxed, dense_interval=1 as in the soak,
+    pool_compress none as in phase 6. Run U checkpoints SOAK_STEPS steps
+    (launch counts, 16-byte routes, the mirror equal to the tables); its
+    state after step SOAK_RECOVERED is kept on the card with the relaxed
+    carry dropped, as a resume rebuilds it (the twin, as phase 6's); then
+    one known-bad sequence (an undo-commit persist over a dirty payload)
+    must raise ``CommitBeforePayloadError``, and the twin takes the
+    remaining steps without a manager. Then a crash run and a torn run under
+    ``FaultSchedule.seeded(seed, POINTS, every=SOAK_STEPS)``: after the
+    ``InjectedCrash`` the pool is power-cycled and recovered under the
+    checker, at step SOAK_RECOVERED with gap 0 and a mirror bitwise the
+    twin's tables, and resumed to step SOAK_STEPS, whose losses must be the
+    twin's bitwise and run U's within the reference soak's gap-0 bound
+    (rtol 1e-5, atol 1e-6), and whose mirror must be the twin's tables
+    bitwise. Returns (run U's launches, the phase's numbers)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.analysis import CheckedPool, CommitBeforePayloadError
+    from repro_torch.core.checkpoint import recovery
+    from repro_torch.core.checkpoint.manager import CheckpointManager
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import DLRMBatches
+    from repro_torch.examples.pool_soak import POINTS
+    from repro_torch.models.registry import get_api
+    from repro_torch.pool import FaultSchedule, InjectedCrash
+    from repro_torch.pool import undo_codec as uc
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_map
+
+    tag = "[soak]"
+    cfg = cfg.replace(dtype="float32")
+    T, R, d = cfg.dlrm_num_tables, cfg.dlrm_rows_per_table, cfg.dlrm_bottom_mlp[-1]
+    mirror_gb = T * R * d * 4 / 1e9
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    # RAM: a pool's cache (2 x mirror), the recovered mirror and three host
+    # copies of the tables (run U's mirror, the twin's at both ends)
+    host_room(tag, "checked soak phase", build, 8 * mirror_gb, 2 * mirror_gb)
+    work = tempfile.mkdtemp(prefix="soak-ckpt-", dir=build)
+    out = {"pool_compress": "none", "steps": SOAK_STEPS}
+
+    def fresh():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(tc.seed)
+        state = train_loop.make_step_fns(cfg, tc)[0](get_api(cfg).init(gen, cfg))
+        torch.cuda.synchronize()
+        return state
+
+    def config(name):
+        return dataclasses.replace(tc, checkpoint=dataclasses.replace(
+            tc.checkpoint, directory=os.path.join(work, name), dense_interval=1,
+            pool_backend="pmem", pool_compress="none"))
+
+    def run(tcx, state, mgr, start=0):
+        batches = LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev), cfg,
+                                    depth=SOAK_STEPS - start + 1, start_step=start)
+        state, losses = train_loop_train(cfg, tcx, batches, SOAK_STEPS - start,
+                                         state, mgr, None, start=start)
+        if mgr is not None:
+            mgr.flush()
+        return state, losses
+
+    def host_tables(state):
+        return state["embed"]["emb_tables"].to("cpu", copy=True).numpy().reshape(-1, d)
+
+    prev = os.environ.get("REPRO_POOL_CHECK")
+    os.environ["REPRO_POOL_CHECK"] = "1"          # as a user sets it
+    tier_e, clocks = [], []
+    try:
+        # -- run U: uninterrupted, under the checker ----------------------------
+        t0 = time.perf_counter()
+        tcu = config("U")
+        state = fresh()
+        mgr = CheckpointManager(cfg, tcu.checkpoint, embed_init=state["embed"])
+        check(isinstance(mgr.pool, CheckedPool), f"{tag} REPRO_POOL_CHECK=1 gave a "
+              f"{type(mgr.pool).__name__}, not a CheckedPool")
+        load_s = time.perf_counter() - t0
+        clocks.append(clock_tracker(mgr.pool.tracker))
+        times, twin = {}, {}
+        time_manager(mgr, times)
+        timed_on_step = mgr.on_step
+
+        def on_step(step, st, feed):
+            timed_on_step(step, st, feed)
+            if step == SOAK_RECOVERED:
+                # the step the faulted runs recover: the tables on the host,
+                # and a twin on the card with its relaxed carry dropped (the
+                # tables and the dense tree are updated in place: cloned)
+                twin["rows"] = host_tables(st)
+                twin["state"] = {
+                    **st, "prefetch": None,
+                    "step": torch.tensor(step + 1, dtype=torch.int32, device=dev),
+                    "embed": {"emb_tables": st["embed"]["emb_tables"].clone()},
+                    "dense": tree_map(torch.clone, st["dense"]),
+                    "opt_dense": tree_map(torch.clone, st["opt_dense"])}
+        mgr.on_step = on_step
+        zero_row_counts()
+        state, lu = run(tcu, state, mgr)
+        c = row_counts()
+        launches = {k: c[k] for k in checkpointed_launches(SOAK_STEPS)}
+        check(launches == checkpointed_launches(SOAK_STEPS),
+              f"{tag} run U: unexpected launch counts {launches}")
+        check(c["scatter_update_wide"] == c["scatter_update"]
+              and c["gather_rows_wide"] == c["gather_rows"]
+              and c["scatter_update_logged_wide"] == c["scatter_update_logged"],
+              f"{tag} run U: a row kernel launch off the 16-byte route: {c}")
+        check(all(math.isfinite(x) for x in lu), f"{tag} run U: non-finite loss {lu}")
+        mirror_u = np.array(mgr.mirror_rows)
+        check(np.array_equal(mirror_u, host_tables(state)), f"{tag} run U: mirror "
+              "differs from the tables on the card")
+        del state
+        tier_e += times["_do_tier_e"]
+        tracker = mgr.pool.tracker
+        out["U"] = {"s": time.perf_counter() - t0, "mirror_load_s": load_s,
+                    "losses": lu, "tier_e_ms": times["_do_tier_e"],
+                    "tier_m_ms": times["_do_tier_m"], "events": dict(tracker.events),
+                    "tracker_s": clocks[0]["s"],
+                    "dirty_intervals_max": clocks[0]["dirty_intervals_max"],
+                    "live_regions": len(tracker.live)}
+        print(f"{tag} run U: {SOAK_STEPS} checked steps of full rm1 (f32 tables) in "
+              f"{out['U']['s']:.2f}s (mirror load {load_s:.2f}s); losses {lu}; "
+              f"launches {launches}")
+        print(f"{tag} run U: tier-E ms {times['_do_tier_e']}, tier-M ms "
+              f"{times['_do_tier_m']}; tracker events {tracker.events}, "
+              f"{clocks[0]['s']:.3f}s inside the tracker, at most "
+              f"{clocks[0]['dirty_intervals_max']} dirty intervals at a mirror "
+              f"apply, {len(tracker.live)} live regions")
+
+        # -- the negative check: a COMMIT over a dirty payload --------------------
+        ring = mgr.ring.ring
+        buf, _, _ = uc.pack_slot(SOAK_STEPS, np.arange(4, dtype=np.int64),
+                                 np.ones((4, d), np.float32), None, mode="none",
+                                 slot_bytes=1024)
+        mgr.pool.write(ring.off, buf)             # the payload, never persisted
+        mgr.pool.write(ring.off + uc.COMMIT_OFF, uc.COMMIT_SET)
+        try:
+            mgr.pool.persist(ring.off + uc.COMMIT_OFF, 4, point="undo-commit")
+            raised = None
+        except CommitBeforePayloadError as e:
+            raised = str(e)
+        check(raised is not None, f"{tag} an undo-commit over a dirty payload in "
+              "the full-width ring raised nothing")
+        print(f"{tag} negative check: CommitBeforePayloadError: {raised}")
+        out["negative_check"] = "CommitBeforePayloadError"
+        mgr.close()
+        del mgr
+        gc.collect()
+        shutil.rmtree(os.path.join(work, "U"))
+
+        # -- the twin: run U's state after step SOAK_RECOVERED, carry rebuilt -----
+        state, lt = run(tcu, twin.pop("state"), None, start=SOAK_RECOVERED + 1)
+        twin["final"] = host_tables(state)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["twin_losses"] = lt
+        print(f"{tag} twin: run U's state after step {SOAK_RECOVERED}, carry "
+              f"rebuilt, to step {SOAK_STEPS}: losses {lt} (run U's "
+              f"{lu[SOAK_RECOVERED + 1:]})")
+
+        # -- the faulted runs ---------------------------------------------------------
+        for kind, seed in SOAK_SEEDS:
+            t0 = time.perf_counter()
+            name = f"{kind}{seed}"
+            tcf = config(name)
+            faults = FaultSchedule.seeded(seed, POINTS, every=SOAK_STEPS, kind=kind)
+            state = fresh()
+            mgr = CheckpointManager(cfg, tcf.checkpoint, embed_init=state["embed"],
+                                    faults=faults)
+            clocks.append(clock_tracker(mgr.pool.tracker))
+            crashed = False
+            try:
+                run(tcf, state, mgr)
+            except InjectedCrash:
+                crashed = True
+            check(crashed, f"{tag} {name}: the seeded {kind} never fired")
+            fired = [(ev.point, n, ev.kind) for ev, n in faults.fired]
+            del state
+            mgr.pool.crash()                       # power-cycle the device
+            mgr.pool.faults = None
+            t = time.perf_counter()
+            rec = recovery.recover(tcf.checkpoint.directory, pool=mgr.pool)
+            rec_s = time.perf_counter() - t
+            check(isinstance(rec.pool, CheckedPool), f"{tag} {name}: recovery's "
+                  "pool is not checked")
+            print(f"{tag} {name}: fired {fired}; recovered under the checker in "
+                  f"{rec_s:.2f}s: mirror_step {rec.mirror_step}, dense_step "
+                  f"{rec.dense_step}, rolled_back {rec.rolled_back}, gap {rec.gap}")
+            rec_info = {"mirror_step": rec.mirror_step, "dense_step": rec.dense_step,
+                        "rolled_back": rec.rolled_back, "gap": rec.gap}
+            check(rec_info == {"mirror_step": SOAK_RECOVERED,
+                               "dense_step": SOAK_RECOVERED,
+                               "rolled_back": kind == "torn", "gap": 0},
+                  f"{tag} {name}: recovered {rec_info}, want step {SOAK_RECOVERED} "
+                  "at gap 0, rolled back after the torn apply only")
+            check(np.array_equal(rec.embed_rows, twin["rows"]), f"{tag} {name}: "
+                  f"recovered mirror differs from run U's tables after step "
+                  f"{SOAK_RECOVERED}")
+            state, start = recovery.resume_train_state(rec, fresh())
+            check(start == SOAK_RECOVERED + 1, f"{tag} {name}: resume step {start}")
+            times = {}
+            t = time.perf_counter()
+            mgr2 = CheckpointManager(cfg, tcf.checkpoint, pool=rec.pool)
+            mgr2.init_mirror(state["embed"], step=rec.mirror_step)
+            resume_load_s = time.perf_counter() - t
+            time_manager(mgr2, times)
+            del rec
+            state, tail = run(tcf, state, mgr2, start=start)
+            del state
+            tier_e += times["_do_tier_e"]
+            mirror = np.asarray(mgr2.mirror_rows)
+            same_mirror = np.array_equal(mirror, twin["final"])
+            from_u = float(np.abs(mirror - mirror_u).max())
+            del mirror
+            mgr2.close()
+            with contextlib.suppress(InjectedCrash):
+                mgr.close()                        # its writer thread ends
+            del mgr, mgr2
+            gc.collect()
+            shutil.rmtree(os.path.join(work, name))
+            rel = max(abs(a - b) / max(abs(b), 1e-6)
+                      for a, b in zip(tail, lu[start:], strict=True))
+            out[name] = {"s": time.perf_counter() - t0, "fired": fired, **rec_info,
+                         "recover_s": rec_s, "resume_step": start,
+                         "resume_mirror_load_s": resume_load_s, "tail_losses": tail,
+                         "tail_rel_from_U": rel, "mirror_abs_from_U": from_u,
+                         "tier_e_ms": times["_do_tier_e"], "tracker_s": clocks[-1]["s"]}
+            print(f"{tag} {name}: resumed at step {start} (mirror load "
+                  f"{resume_load_s:.2f}s), losses {tail}: the twin's {lt}, run U's "
+                  f"{lu[start:]} (largest relative difference {rel:.3g}); mirror at "
+                  f"step {SOAK_STEPS} bitwise the twin's: {same_mirror}, from run "
+                  f"U's at most {from_u:.3g}; run {out[name]['s']:.2f}s")
+            check(tail == lt, f"{tag} {name}: resumed losses differ from the twin's")
+            check(all(abs(a - b) <= 1e-6 + 1e-5 * abs(b)
+                      for a, b in zip(tail, lu[start:], strict=True)),
+                  f"{tag} {name}: resumed losses {rel:.3g} from run U's, beyond the "
+                  "soak's gap-0 bound (rtol 1e-5, atol 1e-6)")
+            check(same_mirror, f"{tag} {name}: the mirror at step {SOAK_STEPS} "
+                  "differs from the twin's tables")
+        checked_s = [ms / 1e3 for ms in tier_e]
+        out["tier_e_s_checked"] = checked_s
+        out["tier_e_s_phase6"] = [ms / 1e3 for ms in pmem_tier_e_ms]
+        out["tracker_s_per_tier_e"] = sum(c["s"] for c in clocks) / max(
+            1, sum(c["mirror_applies"] for c in clocks))
+        print(f"{tag} tier-E s per step, checked: {checked_s}; phase 6, unchecked "
+              f"(bf16 tables, the same f32 mirror): {out['tier_e_s_phase6']}; inside "
+              f"the tracker {out['tracker_s_per_tier_e']:.3f}s per tier-E")
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_POOL_CHECK", None)
+        else:
+            os.environ["REPRO_POOL_CHECK"] = prev
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, out
+
+
 def train_loop_train(cfg, tc, batches, steps, state, mgr, on_metrics, start=0):
     """``train_loop.train`` of relaxed steps on the card."""
     from repro_torch.training import train_loop
@@ -3336,6 +3666,11 @@ def main():
     check_update(scratch, uniq, upd, "rm1 f32 scratch")
     real_ids = uniq[: (uniq >= 0).sum().item()]   # the checkpoint's gather
     check_gather(tables, real_ids, "rm1 touched rows (bf16 table)")
+    # phase 21 trains rm1 with f32 tables
+    tables32 = tables.float()
+    check_bag(tables32, flat, seg, nb, "rm1 forward bag (f32 table)")
+    check_update_logged(tables32.clone(), uniq, upd, "rm1 f32 table")
+    check_gather(tables32, real_ids, "rm1 touched rows (f32 table)")
     check_bag(scratch, flat, seg, nb, "rm1 correction bag (f32 scratch)")
     ops.scatter_update(scratch, uniq, -upd)
     check(not scratch.any().item(), "scratch not cleared by u + (-u)")
@@ -3346,6 +3681,8 @@ def main():
     real = uniq[uniq >= 0].long()
     upd_real_bf16 = upd[: real.numel()].to(torch.bfloat16)
     t_tab = tables.clone()
+    t_tab32 = tables32.clone()
+    upd_real = upd[: real.numel()]
     rows_b = 2   # bf16
 
     def bag_bytes(n_bags, rows_read, row_bytes):
@@ -3389,9 +3726,26 @@ def main():
                         lambda: ref.gather_rows_ref(tables, real_ids),
                         lambda: torch.index_select(tables, 0, real_ids),
                         bound(n_rows * 4 + 2 * n_rows * d * rows_b, 0)),
+        # phase 21's f32 tables: the same work at 4-byte rows
+        "bag_fwd_f32": (lambda: ops.embedding_bag(tables32, flat, seg, nb),
+                        lambda: ref.embedding_bag_ref(tables32, flat, seg, nb),
+                        lambda: torch.nn.functional.embedding_bag(
+                            flat, tables32, offsets, mode="sum"),
+                        bound(bag_bytes(nb, n_rows, d * 4), N * d)),
+        "update_logged_f32": (
+            lambda: ops.scatter_update_logged(t_tab32, uniq, upd),
+            lambda: ref.scatter_update_logged_ref(t_tab32, uniq, upd),
+            lambda: (t_tab32.index_select(0, real), t_tab32.index_add_(0, real, upd_real)),
+            bound(n_rows * (4 + d * (4 + 3 * 4)) + (N - n_rows) * (4 + d * 4),
+                  n_rows * d)),
+        "gather_f32": (lambda: ops.gather_rows(tables32, real_ids),
+                       lambda: ref.gather_rows_ref(tables32, real_ids),
+                       lambda: torch.index_select(tables32, 0, real_ids),
+                       bound(n_rows * 4 + 2 * n_rows * d * 4, 0)),
     }
     timing = time_shapes(torch, "[kernels]", shapes)
     del tables, t_tab, scratch, g_rows, g_comb, upd, upd_real_bf16, real_ids
+    del tables32, t_tab32, upd_real
     torch.cuda.empty_cache()
 
     # -- 4. full-width dlrm-rm1 through the port's train -------------------------
@@ -3487,9 +3841,11 @@ def main():
     # -- 6. checkpointed training, crash, recovery and resume ---------------------
     step = {"relaxed_ms_median": statistics.median(rt[1:]),
             "strict_ms_median": statistics.median(stt)}
+    t0 = time.perf_counter()
     ck_launches, ck_tier_e_ms = checkpoint_phase(torch, np, cfg, tc, Bsz, dev,
                                                  fresh_state,
                                                  step["relaxed_ms_median"])
+    print(f"[ckpt] phase 6 wall time {time.perf_counter() - t0:.1f}s")
     # -- 7. the flash-attention kernel on the card ---------------------------------
     t0 = time.perf_counter()
     flash_err, flash_t = flash_phase(torch, dev)
@@ -3593,6 +3949,12 @@ def main():
     sharded_launches, sharded_out = sharded_checkpoint_phase(torch, np, cfg, tc, Bsz,
                                                              dev, fresh_state)
     print(f"[sharded] phase 20 wall time {time.perf_counter() - t0:.1f}s")
+
+    # -- 21. full rm1 trained under the checker through seeded crashes -----------
+    t0 = time.perf_counter()
+    soak_launches, soak_out = checked_soak_phase(torch, np, cfg, tc, Bsz, dev,
+                                                 ck_tier_e_ms)
+    print(f"[soak] phase 21 wall time {time.perf_counter() - t0:.1f}s")
 
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
@@ -3727,7 +4089,16 @@ def main():
              "update_logged_bf16", sharded_launches["scatter_update_logged"],
              *logged_src),
             ("gather_rows", "dlrm-rm1 checkpoint (sharded pool)", "gather_bf16",
-             sharded_launches["gather_rows"], *gather_src)):
+             sharded_launches["gather_rows"], *gather_src),
+            # phase 21: run U of rm1 (f32 tables) under the checker
+            ("embedding_bag", "dlrm-rm1 train (checked, f32 tables)", "bag_fwd_f32",
+             soak_launches["embedding_bag"], *bag_src),
+            ("scatter_update", "dlrm-rm1 train (checked, f32 tables)", "update_f32",
+             soak_launches["scatter_update"], *update_src),
+            ("scatter_update_logged", "dlrm-rm1 train (checked, f32 tables)",
+             "update_logged_f32", soak_launches["scatter_update_logged"], *logged_src),
+            ("gather_rows", "dlrm-rm1 checkpoint (checked, f32 tables)", "gather_f32",
+             soak_launches["gather_rows"], *gather_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -3738,6 +4109,7 @@ def main():
     print(f"[remote] memory node: {json.dumps(remote_out)}")
     print(f"[adagrad] step ms in turns: {json.dumps(ada_step)}")
     print(f"[sharded] three memory nodes: {json.dumps(sharded_out)}")
+    print(f"[soak] checked soak: {json.dumps(soak_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

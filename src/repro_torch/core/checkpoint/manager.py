@@ -67,7 +67,7 @@ from repro_torch.kernels import ops
 from repro_torch.pool import compress as pool_compress
 from repro_torch.pool.allocator import JsonRegion, PoolAllocator
 from repro_torch.pool.device import (PoolDevice, PoolError, check_backend,
-                                     check_checker_off, make_pool)
+                                     make_pool)
 from repro_torch.pool.faults import FaultSchedule, InjectedCrash
 from repro_torch.pool.nmp import NmpQueue
 from repro_torch.pool.placement import RebalancePolicy
@@ -137,7 +137,6 @@ class CheckpointManager:
         self.root = ckpt_cfg.directory
         if pool is None:    # refuse what cannot open before anything starts
             backend = check_backend(getattr(ckpt_cfg, "pool_backend", "pmem"))
-            check_checker_off()
             if backend == "remote" and not getattr(ckpt_cfg, "pool_addr", ""):
                 raise PoolError("remote backend needs a server addr "
                                 "(unix:/path or tcp:host:port)")

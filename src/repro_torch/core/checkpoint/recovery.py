@@ -36,7 +36,7 @@ from repro_torch.core.checkpoint.undo_log import UndoRing
 from repro_torch.pool import compress as pool_compress
 from repro_torch.pool.allocator import JsonRegion, PoolAllocator
 from repro_torch.pool.device import (PmemPool, PoolDevice, PoolError,
-                                     check_backend, check_checker_off)
+                                     check_backend, maybe_check)
 from repro_torch.pool.nmp import NmpQueue
 from repro_torch.tree import tree_map
 
@@ -66,18 +66,19 @@ def open_pool(root: str,
     lived (never placed again, never hashed again); a node that no longer
     answers keeps its index and raises ``PoolConnectionError`` for every op
     that reaches it, and the open-time sweep reclaims any copy a crashed
-    migration stranded on the wrong side of its flip."""
+    migration stranded on the wrong side of its flip. A device it opens is
+    wrapped in the crash-consistency checker when ``REPRO_POOL_CHECK``
+    asks for it, so a checked run stays checked across the power cycle."""
     if pool is not None:
         return pool
     info = store.read_json(os.path.join(root, "POOL.json"))
     backend = check_backend(info["backend"])
     if backend == "remote":
-        check_checker_off()
         from repro_torch.pool.remote import RemotePool
-        return RemotePool(info["addr"], tenant=info.get("tenant", "default"),
-                          quota=info.get("quota", 0))
+        return maybe_check(
+            RemotePool(info["addr"], tenant=info.get("tenant", "default"),
+                       quota=info.get("quota", 0)))
     if backend == "sharded":
-        check_checker_off()
         from repro_torch.pool.placement import PlacementMap
         from repro_torch.pool.sharded import ShardedPool
         pmap = PlacementMap.from_json({"shards": info.get("shards"),
@@ -95,13 +96,12 @@ def open_pool(root: str,
         if swept:
             print("[recovery] swept stale migration copies: "
                   + ", ".join(f"{d}@shard{i}" for d, i in swept))
-        return dev
+        return maybe_check(dev)
     if backend != "pmem":
         raise PoolError(
             f"pool backend {info['backend']!r} is volatile across processes; "
             "pass the surviving PoolDevice to recover(root, pool=...)")
-    check_checker_off()
-    return PmemPool.open(os.path.join(root, "pool.img"))
+    return maybe_check(PmemPool.open(os.path.join(root, "pool.img")))
 
 
 def record_placement(root: str, pool) -> None:

@@ -22,8 +22,9 @@ before/after it.
 ``make_pool("remote", addr=...)`` connects to a memory node in another
 process (``repro_torch.pool.server``) through ``remote.RemotePool``;
 ``make_pool("sharded", shards=...)`` puts several nodes behind a placement
-map (``sharded.ShardedPool``). The crash-consistency checker is not
-ported: asking for it raises.
+map (``sharded.ShardedPool``). ``check=True``, or ``REPRO_POOL_CHECK=1``
+in the environment, wraps any of them in the crash-consistency checker
+(``repro_torch.analysis.checker.CheckedPool``).
 """
 from __future__ import annotations
 
@@ -329,23 +330,14 @@ def check_backend(backend: str) -> str:
     return backend
 
 
-def check_checker_off() -> None:
-    """Raises when ``REPRO_POOL_CHECK`` asks for the crash-consistency
-    checker (read as the JAX package reads it): the checker is not ported,
-    and a run that asked for it must not go unchecked."""
-    if os.environ.get("REPRO_POOL_CHECK", "").strip().lower() \
-            in {"1", "true", "yes", "on"}:
-        raise PoolError("the crash-consistency checker (REPRO_POOL_CHECK) is "
-                        "not ported yet; unset it to run the port")
-
-
 def make_pool(backend: str, *, path: Optional[str] = None,
               capacity: int = 1 << 20,
               faults: Optional[FaultSchedule] = None,
               addr: Optional[str] = None, tenant: str = "default",
               quota: int = 0, shards=None, placement=None,
               rebalance: float = 0.0, secret: str = "",
-              readonly: bool = False, timeout=None, wire=None) -> PoolDevice:
+              readonly: bool = False, timeout=None, wire=None,
+              check: Optional[bool] = None):
     """A dram or pmem pool (pmem needs the image ``path``), a tenant of
     the memory node at ``addr`` (remote), or a tenant of every node in
     ``shards`` (sharded: addresses, a list or one comma-separated string;
@@ -354,15 +346,16 @@ def make_pool(backend: str, *, path: Optional[str] = None,
     (remote and sharded): a float rescales the per-op-class wire deadlines
     around it, a ``protocol.Timeouts`` pins them; None keeps the registry's
     defaults. ``wire`` pins the protocol revision to offer (1, 2 or 3);
-    None honours ``REPRO_POOL_WIRE`` and otherwise asks for v3."""
+    None honours ``REPRO_POOL_WIRE`` and otherwise asks for v3. ``check``
+    wraps the device in the crash-consistency checker; None honours
+    ``REPRO_POOL_CHECK`` (off the default path otherwise)."""
     check_backend(backend)
-    check_checker_off()
     if backend == "dram":
-        return DramPool(capacity, faults)
+        return maybe_check(DramPool(capacity, faults), check)
     if backend == "pmem":
         if not path:
             raise PoolError("pmem backend needs a file path")
-        return PmemPool(path, capacity, faults)
+        return maybe_check(PmemPool(path, capacity, faults), check)
     if backend == "sharded":
         if not shards:
             raise PoolError("sharded backend needs shard addrs "
@@ -384,4 +377,13 @@ def make_pool(backend: str, *, path: Optional[str] = None,
                          readonly=readonly, timeout=timeout, wire=wire)
     if faults is not None:
         dev.faults = faults
-    return dev
+    return maybe_check(dev, check)
+
+
+def maybe_check(dev: PoolDevice, check: Optional[bool] = None):
+    """``dev`` wrapped in the crash-consistency checker when asked to,
+    explicitly or (``check=None``) through ``REPRO_POOL_CHECK``."""
+    from repro_torch.analysis.checker import CheckedPool, checking_enabled
+    if check is None:
+        check = checking_enabled()
+    return CheckedPool(dev) if check else dev

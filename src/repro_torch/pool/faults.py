@@ -18,10 +18,13 @@ Event kinds:
     execution continues, the data is simply not durable.
 
 Schedules are deterministic by construction: occurrences are counted, not
-sampled, so a test replays bit-identically.
+sampled, so a test replays bit-identically. ``seeded(seed, points, every)``
+builds a reproducible pseudo-random schedule for soak drills, the same
+schedule as the JAX package's for the same seed.
 """
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass, field
 
 
@@ -62,6 +65,17 @@ class FaultSchedule:
     @classmethod
     def drop_at(cls, point: str, occurrence: int = 1) -> "FaultSchedule":
         return cls(events=(FaultEvent("drop", point, occurrence),))
+
+    @classmethod
+    def seeded(cls, seed: int, points: tuple, every: int = 7,
+               kind: str = "drop") -> "FaultSchedule":
+        """Reproducible pseudo-random schedule: for each point, fire `kind`
+        at occurrence h(seed, point) % every + 1 (no RNG state, pure hash)."""
+        evs = []
+        for p in points:
+            h = zlib.crc32(f"{seed}:{p}".encode())
+            evs.append(FaultEvent(kind, p, h % every + 1))
+        return cls(events=tuple(evs))
 
     # -- runtime -------------------------------------------------------------
     def hit(self, point: str) -> str:

@@ -103,6 +103,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch.analysis.checker import RecycledBufferError
 from repro_torch.pool.device import PoolError
 from repro_torch.pool.faults import InjectedCrash
 
@@ -140,11 +141,6 @@ DATA_OPS = frozenset({"read", "write", "nmp", "batch"})
 # Sentinel recv_frame(idle_ok=True) returns when the socket timed out at a
 # frame boundary: the peer is quiet, not dead.
 IDLE = object()
-
-
-class RecycledBufferError(Exception):
-    """A loaned receive buffer was read after its channel recycled it (the
-    JAX package raises its checker's class of the same name)."""
 
 
 class WireError(PoolError):

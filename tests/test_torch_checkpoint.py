@@ -371,16 +371,122 @@ def test_unported_backends_raise(tmp_path, backend):
 
 
 def test_pool_checker_request_raises(tmp_path, monkeypatch):
-    """REPRO_POOL_CHECK=1 asks for the crash-consistency checker, which is
-    not ported: pool creation and recovery refuse rather than run unchecked."""
+    """REPRO_POOL_CHECK=1 asks for the crash-consistency checker: pool
+    creation and recovery hand back a ``CheckedPool``, a checked crash drill
+    on dram recovers bitwise the unchecked run's mirror, and the checker
+    raises on a COMMIT persisted over a dirty payload. (The port refused
+    the request until the checker was ported.)"""
+    from repro_torch.analysis import CheckedPool, CommitBeforePayloadError
     tmp = str(tmp_path / "ck")
     cfg, tc, cc, data = setup_run(tmp)
     run_with_manager(cfg, tc, cc, data, 1).pool.close()
+    ref_rows = mirror_after(cfg, tc, str(tmp_path / "ref"), "dram", 3)
     monkeypatch.setenv("REPRO_POOL_CHECK", "1")
-    with pytest.raises(PoolError, match="REPRO_POOL_CHECK"):
-        make_pool("dram")
-    with pytest.raises(PoolError, match="REPRO_POOL_CHECK"):
-        recovery.recover(tmp)
+    assert isinstance(make_pool("dram"), CheckedPool)
+    rec = recovery.recover(tmp)
+    assert isinstance(rec.pool, CheckedPool) and rec.mirror_step == 0
+    rec.pool.close()
+    drill = str(tmp_path / "drill")
+    _, _, cc, _ = setup_run(drill, backend="dram")
+    mgr = crash_run(cfg, tc, cc, data, FaultSchedule.crash_at(
+        "tier_e.between-commit-and-apply", occurrence=4))
+    assert isinstance(mgr.pool, CheckedPool)
+    rec = recover_after_crash(mgr, drill, "dram")
+    assert rec.mirror_step == 2 and rec.rolled_back
+    np.testing.assert_array_equal(rec.embed_rows, ref_rows)
+    ring = mgr.ring.ring
+    buf, _, _ = undo_codec.pack_slot(9, np.arange(4, dtype=np.int64),
+                                     np.ones((4, 8), np.float32), None,
+                                     mode="none", slot_bytes=1024)
+    rec.pool.write(ring.off, buf)               # payload never persisted
+    rec.pool.write(ring.off + undo_codec.COMMIT_OFF, undo_codec.COMMIT_SET)
+    with pytest.raises(CommitBeforePayloadError):
+        rec.pool.persist(ring.off + undo_codec.COMMIT_OFF, 4,
+                         point="undo-commit")
+    rec.pool.close()
+
+
+# -- the seeded schedules ---------------------------------------------------------
+
+@pytest.mark.parametrize("seed,every,kind", [(0, 10, "crash"), (1, 10, "torn"),
+                                             (2, 10, "drop"), (7, 2, "crash"),
+                                             (123, 7, "drop"), (1, 4, "crash"),
+                                             (32, 4, "torn")])
+def test_seeded_schedules_match_jax(seed, every, kind):
+    """``FaultSchedule.seeded`` arms the JAX package's events for the same
+    seed, points, period and kind (the last two are chip_smoke.py phase
+    21's schedules)."""
+    from repro_torch.examples.pool_soak import POINTS
+
+    def events(sched):
+        return [(e.kind, e.point, e.occurrence, e.phase) for e in sched.events]
+    for points in (POINTS, ("undo-payload", "undo-commit")):
+        port = FaultSchedule.seeded(seed, points, every=every, kind=kind)
+        ref = JaxFaultSchedule.seeded(seed, points, every=every, kind=kind)
+        assert events(port) == events(ref)
+        assert all(1 <= e.occurrence <= every and e.kind == kind
+                   for e in port.events)
+
+
+@pytest.mark.parametrize("kind,seed", [("crash", 1), ("torn", 32)])
+def test_seeded_fault_after_a_committed_step_recovers_as_jax(tmp_path,
+                                                             monkeypatch,
+                                                             kind, seed):
+    """chip_smoke.py phase 21's faulted runs at smoke size, under the
+    checker in both packages: ``FaultSchedule.seeded(seed, POINTS,
+    every=4)`` fires in step 1's tier-E (seed 1 before its undo payload
+    persists, seed 32 tearing its mirror apply), and both packages recover
+    step 0 at gap 0, rolled back after the torn apply only. The port's
+    recovered mirror is the clean run's after step 0 bitwise, and its
+    resumed losses are the uninterrupted run's within RESUME_TOL."""
+    from repro_torch.analysis import CheckedPool
+    from repro_torch.examples.pool_soak import POINTS
+    monkeypatch.setenv("REPRO_POOL_CHECK", "1")
+    steps = 4
+
+    def outcome(faults, rec):
+        return ([(ev.point, n, ev.kind) for ev, n in faults.fired],
+                rec.mirror_step, rec.dense_step, rec.rolled_back, rec.gap)
+
+    jtmp = str(tmp_path / "jax")
+    jcfg = jax_get_arch("dlrm-rm1", smoke=True).model
+    jcc = JaxCheckpointConfig(directory=jtmp, dense_interval=1,
+                              pool_backend="pmem")
+    jtc = JaxTrainConfig(embed_learning_rate=0.05, checkpoint=jcc)
+    st0 = jtl.make_step_fns(jcfg, jtc)[0](jax.random.PRNGKey(0))
+    jfaults = JaxFaultSchedule.seeded(seed, POINTS, every=steps, kind=kind)
+    mgr = JaxManager(jcfg, jcc, embed_init=st0["embed"], faults=jfaults)
+    with pytest.raises(JaxInjectedCrash):
+        jtl.train(jcfg, jtc, make_batches(jcfg, 4, 16, seed=3), steps,
+                  relaxed=True, state=st0, ckpt_manager=mgr)
+    mgr.pool.crash()
+    mgr.pool.faults = None
+    jrec = jrecovery.recover(jtmp, pool=mgr.pool)
+    want = outcome(jfaults, jrec)
+    jrec.pool.close()
+
+    tmp = str(tmp_path / "port")
+    cfg, tc, cc, data = setup_run(tmp)
+    faults = FaultSchedule.seeded(seed, POINTS, every=steps, kind=kind)
+    mgr = crash_run(cfg, tc, cc, data, faults, steps=steps)
+    assert isinstance(mgr.pool, CheckedPool)
+    mgr.pool.crash()
+    mgr.pool.faults = None
+    rec = recovery.recover(tmp, pool=mgr.pool)
+    assert isinstance(rec.pool, CheckedPool)
+    got = outcome(faults, rec)
+    assert got == want
+    point = "undo-payload" if kind == "crash" else "mirror-apply"
+    assert got == ([(point, 2, kind)], 0, 0, kind == "torn", 0)
+    monkeypatch.delenv("REPRO_POOL_CHECK")
+    np.testing.assert_array_equal(
+        rec.embed_rows, mirror_after(cfg, tc, str(tmp_path / "ref"), "pmem", 1))
+    _, full = train(cfg, tc, data, steps)
+    st, start = recovery.resume_train_state(rec, fresh(cfg, tc))
+    assert start == 1
+    _, tail = train(cfg, tc, data, steps - start, state=st, start_step=start)
+    np.testing.assert_allclose(tail, full[start:], rtol=RESUME_TOL)
+    rec.pool.close()
 
 
 # -- the CLI ---------------------------------------------------------------------

@@ -3,6 +3,7 @@
 Each runs as a subprocess with ``--device cpu``, as a user runs it, and
 must exit 0 with its marker line. A CUDA device without a card must raise.
 """
+import json
 import os
 import subprocess
 import sys
@@ -10,15 +11,16 @@ import sys
 import pytest
 import torch
 
-from repro_torch.examples import (fault_tolerance_demo, quickstart,
+from repro_torch.examples import (fault_tolerance_demo, pool_soak, quickstart,
                                   serve_batched, shared_pool_demo,
                                   train_dlrm_e2e)
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = {"fault_tolerance_demo": fault_tolerance_demo,
             "train_dlrm_e2e": train_dlrm_e2e, "quickstart": quickstart,
             "serve_batched": serve_batched,
-            "shared_pool_demo": shared_pool_demo}
+            "shared_pool_demo": shared_pool_demo, "pool_soak": pool_soak}
 
 
 def _run(name, *args, tmp_path):
@@ -136,6 +138,68 @@ def test_unported_options_raise(tmp_path, name, args, markers):
     assert os.listdir(tmp_path) == []
 
 
+def _reference_soak_cells(tmp_path):
+    """The JAX package's ``examples/pool_soak.py`` ``one_cell`` for the pmem
+    and remote backends, seeds 0-2, in this process (its remote cells
+    through the JAX package's node)."""
+    import importlib.util
+
+    import repro.pool as J
+    spec = importlib.util.spec_from_file_location(
+        "reference_pool_soak", os.path.join(REPO, "examples", "pool_soak.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    ctx = ref.build_ctx()
+    cells = []
+    for backend in ("pmem", "remote"):
+        for seed in range(3):
+            work = tmp_path / f"ref-{backend}-{seed}"
+            work.mkdir()
+            server = J.PoolServer(J.PmemPool(str(work / "pool.img"), 1 << 22),
+                                  f"unix:{work}/p.sock").start() \
+                if backend == "remote" else None
+            try:
+                cells.append(ref.one_cell(ctx, backend, seed, str(work / "ck"),
+                                          server.addr if server else None))
+            finally:
+                if server is not None:
+                    server.shutdown(close_device=True)
+    return cells
+
+
+def test_pool_soak_matches_the_reference(tmp_path):
+    """The seeded soak over pmem and a memory node, seeds 0-2 (one crash,
+    torn and drop cell each) under the checker, as its nightly run: it
+    exits 0, and each cell's kind, crash, mirror and dense steps and
+    rollback equal the JAX package's soak cell for the same seed."""
+    out_json = tmp_path / "soak.json"
+    env = {**os.environ, "PYTHONPATH": SRC, "REPRO_POOL_CHECK": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.pool_soak", "--device",
+         "cpu", "--backends", "pmem,remote", "--seeds", "3", "--out",
+         str(out_json)], env=env, cwd=tmp_path, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        ref = _reference_soak_cells(tmp_path)   # meanwhile, in this process
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, out
+    assert "soak: 6 ok, 0 failed" in out
+    report = json.loads(out_json.read_text())
+    assert report["failures"] == [] and report["steps_per_cell"] == 12
+
+    def key(c):
+        return {k: c[k] for k in ("backend", "seed", "kind", "crashed",
+                                  "mirror_step", "dense_step", "rolled_back")}
+    got = [key(c) for c in report["cells"]]
+    assert got == [key(c) for c in ref]
+    assert sorted(c["kind"] for c in got) == ["crash", "crash", "drop",
+                                              "drop", "torn", "torn"]
+
+
 @pytest.mark.parametrize("name", sorted(EXAMPLES))
 def test_without_card_raises(name):
     if torch.cuda.is_available():
@@ -151,7 +215,8 @@ def test_examples_import_no_jax_and_no_reference():
          "import repro_torch.examples.fault_tolerance_demo, "
          "repro_torch.examples.train_dlrm_e2e, repro_torch.examples.quickstart, "
          "repro_torch.examples.serve_batched, "
-         "repro_torch.examples.shared_pool_demo\n"
+         "repro_torch.examples.shared_pool_demo, "
+         "repro_torch.examples.pool_soak\n"
          "bad = [m for m in sys.modules if m.split('.')[0] in "
          "('jax', 'ml_dtypes', 'repro')]\n"
          "print(bad); sys.exit(1 if bad else 0)"],
