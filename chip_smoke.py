@@ -211,8 +211,25 @@ Phases, each of which exits non-zero on failure:
      bound (rtol 1e-5) of run U's, the mirror bitwise the twin's tables.
      The fault that fired, each run's seconds, the checked tier-E seconds
      beside phase 6's unchecked ones, the seconds inside the tracker and
-     its most dirty intervals printed.
-Phases 6 to 21 print their wall time. Phases 4, 8, 10, 12 and 16 also
+     its most dirty intervals printed;
+ 22. the remaining decoders: flash held against its plain version and
+     timed beside SDPA and its bound at head dim 128 (each served id's
+     prefill shape; the forward with lse and the backward at llama3.2-3b's
+     training shape, the backward also at granite-20b's, MQA); then
+     llama3.2-3b, granite-20b, jamba-v0.1-52b (8 of 32 layers),
+     qwen3-moe-235b-a22b (4 of 94) and arctic-480b (2 of 35) served at
+     full width as phase 8 serves tinyllama, one at a time (random bf16
+     weights from seed 0; the init's peak at most the params and the f32
+     token table; three timed generations; flash launched once a prefill
+     per attention layer; the MoE pairs capacity dropped in the prefill;
+     decode vs a prefill of S + 1 on the rows routed alike, and the first
+     MoE layer's input on every row; smoke card vs CPU); full llama3.2-3b
+     trained as phase 12 trains tinyllama (relaxed == strict bitwise, a
+     bitwise repeat, launches per step) and its sparse tier timed; smoke
+     qwen3-moe, arctic and jamba trained on the card (5 f32 steps; a strict
+     run and a second relaxed one, both bitwise the first) against the
+     CPU (1e-5).
+Phases 6 to 22 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13, 16, 18 and 20 every scatter_update_logged launch
@@ -231,8 +248,9 @@ pool-served tinyllama prefill (flash) and rwkv6-3b prefill and decode
 into the memory node, as one more for the bag, both updates and the
 gather; phase 19's Adagrad runs of rm1 and tinyllama, tinyllama's
 accumulator launches (narrow) as paths of their own; phase 20's rm1 run into the
-sharded pool; phase 21's run U, rm1 on f32 tables under the checker); the
-last line is
+sharded pool; phase 21's run U, rm1 on f32 tables under the checker;
+phase 22's five served ids (flash, the gather in prefill and decode) and
+llama3.2-3b's training); the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
 Imports nothing of JAX.
@@ -983,12 +1001,14 @@ def serve_counts(mixer, gr, zero=False):
 
 def serve_want(mixer, cfg, per_step, new, gathers):
     """The launches each part of a served generation of ``new`` tokens must
-    make: the sequence mixer once a layer in the prefill (all on the
-    tensor-core route where it has one, none on a decode route) and
-    ``per_step`` times a decode step (all on a decode route where it has
-    one); ``gathers`` row gathers a forward pass."""
+    make: the sequence mixer once a layer that has it in the prefill (every
+    layer but jamba's mamba ones; all on the tensor-core route where it has
+    one, none on a decode route) and ``per_step`` times a decode step (all
+    on a decode route where it has one); ``gathers`` row gathers a forward
+    pass."""
     mix = mixer.__name__.rsplit(".", 1)[1]
-    want = {"prefill": {mix: cfg.num_layers, "gather_rows": gathers},
+    n_mix = sum(t == "attn" for t in cfg.layer_types)
+    want = {"prefill": {mix: n_mix, "gather_rows": gathers},
             "decode": {mix: per_step * (new - 1), "gather_rows": gathers * (new - 1)}}
     if hasattr(mixer, "tc_launches"):
         for part in want.values():
@@ -1010,36 +1030,55 @@ def part_counter(parts, read):
     return count
 
 
-def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
-    """Phases 8 and 10: serve full ``arch``. ``mixer`` is the wrapper module
-    of the path's sequence-mixer kernel (flash attention, wkv6), launched
-    once per layer in the prefill and ``per_step`` times in each decode
-    step. Returns the serving run's launch counts for each part ("prefill",
-    "decode"), the row gather's timings at each part's shape, and the run's
-    tokens and logits (on the host), which phase 17 holds the pool-served
-    run to."""
+def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step, layers=None):
+    """Phases 8, 10 and 22: serve ``arch`` at full width, at ``layers``
+    layers if given (else its own depth). ``mixer`` is the wrapper module of
+    the path's sequence-mixer kernel (flash attention, wkv6), launched
+    once per layer that has it in the prefill and ``per_step`` times in each
+    decode step. The generation runs three times (the first counted, the
+    second its bitwise repeat; prefill and decode ms are also given as the
+    medians of the three). Returns the serving run's launch counts for
+    each part ("prefill", "decode"), the row gather's timings at each
+    part's shape, the run's tokens and logits (on the host), which phase 17
+    holds the pool-served run to, and the run's metrics."""
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import make_batches
     from repro_torch.kernels import gather_rows as gr
     from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
     from repro_torch.models.registry import get_api
     from repro_torch.training.serve_loop import greedy_generate
     from repro_torch.tree import tree_leaves, tree_map
 
     mix = mixer.__name__.rsplit(".", 1)[1]
     cfg = get_arch(arch).model
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     api = get_api(cfg)
     B, S, new = 4, 1024, 32
+    n_moe = sum(t == "moe" for t in cfg.ffn_types)
     t = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = api.init(gen, cfg)
     torch.cuda.synchronize()
+    init_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     n_params = sum(p.numel() for p in tree_leaves(params))
+    params_gb = sum(p.numel() * p.element_size() for p in tree_leaves(params)) / 1e9
+    # the init draws the token table in f32 and casts it: the stack's
+    # leaves are allocated once, each layer drawn into its slice
+    table_f32_gb = cfg.vocab_size * cfg.d_model * 4 / 1e9
     prompt = make_batches(cfg, B, S, device=dev).next(0)["tokens"]
-    print(f"[serve] full {arch}: {n_params} params "
-          f"({sum(p.numel() * p.element_size() for p in tree_leaves(params)) / 1e9:.2f} "
-          f"GB, {cfg.dtype}), init and prompt {time.perf_counter() - t:.1f}s")
+    print(f"[serve] full-width {arch}, {cfg.num_layers} layers: {n_params} params "
+          f"({params_gb:.2f} GB, {cfg.dtype}), init and prompt "
+          f"{time.perf_counter() - t:.1f}s; peak device GB over the init {init_gb:.3f} "
+          f"(the params' {params_gb:.3f} + the f32 table's {table_f32_gb:.3f} = "
+          f"{params_gb + table_f32_gb:.3f} at most)")
+    check(init_gb <= params_gb + table_f32_gb, f"serve {arch}: the init peaked at "
+          f"{init_gb:.3f} GB, above the params and the f32 table")
     greedy_generate(cfg, params, prompt, 2, max_seq=S + new)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1047,14 +1086,21 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     serve_counts(mixer, gr, zero=True)
     gr.wide_launches = 0
     stats = {}
-    toks = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=stats,
-                           part=part_counter(parts, lambda: serve_counts(mixer, gr)))
+    with moe.recording() as routed:
+        toks = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=stats,
+                               part=part_counter(parts, lambda: serve_counts(mixer, gr)))
     launches = serve_counts(mixer, gr)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     metrics = {"prefill_ms": 1e3 * stats["prefill_s"],
                "decode_ms_per_token": 1e3 * stats["decode_s"] / (new - 1),
                "tokens_per_s": B * new / (stats["prefill_s"] + stats["decode_s"]),
-               "peak_device_gb": peak_gb}
+               "peak_device_gb": peak_gb, "params": n_params, "params_gb": params_gb,
+               "init_peak_gb": init_gb}
+    if n_moe:
+        # the prefill's MoE layers come first, one routing record each
+        pre = routed[:n_moe]
+        metrics["moe_dropped_share_prefill"] = \
+            sum(int(r["dropped"].sum()) for r in pre) / sum(r["dropped"].numel() for r in pre)
     print(f"[serve] batch {B}, prompt {S}, {new} new tokens: {json.dumps(metrics)}; "
           f"launches {launches}, by part {parts}")
     print(f"[serve] tokens[0] {toks[0].tolist()}")
@@ -1074,7 +1120,21 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     toks2 = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=again)
     check(torch.equal(toks, toks2) and torch.equal(stats["logits"], again["logits"]),
           "serve: a second run gave other tokens or logits")
+    walls = [(stats["prefill_s"], stats["decode_s"]), (again["prefill_s"], again["decode_s"])]
     del again
+    more = {}
+    greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=more)
+    walls.append((more["prefill_s"], more["decode_s"]))
+    del more
+    metrics["prefill_ms_runs"] = [1e3 * p for p, _ in walls]
+    metrics["decode_ms_per_token_runs"] = [1e3 * d / (new - 1) for _, d in walls]
+    metrics["prefill_ms_median"] = statistics.median(metrics["prefill_ms_runs"])
+    metrics["decode_ms_per_token_median"] = statistics.median(
+        metrics["decode_ms_per_token_runs"])
+    print(f"[serve] {arch} over 3 runs: prefill ms {metrics['prefill_ms_runs']}, "
+          f"decode ms a token {metrics['decode_ms_per_token_runs']}; medians "
+          f"{metrics['prefill_ms_median']:.2f}, "
+          f"{metrics['decode_ms_per_token_median']:.2f}")
     served = (toks.cpu(), stats["logits"].cpu())
 
     # the row gather at the shapes serving gives it: the token table with
@@ -1113,14 +1173,48 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     # places (other matmul shapes; for tinyllama the flash kernel against
     # the plain decode), about 2^-9 relative per rounding over 22 or 32
     # layers; 3e-2 of the logits' largest magnitude bounds that.
+    # With MoE layers the logits gate holds the rows whose new token the two
+    # paths routed alike: the same experts in every MoE layer and no pair
+    # dropped by capacity in the prefill (a decode step of B tokens drops
+    # none). Elsewhere the two are other functions of the input, as in the
+    # reference: with random weights the routing concentrates and capacity
+    # drops most of a long prefill's pairs. On every row the first MoE
+    # layer's input for the new token (embedding and attention over the
+    # cache, before any routing) is held to 3e-2 of its largest magnitude.
     ext = torch.cat([prompt, toks[:, :1]], dim=1)
-    full, _ = api.prefill(params, cfg, ext, api.init_cache(cfg, B, S + 1, dev))
+    with moe.recording() as routed_full:
+        full, _ = api.prefill(params, cfg, ext, api.init_cache(cfg, B, S + 1, dev))
     dec = stats["logits"][:, 1]
-    diff, scale = (dec - full).abs().max().item(), full.abs().max().item()
+    alike = torch.ones(B, dtype=torch.bool, device=dev)
+    last = torch.arange(B, device=dev) * (S + 1) + S
+    for p_rec, d_rec in zip(routed_full[:n_moe], routed[n_moe:2 * n_moe], strict=True):
+        same = (p_rec["choice"][last].sort(-1).values == d_rec["choice"].sort(-1).values)
+        alike &= same.all(-1) & ~p_rec["dropped"][last].any(-1)
+    if n_moe:
+        x_full = routed_full[0]["x"][last].float()
+        x_diff = (routed[n_moe]["x"].float() - x_full).abs().max().item()
+        x_scale = x_full.abs().max().item()
+        metrics["first_moe_input_share_of_gate"] = x_diff / (3e-2 * x_scale)
+        print(f"[serve] the first MoE layer's input for the new token, decode vs "
+              f"prefill of {S + 1}: max abs diff {x_diff:.4g}, its max abs "
+              f"{x_scale:.4g} (share of the 3e-2 gate {x_diff / (3e-2 * x_scale):.4g})")
+        check(x_diff <= 3e-2 * x_scale, f"serve {arch}: the first MoE layer's input "
+              "differs between decode and prefill")
+    del routed, routed_full
+    row_diff = (dec - full).abs().amax(-1)
+    diff, scale = row_diff.max().item(), full.abs().max().item()
+    n_alike = int(alike.sum())
+    diff_alike = row_diff[alike].max().item() if n_alike else 0.0
+    metrics["decode_vs_prefill_share_of_gate"] = diff_alike / (3e-2 * scale)
+    metrics["decode_vs_prefill_rows_routed_alike"] = n_alike
     print(f"[serve] decode at position {S} vs prefill of {S + 1}: max abs diff "
-          f"{diff:.4g}, logits max abs {scale:.4g} (limit 3e-2 of it); argmax "
-          f"equal in {int((dec.argmax(-1) == full.argmax(-1)).sum())} of {B} rows")
-    check(diff <= 3e-2 * scale, "serve: decode disagrees with prefill")
+          f"{diff:.4g} over all {B} rows (share of the gate "
+          f"{diff / (3e-2 * scale):.4g}), {diff_alike:.4g} over the {n_alike} rows "
+          f"routed alike; logits max abs {scale:.4g} (limit 3e-2 of it: share used "
+          f"{diff_alike / (3e-2 * scale):.4g}); argmax equal in "
+          f"{int((dec.argmax(-1) == full.argmax(-1)).sum())} of {B} rows")
+    check(n_moe > 0 or n_alike == B, "serve: a model without MoE layers routed rows")
+    check(diff_alike <= 3e-2 * scale, "serve: decode disagrees with prefill")
     del params, stats, full
     torch.cuda.empty_cache()
 
@@ -1142,7 +1236,7 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step):
     check(torch.equal(out["card"][0], out["cpu"][0]), "serve smoke: tokens differ")
     np.testing.assert_allclose(out["card"][1].numpy(), out["cpu"][1].numpy(),
                                rtol=1e-4, atol=1e-5)
-    return parts, timing, served
+    return parts, timing, served, metrics
 
 
 def flash_bwd_phase(torch, dev):
@@ -1620,14 +1714,15 @@ def lm_sparse_timing(torch, dev, cfg, batches, check_bag, check_update,
 
 
 def smoke_train_card_vs_cpu(torch, dev, arch, dtype, n_steps, on_card=None,
-                            cpu_runs=None):
+                            cpu_runs=None, card_runs=None):
     """Smoke ``arch`` trained on the card and on the CPU from the same
     params (``n_steps`` relaxed steps in ``dtype``, TF32 off). Returns
     {run name: (losses, dense params f32 on the host, table f32)} for the
     run "card" and the CPU runs; ``on_card()`` reads counters before and
     after the card's run, their difference going to "card_counts".
     ``cpu_runs`` maps each CPU run's name to a context it runs in (default:
-    one run, "cpu", as it is)."""
+    one run, "cpu", as it is). ``card_runs`` maps the names of more runs on
+    the card to their schedule (True relaxed, False strict)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1644,20 +1739,235 @@ def smoke_train_card_vs_cpu(torch, dev, arch, dtype, n_steps, on_card=None,
     sparams = get_api(c).init(gen, c)
     sinit = train_loop.make_step_fns(c, tc)[0]
     out = {}
-    runs = [("card", dev, contextlib.nullcontext)] + [
-        (name, torch.device("cpu"), ctx) for name, ctx in
+    runs = [("card", dev, contextlib.nullcontext, True)] + [
+        (name, dev, contextlib.nullcontext, relaxed)
+        for name, relaxed in (card_runs or {}).items()] + [
+        (name, torch.device("cpu"), ctx, True) for name, ctx in
         (cpu_runs or {"cpu": contextlib.nullcontext}).items()]
-    for name, where, ctx in runs:
+    for name, where, ctx, relaxed in runs:
         st = sinit(tree_map(lambda p, w=where: p.to(w, copy=True), sparams))
         before = on_card() if on_card is not None and name == "card" else None
         with ctx():
             st, losses = train_loop.train(c, tc, make_batches(c, 4, 16, device=where),
-                                          n_steps, relaxed=True, state=st, device=where)
+                                          n_steps, relaxed=relaxed, state=st,
+                                          device=where)
         out[name] = (losses, [p.detach().float().cpu() for p in tree_leaves(st["dense"])],
                      st["embed"]["table"].float().cpu())
         if before is not None:
             out["card_counts"] = {k: v - before[k] for k, v in on_card().items()}
     return out
+
+
+# Phase 22's served ids at full width: (id, layers run). The cuts are the
+# card's 80 GB (bf16 params): jamba one period of 8 of its 32 layers (the
+# attention layer and four MoE ones), qwen3-moe 4 of 94, arctic 2 of 35.
+DECODERS = (("llama3.2-3b", None), ("granite-20b", None), ("jamba-v0.1-52b", 8),
+            ("qwen3-moe-235b-a22b", 4), ("arctic-480b", 2))
+# the ids trained at the smoke size on the card against the CPU
+SMOKE_TRAINED = ("qwen3-moe-235b-a22b", "arctic-480b", "jamba-v0.1-52b")
+
+
+def flash_hd128_phase(torch, dev, err):
+    """Phase 22's flash timings at head dim 128, bf16 (the tensor-core
+    routes), each held against its plain version: the forward at each
+    served id's prefill shape (B 4, S 1024, its q and kv heads), the
+    forward with its log-sum-exp at llama3.2-3b's training shape, and the
+    backward there and at granite-20b's (MQA); beside SDPA (``enable_gqa``,
+    causal) and the bound, by row 5's formulas. Raises ``err``'s entries to
+    the largest errors. Returns {"flash_<id>": ..., "flash_lse_llama3.2-3b":
+    ..., "flash_bwd_<id>": ...}."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    B, S, D = 4, 1024, 128
+    timings = {}
+
+    def timed(name, kern, plain, library, b, what):
+        timing = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                  "library_ms": time_ms(torch, library), "bound_ms": b[0],
+                  "bound_by": b[1]}
+        device_only = {"ms": time_ms(torch, kern, hide_host=True),
+                       "plain_ms": time_ms(torch, plain, hide_host=True),
+                       "library_ms": time_ms(torch, library, hide_host=True)}
+        print(f"[decoders] {name} {what}: " + json.dumps(timing) + "; device only: "
+              + json.dumps(device_only))
+        timings[name] = timing
+
+    for arch, _ in DECODERS:
+        cfg = get_arch(arch).model
+        Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+        check(cfg.resolved_head_dim == D, f"{arch}: head dim {cfg.resolved_head_dim}")
+        # k, v the first S entries of a (B, S + 32, Hkv, D) cache, as prefill
+        # reads them
+        q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, S + 32, Hkv, D), generator=gen, device=dev)
+                .to(torch.bfloat16)[:, :S] for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        got, again = ops.flash_attention(q, k, v), ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        check(torch.equal(got, again), f"flash {arch} prefill shape: two calls differ")
+        try:
+            torch.testing.assert_close(got, want)    # as phase 7's bf16 cases
+        except AssertionError as e:
+            fail(f"flash_attention at {arch}'s prefill shape: {e}")
+        err["flash_attention_tc"] = max(err["flash_attention_tc"],
+                                        (got.float() - want.float()).abs().max().item())
+        del got, again, want
+        # q, k, v read once and o written once; two products over the
+        # S(S+1)/2 causal (query, key) pairs of each q head
+        nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        nops = 4 * D * B * Hq * S * (S + 1) / 2
+        timed(f"flash_{arch}", lambda q=q, k=k, v=v: ops.flash_attention(q, k, v),
+              lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v),
+              lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True, enable_gqa=True),
+              bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+              f"forward B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+              f"({nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    # the training shape (q, k, v contiguous, as the step gives them):
+    # llama3.2-3b's, whose step runs it, and granite-20b's (MQA: its dk/dv
+    # pass has one block per key tile and kv head), timed only
+    for arch in ("llama3.2-3b", "granite-20b"):
+        cfg = get_arch(arch).model
+        Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+        q, do = (torch.randn((B, S, Hq, D), generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = ops.flash_attention_lse(q, k, v)
+        o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True)
+        e = (lse - lse_ref).abs().max().item()
+        check(e <= 1e-4, f"flash lse at {arch}'s training shape: max abs err {e:.3g}")
+        torch.testing.assert_close(o, o_ref)
+        del o_ref, lse_ref
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if arch == "llama3.2-3b":
+            nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
+            nops = 4 * D * B * Hq * S * (S + 1) / 2
+            timed(f"flash_lse_{arch}", lambda: ops.flash_attention_lse(q, k, v),
+                  lambda: ref.flash_attention_ref(q, k, v, return_lse=True),
+                  lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True),
+                  bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+                  f"forward with lse, training shape B={B} S={S} Hq={Hq} Hkv={Hkv} "
+                  f"D={D} bf16")
+        x = (q, k, v, o, lse, do)
+        got, again = ops.flash_attention_bwd(*x), ops.flash_attention_bwd(*x)
+        want = ref.flash_attention_bwd_ref(*x)
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again, strict=True):
+            check(torch.equal(g, a), f"flash backward at {arch}'s shape: {name} "
+                  "differs between two calls")
+            e = (g.float() - w.float()).abs().max().item()
+            limit = 1.6e-2 * w.float().abs().max().item() + 1e-5   # phase 11's bf16 gate
+            check(e <= limit, f"flash backward at {arch}'s shape {name}: max abs "
+                  f"err {e:.3g}, limit {limit:.3g}")
+            err["flash_attention_bwd_tc"] = max(err["flash_attention_bwd_tc"], e)
+        del got, again, want
+        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        do_t = do.transpose(1, 2)
+
+        def sdpa_fwd(leaves=leaves):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                      enable_gqa=True)
+
+        def sdpa_fwd_bwd(leaves=leaves, do_t=do_t):
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 enable_gqa=True)
+            return torch.autograd.grad(out, leaves, do_t)
+        # as phase 11: q, k, v, o, do and lse read once, dq, dk, dv written
+        # once; five products over the causal pairs, 5/2 of the forward's
+        nbytes = 2 * (3 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S \
+            + 2 * (B * S * Hq * D + 2 * B * S * Hkv * D)
+        nops = 10 * B * Hq * D * S * (S + 1) / 2
+        b_ms, b_by = bound(nbytes, nops, BF16_TENSOR_OPS_PER_S)
+        lib = {"fwd_bwd": time_ms(torch, sdpa_fwd_bwd), "fwd": time_ms(torch, sdpa_fwd)}
+        dev_lib = {"fwd_bwd": time_ms(torch, sdpa_fwd_bwd, hide_host=True),
+                   "fwd": time_ms(torch, sdpa_fwd, hide_host=True)}
+        timing = {"ms": time_ms(torch, lambda: ops.flash_attention_bwd(*x)),
+                  "plain_ms": time_ms(torch, lambda: ref.flash_attention_bwd_ref(*x)),
+                  "library_ms": lib["fwd_bwd"] - lib["fwd"], "bound_ms": b_ms,
+                  "bound_by": b_by}
+        device_only = {"ms": time_ms(torch, lambda: ops.flash_attention_bwd(*x),
+                                     hide_host=True),
+                       "library_ms": dev_lib["fwd_bwd"] - dev_lib["fwd"]}
+        print(f"[decoders] flash_bwd_{arch} backward, training shape B={B} S={S} "
+              f"Hq={Hq} Hkv={Hkv} D={D} bf16 ({nops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB): " + json.dumps(timing) + "; device only: "
+              + json.dumps(device_only) + f"; SDPA forward {json.dumps(lib)}")
+        timings[f"flash_bwd_{arch}"] = timing
+        del q, k, v, o, lse, do, x, leaves, do_t, qt, kt, vt
+        torch.cuda.empty_cache()
+    return timings
+
+
+def decoders_phase(torch, np, dev, err, check_bag, check_update, check_update_logged,
+                   check_gather):
+    """Phase 22: the remaining decoder families. Serves each of DECODERS at
+    full width (bf16, seed 0, batch 4, a 1024-token prompt, 32 new tokens;
+    one model on the card at a time), trains llama3.2-3b at full width and
+    depth (relaxed and strict, 3 steps each), trains SMOKE_TRAINED at the
+    smoke size on the card against the CPU, and times flash at head dim 128.
+    Returns (serving launches by id and part, llama3.2-3b's training
+    launches, the timings for the kernels line, the metrics)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {"serve": {}, "smoke_train": {}}
+    timing = flash_hd128_phase(torch, dev, err)
+    serve_parts = {}
+    for arch, layers in DECODERS:
+        t = time.perf_counter()
+        parts, gather_t, _, metrics = serve_phase(torch, np, dev, check_gather, arch,
+                                                  fa, 0, layers=layers)
+        serve_parts[arch] = parts
+        timing[f"gather_{arch}_prefill"] = gather_t["prefill"]
+        timing[f"gather_{arch}_decode"] = gather_t["decode"]
+        out["serve"][arch] = {**metrics, "wall_s": time.perf_counter() - t}
+        torch.cuda.empty_cache()
+
+    arch = "llama3.2-3b"
+    L = get_arch(arch).model.num_layers
+    # per step: L flash forwards and L more in the remat recompute, all on
+    # the tensor-core route, one bf16 backward of BWD_PASSES launches a layer
+    launches, step, batches = lm_train_runs(torch, dev, arch, {
+        "flash_attention": 2 * L, "flash_attention_tc": 2 * L,
+        "flash_attention_bwd": L * fa.BWD_PASSES[torch.bfloat16]})
+    out["train"] = step
+    timing.update(lm_sparse_timing(torch, dev, get_arch(arch).model, batches, check_bag,
+                                   check_update, check_update_logged, check_gather,
+                                   "llama_"))
+
+    # the MoE ids and jamba at the smoke size, f32, TF32 off: 5 relaxed
+    # steps on the card and on the CPU (phase 12's 1e-5), a strict run and
+    # a second relaxed run on the card, bitwise the first (a combine summed
+    # in a racing order would show here)
+    for arch in SMOKE_TRAINED:
+        runs = smoke_train_card_vs_cpu(torch, dev, arch, "float32", 5,
+                                       card_runs={"card_strict": False,
+                                                  "card_again": True})
+        lc, lp = runs["card"][0], runs["cpu"][0]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp, strict=True))
+        print(f"[decoders] smoke {arch} f32: losses card {lc} cpu {lp} (largest "
+              f"relative difference {rel:.3g}); card strict {runs['card_strict'][0]}, "
+              f"card again {runs['card_again'][0]}")
+        np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=0)
+        check(runs["card_strict"][0] == lc, f"smoke {arch}: relaxed != strict on the card")
+        check(runs["card_again"][0] == lc
+              and all(torch.equal(a, b) for a, b in zip(runs["card"][1],
+                                                         runs["card_again"][1],
+                                                         strict=True))
+              and torch.equal(runs["card"][2], runs["card_again"][2]),
+              f"smoke {arch}: a second run on the card is not bitwise the first")
+        out["smoke_train"][arch] = {"card": lc, "cpu": lp, "largest_relative": rel}
+    return serve_parts, launches, timing, out
 
 
 def adamw_inplace_check(torch, dev):
@@ -3856,8 +4166,8 @@ def main():
 
     # -- 8. serving full tinyllama-1.1b ------------------------------------------
     t0 = time.perf_counter()
-    sv_parts, sv_gather, sv_served = serve_phase(torch, np, dev, check_gather,
-                                                 "tinyllama-1.1b", fa, 0)
+    sv_parts, sv_gather, sv_served, _ = serve_phase(torch, np, dev, check_gather,
+                                                    "tinyllama-1.1b", fa, 0)
     timing["gather_prefill"], timing["gather_decode"] = (sv_gather["prefill"],
                                                          sv_gather["decode"])
     print(f"[serve] phase 8 wall time {time.perf_counter() - t0:.1f}s")
@@ -3871,7 +4181,7 @@ def main():
 
     # -- 10. serving full rwkv6-3b -----------------------------------------------
     t0 = time.perf_counter()
-    rw_parts, rw_gather, rw_served = serve_phase(
+    rw_parts, rw_gather, rw_served, _ = serve_phase(
         torch, np, dev, check_gather, "rwkv6-3b", wk,
         get_arch("rwkv6-3b").model.num_layers)
     timing["gather_rwkv_prefill"], timing["gather_rwkv_decode"] = (
@@ -3956,6 +4266,13 @@ def main():
                                                  ck_tier_e_ms)
     print(f"[soak] phase 21 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 22. the remaining decoder families at full width --------------------------
+    t0 = time.perf_counter()
+    dec_parts, dec_train, dec_timing, dec_out = decoders_phase(
+        torch, np, dev, err, check_bag, check_update, check_update_logged, check_gather)
+    timing.update(dec_timing)
+    print(f"[decoders] phase 22 wall time {time.perf_counter() - t0:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
     # for the gather, flash attention and wkv6, phases 12's and 16's relaxed
@@ -3971,6 +4288,31 @@ def main():
     bag_src = ("src/repro_torch/csrc/embedding_bag.cu",
                "src/repro/kernels/embedding_bag.py:40")
     ada_rm1, ada_lm = ada_launches["dlrm-rm1"], ada_launches["tinyllama-1.1b"]
+    flash_tc_src = ("src/repro_torch/csrc/flash_attention_tc.cu",
+                    "src/repro/kernels/flash_attention.py:62")
+    # phase 22: each served id's prefill and decode, and llama3.2-3b's training
+    decoder_paths = [row for arch, _ in DECODERS for row in (
+        ("flash_attention_tc", f"{arch} prefill", f"flash_{arch}",
+         dec_parts[arch]["prefill"]["flash_attention_tc"], *flash_tc_src),
+        ("gather_rows", f"{arch} prefill", f"gather_{arch}_prefill",
+         dec_parts[arch]["prefill"]["gather_rows"], *gather_src),
+        ("gather_rows", f"{arch} decode", f"gather_{arch}_decode",
+         dec_parts[arch]["decode"]["gather_rows"], *gather_src))] + [
+        ("flash_attention_tc", "llama3.2-3b train", "flash_lse_llama3.2-3b",
+         dec_train["flash_attention_tc"], *flash_tc_src),
+        ("flash_attention_bwd_tc", "llama3.2-3b train", "flash_bwd_llama3.2-3b",
+         dec_train["flash_attention_bwd"], "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
+         "src/repro/kernels/flash_attention.py:62"),
+        ("gather_rows", "llama3.2-3b train", "gather_llama3.2-3b_prefill",
+         dec_train["gather_rows"], *gather_src),
+        ("embedding_bag", "llama3.2-3b train", "llama_bag_combine",
+         dec_train["embedding_bag"], *bag_src),
+        ("scatter_update", "llama3.2-3b train", "llama_update_f32",
+         dec_train["scatter_update"], *update_src),
+        ("scatter_update", "llama3.2-3b train (strict)", "llama_update_bf16",
+         dec_train["scatter_update_strict"], *update_src),
+        ("scatter_update_logged", "llama3.2-3b train", "llama_update_logged_bf16",
+         dec_train["scatter_update_logged"], *logged_src)]
     kernels = []
     for name, path, main_shape, n, src, replaces in (
             ("embedding_bag", "dlrm-rm1 train", "bag_fwd", launches["embedding_bag"],
@@ -4098,7 +4440,7 @@ def main():
             ("scatter_update_logged", "dlrm-rm1 train (checked, f32 tables)",
              "update_logged_f32", soak_launches["scatter_update_logged"], *logged_src),
             ("gather_rows", "dlrm-rm1 checkpoint (checked, f32 tables)", "gather_f32",
-             soak_launches["gather_rows"], *gather_src)):
+             soak_launches["gather_rows"], *gather_src), *decoder_paths):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -4110,6 +4452,7 @@ def main():
     print(f"[adagrad] step ms in turns: {json.dumps(ada_step)}")
     print(f"[sharded] three memory nodes: {json.dumps(sharded_out)}")
     print(f"[soak] checked soak: {json.dumps(soak_out)}")
+    print(f"[decoders] phase 22: {json.dumps(dec_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Config registry: ``get_arch("<id>")`` / ``get_arch("<id>", smoke=True)``.
 
-The DLRM ids and the LM ids whose model the port runs (the dense
-transformers and RWKV-6) are registered; the other LM ids come with the
-slices that port their models.
+The DLRM ids and the LM ids whose model the port runs are registered: the
+dense transformers, the MoE transformers, RWKV-6 and jamba (mamba and
+attention, MoE). whisper-base and qwen2-vl-7b come with the slice that
+ports their models.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ __all__ = [
 ]
 
 DLRM_IDS = ["dlrm-rm1", "dlrm-rm2", "dlrm-rm3", "dlrm-rm4"]
-LM_IDS = ["tinyllama-1.1b", "qwen3-0.6b", "rwkv6-3b"]
+LM_IDS = ["tinyllama-1.1b", "qwen3-0.6b", "llama3.2-3b", "granite-20b",
+          "qwen3-moe-235b-a22b", "arctic-480b", "rwkv6-3b", "jamba-v0.1-52b"]
 ARCH_IDS = LM_IDS + DLRM_IDS
 
 _MOD = {i: "repro_torch.configs." + i.replace("-", "_").replace(".", "_")

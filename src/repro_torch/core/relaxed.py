@@ -20,15 +20,15 @@ update: the adjoint of the lookup is kept at the touched rows only
 In-place means that the stale rows of batch N+1 must be read before the
 update runs on the same stream; ``training.train_loop`` orders it so.
 
-DLRM, the dense transformers and RWKV-6 are trained (RWKV-6's wkv6
-through its backward kernel, ``kernels.wkv6.WKV6``).
+DLRM, the transformer LMs (dense and MoE), jamba and RWKV-6 are trained
+(RWKV-6's wkv6 through its backward kernel, ``kernels.wkv6.WKV6``).
 """
 from __future__ import annotations
 
 from repro_torch.core import embedding_ops
 from repro_torch.kernels import ops
 
-TRAINED = ("dlrm", "transformer", "rwkv6")   # the arch types the port trains
+TRAINED = ("dlrm", "transformer", "rwkv6", "jamba")   # the arch types the port trains
 
 
 def check_trainable(cfg) -> None:

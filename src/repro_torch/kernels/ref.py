@@ -374,3 +374,24 @@ def wkv6_bwd_ref(r, k, v, logw, u, s0, dy, ds_fin=None, *, tf32=None):
     d_incl[:, :, -1] += d_lend
     dlw = torch.flip(torch.cumsum(torch.flip(d_incl, [2]), dim=2), [2]) - d_excl
     return (unchunk(dr), unchunk(dk), unchunk(dv), unchunk(dlw), du, ds0)
+
+
+def mamba_ssd_ref(xh, dt, a, B_, C_):
+    """Sequential oracle for the mamba layer's chunked SSD scan (the
+    reference's ``ref.mamba_ssd_ref``; no kernel: only tests use it).
+
+    xh: (B, S, H, P); dt: (B, S, H); a: (H,); B_, C_: (B, S, N).
+    h_t = exp(dt_t a) h_{t-1} + dt_t x_t B_t^T;  y_t = C_t . h_t, from
+    h_0 = 0, in f32. Returns (y (B, S, H, P), h_final (B, H, N, P)).
+    """
+    Bb, S, H, P = xh.shape
+    N = B_.shape[-1]
+    xh, dt, B_, C_ = (t.float() for t in (xh, dt, B_, C_))
+    h = torch.zeros((Bb, H, N, P), dtype=torch.float32, device=xh.device)
+    ys = []
+    for t in range(S):
+        dec = torch.exp(dt[:, t] * a[None])                       # (B,H)
+        upd = torch.einsum("bm,bhp->bhmp", B_[:, t], xh[:, t] * dt[:, t, :, None])
+        h = h * dec[..., None, None] + upd
+        ys.append(torch.einsum("bm,bhmp->bhp", C_[:, t], h))
+    return torch.stack(ys, dim=1), h

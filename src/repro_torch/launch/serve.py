@@ -8,9 +8,15 @@ generation.
         [--pool-readonly]] [--pool-shards A1,A2,...] [--pool-cache-rows N]]
 
 ``--arch`` is any LM id the port registers: the dense transformers
-tinyllama-1.1b and qwen3-0.6b (flash attention on prefill, plain attention
-over the KV cache in decode) and rwkv6-3b (the wkv6 kernel on prefill and
-on every decode step, a recurrent state in place of the KV cache).
+tinyllama-1.1b, qwen3-0.6b, llama3.2-3b and granite-20b and the MoE ones
+qwen3-moe-235b-a22b and arctic-480b (flash attention on prefill, plain
+attention over the KV cache in decode), rwkv6-3b (the wkv6 kernel on
+prefill and on every decode step, a recurrent state in place of the KV
+cache) and jamba-v0.1-52b (attention one layer in 8, mamba layers with a
+recurrent state in the others, MoE every other layer). ``--full`` builds
+the whole published model: granite-20b's 56 GB in bf16 fits on an 80 GB
+H100, but jamba-v0.1-52b, qwen3-moe-235b-a22b and arctic-480b do not
+(``chip_smoke.py`` serves them at full width with fewer layers).
 
 Runs on the card unless ``--device cpu`` is given (there is no silent
 fallback). Params are random, from ``--seed``; the prompt is the synthetic

@@ -7,7 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.trace_step --full \
         --arch tinyllama-1.1b --train --batch 4 --seq 1024 [--steps 3] [--strict]
 
-(``--arch`` also takes qwen3-0.6b and rwkv6-3b.) For a DLRM id, or an LM id
+(``--arch`` also takes the other LM ids the port registers, as
+``launch.serve`` and ``launch.train`` do.) For a DLRM id, or an LM id
 with ``--train``: makes every batch first
 (set-up), runs one warm-up step, then profiles ``--steps`` training steps.
 For an LM id otherwise: runs one warm-up generation, then profiles one

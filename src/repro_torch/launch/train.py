@@ -13,9 +13,14 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --seq 64 [... the same options]
 
-``--arch`` takes the DLRM ids, the dense transformer ids (tinyllama-1.1b,
-qwen3-0.6b) and rwkv6-3b; an LM trains on synthetic zipf token batches of
-``--batch`` x ``--seq``. Runs the relaxed (paper) schedule by default, on the card;
+``--arch`` takes the DLRM ids and every LM id the port registers: the
+dense transformers (tinyllama-1.1b, qwen3-0.6b, llama3.2-3b, granite-20b),
+the MoE ones (qwen3-moe-235b-a22b, arctic-480b), rwkv6-3b and jamba-v0.1-52b;
+an LM trains on synthetic zipf token batches of ``--batch`` x ``--seq``.
+``--full`` builds the whole published model, which must fit on the card
+with its optimizer state: ``chip_smoke.py`` trains tinyllama-1.1b,
+rwkv6-3b and llama3.2-3b so on an 80 GB H100, and granite-20b,
+qwen3-moe-235b-a22b, arctic-480b and jamba-v0.1-52b at the smoke size. Runs the relaxed (paper) schedule by default, on the card;
 ``--device cpu`` runs the kernels' plain versions on the CPU. With
 ``--ckpt-dir`` every relaxed step is checkpointed into the emulated pool by
 the two-tier manager; ``--resume`` recovers from that directory and goes on
@@ -48,9 +53,8 @@ from repro_torch.kernels import embedding_bag, gather_rows, scatter_update
 from repro_torch.training import train_loop
 
 
-# the ids the port trains: DLRM, the dense transformers and RWKV-6
-TRAIN_IDS = DLRM_IDS + [a for a in LM_IDS if get_arch(a, smoke=True).model.arch_type
-                        in ("transformer", "rwkv6")]
+# the ids the port trains: DLRM and every registered LM
+TRAIN_IDS = DLRM_IDS + LM_IDS
 
 
 def launch_counts() -> dict:

@@ -5,6 +5,11 @@ Params are nested dicts of tensors. Random draws come from an explicit
 package's ``jax.random`` streams, so parity tests load the JAX params
 through ``repro_torch.interop``.
 
+Each init takes an optional ``new(shape, dtype)`` that allocates its
+leaves (fresh tensors on the generator's device by default); ``Stack``
+hands out slices of stacked leaves instead, so that a stack of layers is
+drawn in place, never held twice.
+
 Activations are in ``cfg.dtype``; norms, rotary angles, attention scores and
 softmax are in f32. Attention is GQA: prefill and training attention go
 through the flash-attention kernels (``ops.flash_attention``, forward and
@@ -35,14 +40,58 @@ def layer_params(blocks, num_layers: int) -> list:
     return out
 
 
-def uniform_init(gen: torch.Generator, shape, scale: float, dtype):
-    return torch.empty(shape, dtype=dtype, device=gen.device) \
+def fresh(device):
+    """The default leaf allocator: an uninitialised tensor on ``device``."""
+    return lambda shape, dtype: torch.empty(shape, dtype=dtype, device=device)
+
+
+class Stack:
+    """Leaf allocator for ``n`` trees of one structure, drawn one after the
+    other: leaf k of tree i is slice i of one (n, ...) tensor, allocated
+    when tree 0 asks for it. Every tree must ask for its leaves in the same
+    order, shapes and dtypes. ``tree(tree0)`` maps tree 0 (its slices) to
+    the stacked tree."""
+
+    def __init__(self, n: int, device):
+        self.n, self.device, self.leaves, self._base = n, device, [], {}
+        self._i = self._k = 0
+
+    def layer(self, i: int):
+        """The allocator for tree ``i``."""
+        self._i, self._k = i, 0
+        return self._new
+
+    def _new(self, shape, dtype):
+        shape = tuple(shape)
+        if self._i == 0:
+            leaf = torch.empty((self.n, *shape), dtype=dtype, device=self.device)
+            self.leaves.append(leaf)
+        leaf = self.leaves[self._k]
+        if leaf.shape[1:] != shape or leaf.dtype != dtype:
+            raise ValueError(f"tree {self._i} asked for {shape} {dtype} where "
+                             f"tree 0 had {tuple(leaf.shape[1:])} {leaf.dtype}")
+        self._k += 1
+        view = leaf[self._i]
+        if self._i == 0:
+            self._base[id(view)] = (view, leaf)
+        return view
+
+    def tree(self, tree0):
+        return tree_map(lambda v: self._base[id(v)][1], tree0)
+
+
+def uniform_init(gen: torch.Generator, shape, scale: float, dtype, new=None):
+    return (new or fresh(gen.device))(shape, dtype) \
         .uniform_(-scale, scale, generator=gen)
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype):
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, new=None):
     scale = math.sqrt(1.0 / d_in)
-    return uniform_init(gen, (d_in, d_out), scale, dtype)
+    return uniform_init(gen, (d_in, d_out), scale, dtype, new)
+
+
+def ones(gen: torch.Generator, shape, dtype, new=None):
+    return (new or fresh(gen.device))(shape, dtype).fill_(1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -113,17 +162,17 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 
-def init_attention(gen: torch.Generator, cfg):
+def init_attention(gen: torch.Generator, cfg, new=None):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     dt = cfg.activation_dtype
-    p = {"wq": dense_init(gen, d, nq * hd, dt),
-         "wk": dense_init(gen, d, nkv * hd, dt),
-         "wv": dense_init(gen, d, nkv * hd, dt),
-         "wo": dense_init(gen, nq * hd, d, dt)}
+    p = {"wq": dense_init(gen, d, nq * hd, dt, new),
+         "wk": dense_init(gen, d, nkv * hd, dt, new),
+         "wv": dense_init(gen, d, nkv * hd, dt, new),
+         "wo": dense_init(gen, nq * hd, d, dt, new)}
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((hd,), dtype=dt, device=gen.device)
-        p["k_norm"] = torch.ones((hd,), dtype=dt, device=gen.device)
+        p["q_norm"] = ones(gen, (hd,), dt, new)
+        p["k_norm"] = ones(gen, (hd,), dt, new)
     return p
 
 
@@ -181,13 +230,13 @@ def _check_act(cfg) -> None:
                                   "(the ported LMs use silu)")
 
 
-def init_mlp(gen: torch.Generator, cfg, d_ff=None):
+def init_mlp(gen: torch.Generator, cfg, d_ff=None, new=None):
     """SwiGLU MLP params: wi, wg (d, f) and wo (f, d)."""
     _check_act(cfg)
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.activation_dtype
-    return {"wi": dense_init(gen, d, f, dt), "wg": dense_init(gen, d, f, dt),
-            "wo": dense_init(gen, f, d, dt)}
+    return {"wi": dense_init(gen, d, f, dt, new), "wg": dense_init(gen, d, f, dt, new),
+            "wo": dense_init(gen, f, d, dt, new)}
 
 
 def mlp_fwd(p, cfg, x):

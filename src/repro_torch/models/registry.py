@@ -1,8 +1,8 @@
 """Uniform model API: arch_type -> ModelApi(init, loss, init_cache, prefill,
 decode_step).
 
-The DLRM, the dense transformer and RWKV-6 are ported; the other LM
-families come with their slices.
+The DLRM, the transformer stack (dense and MoE), jamba and RWKV-6 are
+ported; whisper and qwen2-vl come with their slice.
 """
 from __future__ import annotations
 
@@ -23,6 +23,10 @@ class ModelApi:
 
 _REGISTRY: dict[str, ModelApi] = {
     "transformer": ModelApi(
+        init=transformer.init_lm, loss=transformer.lm_loss,
+        init_cache=transformer.init_kv_cache,
+        prefill=transformer.prefill, decode_step=transformer.decode_step),
+    "jamba": ModelApi(
         init=transformer.init_lm, loss=transformer.lm_loss,
         init_cache=transformer.init_kv_cache,
         prefill=transformer.prefill, decode_step=transformer.decode_step),

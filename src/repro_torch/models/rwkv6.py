@@ -56,35 +56,36 @@ def _ddlerp(x, xprev, mu):
     return x + (xprev - x) * mu
 
 
-def init_rwkv(gen: torch.Generator, cfg):
+def init_rwkv(gen: torch.Generator, cfg, new=None):
     """One block's params: ``mu``, the LoRA, ``w_base``, ``u``, ``ln_w`` and
-    ``ln_b`` in f32, the rest in the activation dtype."""
-    d, dt, dev = cfg.d_model, cfg.activation_dtype, gen.device
+    ``ln_b`` in f32, the rest in the activation dtype. ``new`` allocates
+    the leaves (``layers.Stack``)."""
+    d, dt = cfg.d_model, cfg.activation_dtype
     H = d // HEAD_K
     f32 = torch.float32
+    new = new or layers.fresh(gen.device)
     tm = {
-        "mu": layers.uniform_init(gen, (5, d), 0.5, f32),   # r, k, v, g, w mix
-        "wr": layers.dense_init(gen, d, d, dt),
-        "wk": layers.dense_init(gen, d, d, dt),
-        "wv": layers.dense_init(gen, d, d, dt),
-        "wg": layers.dense_init(gen, d, d, dt),
-        "wo": layers.dense_init(gen, d, d, dt),
-        "w_lora_a": layers.dense_init(gen, d, LORA_R, f32),
-        "w_lora_b": layers.dense_init(gen, LORA_R, d, f32),
-        "w_base": torch.empty((d,), dtype=f32, device=dev).uniform_(-6.0, -5.0,
-                                                                   generator=gen),
-        "u": layers.uniform_init(gen, (H, HEAD_K), 0.3, f32),
-        "ln_w": torch.ones((d,), dtype=f32, device=dev),    # per-head groupnorm
-        "ln_b": torch.zeros((d,), dtype=f32, device=dev),
+        "mu": layers.uniform_init(gen, (5, d), 0.5, f32, new),   # r, k, v, g, w mix
+        "wr": layers.dense_init(gen, d, d, dt, new),
+        "wk": layers.dense_init(gen, d, d, dt, new),
+        "wv": layers.dense_init(gen, d, d, dt, new),
+        "wg": layers.dense_init(gen, d, d, dt, new),
+        "wo": layers.dense_init(gen, d, d, dt, new),
+        "w_lora_a": layers.dense_init(gen, d, LORA_R, f32, new),
+        "w_lora_b": layers.dense_init(gen, LORA_R, d, f32, new),
+        "w_base": new((d,), f32).uniform_(-6.0, -5.0, generator=gen),
+        "u": layers.uniform_init(gen, (H, HEAD_K), 0.3, f32, new),
+        "ln_w": layers.ones(gen, (d,), f32, new),    # per-head groupnorm
+        "ln_b": new((d,), f32).zero_(),
     }
     cm = {
-        "mu": layers.uniform_init(gen, (2, d), 0.5, f32),
-        "wk": layers.dense_init(gen, d, cfg.d_ff, dt),
-        "wv": layers.dense_init(gen, cfg.d_ff, d, dt),
-        "wr": layers.dense_init(gen, d, d, dt),
+        "mu": layers.uniform_init(gen, (2, d), 0.5, f32, new),
+        "wk": layers.dense_init(gen, d, cfg.d_ff, dt, new),
+        "wv": layers.dense_init(gen, cfg.d_ff, d, dt, new),
+        "wr": layers.dense_init(gen, d, d, dt, new),
     }
-    return {"norm1": torch.ones((d,), dtype=dt, device=dev),
-            "norm2": torch.ones((d,), dtype=dt, device=dev),
+    return {"norm1": layers.ones(gen, (d,), dt, new),
+            "norm2": layers.ones(gen, (d,), dt, new),
             "tmix": tm, "cmix": cm}
 
 
@@ -94,9 +95,11 @@ def init_lm(gen: torch.Generator, cfg):
     dt, dev = cfg.activation_dtype, gen.device
     table = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                          device=dev) * 0.02).to(dt)
-    blocks = [init_rwkv(gen, cfg) for _ in range(cfg.num_layers)]
+    # each stacked leaf allocated once, every layer drawn into its slice
+    stack = layers.Stack(cfg.num_layers, dev)
+    trees = [init_rwkv(gen, cfg, stack.layer(i)) for i in range(cfg.num_layers)]
     return {"embed": {"table": table},
-            "blocks": tree_map(lambda *xs: torch.stack(xs), *blocks),
+            "blocks": stack.tree(trees[0]),
             "norm_in": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "lm_head": layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)}

@@ -1,21 +1,37 @@
 """Decoder-only LM stack (counterpart of ``repro.models.transformer``).
 
-Dense homogeneous stacks only (tinyllama, qwen3-0.6b): every layer is
-attention plus a dense FFN. Block params are stacked along a leading layer
-axis, as the reference stacks them for ``lax.scan``, so a JAX param tree
-crosses over through ``interop`` unchanged; here a Python loop walks the
-layers. Jamba groups, MoE, mamba and vision embeds raise
-``NotImplementedError``.
+Covers the dense transformers (tinyllama, qwen3-0.6b, llama3.2-3b,
+granite-20b), the MoE ones (qwen3-moe-235b-a22b, arctic-480b) and jamba
+(mamba and attention interleaved, MoE every other layer). A block is a
+sequence mixer (attention or mamba) and then an FFN (dense or MoE). Params
+keep the reference's tree, so a JAX param tree crosses over through
+``interop`` unchanged:
+- ``"blocks"``: a homogeneous stack, each leaf stacked along a leading
+  layer axis (the reference stacks them for ``lax.scan``);
+- ``"groups"``: jamba when the period divides the depth, a list of one
+  period's blocks, each leaf stacked over the groups;
+- ``"layers"``: otherwise (jamba at a depth its period does not divide),
+  a list of per-layer blocks.
+Here a Python loop walks the layers. ``init_lm`` allocates each stacked
+leaf once and draws every layer into its slice, so the stack is never held
+twice. Vision embeds (qwen2-vl) raise ``NotImplementedError``.
 
-KV caches keep the reference's layout, ``{"k", "v"}`` of (L, B, Smax, Hkv,
-D), and are written in place: ``prefill`` and ``decode_step`` return the
-cache they were given.
+Caches keep the reference's trees too: ``{"k", "v"}`` of (L, B, Smax,
+Hkv, D) for a homogeneous stack; for jamba a list over the period of
+``{"k", "v"}`` or mamba ``{"h", "conv"}`` states, stacked over the groups.
+They are written in place: ``prefill`` and ``decode_step`` return the
+caches they were given.
+
+``forward_hidden`` sums the MoE blocks' load-balancing terms, and
+``lm_loss`` adds 0.01 of that sum to the mean cross-entropy, as the
+reference does (``src/repro/models/transformer.py:205``); a stack with no
+MoE block adds nothing.
 
 Training differentiates ``lm_loss`` with torch autograd. With ``cfg.remat``
 each block runs under ``torch.utils.checkpoint``, as the reference wraps
 its block in ``jax.checkpoint`` (``src/repro/models/transformer.py:139``):
 only the block's input is kept, and the block (its flash-attention forward
-included) runs again in the backward.
+and its routing included) runs again in the backward.
 """
 from __future__ import annotations
 
@@ -23,24 +39,36 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba, moe
 from repro_torch.tree import tree_map
 
 
 def _check_supported(cfg) -> None:
-    if cfg.arch_type != "transformer" or cfg.mrope_sections \
-            or set(cfg.layer_types) != {"attn"} or set(cfg.ffn_types) != {"dense"}:
+    if cfg.arch_type not in ("transformer", "jamba") or cfg.mrope_sections:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention stacks only "
-            "(jamba, MoE, mamba and vision embeds are not ported yet)")
+            f"{cfg.name}: the port runs the transformer and jamba stacks "
+            f"(not {cfg.arch_type!r}, nor M-RoPE)")
 
 
-def _init_block(gen: torch.Generator, cfg):
+def _is_homogeneous(cfg) -> bool:
+    return (len(set(cfg.layer_types)) == 1 and len(set(cfg.ffn_types)) == 1
+            and cfg.arch_type == "transformer")
+
+
+def _init_block(gen: torch.Generator, cfg, layer_type: str, ffn_type: str,
+                new=None):
     dt = cfg.activation_dtype
-    return {"norm1": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
-            "norm2": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
-            "attn": layers.init_attention(gen, cfg),
-            "mlp": layers.init_mlp(gen, cfg)}
+    p = {"norm1": layers.ones(gen, (cfg.d_model,), dt, new),
+         "norm2": layers.ones(gen, (cfg.d_model,), dt, new)}
+    if layer_type == "attn":
+        p["attn"] = layers.init_attention(gen, cfg, new)
+    else:
+        p["mamba"] = mamba.init_mamba(gen, cfg, new)
+    if ffn_type == "moe":
+        p["moe"] = moe.init_moe(gen, cfg, new)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg, new=new)
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg):
@@ -50,31 +78,81 @@ def init_lm(gen: torch.Generator, cfg):
     table = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                          device=gen.device) * 0.02).to(dt)
     params = {"embed": {"table": table},
-              "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=gen.device)}
+              "final_norm": layers.ones(gen, (cfg.d_model,), dt)}
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
-    blocks = [_init_block(gen, cfg) for _ in range(cfg.num_layers)]
-    params["blocks"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
+    lt, ft, L = cfg.layer_types, cfg.ffn_types, cfg.num_layers
+    if _is_homogeneous(cfg):
+        stack = layers.Stack(L, gen.device)
+        trees = [_init_block(gen, cfg, lt[0], ft[0], stack.layer(i)) for i in range(L)]
+        params["blocks"] = stack.tree(trees[0])
+    elif cfg.arch_type == "jamba" and L % cfg.attn_layer_period == 0:
+        period = cfg.attn_layer_period
+        stacks = [layers.Stack(L // period, gen.device) for _ in range(period)]
+        groups = [[_init_block(gen, cfg, lt[i], ft[i], stacks[i].layer(g))
+                   for i in range(period)] for g in range(L // period)]
+        params["groups"] = [s.tree(t) for s, t in zip(stacks, groups[0], strict=True)]
+    else:
+        params["layers"] = [_init_block(gen, cfg, lt[i], ft[i]) for i in range(L)]
     return params
 
 
-def _block_fwd(p, cfg, x, positions, cache=None, cache_index=None):
+def _block_fwd(p, cfg, layer_type, ffn_type, x, positions, cache=None,
+               cache_index=None):
+    """One block. Returns (x, aux): aux is the MoE's load-balancing term, or
+    None after a dense FFN."""
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-    o, cache = layers.attention_fwd(p["attn"], cfg, h, positions, causal=True,
+    if layer_type == "attn":
+        o, _ = layers.attention_fwd(p["attn"], cfg, h, positions, causal=True,
                                     cache=cache, cache_index=cache_index)
+    else:
+        o, _ = mamba.mamba_fwd(p["mamba"], cfg, h, state=cache,
+                               cache_index=cache_index)
     x = x + o
     h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + layers.mlp_fwd(p["mlp"], cfg, h), cache
+    if ffn_type == "moe":
+        o, aux = moe.moe_fwd(p["moe"], cfg, h)
+        return x + o, aux
+    return x + layers.mlp_fwd(p["mlp"], cfg, h), None
+
+
+def _walk(params, cfg, caches):
+    """(block params, layer type, ffn type, cache) for each layer, in order;
+    the caches are views of ``caches`` (None without)."""
+    lt, ft, L = cfg.layer_types, cfg.ffn_types, cfg.num_layers
+
+    def at(tree, i):
+        return None if tree is None else tree_map(lambda a: a[i], tree)
+    if "blocks" in params:
+        for i, bp in enumerate(layers.layer_params(params["blocks"], L)):
+            yield bp, lt[0], ft[0], at(caches, i)
+    elif "groups" in params:
+        period = cfg.attn_layer_period
+        ngroups = L // period
+        per = [layers.layer_params(gp, ngroups) for gp in params["groups"]]
+        for g in range(ngroups):
+            for i in range(period):
+                yield per[i][g], lt[i], ft[i], None if caches is None else at(caches[i], g)
+    else:
+        if caches is not None and len(caches) != L:
+            raise ValueError(
+                f"{cfg.name}: {L} layers in the per-layer layout, but the caches "
+                f"hold {len(caches)} entries (init_kv_cache gives jamba the "
+                "group layout, as the reference does, which this depth cannot use)")
+        for i, bp in enumerate(params["layers"]):
+            yield bp, lt[i], ft[i], None if caches is None else caches[i]
 
 
 def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
                    vision_embeds=None, embed_rows=None):
-    """tokens: (B, S) -> (hidden (B, S, d), caches).
+    """tokens: (B, S) -> (hidden (B, S, d), caches, aux).
 
     The token embedding goes through the row-gather kernel, unless
     ``embed_rows`` gives the (B, S, d) rows already gathered (the relaxed
     lookup's prefetch). Tokens sit at positions cache_index .. cache_index
     + S - 1. With grad on and ``cfg.remat``, each block is checkpointed.
+    aux is the summed load-balancing term of the MoE blocks, None without
+    one.
     """
     if vision_embeds is not None:
         raise NotImplementedError("vision embeds are not ported yet")
@@ -86,15 +164,17 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
         x = embedding_ops.lookup(params["embed"]["table"], tokens)
     positions = (cache_index or 0) + torch.arange(S, device=tokens.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
-    for i, bp in enumerate(layers.layer_params(params["blocks"], cfg.num_layers)):
+    total_aux = None
+    for bp, lt, ft, cache in _walk(params, cfg, caches):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                lambda bp, x: _block_fwd(bp, cfg, x, positions)[0], bp, x,
-                use_reentrant=False)
-            continue
-        cache = None if caches is None else {"k": caches["k"][i], "v": caches["v"][i]}
-        x, _ = _block_fwd(bp, cfg, x, positions, cache, cache_index)
-    return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), caches
+            x, aux = torch.utils.checkpoint.checkpoint(
+                lambda bp, x, lt=lt, ft=ft: _block_fwd(bp, cfg, lt, ft, x, positions),
+                bp, x, use_reentrant=False)
+        else:
+            x, aux = _block_fwd(bp, cfg, lt, ft, x, positions, cache, cache_index)
+        if aux is not None:
+            total_aux = aux if total_aux is None else total_aux + aux
+    return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), caches, total_aux
 
 
 def head_matrix(params, cfg):
@@ -104,35 +184,53 @@ def head_matrix(params, cfg):
 
 
 def lm_loss(params, cfg, batch):
-    """Mean token cross-entropy. batch: tokens (B, S), labels (B, S) [,
-    loss_mask, embed_rows (the relaxed lookup's prefetched rows)]."""
-    hidden, _ = forward_hidden(params, cfg, batch["tokens"],
-                               embed_rows=batch.get("embed_rows"))
+    """Mean token cross-entropy, plus 0.01 of the MoE blocks' summed
+    load-balancing term. batch: tokens (B, S), labels (B, S) [, loss_mask,
+    embed_rows (the relaxed lookup's prefetched rows)]."""
+    hidden, _, aux = forward_hidden(params, cfg, batch["tokens"],
+                                    embed_rows=batch.get("embed_rows"))
     loss, count = layers.chunked_softmax_xent(
         hidden, head_matrix(params, cfg), batch["labels"],
         chunk=cfg.loss_chunk, mask=batch.get("loss_mask"))
-    return loss / torch.clamp(count, min=1.0)
+    loss = loss / torch.clamp(count, min=1.0)
+    return loss if aux is None else loss + 0.01 * aux
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, device):
-    """Zeroed caches {"k", "v"} of (L, batch, max_seq, Hkv, D) on ``device``."""
+    """Zeroed caches on ``device``, in the reference's tree for ``cfg``."""
     _check_supported(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {n: torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
-            for n in ("k", "v")}
+    L, dt = cfg.num_layers, cfg.activation_dtype
+    kv = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+    def entry(layer_type, lead=()):
+        if layer_type == "attn":
+            return {n: torch.zeros((*lead, *kv), dtype=dt, device=device)
+                    for n in ("k", "v")}
+        st = mamba.init_mamba_state(cfg, batch, device)
+        return {n: torch.zeros((*lead, *a.shape), dtype=a.dtype, device=device)
+                for n, a in st.items()}
+    lt = cfg.layer_types
+    if _is_homogeneous(cfg):
+        return entry(lt[0], (L,))
+    if cfg.arch_type == "jamba":
+        # one period's entries, stacked over the groups (also where the
+        # params take the per-layer layout, as the reference's are)
+        period = cfg.attn_layer_period
+        return [entry(lt[i], (L // period,)) for i in range(period)]
+    return [entry(t) for t in lt]
 
 
 def prefill(params, cfg, tokens, caches):
     """Fill caches with S tokens at positions 0 .. S-1; return (last-token
     logits (B, V) f32, caches)."""
-    hidden, caches = forward_hidden(params, cfg, tokens, caches=caches,
-                                    cache_index=0)
+    hidden, caches, _ = forward_hidden(params, cfg, tokens, caches=caches,
+                                       cache_index=0)
     return (hidden[:, -1] @ head_matrix(params, cfg)).float(), caches
 
 
 def decode_step(params, cfg, tokens, pos: int, caches):
     """tokens: (B, 1) at position ``pos`` (a host int) -> (logits (B, V)
     f32, caches)."""
-    hidden, caches = forward_hidden(params, cfg, tokens, caches=caches,
-                                    cache_index=pos)
+    hidden, caches, _ = forward_hidden(params, cfg, tokens, caches=caches,
+                                       cache_index=pos)
     return (hidden[:, -1] @ head_matrix(params, cfg)).float(), caches

@@ -34,7 +34,8 @@ from repro_torch.tree import tree_leaves
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CPU = torch.device("cpu")
-# the dense transformer ids; rwkv6-3b has its own tests (test_torch_rwkv.py)
+# the transformer ids, dense and MoE; rwkv6-3b (test_torch_rwkv.py) and
+# jamba (test_torch_mamba.py) have their own tests
 DENSE_IDS = [a for a in LM_IDS if get_arch(a).model.arch_type == "transformer"]
 
 
@@ -236,7 +237,7 @@ def test_unported_families_raise():
     cfg = get_arch("tinyllama-1.1b", smoke=True).model
     gen = torch.Generator()
     with pytest.raises(NotImplementedError):
-        transformer.init_lm(gen, cfg.replace(arch_type="jamba"))
+        transformer.init_lm(gen, cfg.replace(arch_type="whisper"))
     params = transformer.init_lm(gen, cfg)
     with pytest.raises(NotImplementedError):
         transformer.forward_hidden(params, cfg, torch.zeros((1, 2), dtype=torch.int32),

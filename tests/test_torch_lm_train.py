@@ -39,7 +39,9 @@ from repro_torch.tree import tree_leaves, tree_map
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CPU = torch.device("cpu")
-DENSE_IDS = [a for a in LM_IDS if get_arch(a).model.arch_type == "transformer"]
+# the dense transformer ids; the MoE ones train in test_torch_moe.py
+DENSE_IDS = [a for a in LM_IDS if get_arch(a).model.arch_type == "transformer"
+             and not get_arch(a).model.moe.enabled]
 
 # (B, Sq, Sk, Hq, Hkv, D, q_offset): ragged S, GQA, D 16 and 128, and queries
 # at positions 7..11 over 12 keys (a prefill into a cache holding 7)
