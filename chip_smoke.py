@@ -229,7 +229,26 @@ Phases, each of which exits non-zero on failure:
      qwen3-moe, arctic and jamba trained on the card (5 f32 steps; a strict
      run and a second relaxed one, both bitwise the first) against the
      CPU (1e-5).
-Phases 6 to 22 print their wall time. Phases 4, 8, 10, 12 and 16 also
+ 23. the last two families, whisper-base (encoder and decoder, the head
+     tied to the token table) and qwen2-vl-7b (M-RoPE, vision embeds):
+     flash held against its plain version with the full (not causal)
+     mask at whisper's widths (1 to 1024 queries against 1000 to 1500
+     keys, ragged against the tiles) and timed beside SDPA and its bound
+     at the encoder's and the cross-attention's shapes (1024 and 1500
+     frames) and qwen2-vl's prefill shape (28 q and 4 kv heads of 128);
+     the forward with lse and the backward at both models' training
+     shapes and the cross-attention's over 1500 frames; both served at
+     full width and depth as phase 8 serves tinyllama (the batch's frames
+     or vision embeds and M-RoPE positions with the prompt; flash 18
+     times a whisper prefill: 6 encoder, 6 self- and 6 cross-attention
+     layers); whisper-base trained at full width and depth and qwen2-vl-7b
+     at full width and QWEN2VL_TRAIN_LAYERS layers as phase 12 trains
+     tinyllama (the tied head: every row of the table updated, one more
+     update a step for the rows' gradient, no scratch), each sparse tier
+     timed; both at the smoke size on the card against the CPU (5 f32
+     steps, strict and a second relaxed run bitwise the first). Prints the
+     device memory held at its start and its peak.
+Phases 6 to 23 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13, 16, 18 and 20 every scatter_update_logged launch
@@ -250,7 +269,8 @@ gather; phase 19's Adagrad runs of rm1 and tinyllama, tinyllama's
 accumulator launches (narrow) as paths of their own; phase 20's rm1 run into the
 sharded pool; phase 21's run U, rm1 on f32 tables under the checker;
 phase 22's five served ids (flash, the gather in prefill and decode) and
-llama3.2-3b's training); the last line is
+llama3.2-3b's training; phase 23's two served ids and their training);
+the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
 Imports nothing of JAX.
@@ -1008,6 +1028,8 @@ def serve_want(mixer, cfg, per_step, new, gathers):
     pass."""
     mix = mixer.__name__.rsplit(".", 1)[1]
     n_mix = sum(t == "attn" for t in cfg.layer_types)
+    if cfg.arch_type == "whisper":   # the encoder's layers and the cross-attention
+        n_mix += cfg.encoder_layers + cfg.num_layers
     want = {"prefill": {mix: n_mix, "gather_rows": gathers},
             "decode": {mix: per_step * (new - 1), "gather_rows": gathers * (new - 1)}}
     if hasattr(mixer, "tc_launches"):
@@ -1030,9 +1052,34 @@ def part_counter(parts, read):
     return count
 
 
+def prefill_extras(torch, cfg, extras, S):
+    """The keywords of a prefill of S tokens of the request whose batch
+    extras are ``extras``: whisper's frames; qwen2-vl's vision embeds and
+    its M-RoPE positions, t = h = w = the token's position, as the batches
+    make them."""
+    if cfg.arch_type == "whisper":
+        return {"frames": extras["frames"]}
+    if cfg.arch_type == "qwen2vl":
+        B = extras["vision_embeds"].shape[0]
+        pos = torch.arange(S, device=extras["vision_embeds"].device)
+        return {"vision_embeds": extras["vision_embeds"],
+                "positions3": pos.expand(3, B, S).contiguous()}
+    return {}
+
+
+def request(make_batches, cfg, B, S, device):
+    """Step 0's batch of the synthetic stream: (its tokens, its other
+    entries but the labels: frames, vision embeds, M-RoPE positions)."""
+    batch = make_batches(cfg, B, S, device=device).next(0)
+    return batch["tokens"], {k: v for k, v in batch.items()
+                             if k not in ("tokens", "labels")}
+
+
 def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step, layers=None):
-    """Phases 8, 10 and 22: serve ``arch`` at full width, at ``layers``
-    layers if given (else its own depth). ``mixer`` is the wrapper module of
+    """Phases 8, 10, 22 and 23: serve ``arch`` at full width, at ``layers``
+    layers if given (else its own depth); a request's extras (whisper's
+    frames, qwen2-vl's vision embeds and positions) come from the batch.
+    ``mixer`` is the wrapper module of
     the path's sequence-mixer kernel (flash attention, wkv6), launched
     once per layer that has it in the prefill and ``per_step`` times in each
     decode step. The generation runs three times (the first counted, the
@@ -1071,7 +1118,7 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step, layers=None
     # the init draws the token table in f32 and casts it: the stack's
     # leaves are allocated once, each layer drawn into its slice
     table_f32_gb = cfg.vocab_size * cfg.d_model * 4 / 1e9
-    prompt = make_batches(cfg, B, S, device=dev).next(0)["tokens"]
+    prompt, extras = request(make_batches, cfg, B, S, dev)
     print(f"[serve] full-width {arch}, {cfg.num_layers} layers: {n_params} params "
           f"({params_gb:.2f} GB, {cfg.dtype}), init and prompt "
           f"{time.perf_counter() - t:.1f}s; peak device GB over the init {init_gb:.3f} "
@@ -1079,7 +1126,7 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step, layers=None
           f"{params_gb + table_f32_gb:.3f} at most)")
     check(init_gb <= params_gb + table_f32_gb, f"serve {arch}: the init peaked at "
           f"{init_gb:.3f} GB, above the params and the f32 table")
-    greedy_generate(cfg, params, prompt, 2, max_seq=S + new)   # warm-up
+    greedy_generate(cfg, params, prompt, 2, extras=extras, max_seq=S + new)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     parts = {}
@@ -1087,7 +1134,8 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step, layers=None
     gr.wide_launches = 0
     stats = {}
     with moe.recording() as routed:
-        toks = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=stats,
+        toks = greedy_generate(cfg, params, prompt, new, extras=extras, max_seq=S + new,
+                               stats=stats,
                                part=part_counter(parts, lambda: serve_counts(mixer, gr)))
     launches = serve_counts(mixer, gr)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1117,13 +1165,14 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step, layers=None
     check(bool(torch.isfinite(stats["logits"]).all()), "serve: non-finite logits")
 
     again = {}
-    toks2 = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=again)
+    toks2 = greedy_generate(cfg, params, prompt, new, extras=extras, max_seq=S + new,
+                            stats=again)
     check(torch.equal(toks, toks2) and torch.equal(stats["logits"], again["logits"]),
           "serve: a second run gave other tokens or logits")
     walls = [(stats["prefill_s"], stats["decode_s"]), (again["prefill_s"], again["decode_s"])]
     del again
     more = {}
-    greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=more)
+    greedy_generate(cfg, params, prompt, new, extras=extras, max_seq=S + new, stats=more)
     walls.append((more["prefill_s"], more["decode_s"]))
     del more
     metrics["prefill_ms_runs"] = [1e3 * p for p, _ in walls]
@@ -1183,7 +1232,8 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step, layers=None
     # cache, before any routing) is held to 3e-2 of its largest magnitude.
     ext = torch.cat([prompt, toks[:, :1]], dim=1)
     with moe.recording() as routed_full:
-        full, _ = api.prefill(params, cfg, ext, api.init_cache(cfg, B, S + 1, dev))
+        full, _ = api.prefill(params, cfg, ext, api.init_cache(cfg, B, S + 1, dev),
+                              **prefill_extras(torch, cfg, extras, S + 1))
     dec = stats["logits"][:, 1]
     alike = torch.ones(B, dtype=torch.bool, device=dev)
     last = torch.arange(B, device=dev) * (S + 1) + S
@@ -1223,12 +1273,13 @@ def serve_phase(torch, np, dev, check_gather, arch, mixer, per_step, layers=None
     gen = torch.Generator()
     gen.manual_seed(0)
     sparams = api.init(gen, scfg)
-    sprompt = make_batches(scfg, 2, 9, device="cpu").next(0)["tokens"]
+    sprompt, sextras = request(make_batches, scfg, 2, 9, "cpu")
     out = {}
     for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
         st = {}
         tk = greedy_generate(scfg, tree_map(lambda p, w=where: p.to(w), sparams),
-                             sprompt.to(where), 4, max_seq=16, stats=st)
+                             sprompt.to(where), 4, max_seq=16, stats=st,
+                             extras={k: v.to(where) for k, v in sextras.items()})
         out[name] = (tk.cpu(), st["logits"].cpu())
     print(f"[serve] smoke tokens card {out['card'][0].tolist()} cpu "
           f"{out['cpu'][0].tolist()}; logits max abs diff "
@@ -1501,14 +1552,15 @@ def lm_counts(mods):
     return counts, wide, zero_counts
 
 
-def lm_train_runs(torch, dev, arch, mixer_want):
-    """Full-width training of ``arch`` (bf16, remat, batch 4 x 1024): 3
-    relaxed steps, 3 strict ones and the relaxed run again, each from the
-    same params, and one profiled relaxed step. ``mixer_want`` is the
-    sequence mixer's launches per step. Checks bitwise-equal losses, the
-    repeat and every step's launch counts. Returns (the relaxed run's
-    launch counts with the strict run's updates as "scatter_update_strict",
-    the step metrics, the run's batches)."""
+def lm_train_runs(torch, dev, arch, mixer_want, layers=None):
+    """Full-width training of ``arch`` (bf16, remat, batch 4 x 1024), at
+    ``layers`` layers if given: 3 relaxed steps, 3 strict ones and the
+    relaxed run again, each from the same params, and one profiled relaxed
+    step. ``mixer_want`` is the sequence mixer's launches per step. Checks
+    bitwise-equal losses, the repeat and every step's launch counts.
+    Returns (the relaxed run's launch counts with the strict run's table
+    updates as "scatter_update_strict", the step metrics, the run's
+    batches)."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.lookahead import LookaheadIterator
@@ -1524,6 +1576,8 @@ def lm_train_runs(torch, dev, arch, mixer_want):
 
     tag = f"[{arch}-train]"
     cfg = get_arch(arch).model
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     check(cfg.remat and cfg.dtype == "bfloat16", f"{arch}: want bf16 with remat")
     tc = TrainConfig(embed_learning_rate=0.05)
     B, S, steps = 4, 1024, 3
@@ -1549,8 +1603,8 @@ def lm_train_runs(torch, dev, arch, mixer_want):
     state = fresh_state()
     n_params = sum(p.numel() for p in tree_leaves(state["dense"])) \
         + state["embed"]["table"].numel()
-    print(f"{tag} full {arch}: {n_params} params, {cfg.dtype}, remat, batch {B} x "
-          f"seq {S}; init {time.perf_counter() - t:.1f}s")
+    print(f"{tag} full-width {arch}, {cfg.num_layers} layers: {n_params} params, "
+          f"{cfg.dtype}, remat, batch {B} x seq {S}; init {time.perf_counter() - t:.1f}s")
 
     def run(state, relaxed, per_step=None):
         batches = make_batches_first()
@@ -1585,9 +1639,11 @@ def lm_train_runs(torch, dev, arch, mixer_want):
     strict_steps = []
     zero_counts()
     state, sl, sms = run(fresh_state(), False, strict_steps)
-    strict_updates = su.launches   # all on the bf16 table
-    check(su.wide_launches == strict_updates, f"{arch}: the strict run's updates "
-          f"did not all move 16-byte chunks ({su.wide_launches} of {strict_updates})")
+    check(su.wide_launches == su.launches, f"{arch}: the strict run's updates "
+          f"did not all move 16-byte chunks ({su.wide_launches} of {su.launches})")
+    # one update of the bf16 table a step (a tied head's also adds the
+    # touched rows' gradient into the head's, f32)
+    strict_updates = su.launches - (steps if cfg.tie_embeddings else 0)
     del state
     torch.cuda.empty_cache()
     state, rl2, rms2 = run(fresh_state(), True)
@@ -1600,7 +1656,8 @@ def lm_train_runs(torch, dev, arch, mixer_want):
             "relaxed_ms_median": med, "strict_ms_median": statistics.median(sms[1:]),
             "tokens_per_s": B * S / (med / 1e3),
             "profiled_step_wall_ms": wall, "profiled_step_busy_ms": busy,
-            "busy_share": busy / wall, "peak_device_gb": peak_gb}
+            "busy_share": busy / wall, "peak_device_gb": peak_gb,
+            "layers": cfg.num_layers, "params": n_params}
     print(f"{tag} relaxed losses {rl}; strict {sl}; relaxed again {rl2}")
     print(f"{tag} launches per relaxed step {relaxed_steps}; per strict "
           f"step {strict_steps}; relaxed run {launches}")
@@ -1612,13 +1669,17 @@ def lm_train_runs(torch, dev, arch, mixer_want):
     # per step: the sequence mixer's launches, one duplicate combine (a bag,
     # eb.PASSES launches), the table update (logged in a relaxed step,
     # plain in a strict one); relaxed steps also the stale lookup and the
-    # correction (set, gather, clear the scratch), strict steps the lookup
+    # correction (set, gather, clear the scratch), strict steps the lookup.
+    # A tied head adds the rows' gradient into its own (one update) and
+    # updates every row; its correction gathers from the dense update, with
+    # no scratch to set or clear
     common = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_bwd": 0,
               "wkv6": 0, "wkv6_decode": 0, "wkv6_bwd": 0, **mixer_want,
               "embedding_bag": eb.PASSES}
-    want_relaxed = {**common, "gather_rows": 2, "scatter_update": 2,
+    tied = int(cfg.tie_embeddings)
+    want_relaxed = {**common, "gather_rows": 2, "scatter_update": 2 - tied,
                     "scatter_update_logged": 1}
-    want_strict = {**common, "gather_rows": 1, "scatter_update": 1,
+    want_strict = {**common, "gather_rows": 1, "scatter_update": 1 + tied,
                    "scatter_update_logged": 0}
     # (the warm-up's lookup runs inside the first relaxed step's reading)
     check(relaxed_steps == [{**want_relaxed, "gather_rows": 3}]
@@ -1767,6 +1828,125 @@ DECODERS = (("llama3.2-3b", None), ("granite-20b", None), ("jamba-v0.1-52b", 8),
 SMOKE_TRAINED = ("qwen3-moe-235b-a22b", "arctic-480b", "jamba-v0.1-52b")
 
 
+def flash_timing(torch, tag, name, kern, plain, library, b, what):
+    """kern, its plain version and one library call timed (medians of 20
+    single calls, and device only) beside the bound ``b`` (ms, what bounds
+    it); printed. Returns the kernels line's numbers."""
+    timing = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+              "library_ms": time_ms(torch, library), "bound_ms": b[0], "bound_by": b[1]}
+    device_only = {"ms": time_ms(torch, kern, hide_host=True),
+                   "plain_ms": time_ms(torch, plain, hide_host=True),
+                   "library_ms": time_ms(torch, library, hide_host=True)}
+    print(f"{tag} {name} {what}: " + json.dumps(timing) + "; device only: "
+          + json.dumps(device_only))
+    return timing
+
+
+def flash_fwd_bytes(B, Sq, Sk, Hq, Hkv, D, lse=False):
+    """q, k, v (bf16) read once and o written once, and the f32 lse."""
+    return 2 * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) + (4 * B * Hq * Sq if lse else 0)
+
+
+def flash_hold(torch, err, q, k, v, what, causal=True):
+    """The bf16 forward against its plain version (phase 7's bf16 gate, the
+    default of ``assert_close``), and a second call bitwise the first."""
+    from repro_torch.kernels import ops, ref
+
+    got = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    check(torch.equal(got, again), f"flash {what}: two calls differ")
+    try:
+        torch.testing.assert_close(got, want)
+    except AssertionError as e:
+        fail(f"flash_attention {what}: {e}")
+    err["flash_attention_tc"] = max(err["flash_attention_tc"],
+                                    (got.float() - want.float()).abs().max().item())
+
+
+def flash_train_shape(torch, err, tag, arch, q, k, v, do, causal, pairs, with_lse):
+    """Flash at a training shape (q, k, v and do contiguous, bf16): the
+    forward's output and lse against the plain version (lse within 1e-4);
+    with ``with_lse`` the forward timed; the backward held against its
+    plain version (phase 11's bf16 gate, each gradient), a second call
+    bitwise the first, and timed beside SDPA's backward (forward and
+    ``autograd.grad`` less the forward) and its bound. ``pairs``: the
+    (query, key) pairs the mask keeps. Returns {"flash_lse_<arch>": ...,
+    "flash_bwd_<arch>": ...}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    shape = (f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+             f"{'causal' if causal else 'full'}")
+    timings = {}
+    o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    e = (lse - lse_ref).abs().max().item()
+    check(e <= 1e-4, f"flash lse at {arch}'s training shape: max abs err {e:.3g}")
+    torch.testing.assert_close(o, o_ref)
+    del o_ref, lse_ref
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if with_lse:
+        timings[f"flash_lse_{arch}"] = flash_timing(
+            torch, tag, f"flash_lse_{arch}",
+            lambda: ops.flash_attention_lse(q, k, v, causal=causal),
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                   enable_gqa=True),
+            bound(flash_fwd_bytes(B, Sq, Sk, Hq, Hkv, D, lse=True), 4 * D * B * Hq * pairs,
+                  BF16_TENSOR_OPS_PER_S),
+            f"forward with lse, training shape {shape}")
+    x = (q, k, v, o, lse, do)
+    got = ops.flash_attention_bwd(*x, causal=causal)
+    again = ops.flash_attention_bwd(*x, causal=causal)
+    want = ref.flash_attention_bwd_ref(*x, causal=causal)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again, strict=True):
+        check(torch.equal(g, a), f"flash backward at {arch}'s shape: {name} "
+              "differs between two calls")
+        e = (g.float() - w.float()).abs().max().item()
+        limit = 1.6e-2 * w.float().abs().max().item() + 1e-5   # phase 11's bf16 gate
+        check(e <= limit, f"flash backward at {arch}'s shape {name}: max abs "
+              f"err {e:.3g}, limit {limit:.3g}")
+        err["flash_attention_bwd_tc"] = max(err["flash_attention_bwd_tc"], e)
+    del got, again, want
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    do_t = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                  enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+        return torch.autograd.grad(out, leaves, do_t)
+    # as phase 11: q, k, v, o, do and lse read once, dq, dk, dv written
+    # once; five products over the pairs the mask keeps
+    nbytes = 2 * (3 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) + 4 * B * Hq * Sq \
+        + 2 * (B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
+    nops = 10 * B * Hq * D * pairs
+    b_ms, b_by = bound(nbytes, nops, BF16_TENSOR_OPS_PER_S)
+    lib = {"fwd_bwd": time_ms(torch, sdpa_fwd_bwd), "fwd": time_ms(torch, sdpa_fwd)}
+    dev_lib = {"fwd_bwd": time_ms(torch, sdpa_fwd_bwd, hide_host=True),
+               "fwd": time_ms(torch, sdpa_fwd, hide_host=True)}
+    timing = {"ms": time_ms(torch, lambda: ops.flash_attention_bwd(*x, causal=causal)),
+              "plain_ms": time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                  *x, causal=causal)),
+              "library_ms": lib["fwd_bwd"] - lib["fwd"], "bound_ms": b_ms,
+              "bound_by": b_by}
+    device_only = {"ms": time_ms(torch, lambda: ops.flash_attention_bwd(*x, causal=causal),
+                                 hide_host=True),
+                   "library_ms": dev_lib["fwd_bwd"] - dev_lib["fwd"]}
+    print(f"{tag} flash_bwd_{arch} backward, training shape {shape} "
+          f"({nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): " + json.dumps(timing)
+          + "; device only: " + json.dumps(device_only) + f"; SDPA forward {json.dumps(lib)}")
+    timings[f"flash_bwd_{arch}"] = timing
+    return timings
+
+
 def flash_hd128_phase(torch, dev, err):
     """Phase 22's flash timings at head dim 128, bf16 (the tensor-core
     routes), each held against its plain version: the forward at each
@@ -1786,16 +1966,8 @@ def flash_hd128_phase(torch, dev, err):
     B, S, D = 4, 1024, 128
     timings = {}
 
-    def timed(name, kern, plain, library, b, what):
-        timing = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
-                  "library_ms": time_ms(torch, library), "bound_ms": b[0],
-                  "bound_by": b[1]}
-        device_only = {"ms": time_ms(torch, kern, hide_host=True),
-                       "plain_ms": time_ms(torch, plain, hide_host=True),
-                       "library_ms": time_ms(torch, library, hide_host=True)}
-        print(f"[decoders] {name} {what}: " + json.dumps(timing) + "; device only: "
-              + json.dumps(device_only))
-        timings[name] = timing
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     for arch, _ in DECODERS:
         cfg = get_arch(arch).model
@@ -1803,31 +1975,22 @@ def flash_hd128_phase(torch, dev, err):
         check(cfg.resolved_head_dim == D, f"{arch}: head dim {cfg.resolved_head_dim}")
         # k, v the first S entries of a (B, S + 32, Hkv, D) cache, as prefill
         # reads them
-        q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
-        k, v = (torch.randn((B, S + 32, Hkv, D), generator=gen, device=dev)
-                .to(torch.bfloat16)[:, :S] for _ in range(2))
+        q = rand(B, S, Hq, D)
+        k, v = (rand(B, S + 32, Hkv, D)[:, :S] for _ in range(2))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        got, again = ops.flash_attention(q, k, v), ops.flash_attention(q, k, v)
-        want = ref.flash_attention_ref(q, k, v)
-        check(torch.equal(got, again), f"flash {arch} prefill shape: two calls differ")
-        try:
-            torch.testing.assert_close(got, want)    # as phase 7's bf16 cases
-        except AssertionError as e:
-            fail(f"flash_attention at {arch}'s prefill shape: {e}")
-        err["flash_attention_tc"] = max(err["flash_attention_tc"],
-                                        (got.float() - want.float()).abs().max().item())
-        del got, again, want
-        # q, k, v read once and o written once; two products over the
-        # S(S+1)/2 causal (query, key) pairs of each q head
-        nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        flash_hold(torch, err, q, k, v, f"at {arch}'s prefill shape")
+        # two products over the S(S+1)/2 causal (query, key) pairs of each q head
+        nbytes = flash_fwd_bytes(B, S, S, Hq, Hkv, D)
         nops = 4 * D * B * Hq * S * (S + 1) / 2
-        timed(f"flash_{arch}", lambda q=q, k=k, v=v: ops.flash_attention(q, k, v),
-              lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v),
-              lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
-                  qt, kt, vt, is_causal=True, enable_gqa=True),
-              bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
-              f"forward B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 "
-              f"({nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        timings[f"flash_{arch}"] = flash_timing(
+            torch, "[decoders]", f"flash_{arch}",
+            lambda q=q, k=k, v=v: ops.flash_attention(q, k, v),
+            lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v),
+            lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+            f"forward B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+            f"({nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
@@ -1836,74 +1999,11 @@ def flash_hd128_phase(torch, dev, err):
     # pass has one block per key tile and kv head), timed only
     for arch in ("llama3.2-3b", "granite-20b"):
         cfg = get_arch(arch).model
-        Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
-        q, do = (torch.randn((B, S, Hq, D), generator=gen, device=dev)
-                 .to(torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev)
-                .to(torch.bfloat16) for _ in range(2))
-        o, lse = ops.flash_attention_lse(q, k, v)
-        o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True)
-        e = (lse - lse_ref).abs().max().item()
-        check(e <= 1e-4, f"flash lse at {arch}'s training shape: max abs err {e:.3g}")
-        torch.testing.assert_close(o, o_ref)
-        del o_ref, lse_ref
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if arch == "llama3.2-3b":
-            nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
-            nops = 4 * D * B * Hq * S * (S + 1) / 2
-            timed(f"flash_lse_{arch}", lambda: ops.flash_attention_lse(q, k, v),
-                  lambda: ref.flash_attention_ref(q, k, v, return_lse=True),
-                  lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                         enable_gqa=True),
-                  bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
-                  f"forward with lse, training shape B={B} S={S} Hq={Hq} Hkv={Hkv} "
-                  f"D={D} bf16")
-        x = (q, k, v, o, lse, do)
-        got, again = ops.flash_attention_bwd(*x), ops.flash_attention_bwd(*x)
-        want = ref.flash_attention_bwd_ref(*x)
-        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again, strict=True):
-            check(torch.equal(g, a), f"flash backward at {arch}'s shape: {name} "
-                  "differs between two calls")
-            e = (g.float() - w.float()).abs().max().item()
-            limit = 1.6e-2 * w.float().abs().max().item() + 1e-5   # phase 11's bf16 gate
-            check(e <= limit, f"flash backward at {arch}'s shape {name}: max abs "
-                  f"err {e:.3g}, limit {limit:.3g}")
-            err["flash_attention_bwd_tc"] = max(err["flash_attention_bwd_tc"], e)
-        del got, again, want
-        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-        do_t = do.transpose(1, 2)
-
-        def sdpa_fwd(leaves=leaves):
-            with torch.no_grad():
-                return F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                      enable_gqa=True)
-
-        def sdpa_fwd_bwd(leaves=leaves, do_t=do_t):
-            out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                 enable_gqa=True)
-            return torch.autograd.grad(out, leaves, do_t)
-        # as phase 11: q, k, v, o, do and lse read once, dq, dk, dv written
-        # once; five products over the causal pairs, 5/2 of the forward's
-        nbytes = 2 * (3 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S \
-            + 2 * (B * S * Hq * D + 2 * B * S * Hkv * D)
-        nops = 10 * B * Hq * D * S * (S + 1) / 2
-        b_ms, b_by = bound(nbytes, nops, BF16_TENSOR_OPS_PER_S)
-        lib = {"fwd_bwd": time_ms(torch, sdpa_fwd_bwd), "fwd": time_ms(torch, sdpa_fwd)}
-        dev_lib = {"fwd_bwd": time_ms(torch, sdpa_fwd_bwd, hide_host=True),
-                   "fwd": time_ms(torch, sdpa_fwd, hide_host=True)}
-        timing = {"ms": time_ms(torch, lambda: ops.flash_attention_bwd(*x)),
-                  "plain_ms": time_ms(torch, lambda: ref.flash_attention_bwd_ref(*x)),
-                  "library_ms": lib["fwd_bwd"] - lib["fwd"], "bound_ms": b_ms,
-                  "bound_by": b_by}
-        device_only = {"ms": time_ms(torch, lambda: ops.flash_attention_bwd(*x),
-                                     hide_host=True),
-                       "library_ms": dev_lib["fwd_bwd"] - dev_lib["fwd"]}
-        print(f"[decoders] flash_bwd_{arch} backward, training shape B={B} S={S} "
-              f"Hq={Hq} Hkv={Hkv} D={D} bf16 ({nops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB): " + json.dumps(timing) + "; device only: "
-              + json.dumps(device_only) + f"; SDPA forward {json.dumps(lib)}")
-        timings[f"flash_bwd_{arch}"] = timing
-        del q, k, v, o, lse, do, x, leaves, do_t, qt, kt, vt
+        q, do = rand(B, S, cfg.num_heads, D), rand(B, S, cfg.num_heads, D)
+        k, v = rand(B, S, cfg.num_kv_heads, D), rand(B, S, cfg.num_kv_heads, D)
+        timings.update(flash_train_shape(torch, err, "[decoders]", arch, q, k, v, do, True,
+                                         S * (S + 1) / 2, arch == "llama3.2-3b"))
+        del q, k, v, do
         torch.cuda.empty_cache()
     return timings
 
@@ -1945,29 +2045,279 @@ def decoders_phase(torch, np, dev, err, check_bag, check_update, check_update_lo
                                    check_update, check_update_logged, check_gather,
                                    "llama_"))
 
-    # the MoE ids and jamba at the smoke size, f32, TF32 off: 5 relaxed
-    # steps on the card and on the CPU (phase 12's 1e-5), a strict run and
-    # a second relaxed run on the card, bitwise the first (a combine summed
-    # in a racing order would show here)
     for arch in SMOKE_TRAINED:
-        runs = smoke_train_card_vs_cpu(torch, dev, arch, "float32", 5,
-                                       card_runs={"card_strict": False,
-                                                  "card_again": True})
-        lc, lp = runs["card"][0], runs["cpu"][0]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp, strict=True))
-        print(f"[decoders] smoke {arch} f32: losses card {lc} cpu {lp} (largest "
-              f"relative difference {rel:.3g}); card strict {runs['card_strict'][0]}, "
-              f"card again {runs['card_again'][0]}")
-        np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=0)
-        check(runs["card_strict"][0] == lc, f"smoke {arch}: relaxed != strict on the card")
-        check(runs["card_again"][0] == lc
-              and all(torch.equal(a, b) for a, b in zip(runs["card"][1],
-                                                         runs["card_again"][1],
-                                                         strict=True))
-              and torch.equal(runs["card"][2], runs["card_again"][2]),
-              f"smoke {arch}: a second run on the card is not bitwise the first")
-        out["smoke_train"][arch] = {"card": lc, "cpu": lp, "largest_relative": rel}
+        out["smoke_train"][arch] = smoke_train_checks(torch, np, dev, arch, "[decoders]")
     return serve_parts, launches, timing, out
+
+
+def smoke_train_checks(torch, np, dev, arch, tag):
+    """``arch`` at the smoke size, f32, TF32 off: 5 relaxed steps on the
+    card and on the CPU (phase 12's 1e-5), a strict run and a second
+    relaxed run on the card, bitwise the first (a combine summed in a
+    racing order would show here). Returns the losses."""
+    runs = smoke_train_card_vs_cpu(torch, dev, arch, "float32", 5,
+                                   card_runs={"card_strict": False, "card_again": True})
+    lc, lp = runs["card"][0], runs["cpu"][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp, strict=True))
+    print(f"{tag} smoke {arch} f32: losses card {lc} cpu {lp} (largest "
+          f"relative difference {rel:.3g}); card strict {runs['card_strict'][0]}, "
+          f"card again {runs['card_again'][0]}")
+    np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=0)
+    check(runs["card_strict"][0] == lc, f"smoke {arch}: relaxed != strict on the card")
+    check(runs["card_again"][0] == lc
+          and all(torch.equal(a, b) for a, b in zip(runs["card"][1], runs["card_again"][1],
+                                                     strict=True))
+          and torch.equal(runs["card"][2], runs["card_again"][2]),
+          f"smoke {arch}: a second run on the card is not bitwise the first")
+    return {"card": lc, "cpu": lp, "largest_relative": rel}
+
+
+# Phase 23's ids, served at full width and depth and trained at full width;
+# qwen2-vl-7b trains at QWEN2VL_TRAIN_LAYERS of its 28 layers: with bf16
+# params and grads and f32 AdamW moments a layer holds about 2.8 GB, the
+# head, the table and its f32 scratch about 10 GB, and the step's f32
+# logits (4 x 1024 x 152064) and their gradient some 8 GB more
+ENCDEC_VLM = ("whisper-base", "qwen2-vl-7b")
+QWEN2VL_TRAIN_LAYERS = 16
+
+
+def flash_encdec_phase(torch, dev, err):
+    """Phase 23's flash shapes, bf16 (the tensor-core routes), each held
+    against its plain version and repeated bitwise: the full (not causal)
+    mask at whisper-base's shapes (8 heads of 64; its encoder's self-
+    attention and its decoder's cross-attention over 1024 frames, and over
+    1500, the 30 s encoder length, ragged against the key tiles, with 1 to
+    1024 queries) and the causal one at qwen2-vl-7b's 28 q and 4 kv heads
+    of 128; forwards, with their log-sum-exp at the training shapes, and
+    backwards (the cross-attention's dk and dv flow into the encoder). The
+    timed ones beside SDPA (``is_causal`` as the call, ``enable_gqa``) and
+    their bound. Raises ``err``'s entries to the largest errors. Returns
+    the timings for the kernels line."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    B = 4
+    w, qv = get_arch("whisper-base").model, get_arch("qwen2-vl-7b").model
+    WH, WD = w.num_heads, w.resolved_head_dim
+    QH, QKV, QD = qv.num_heads, qv.num_kv_heads, qv.resolved_head_dim
+    timings = {}
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def pairs(Sq, Sk, causal):
+        # the (query, key) pairs the mask keeps (causal only where Sq == Sk)
+        return Sq * (Sq + 1) / 2 if causal else Sq * Sk
+
+    # the full mask at whisper's widths, ragged key and query counts: held only
+    for Sq, Sk in ((1, 1500), (77, 1500), (448, 1500), (1024, 1500), (333, 1000),
+                   (1024, 1024)):
+        flash_hold(torch, err, rand(B, Sq, WH, WD), rand(B, Sk, WH, WD),
+                   rand(B, Sk, WH, WD), f"full mask Sq={Sq} Sk={Sk} H={WH} D={WD}",
+                   causal=False)
+    print("[encdec] flash, full mask at whisper-base's widths: Sq 1, 77, 448, 1024 "
+          "against Sk 1500; 333 against 1000; 1024 against 1024: ok")
+
+    # forwards timed at the served paths' shapes; qwen2-vl's k and v the
+    # first S entries of a (B, S + 32, Hkv, D) cache, as prefill reads them
+    for name, Sq, Sk, Hq, Hkv, D, causal, cache, what in (
+            ("flash_whisper-base", 1024, 1024, WH, WH, WD, False, 0,
+             "encoder self-attention, and the cross-attention over 1024 frames"),
+            ("flash_whisper-base_xattn1500", 1024, 1500, WH, WH, WD, False, 0,
+             "cross-attention over a 30 s (1500-frame) encoder output"),
+            ("flash_qwen2-vl-7b", 1024, 1024, QH, QKV, QD, True, 32,
+             "prefill (k, v a prefix of the cache)")):
+        q = rand(B, Sq, Hq, D)
+        k, v = (rand(B, Sk + cache, Hkv, D)[:, :Sk] for _ in range(2))
+        flash_hold(torch, err, q, k, v, name, causal=causal)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        nbytes = flash_fwd_bytes(B, Sq, Sk, Hq, Hkv, D)
+        nops = 4 * D * B * Hq * pairs(Sq, Sk, causal)
+        timings[name] = flash_timing(
+            torch, "[encdec]", name,
+            lambda q=q, k=k, v=v, c=causal: ops.flash_attention(q, k, v, causal=c),
+            lambda q=q, k=k, v=v, c=causal: ref.flash_attention_ref(q, k, v, causal=c),
+            lambda qt=qt, kt=kt, vt=vt, c=causal: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=c, enable_gqa=True),
+            bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+            f"{what}: forward B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+            f"{'causal' if causal else 'full'} ({nops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    # the training shapes (q, k, v contiguous, as the step gives them): the
+    # forward with its log-sum-exp (timed where a step runs it), the backward
+    for arch, Sq, Sk, Hq, Hkv, D, causal, with_lse in (
+            ("whisper-base", 1024, 1024, WH, WH, WD, False, True),
+            ("whisper-base_xattn1500", 1024, 1500, WH, WH, WD, False, False),
+            ("qwen2-vl-7b", 1024, 1024, QH, QKV, QD, True, True)):
+        q, do = rand(B, Sq, Hq, D), rand(B, Sq, Hq, D)
+        k, v = rand(B, Sk, Hkv, D), rand(B, Sk, Hkv, D)
+        timings.update(flash_train_shape(torch, err, "[encdec]", arch, q, k, v, do, causal,
+                                         pairs(Sq, Sk, causal), with_lse))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return timings
+
+
+def tied_sparse_timing(torch, dev, cfg, batches, check_bag, check_update,
+                       check_update_logged, check_gather, prefix):
+    """A tied head's sparse tier at its training step's shapes: batch 0's
+    tokens, their row gradients (bf16) combined and added into the head's
+    dense (V, d) f32 gradient at their rows, the bf16 table updated at
+    every row (plain in a strict step, logged in a relaxed one, the whole
+    table its undo image), the correction gathered from the dense f32
+    update, and the token lookup; each held against its plain version and
+    timed beside one library call. Returns the timings, keyed ``prefix`` +
+    shape."""
+    from repro_torch.kernels import ops, ref
+
+    V, d = cfg.vocab_size, cfg.d_model
+    table = (torch.randn((V, d), device=dev) * 0.02).to(torch.bfloat16)
+    ids = batches.next(0)["tokens"].reshape(-1).to(torch.int32).contiguous()
+    N = ids.numel()
+    g_rows = (torch.randn((N, d), device=dev) * 1e-3).to(torch.bfloat16)
+    uniq, comb = ops.combine_duplicates(ids, g_rows)
+    n_rows = int((uniq >= 0).sum())
+    real = uniq[:n_rows].long()
+    comb_real = comb[:n_rows]
+    g_head = torch.randn((V, d), device=dev) * 1e-4
+    every = torch.arange(V, dtype=torch.int32, device=dev)
+    upd = -0.05 * g_head
+    what = cfg.name
+    check_update(g_head.clone(), uniq, comb, f"{what} rows' gradient into the head's (f32)")
+    check_update(table.clone(), every, upd, f"{what} every row (bf16 table)")
+    check_update_logged(table.clone(), every, upd, f"{what} every row (bf16 table)")
+    check_gather(upd, ids, f"{what} correction from the dense update (f32)")
+    check_gather(table, ids, f"{what} token lookup (training batch 0)")
+    order = torch.sort(ids, stable=True)[1]
+    sorted_ids = ids[order]
+    firsts = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                        sorted_ids[1:] != sorted_ids[:-1]])
+    comb_seg = torch.cumsum(firsts, 0, dtype=torch.int32) - 1
+    comb_src = order.to(torch.int32)
+    comb_starts = torch.nonzero(firsts).flatten().to(torch.int32)
+    check_bag(g_rows, comb_src, comb_seg, N, f"{what} duplicate combine")
+    g_t, t_tab = g_head.clone(), table.clone()
+    shapes = {
+        # as lm_sparse_timing's
+        "bag_combine": (lambda: ops.embedding_bag(g_rows, comb_src, comb_seg, N),
+                        lambda: ref.embedding_bag_ref(g_rows, comb_src, comb_seg, N),
+                        lambda: torch.nn.functional.embedding_bag(
+                            comb_src, g_rows, comb_starts, mode="sum"),
+                        bound(N * 4 * 2 + N * d * 2 + N * d * 4, N * d)),
+        # the ids, each touched row's f32 gradient, the f32 row read and
+        # written
+        "grad_add_f32": (lambda: ops.scatter_update(g_t, uniq, comb),
+                         lambda: ref.scatter_update_ref(g_t, uniq, comb),
+                         lambda: g_t.index_add_(0, real, comb_real),
+                         bound(N * 4 + n_rows * d * 12, n_rows * d)),
+        # every row: its id, its f32 delta, the bf16 row read and written;
+        # add_ of the f32 update into the bf16 table rounds the same f32 sum
+        "update_every_bf16": (lambda: ops.scatter_update(t_tab, every, upd),
+                              lambda: ref.scatter_update_ref(t_tab, every, upd),
+                              lambda: t_tab.add_(upd),
+                              bound(V * 4 + V * d * (4 + 2 * 2), V * d)),
+        # and each row's old value logged
+        "update_logged_every_bf16": (
+            lambda: ops.scatter_update_logged(t_tab, every, upd),
+            lambda: ref.scatter_update_logged_ref(t_tab, every, upd),
+            lambda: (t_tab.clone(), t_tab.add_(upd)),
+            bound(V * (4 + d * (4 + 3 * 2)), V * d)),
+        # the ids once, each distinct row read once, each output row written
+        # once; no operations
+        "gather_corr_f32": (lambda: ops.gather_rows(upd, ids),
+                            lambda: ref.gather_rows_ref(upd, ids),
+                            lambda: torch.index_select(upd, 0, ids),
+                            bound(N * 4 + (n_rows + N) * d * 4, 0)),
+        "gather_tokens": (lambda: ops.gather_rows(table, ids),
+                          lambda: ref.gather_rows_ref(table, ids),
+                          lambda: torch.index_select(table, 0, ids),
+                          bound(N * 4 + (n_rows + N) * d * 2, 0)),
+    }
+    print(f"[{cfg.name}-train] the tied head's sparse tier: {N} ids, {n_rows} distinct, "
+          f"{V} rows updated")
+    timing = time_shapes(torch, f"[{cfg.name}-train]",
+                         {prefix + name: v for name, v in shapes.items()})
+    del table, t_tab, g_head, g_t, g_rows, comb, upd, every
+    torch.cuda.empty_cache()
+    return timing
+
+
+def encdec_vlm_phase(torch, np, dev, err, check_bag, check_update, check_update_logged,
+                     check_gather):
+    """Phase 23: the last two families. Times flash at their shapes
+    (``flash_encdec_phase``), serves whisper-base and qwen2-vl-7b at full
+    width and depth (bf16, seed 0, batch 4, a 1024-token prompt with its
+    batch's frames or vision embeds, 32 new tokens; one model on the card at
+    a time), trains whisper-base at full width and depth and qwen2-vl-7b at
+    full width and QWEN2VL_TRAIN_LAYERS layers (relaxed and strict, 3 steps
+    each), then both at the smoke size on the card against the CPU.
+    Returns (serving launches by id and part, training launches by id, the
+    timings for the kernels line, the metrics)."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    out = {"start_allocated_gb": start_gb, "serve": {}, "train": {}, "smoke_train": {}}
+    print(f"[encdec] device memory allocated at the phase's start: {start_gb:.3f} GB")
+    t = time.perf_counter()
+    timing = flash_encdec_phase(torch, dev, err)
+    out["flash_wall_s"] = time.perf_counter() - t
+    peaks = [torch.cuda.max_memory_allocated() / 1e9]
+    serve_parts = {}
+    for arch in ENCDEC_VLM:
+        t = time.perf_counter()
+        parts, gather_t, _, metrics = serve_phase(torch, np, dev, check_gather, arch, fa, 0)
+        serve_parts[arch] = parts
+        timing[f"gather_{arch}_prefill"] = gather_t["prefill"]
+        timing[f"gather_{arch}_decode"] = gather_t["decode"]
+        out["serve"][arch] = {**metrics, "wall_s": time.perf_counter() - t}
+        peaks.append(metrics["peak_device_gb"])
+        torch.cuda.empty_cache()
+
+    train = {}
+    bwd = fa.BWD_PASSES[torch.bfloat16]
+    w = get_arch("whisper-base").model
+    # per step: the encoder's self-attention, the decoder's and its
+    # cross-attention, each once and again in the remat recompute, all on
+    # the tensor-core route, and one bf16 backward of ``bwd`` launches each
+    n = w.encoder_layers + 2 * w.num_layers
+    t = time.perf_counter()
+    train["whisper-base"], step, batches = lm_train_runs(torch, dev, "whisper-base", {
+        "flash_attention": 2 * n, "flash_attention_tc": 2 * n,
+        "flash_attention_bwd": n * bwd})
+    timing.update(tied_sparse_timing(torch, dev, w, batches, check_bag, check_update,
+                                     check_update_logged, check_gather, "whisper_"))
+    out["train"]["whisper-base"] = {**step, "wall_s": time.perf_counter() - t}
+    L = QWEN2VL_TRAIN_LAYERS
+    t = time.perf_counter()
+    train["qwen2-vl-7b"], step, batches = lm_train_runs(torch, dev, "qwen2-vl-7b", {
+        "flash_attention": 2 * L, "flash_attention_tc": 2 * L,
+        "flash_attention_bwd": L * bwd}, layers=L)
+    timing.update(lm_sparse_timing(torch, dev, get_arch("qwen2-vl-7b").model, batches,
+                                   check_bag, check_update, check_update_logged,
+                                   check_gather, "qwen2vl_"))
+    out["train"]["qwen2-vl-7b"] = {**step, "wall_s": time.perf_counter() - t}
+    peaks += [s["peak_device_gb"] for s in out["train"].values()]
+    for arch in ENCDEC_VLM:
+        out["smoke_train"][arch] = smoke_train_checks(torch, np, dev, arch, "[encdec]")
+    out["peak_device_gb"] = max(peaks)
+    print(f"[encdec] phase 23's peak device memory {out['peak_device_gb']:.2f} GB "
+          f"(flash, serving whisper-base and qwen2-vl-7b, training them: "
+          f"{[round(p, 2) for p in peaks]}); qwen2-vl-7b trained at {L} of 28 layers")
+    return serve_parts, train, timing, out
 
 
 def adamw_inplace_check(torch, dev):
@@ -4273,6 +4623,13 @@ def main():
     timing.update(dec_timing)
     print(f"[decoders] phase 22 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 23. whisper-base and qwen2-vl-7b: served and trained at full width ------
+    t0 = time.perf_counter()
+    enc_parts, enc_train, enc_timing, enc_out = encdec_vlm_phase(
+        torch, np, dev, err, check_bag, check_update, check_update_logged, check_gather)
+    timing.update(enc_timing)
+    print(f"[encdec] phase 23 wall time {time.perf_counter() - t0:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
     # for the gather, flash attention and wkv6, phases 12's and 16's relaxed
@@ -4313,6 +4670,37 @@ def main():
          dec_train["scatter_update_strict"], *update_src),
         ("scatter_update_logged", "llama3.2-3b train", "llama_update_logged_bf16",
          dec_train["scatter_update_logged"], *logged_src)]
+    # phase 23: each id's prefill and decode, and its training
+    bwd_tc_src = ("src/repro_torch/csrc/flash_attention_bwd_tc.cu",
+                  "src/repro/kernels/flash_attention.py:62")
+    encdec_paths = [row for arch in ENCDEC_VLM for row in (
+        ("flash_attention_tc", f"{arch} prefill", f"flash_{arch}",
+         enc_parts[arch]["prefill"]["flash_attention_tc"], *flash_tc_src),
+        ("gather_rows", f"{arch} prefill", f"gather_{arch}_prefill",
+         enc_parts[arch]["prefill"]["gather_rows"], *gather_src),
+        ("gather_rows", f"{arch} decode", f"gather_{arch}_decode",
+         enc_parts[arch]["decode"]["gather_rows"], *gather_src))]
+    for arch, pre, tied in (("whisper-base", "whisper_", True),
+                            ("qwen2-vl-7b", "qwen2vl_", False)):
+        tr = enc_train[arch]
+        encdec_paths += [
+            ("flash_attention_tc", f"{arch} train", f"flash_lse_{arch}",
+             tr["flash_attention_tc"], *flash_tc_src),
+            ("flash_attention_bwd_tc", f"{arch} train", f"flash_bwd_{arch}",
+             tr["flash_attention_bwd"], *bwd_tc_src),
+            ("gather_rows", f"{arch} train",
+             "whisper_gather_tokens" if tied else f"gather_{arch}_prefill",
+             tr["gather_rows"], *gather_src),
+            ("embedding_bag", f"{arch} train", pre + "bag_combine", tr["embedding_bag"],
+             *bag_src),
+            ("scatter_update", f"{arch} train", pre + ("grad_add_f32" if tied else "update_f32"),
+             tr["scatter_update"], *update_src),
+            ("scatter_update", f"{arch} train (strict)",
+             pre + ("update_every_bf16" if tied else "update_bf16"),
+             tr["scatter_update_strict"], *update_src),
+            ("scatter_update_logged", f"{arch} train",
+             pre + ("update_logged_every_bf16" if tied else "update_logged_bf16"),
+             tr["scatter_update_logged"], *logged_src)]
     kernels = []
     for name, path, main_shape, n, src, replaces in (
             ("embedding_bag", "dlrm-rm1 train", "bag_fwd", launches["embedding_bag"],
@@ -4440,7 +4828,7 @@ def main():
             ("scatter_update_logged", "dlrm-rm1 train (checked, f32 tables)",
              "update_logged_f32", soak_launches["scatter_update_logged"], *logged_src),
             ("gather_rows", "dlrm-rm1 checkpoint (checked, f32 tables)", "gather_f32",
-             soak_launches["gather_rows"], *gather_src), *decoder_paths):
+             soak_launches["gather_rows"], *gather_src), *decoder_paths, *encdec_paths):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -4453,6 +4841,7 @@ def main():
     print(f"[sharded] three memory nodes: {json.dumps(sharded_out)}")
     print(f"[soak] checked soak: {json.dumps(soak_out)}")
     print(f"[decoders] phase 22: {json.dumps(dec_out)}")
+    print(f"[encdec] phase 23: {json.dumps(enc_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

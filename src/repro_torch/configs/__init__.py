@@ -1,9 +1,9 @@
 """Config registry: ``get_arch("<id>")`` / ``get_arch("<id>", smoke=True)``.
 
-The DLRM ids and the LM ids whose model the port runs are registered: the
-dense transformers, the MoE transformers, RWKV-6 and jamba (mamba and
-attention, MoE). whisper-base and qwen2-vl-7b come with the slice that
-ports their models.
+The DLRM ids and every LM id of the JAX package are registered: the dense
+transformers, the MoE transformers, RWKV-6, jamba (mamba and attention,
+MoE), qwen2-vl-7b (M-RoPE, vision embeds) and whisper-base (encoder and
+decoder, the head tied to the token table).
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ __all__ = [
 
 DLRM_IDS = ["dlrm-rm1", "dlrm-rm2", "dlrm-rm3", "dlrm-rm4"]
 LM_IDS = ["tinyllama-1.1b", "qwen3-0.6b", "llama3.2-3b", "granite-20b",
-          "qwen3-moe-235b-a22b", "arctic-480b", "rwkv6-3b", "jamba-v0.1-52b"]
+          "qwen3-moe-235b-a22b", "arctic-480b", "rwkv6-3b", "jamba-v0.1-52b",
+          "qwen2-vl-7b", "whisper-base"]
 ARCH_IDS = LM_IDS + DLRM_IDS
 
 _MOD = {i: "repro_torch.configs." + i.replace("-", "_").replace(".", "_")

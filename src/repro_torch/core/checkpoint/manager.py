@@ -48,6 +48,11 @@ witness copies of the manifest live on other nodes, and recovery elects
 the 2-of-3 majority. A failure of a replica or a witness degrades the
 redundancy (``stats`` counts it, one line is printed) and never stops
 training: the primary has committed.
+
+A model whose head is tied to its token table (whisper) is refused: every
+step moves every row of the table, which tier-E's touched-row logging
+cannot mirror (the reference logs the batch's tokens only, and its mirror
+goes stale at every other row).
 """
 from __future__ import annotations
 
@@ -132,6 +137,12 @@ class CheckpointManager:
     def __init__(self, cfg, ckpt_cfg, *, embed_init: Optional[dict] = None,
                  pool: Optional[PoolDevice] = None,
                  faults: Optional[FaultSchedule] = None):
+        if getattr(cfg, "tie_embeddings", False):
+            raise NotImplementedError(
+                f"{cfg.name}: its head is tied to the token table, so every step "
+                "updates every row of the table; tier-E logs the rows a batch "
+                "touches, so the mirror would go stale at the others (the "
+                "reference's does). Checkpointing a tied head is not supported.")
         self.cfg = cfg
         self.ccfg = ckpt_cfg
         self.root = ckpt_cfg.directory

@@ -20,15 +20,19 @@ update: the adjoint of the lookup is kept at the touched rows only
 In-place means that the stale rows of batch N+1 must be read before the
 update runs on the same stream; ``training.train_loop`` orders it so.
 
-DLRM, the transformer LMs (dense and MoE), jamba and RWKV-6 are trained
-(RWKV-6's wkv6 through its backward kernel, ``kernels.wkv6.WKV6``).
+Every arch type is trained: DLRM, the transformer LMs (dense and MoE),
+qwen2-vl, jamba, RWKV-6 (its wkv6 through its backward kernel,
+``kernels.wkv6.WKV6``) and whisper. Whisper's head is tied to the token
+table, so its table gradient, and its update U, cover every row: the
+trainer then updates every row, and the correction reads U's rows straight
+from the dense update (``prefetch_corrected`` with no scratch).
 """
 from __future__ import annotations
 
 from repro_torch.core import embedding_ops
 from repro_torch.kernels import ops
 
-TRAINED = ("dlrm", "transformer", "rwkv6", "jamba")   # the arch types the port trains
+TRAINED = ("dlrm", "transformer", "qwen2vl", "rwkv6", "jamba", "whisper")
 
 
 def check_trainable(cfg) -> None:
@@ -96,11 +100,17 @@ def prefetch_corrected(stale, scratch, uniq, upd, cfg, next_batch: dict):
     table's shape; U's rows are written into it, the correction is read
     from it (an LM row that U does not touch reads an exact +0), and the
     same rows are cleared again (u + (-u) is exactly +0), so it is all zero
-    again on return. The add mirrors the in-table update's arithmetic, so
-    for an LM the result is bitwise the lookup in the updated table; for
-    DLRM it equals it up to the order of the f32 sums.
+    again on return. With ``scratch`` None, U covers every row of the
+    table in order (``upd`` is (V, d), a tied head's update) and the
+    correction is read from it directly. The add mirrors the in-table
+    update's arithmetic, so for an LM the result is bitwise the lookup in
+    the updated table; for DLRM it equals it up to the order of the f32
+    sums.
     """
     check_trainable(cfg)
+    if scratch is None:
+        corr = lookup_rows({embed_leaf(cfg): upd}, cfg, next_batch)
+        return (stale.float() + corr).to(stale.dtype)
     flat = scratch.view(-1, scratch.shape[-1])
     ops.scatter_update(flat, uniq, upd)
     corr = lookup_rows({embed_leaf(cfg): scratch}, cfg, next_batch)

@@ -36,26 +36,32 @@ def zipf_indices(rng: np.random.Generator, shape, num_rows: int,
 
 class LMBatches:
     """Deterministic synthetic LM token stream: zipf tokens over the vocab,
-    labels the tokens shifted by one.
+    labels the tokens shifted by one. qwen2-vl's batches add the stub
+    vision embeds (B, S // 8, d) and the M-RoPE positions (3, B, S);
+    whisper's the stub frame embeddings (B, S, d). They are drawn after the
+    tokens from the same generator, as the reference draws them.
 
     As in the reference, a batch depends on (step, batch, seq) alone: the
     reference's seed argument never enters the draw, so there is none here.
     """
 
     def __init__(self, cfg, batch: int, seq: int, device="cuda"):
-        if cfg.arch_type in ("qwen2vl", "whisper"):
-            raise NotImplementedError(
-                f"{cfg.arch_type} batches (vision embeds, audio frames) are "
-                "not ported yet")
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.device = resolve_device(device)
 
     def next(self, step: int) -> dict:
         rng = np.random.default_rng((hash((step, self.batch, self.seq))
                                      & 0x7FFFFFFF))
-        toks = zipf_indices(rng, (self.batch, self.seq + 1), self.cfg.vocab_size)
-        return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(self.device),
-                "labels": torch.from_numpy(toks[:, 1:].copy()).to(self.device)}
+        B, S, d = self.batch, self.seq, self.cfg.d_model
+        toks = zipf_indices(rng, (B, S + 1), self.cfg.vocab_size)
+        out = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+        if self.cfg.arch_type == "qwen2vl":
+            out["vision_embeds"] = rng.standard_normal(
+                (B, max(1, S // 8), d)).astype(np.float32)
+            out["positions3"] = np.broadcast_to(np.arange(S), (3, B, S)).copy()
+        if self.cfg.arch_type == "whisper":
+            out["frames"] = rng.standard_normal((B, S, d)).astype(np.float32)
+        return {k: torch.from_numpy(v).to(self.device) for k, v in out.items()}
 
 
 class DLRMBatches:

@@ -211,10 +211,11 @@ def main(argv=None):
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = get_api(cfg).init(gen, cfg)
-    prompt = make_batches(cfg, args.batch, args.prompt_len,
-                          device=device).next(0)["tokens"]
+    batch = make_batches(cfg, args.batch, args.prompt_len, device=device).next(0)
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     stats = {}
-    toks = greedy_generate(cfg, params, prompt, args.new_tokens, stats=stats)
+    toks = greedy_generate(cfg, params, batch["tokens"], args.new_tokens,
+                           extras=extras, stats=stats)
     if not torch.isfinite(stats["logits"]).all():
         raise SystemExit("non-finite logits")
     print(f"[prefill] {cfg.name} on {device}: {args.batch}x{args.prompt_len} "

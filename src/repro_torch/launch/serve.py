@@ -12,15 +12,19 @@ tinyllama-1.1b, qwen3-0.6b, llama3.2-3b and granite-20b and the MoE ones
 qwen3-moe-235b-a22b and arctic-480b (flash attention on prefill, plain
 attention over the KV cache in decode), rwkv6-3b (the wkv6 kernel on
 prefill and on every decode step, a recurrent state in place of the KV
-cache) and jamba-v0.1-52b (attention one layer in 8, mamba layers with a
-recurrent state in the others, MoE every other layer). ``--full`` builds
+cache), jamba-v0.1-52b (attention one layer in 8, mamba layers with a
+recurrent state in the others, MoE every other layer), qwen2-vl-7b (M-RoPE;
+the prompt's first S/8 slots are stub vision embeds) and whisper-base
+(stub audio frames encoded once a request; the decoder attends to them
+through cross-attention, its head tied to the token table). ``--full`` builds
 the whole published model: granite-20b's 56 GB in bf16 fits on an 80 GB
 H100, but jamba-v0.1-52b, qwen3-moe-235b-a22b and arctic-480b do not
 (``chip_smoke.py`` serves them at full width with fewer layers).
 
 Runs on the card unless ``--device cpu`` is given (there is no silent
 fallback). Params are random, from ``--seed``; the prompt is the synthetic
-zipf token stream's first batch. One short warm-up generation (the kernels'
+zipf token stream's first batch, with that batch's vision embeds and M-RoPE
+positions (qwen2-vl) or frames (whisper). One short warm-up generation (the kernels'
 build and load, the library handles) runs before the timed one, which prints
 the prefill time, the decode time per token and the tokens generated per
 second.
@@ -36,7 +40,9 @@ with ``--pool-readonly`` the connection is a read-only tenant, which
 writes nothing and serves the mirror a trainer (or an earlier serving run
 without the flag) left in the node: the node denies every mutating op on
 that connection. ``--pool-backend sharded --pool-shards A1,A2,...`` puts
-the mirror on the node its placement names among several.
+the mirror on the node its placement names among several. whisper-base
+is not served from the pool: its tied head reads the whole table on the
+card.
 """
 from __future__ import annotations
 
@@ -127,11 +133,15 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch, smoke=args.smoke).model
+    if args.pool_backend and cfg.tie_embeddings:
+        ap.error(f"--pool-backend: {args.arch}'s head is tied to the token table, "
+                 "which it reads whole on the card; pool serving is not ported")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = get_api(cfg).init(gen, cfg)
-    prompt = make_batches(cfg, args.batch, args.prompt_len,
-                          device=device).next(0)["tokens"]
+    batch = make_batches(cfg, args.batch, args.prompt_len, device=device).next(0)
+    prompt = batch["tokens"]
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     max_seq = args.prompt_len + args.new_tokens
     with contextlib.ExitStack() as stack:
         tier = None
@@ -148,9 +158,9 @@ def main(argv=None):
             stack.callback(tier.pool.close)
             stack.enter_context(pool_serving(tier))
         greedy_generate(cfg, params, prompt, min(2, args.new_tokens),
-                        max_seq=max_seq)
+                        extras=extras, max_seq=max_seq)
         stats = {}
-        toks = greedy_generate(cfg, params, prompt, args.new_tokens,
+        toks = greedy_generate(cfg, params, prompt, args.new_tokens, extras=extras,
                                max_seq=max_seq, stats=stats)
         tier_stats = None if tier is None else (
             tier.stats(), tier.pool.metrics.link_bytes())

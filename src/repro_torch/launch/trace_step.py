@@ -8,7 +8,8 @@
         --arch tinyllama-1.1b --train --batch 4 --seq 1024 [--steps 3] [--strict]
 
 (``--arch`` also takes the other LM ids the port registers, as
-``launch.serve`` and ``launch.train`` do.) For a DLRM id, or an LM id
+``launch.serve`` and ``launch.train`` do; qwen2-vl-7b's and whisper-base's
+prompts carry their batch's vision embeds or frames.) For a DLRM id, or an LM id
 with ``--train``: makes every batch first
 (set-up), runs one warm-up step, then profiles ``--steps`` training steps.
 For an LM id otherwise: runs one warm-up generation, then profiles one
@@ -17,7 +18,10 @@ part on its own. Each profile (``torch.profiler``, CPU and CUDA activity)
 prints the wall time per step, the device time per step of each kernel
 (largest first) and of each family of kernels (the port's own by function,
 cuBLAS matmuls, the rest), the kernel launches per step, and the device's
-busy share: summed kernel time over wall time. Needs a CUDA card.
+busy share: summed kernel time over wall time. Runs on the card unless
+``--device cpu`` is given; on the CPU (a check that the path runs, with no
+device time) the profile lists the host's operators by self time in place
+of the kernels.
 """
 from __future__ import annotations
 
@@ -55,19 +59,28 @@ def _family(kernel: str) -> str:
 @contextlib.contextmanager
 def _trace(title: str, steps: int, device):
     """Profiles the body (``steps`` steps of work) and prints its breakdown."""
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+    sync()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         yield
-        torch.cuda.synchronize(device)
+        sync()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     kernels = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if cuda and e.device_type == DeviceType.CUDA:
             kernels[e.key] = (e.self_device_time_total / 1e3 / steps, e.count)
+        elif not cuda and e.device_type == DeviceType.CPU:
+            kernels[e.key] = (e.self_cpu_time_total / 1e3 / steps, e.count)
     busy_ms = sum(ms for ms, _ in kernels.values())
     print(f"[trace] {title} on {device}: wall {wall_ms:.3f} ms/step")
-    print(f"[trace] device busy {busy_ms:.3f} ms/step, "
+    busy = "device busy" if cuda else "host operators' self time (no device)"
+    print(f"[trace] {busy} {busy_ms:.3f} ms/step, "
           f"busy share {busy_ms / wall_ms:.3f}")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"[trace] {ms:9.4f} ms/step  x{n / steps:g}  {name[:90]}")
@@ -104,12 +117,14 @@ def _trace_serve(cfg, args, device) -> None:
     gen.manual_seed(0)
     params = get_api(cfg).init(gen, cfg)
     B, S = args.batch, args.prompt_len
-    prompt = make_batches(cfg, B, S, device=device).next(0)["tokens"]
-    greedy_generate(cfg, params, prompt, 2)              # warm-up
+    batch = make_batches(cfg, B, S, device=device).next(0)
+    prompt = batch["tokens"]
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    greedy_generate(cfg, params, prompt, 2, extras=extras)              # warm-up
     parts = {"prefill": (f"{cfg.name} prefill batch {B} prompt {S}", 1),
              "decode": (f"{cfg.name} decode batch {B} from position {S}",
                         args.steps)}
-    greedy_generate(cfg, params, prompt, args.steps + 1,
+    greedy_generate(cfg, params, prompt, args.steps + 1, extras=extras,
                     part=lambda name: _trace(*parts[name], device))
 
 
@@ -128,9 +143,11 @@ def main(argv=None):
                     help="LM training: tokens per sequence")
     ap.add_argument("--prompt-len", type=int, default=1024,
                     help="LM: prompt tokens of the traced prefill")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; there is no silent fallback")
     args = ap.parse_args(argv)
 
-    device = resolve_device("cuda")
+    device = resolve_device(args.device)
     cfg = get_arch(args.arch, smoke=args.smoke).model
     if cfg.arch_type == "dlrm" or args.train:
         _trace_train(cfg, args, device)

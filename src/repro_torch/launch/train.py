@@ -15,8 +15,12 @@
 
 ``--arch`` takes the DLRM ids and every LM id the port registers: the
 dense transformers (tinyllama-1.1b, qwen3-0.6b, llama3.2-3b, granite-20b),
-the MoE ones (qwen3-moe-235b-a22b, arctic-480b), rwkv6-3b and jamba-v0.1-52b;
-an LM trains on synthetic zipf token batches of ``--batch`` x ``--seq``.
+the MoE ones (qwen3-moe-235b-a22b, arctic-480b), rwkv6-3b, jamba-v0.1-52b,
+qwen2-vl-7b and whisper-base; an LM trains on synthetic zipf token batches
+of ``--batch`` x ``--seq`` (with stub vision embeds for qwen2-vl, stub
+audio frames for whisper). whisper-base's head is tied to its token table,
+so every step updates every row, and ``--ckpt-dir`` refuses it (tier-E
+logs the rows a batch touches).
 ``--full`` builds the whole published model, which must fit on the card
 with its optimizer state: ``chip_smoke.py`` trains tinyllama-1.1b,
 rwkv6-3b and llama3.2-3b so on an 80 GB H100, and granite-20b,

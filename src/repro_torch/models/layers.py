@@ -10,11 +10,13 @@ leaves (fresh tensors on the generator's device by default); ``Stack``
 hands out slices of stacked leaves instead, so that a stack of layers is
 drawn in place, never held twice.
 
-Activations are in ``cfg.dtype``; norms, rotary angles, attention scores and
-softmax are in f32. Attention is GQA: prefill and training attention go
-through the flash-attention kernels (``ops.flash_attention``, forward and
-backward), single-token decode through the plain ``decode_attention``. A KV
-cache is updated in place.
+Activations are in ``cfg.dtype``; norms (rms and layer), rotary angles
+(rope and qwen2-vl's M-RoPE), attention scores and softmax are in f32.
+Attention is GQA: prefill and training attention go through the
+flash-attention kernels (``ops.flash_attention``, forward and backward),
+single-token decode through the plain ``decode_attention``. A KV cache is
+updated in place. Cross-attention (whisper's decoder) takes its K/V as
+given and attends to them in full.
 """
 from __future__ import annotations
 
@@ -94,6 +96,10 @@ def ones(gen: torch.Generator, shape, dtype, new=None):
     return (new or fresh(gen.device))(shape, dtype).fill_(1.0)
 
 
+def zeros(gen: torch.Generator, shape, dtype, new=None):
+    return (new or fresh(gen.device))(shape, dtype).zero_()
+
+
 # ---------------------------------------------------------------------------
 # Norms and rotary embeddings
 # ---------------------------------------------------------------------------
@@ -104,6 +110,15 @@ def rms_norm(x, weight, eps: float = 1e-5):
     xf = x.float()
     xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * weight.float()).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -123,6 +138,42 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL's multimodal rope. x: (B, S, H, D); positions3: (3, B, S)
+    (temporal, height, width); ``sections`` splits the D/2 frequencies
+    among the three, sum(sections) == D // 2. Frequency j turns by the
+    position of the section it falls in; in f32, as ``apply_rope``."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (D/2,)
+    angles = positions3[..., None].float() * freqs            # (3, B, S, D/2)
+    bounds = [0]
+    for n in sections:
+        bounds.append(bounds[-1] + n)
+    if bounds[-1] != x.shape[-1] // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not split "
+                         f"{x.shape[-1] // 2} frequencies")
+    ang = torch.cat([angles[i, ..., lo:hi] for i, (lo, hi)
+                     in enumerate(zip(bounds[:-1], bounds[1:], strict=True))], dim=-1)
+    cos = torch.cos(ang)[..., None, :]                        # (B, S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(S: int, d: int, *, start: int = 0, device=None):
+    """Rows start .. start + S - 1 of the reference's (S', d) sine table:
+    sin at the even columns, cos at the odd ones, in f32. Each row is a
+    function of its position alone, so a slice is elementwise the table's
+    rows (the reference's decoder builds 65,536 rows a call)."""
+    pos = (start + torch.arange(S, device=device)).float()[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    pe = torch.zeros((S, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
 
 
 # ---------------------------------------------------------------------------
@@ -179,26 +230,42 @@ def init_attention(gen: torch.Generator, cfg, new=None):
 def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
                   cache_index: int | None = None, cross_kv=None,
                   positions3=None):
-    """Self-attention with rope and an optional KV cache.
+    """Self-attention with rope and an optional KV cache, or cross-attention.
 
     x: (B, S, d); positions: (S,) or (B, S) global positions (rope).
     cache: optional dict(k, v) of (B, Smax, Hkv, D), written in place at
     ``cache_index`` (a host int, default 0). With a cache, S == 1 is a
     decode step against the first cache_index + 1 entries; S > 1 attends
     over the cache's first cache_index + S entries, queries at positions
-    cache_index .. cache_index + S - 1. Returns (out, cache).
+    cache_index .. cache_index + S - 1. ``positions3`` (3, B, S), given
+    with ``cfg.mrope_sections``, turns q and k by M-RoPE in place of rope.
+    ``cross_kv``: (k, v) of (B, Sk, Hkv, D) to attend to in full (whisper's
+    decoder over the encoder's output): no rope, no qk norm on them, no
+    cache; S > 1 goes through flash (not causal), S == 1 through the plain
+    decode attention over all Sk keys, as in the reference. Returns (out,
+    cache).
     """
-    if cross_kv is not None or (cfg.mrope_sections and positions3 is not None):
-        raise NotImplementedError("cross-attention and M-RoPE are not ported yet")
     B, S, _ = x.shape
     hd, nq, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     q = (x @ p["wq"]).reshape(B, S, nq, hd)
+    if cross_kv is not None:
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k, v = cross_kv
+        if S == 1:
+            out = decode_attention(q, k, v, k.shape[1])
+        else:
+            out = chunked_attention(q, k, v, causal=False)
+        return out.reshape(B, S, nq * hd) @ p["wo"], cache
     k = (x @ p["wk"]).reshape(B, S, nkv, hd)
     v = (x @ p["wv"]).reshape(B, S, nkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta > 0:
+    if cfg.mrope_sections and positions3 is not None:
+        q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -225,22 +292,27 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
 
 
 def _check_act(cfg) -> None:
-    if cfg.act != "silu":
-        raise NotImplementedError(f"mlp activation {cfg.act!r} is not ported yet "
-                                  "(the ported LMs use silu)")
+    if cfg.act not in ("silu", "gelu"):
+        raise NotImplementedError(f"mlp activation {cfg.act!r} is not ported "
+                                  "(the ported MLPs are silu and gelu)")
 
 
 def init_mlp(gen: torch.Generator, cfg, d_ff=None, new=None):
-    """SwiGLU MLP params: wi, wg (d, f) and wo (f, d)."""
+    """SwiGLU MLP params (silu): wi, wg (d, f) and wo (f, d); a gelu MLP
+    has wi and wo only."""
     _check_act(cfg)
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.activation_dtype
+    if cfg.act == "gelu":
+        return {"wi": dense_init(gen, d, f, dt, new), "wo": dense_init(gen, f, d, dt, new)}
     return {"wi": dense_init(gen, d, f, dt, new), "wg": dense_init(gen, d, f, dt, new),
             "wo": dense_init(gen, f, d, dt, new)}
 
 
 def mlp_fwd(p, cfg, x):
     _check_act(cfg)
+    if cfg.act == "gelu":   # jax.nn.gelu(approximate=True)
+        return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
     return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
 

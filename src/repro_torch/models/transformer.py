@@ -1,8 +1,9 @@
 """Decoder-only LM stack (counterpart of ``repro.models.transformer``).
 
 Covers the dense transformers (tinyllama, qwen3-0.6b, llama3.2-3b,
-granite-20b), the MoE ones (qwen3-moe-235b-a22b, arctic-480b) and jamba
-(mamba and attention interleaved, MoE every other layer). A block is a
+granite-20b), the MoE ones (qwen3-moe-235b-a22b, arctic-480b), jamba
+(mamba and attention interleaved, MoE every other layer) and qwen2-vl
+(M-RoPE, and stub vision embeds that replace the first token slots). A block is a
 sequence mixer (attention or mamba) and then an FFN (dense or MoE). Params
 keep the reference's tree, so a JAX param tree crosses over through
 ``interop`` unchanged:
@@ -14,7 +15,13 @@ keep the reference's tree, so a JAX param tree crosses over through
   a list of per-layer blocks.
 Here a Python loop walks the layers. ``init_lm`` allocates each stacked
 leaf once and draws every layer into its slice, so the stack is never held
-twice. Vision embeds (qwen2-vl) raise ``NotImplementedError``.
+twice.
+
+qwen2-vl's batches carry ``vision_embeds`` (B, Sv, d), which take the
+place of the first Sv token rows (the reference's stub modality merge),
+and ``positions3`` (3, B, S), the (temporal, height, width) positions its
+attention turns q and k by (M-RoPE). Without ``positions3`` attention uses
+plain rope at the token positions, as the reference's decode step does.
 
 Caches keep the reference's trees too: ``{"k", "v"}`` of (L, B, Smax,
 Hkv, D) for a homogeneous stack; for jamba a list over the period of
@@ -44,15 +51,15 @@ from repro_torch.tree import tree_map
 
 
 def _check_supported(cfg) -> None:
-    if cfg.arch_type not in ("transformer", "jamba") or cfg.mrope_sections:
+    if cfg.arch_type not in ("transformer", "jamba", "qwen2vl"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the transformer and jamba stacks "
-            f"(not {cfg.arch_type!r}, nor M-RoPE)")
+            f"{cfg.name}: this module runs the transformer, jamba and qwen2vl "
+            f"stacks, not {cfg.arch_type!r}")
 
 
 def _is_homogeneous(cfg) -> bool:
     return (len(set(cfg.layer_types)) == 1 and len(set(cfg.ffn_types)) == 1
-            and cfg.arch_type == "transformer")
+            and cfg.arch_type in ("transformer", "qwen2vl"))
 
 
 def _init_block(gen: torch.Generator, cfg, layer_type: str, ffn_type: str,
@@ -97,14 +104,15 @@ def init_lm(gen: torch.Generator, cfg):
     return params
 
 
-def _block_fwd(p, cfg, layer_type, ffn_type, x, positions, cache=None,
-               cache_index=None):
+def _block_fwd(p, cfg, layer_type, ffn_type, x, positions, positions3=None,
+               cache=None, cache_index=None):
     """One block. Returns (x, aux): aux is the MoE's load-balancing term, or
     None after a dense FFN."""
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     if layer_type == "attn":
         o, _ = layers.attention_fwd(p["attn"], cfg, h, positions, causal=True,
-                                    cache=cache, cache_index=cache_index)
+                                    cache=cache, cache_index=cache_index,
+                                    positions3=positions3)
     else:
         o, _ = mamba.mamba_fwd(p["mamba"], cfg, h, state=cache,
                                cache_index=cache_index)
@@ -144,34 +152,38 @@ def _walk(params, cfg, caches):
 
 
 def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
-                   vision_embeds=None, embed_rows=None):
+                   vision_embeds=None, positions3=None, embed_rows=None):
     """tokens: (B, S) -> (hidden (B, S, d), caches, aux).
 
     The token embedding goes through the row-gather kernel, unless
     ``embed_rows`` gives the (B, S, d) rows already gathered (the relaxed
-    lookup's prefetch). Tokens sit at positions cache_index .. cache_index
-    + S - 1. With grad on and ``cfg.remat``, each block is checkpointed.
-    aux is the summed load-balancing term of the MoE blocks, None without
-    one.
+    lookup's prefetch); ``vision_embeds`` (B, Sv, d) then replace the first
+    Sv rows. Tokens sit at positions cache_index .. cache_index + S - 1;
+    ``positions3`` (3, B, S), if given, are the M-RoPE positions. With grad
+    on and ``cfg.remat``, each block is checkpointed. aux is the summed
+    load-balancing term of the MoE blocks, None without one.
     """
-    if vision_embeds is not None:
-        raise NotImplementedError("vision embeds are not ported yet")
     _check_supported(cfg)
     S = tokens.shape[1]
     if embed_rows is not None:
         x = embed_rows.to(cfg.activation_dtype)
     else:
         x = embedding_ops.lookup(params["embed"]["table"], tokens)
+    if vision_embeds is not None:
+        sv = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, sv:]], dim=1)
     positions = (cache_index or 0) + torch.arange(S, device=tokens.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     total_aux = None
     for bp, lt, ft, cache in _walk(params, cfg, caches):
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                lambda bp, x, lt=lt, ft=ft: _block_fwd(bp, cfg, lt, ft, x, positions),
+                lambda bp, x, lt=lt, ft=ft: _block_fwd(bp, cfg, lt, ft, x, positions,
+                                                       positions3),
                 bp, x, use_reentrant=False)
         else:
-            x, aux = _block_fwd(bp, cfg, lt, ft, x, positions, cache, cache_index)
+            x, aux = _block_fwd(bp, cfg, lt, ft, x, positions, positions3, cache,
+                                cache_index)
         if aux is not None:
             total_aux = aux if total_aux is None else total_aux + aux
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), caches, total_aux
@@ -186,8 +198,11 @@ def head_matrix(params, cfg):
 def lm_loss(params, cfg, batch):
     """Mean token cross-entropy, plus 0.01 of the MoE blocks' summed
     load-balancing term. batch: tokens (B, S), labels (B, S) [, loss_mask,
-    embed_rows (the relaxed lookup's prefetched rows)]."""
+    vision_embeds, positions3, embed_rows (the relaxed lookup's prefetched
+    rows)]."""
     hidden, _, aux = forward_hidden(params, cfg, batch["tokens"],
+                                    vision_embeds=batch.get("vision_embeds"),
+                                    positions3=batch.get("positions3"),
                                     embed_rows=batch.get("embed_rows"))
     loss, count = layers.chunked_softmax_xent(
         hidden, head_matrix(params, cfg), batch["labels"],
@@ -220,17 +235,20 @@ def init_kv_cache(cfg, batch: int, max_seq: int, device):
     return [entry(t) for t in lt]
 
 
-def prefill(params, cfg, tokens, caches):
+def prefill(params, cfg, tokens, caches, *, vision_embeds=None, positions3=None):
     """Fill caches with S tokens at positions 0 .. S-1; return (last-token
-    logits (B, V) f32, caches)."""
+    logits (B, V) f32, caches). qwen2-vl's prompt may carry vision embeds
+    and M-RoPE positions."""
     hidden, caches, _ = forward_hidden(params, cfg, tokens, caches=caches,
-                                       cache_index=0)
+                                       cache_index=0, vision_embeds=vision_embeds,
+                                       positions3=positions3)
     return (hidden[:, -1] @ head_matrix(params, cfg)).float(), caches
 
 
 def decode_step(params, cfg, tokens, pos: int, caches):
     """tokens: (B, 1) at position ``pos`` (a host int) -> (logits (B, V)
-    f32, caches)."""
+    f32, caches). qwen2-vl too turns q and k by plain rope at ``pos``, as
+    the reference's serving does (it passes no M-RoPE positions here)."""
     hidden, caches, _ = forward_hidden(params, cfg, tokens, caches=caches,
                                        cache_index=pos)
     return (hidden[:, -1] @ head_matrix(params, cfg)).float(), caches

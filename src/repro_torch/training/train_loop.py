@@ -19,10 +19,16 @@ place at those rows only (``core.relaxed``). No table-sized gradient or
 update is ever built. The embedding tier therefore takes the rules that
 have a touched-rows form (``Optimizer.update_rows``): SGD and row-wise
 Adagrad, whose accumulator is updated in place too. SGD with momentum
-raises (its momentum moves untouched rows), and so does an LM whose head
-is tied to the table (its dense table gradient would bypass the sparse
-tier). The dense tier is the rest of the tree (an LM's blocks, final norm
-and head) under ``train_cfg.optimizer``.
+raises (its momentum moves untouched rows). The dense tier is the rest of
+the tree (an LM's blocks, final norm and head) under ``train_cfg.optimizer``.
+
+A head tied to the table (whisper) reads the whole table, so its gradient
+with respect to the table is dense. Both steps then add the touched rows'
+gradient into it (the rows' adjoint plus the head's, as the reference
+sums them, ``src/repro/training/train_loop.py:93-97``) and update every
+row of the table: the touched-rows machinery runs with every row touched,
+ids 0 .. V-1. The relaxed correction reads U at batch N+1's tokens straight
+from that dense update, with no scratch.
 
 The table, the embedding optimizer's state, the dense params and the dense
 optimizer's moments are all updated in place (the dense tier through ``update_inplace`` where the
@@ -41,6 +47,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import relaxed as rx
 from repro_torch.core.checkpoint.manager import CheckpointManager
+from repro_torch.kernels import ops
 from repro_torch.models.registry import get_api
 from repro_torch.optim import optimizers as opt
 from repro_torch.training import state as st
@@ -61,10 +68,7 @@ def make_step_fns(cfg, train_cfg):
     """
     api = get_api(cfg)
     rx.check_trainable(cfg)
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: a head tied to the embedding table is not trained "
-            "by the port (its dense table gradient bypasses the sparse tier)")
+    tied = bool(cfg.tie_embeddings)
     leaf = rx.embed_leaf(cfg)
     embed_opt = opt.make_optimizer(train_cfg.embed_optimizer,
                                    train_cfg.embed_learning_rate)
@@ -80,15 +84,22 @@ def make_step_fns(cfg, train_cfg):
         return st.make_state(params, dense_opt, embed_opt)
 
     def loss_and_grads(state, rows, batch):
-        """Loss, dense-param grads and the grad w.r.t. the looked-up rows."""
+        """Loss, dense-param grads, the grad w.r.t. the looked-up rows and,
+        for a tied head, the head's grad w.r.t. the table (else None)."""
         dense = tree_map(lambda p: p.detach().requires_grad_(), state["dense"])
         rows = rows.detach().requires_grad_()
-        loss = api.loss(st.merge_params(dense, state["embed"]), cfg,
+        embed = state["embed"]
+        if tied:
+            embed = {**embed, leaf: embed[leaf].detach().requires_grad_()}
+        loss = api.loss(st.merge_params(dense, embed), cfg,
                         {**batch, "embed_rows": rows})
         leaves = tree_leaves(dense)
-        grads = torch.autograd.grad(loss, leaves + [rows])
-        it = iter(grads[:-1])
-        return loss.detach(), tree_map(lambda _: next(it), dense), grads[-1]
+        extra = [rows, embed[leaf]] if tied else [rows]
+        grads = torch.autograd.grad(loss, leaves + extra)
+        it = iter(grads[:len(leaves)])
+        g_head = grads[-1] if tied else None
+        return (loss.detach(), tree_map(lambda _: next(it), dense),
+                grads[len(leaves)], g_head)
 
     def update_dense(state, g_dense):
         """In place: clips the fresh grads, then updates the dense params
@@ -104,12 +115,20 @@ def make_step_fns(cfg, train_cfg):
             _add_updates_(state["dense"], upd_d)
         return state["dense"], od, gnorm
 
-    def sparse_update(state, batch, g_rows):
+    def sparse_update(state, batch, g_rows, g_head):
         """The embedding optimizer at the touched rows: (uniq row ids, f32
-        row updates, opt state)."""
+        row updates, opt state). With a tied head every row is touched:
+        the rows' gradient is added into the head's (V, d) one, at their
+        rows, and the ids are 0 .. V-1."""
+        table = state["embed"][leaf]
         uniq, g_emb = rx.sparse_rows_grad(state["embed"], cfg, batch, g_rows)
+        if g_head is not None:
+            g_all = g_head.float()
+            ops.scatter_update(g_all, uniq, g_emb)
+            uniq = torch.arange(table.shape[0], dtype=torch.int32, device=table.device)
+            g_emb = g_all
         upd, oe = embed_opt.update_rows(uniq, g_emb, state["opt_embed"],
-                                        tuple(state["embed"][leaf].shape))
+                                        tuple(table.shape))
         return uniq, upd, oe
 
     # -- strict ------------------------------------------------------------
@@ -117,9 +136,9 @@ def make_step_fns(cfg, train_cfg):
     def strict_step(state, batch):
         rows = rx.lookup_rows(state["embed"], cfg, batch)
         with torch.enable_grad():
-            loss, g_dense, g_rows = loss_and_grads(state, rows, batch)
+            loss, g_dense, g_rows, g_head = loss_and_grads(state, rows, batch)
         dense, od, gnorm = update_dense(state, g_dense)
-        uniq, upd, oe = sparse_update(state, batch, g_rows)
+        uniq, upd, oe = sparse_update(state, batch, g_rows, g_head)
         rx.apply_embed_update(state["embed"], cfg, uniq, upd)
         new_state = {**state, "dense": dense, "opt_dense": od, "opt_embed": oe,
                      "step": state["step"] + 1}
@@ -129,22 +148,23 @@ def make_step_fns(cfg, train_cfg):
     @torch.no_grad()
     def warmup(state, batch0):
         """Fill the prefetch carry for step 0 and allocate the correction's
-        zeroed f32 scratch of the table's shape."""
+        zeroed f32 scratch of the table's shape (none for a tied head, whose
+        correction reads its dense update)."""
         table = state["embed"][leaf]
+        scratch = None if tied else torch.zeros(table.shape, dtype=torch.float32,
+                                                device=table.device)
         return {**state, "prefetch": {
-            "rows": rx.lookup_rows(state["embed"], cfg, batch0),
-            "scratch": torch.zeros(table.shape, dtype=torch.float32,
-                                   device=table.device)}}
+            "rows": rx.lookup_rows(state["embed"], cfg, batch0), "scratch": scratch}}
 
     @torch.no_grad()
     def relaxed_step(state, batch, next_batch):
         carry = state["prefetch"]
         with torch.enable_grad():
-            loss, g_dense, g_rows = loss_and_grads(state, carry["rows"], batch)
+            loss, g_dense, g_rows, g_head = loss_and_grads(state, carry["rows"], batch)
         # batch N+1's stale rows, read before the in-place update below
         stale = rx.lookup_rows(state["embed"], cfg, next_batch)
         dense, od, gnorm = update_dense(state, g_dense)
-        uniq, upd, oe = sparse_update(state, batch, g_rows)
+        uniq, upd, oe = sparse_update(state, batch, g_rows, g_head)
         old_rows = rx.apply_embed_update_logged(state["embed"], cfg, uniq, upd)
         rows_next = rx.prefetch_corrected(stale, carry["scratch"], uniq, upd,
                                           cfg, next_batch)

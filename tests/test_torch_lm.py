@@ -234,14 +234,20 @@ def test_lm_loss_matches_jax(arch):
 
 
 def test_unported_families_raise():
+    """The decoder stack refuses a family it does not run: whisper (an
+    encoder and a decoder, ``models/whisper.py``) and DLRM. Vision embeds,
+    once refused here, now run (tests/test_torch_qwen2vl.py,
+    ``test_vision_embeds_replace_the_first_rows``)."""
     cfg = get_arch("tinyllama-1.1b", smoke=True).model
     gen = torch.Generator()
     with pytest.raises(NotImplementedError):
         transformer.init_lm(gen, cfg.replace(arch_type="whisper"))
     params = transformer.init_lm(gen, cfg)
     with pytest.raises(NotImplementedError):
-        transformer.forward_hidden(params, cfg, torch.zeros((1, 2), dtype=torch.int32),
-                                   vision_embeds=torch.zeros((1, 1, cfg.d_model)))
+        transformer.forward_hidden(params, cfg.replace(arch_type="dlrm"),
+                                   torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        transformer.init_kv_cache(cfg.replace(arch_type="whisper"), 1, 4, CPU)
 
 
 def _run(args):

@@ -103,6 +103,7 @@ def test_port_imports_no_jax_and_no_reference():
     r = _run("import sys, repro_torch.launch.train, repro_torch.interop\n"
              "import repro_torch.launch.serve, repro_torch.models.rwkv6\n"
              "import repro_torch.models.moe, repro_torch.models.mamba\n"
+             "import repro_torch.models.whisper, repro_torch.launch.trace_step\n"
              "import repro_torch.core.checkpoint.manager\n"
              "import repro_torch.core.checkpoint.recovery\n"
              "import repro_torch.serve, repro_torch.examples.serve_batched\n"
