@@ -248,7 +248,26 @@ Phases, each of which exits non-zero on failure:
      timed; both at the smoke size on the card against the CPU (5 f32
      steps, strict and a second relaxed run bitwise the first). Prints the
      device memory held at its start and its peak.
-Phases 6 to 23 print their wall time. Phases 4, 8, 10, 12 and 16 also
+ 24. serving under a mesh: two ranks on this one card (gloo, cuda:0 for
+     both, ``repro_torch.launch.mesh.spawn``) under {"batch": None,
+     "cache_seq": "model"}. jamba-v0.1-52b at phase 22's width and depth,
+     each rank drawing the whole model's random stream and keeping its
+     half of the vocab rows and of the experts (``sharding.keep_shard``):
+     the near-data lookup through the gather kernel on its rows,
+     context-parallel decode over its 528 cache positions, 8 of 16
+     experts a MoE layer. Three greedy generations (repeated bitwise; the
+     first counted by part: launches, collective calls and bytes) and a
+     teacher-forced one on phase 22's tokens, held against phase 22's
+     run (rerun here teacher-forced for its routing, bitwise its logits):
+     the prefill's logits, the decode logits on the rows routed alike,
+     the first MoE input after attention on every row, and the greedy
+     tokens (a token may differ only after a near-tie or a rerouted
+     row). Then full rm1's forward at batch 128, 500,000 rows of each
+     table a rank (the near-data bag: one B*T*d f32 all-reduce, whatever
+     L is), against the one-rank forward of phase 4's params. Rank 0
+     holds the shards' gather and bag and flash at jamba's prefill shape
+     against their plain versions and times them beside their bounds.
+Phases 6 to 24 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13, 16, 18 and 20 every scatter_update_logged launch
@@ -269,7 +288,9 @@ gather; phase 19's Adagrad runs of rm1 and tinyllama, tinyllama's
 accumulator launches (narrow) as paths of their own; phase 20's rm1 run into the
 sharded pool; phase 21's run U, rm1 on f32 tables under the checker;
 phase 22's five served ids (flash, the gather in prefill and decode) and
-llama3.2-3b's training; phase 23's two served ids and their training);
+llama3.2-3b's training; phase 23's two served ids and their training;
+phase 24's rank 0: the gather on its shard in jamba's prefill and decode,
+flash in its prefill, the bag on its shard in rm1's forward);
 the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
@@ -2025,8 +2046,10 @@ def decoders_phase(torch, np, dev, err, check_bag, check_update, check_update_lo
     serve_parts = {}
     for arch, layers in DECODERS:
         t = time.perf_counter()
-        parts, gather_t, _, metrics = serve_phase(torch, np, dev, check_gather, arch,
-                                                  fa, 0, layers=layers)
+        parts, gather_t, run, metrics = serve_phase(torch, np, dev, check_gather, arch,
+                                                    fa, 0, layers=layers)
+        if arch == DIST_JAMBA[0]:
+            out["dist_served"] = run          # phase 24 holds its two ranks to it
         serve_parts[arch] = parts
         timing[f"gather_{arch}_prefill"] = gather_t["prefill"]
         timing[f"gather_{arch}_decode"] = gather_t["decode"]
@@ -4138,6 +4161,436 @@ def checked_soak_phase(torch, np, cfg, tc, Bsz, dev, pmem_tier_e_ms):
     return launches, out
 
 
+DIST_WORLD = 2
+DIST_RULES = {"batch": None, "cache_seq": "model"}
+DIST_JAMBA = ("jamba-v0.1-52b", 8)   # phase 22's depth
+# Phase 24's gates, each a share of the one-rank run's largest magnitude,
+# set from the differences measured on an H100 80GB HBM3 at 700 W, none
+# above 1.5e-2. The prefill is bitwise (0 in two
+# runs): the ranks run its arithmetic unchanged (the lookup's rows plus
+# zeros, a top-2 token's two expert outputs added once, in f32, and
+# rounded). The decode steps' logits on the rows routed alike (6.44e-3)
+# and the first MoE input after the attention layer on every row
+# (6.99e-3) differ by the order of context-parallel decode's softmax
+# sums. rm1's logits were equal (0), but its bags sum their items in two
+# groups, so an element may round the other way in bf16.
+DIST_PREFILL_TOL = 0.0
+DIST_DECODE_TOL = 1e-2
+DIST_MOE_INPUT_TOL = 1e-2
+DIST_RM1_TOL = 1e-3
+
+
+def dist_counts(zero=False):
+    """The launch counters of the kernels on phase 24's paths (flash also
+    counts its tensor-core route); with ``zero`` they are set to 0 first."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_rows as gr
+    counters = (("gather_rows", gr, "launches"), ("embedding_bag", eb, "launches"),
+                ("flash_attention", fa, "launches"), ("flash_attention_tc", fa, "tc_launches"))
+    if zero:
+        for _, mod, attr in counters:
+            setattr(mod, attr, 0)
+    return {k: getattr(mod, attr) for k, mod, attr in counters}
+
+
+def moved_since(mesh, before):
+    """{collective: {"calls", "bytes"}} the mesh moved since ``before``
+    (an earlier ``mesh.stats()``)."""
+    now = mesh.stats()
+    return {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in ("calls", "bytes")}
+            for k, v in now.items() if v["calls"] != before.get(k, {}).get("calls", 0)}
+
+
+def decode_routing(cfg, routed, steps):
+    """From ``moe.recording``'s records of a prefill and ``steps`` decode
+    steps: each step's experts in every MoE layer, sorted, (steps, n_moe,
+    B, k), and each step's input to the first MoE layer after the
+    attention layer, (steps, B, d) f32, on the host."""
+    import torch
+
+    moe_layers = [i for i, f in enumerate(cfg.ffn_types) if f == "moe"]
+    n = len(moe_layers)
+    first = next(j for j, i in enumerate(moe_layers) if i >= cfg.layer_types.index("attn"))
+    dec = routed[n:]
+    check(len(dec) == n * steps, f"[dist] {len(dec)} MoE records for {steps} decode steps")
+    choices = torch.stack([r["choice"].sort(-1).values for r in dec])
+    return (choices.reshape(steps, n, *choices.shape[1:]).cpu(),
+            torch.stack([dec[s * n + first]["x"].float() for s in range(steps)]).cpu())
+
+
+def teacher_forced(torch, api, cfg, params, prompt, toks, device):
+    """A prefill of ``prompt`` and a decode step on each of ``toks`` but
+    the last, at positions S, S + 1, ... (the greedy run's inputs, given):
+    (the (B, steps + 1, V) f32 logits, ``decode_routing``'s records)."""
+    from repro_torch.models import moe
+
+    B, S = prompt.shape
+    steps = toks.shape[1] - 1
+    with torch.no_grad(), moe.recording() as routed:
+        caches = api.init_cache(cfg, B, S + steps + 1, device)
+        logits, caches = api.prefill(params, cfg, prompt, caches)
+        out = [logits]
+        for s in range(steps):
+            logits, caches = api.decode_step(params, cfg, toks[:, s:s + 1], S + s, caches)
+            out.append(logits)
+        return torch.stack(out, 1).cpu(), decode_routing(cfg, routed, steps)
+
+
+def dist_rank(rank, world, device, work, rm1_seed):
+    """Phase 24, one rank of ``world`` gloo ranks sharing ``device``. Serves
+    full-width jamba-v0.1-52b at phase 22's depth under DIST_RULES (its
+    vocab rows and experts cut as drawn, so no rank holds the whole model):
+    a warm-up, three greedy generations (the first counted by part: kernel
+    launches, collective calls and bytes), then a prefill and decode steps
+    teacher-forced on phase 22's tokens. Then full rm1's forward with its
+    table rows cut (phase 4's params, ``rm1_seed``). Rank 0 also holds the
+    shards' gather and bag, and flash at jamba's prefill shape, against
+    their plain versions and times them while rank 1 waits. Writes its
+    results to ``work/rank{rank}.pt``; any failure raises (or exits) and
+    fails the spawn."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import embedding_ops
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import dlrm
+    from repro_torch.models.registry import get_api
+    from repro_torch.training.serve_loop import greedy_generate
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_local_mesh(model_parallel=world, device=device)
+    keep = sharding.keep_shard(mesh)
+    one = torch.load(os.path.join(work, "one_rank.pt"), weights_only=True)
+    out = {"backend": mesh.backend, "world": world, "device": str(device),
+           "name": torch.cuda.get_device_name(device)}
+    err = {"gather_rows": 0.0, "embedding_bag": 0.0, "flash_attention_tc": 0.0}
+    timing = {}
+
+    # (a) jamba at full width, its vocab rows and experts cut as drawn
+    arch, layers = DIST_JAMBA
+    cfg = get_arch(arch).model.replace(num_layers=layers)
+    api = get_api(cfg)
+    ref_toks = one["toks"].to(device)
+    B, new, S = ref_toks.shape[0], ref_toks.shape[1], int(one["S"])
+    torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)                       # phase 22's params
+    params = api.init(gen, cfg, keep=keep)
+    torch.cuda.synchronize(device)
+    leaves = tree_leaves(params)
+    table = params["embed"]["table"]
+    out["init_s"] = time.perf_counter() - t
+    out["init_peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    out["params"] = sum(p.numel() for p in leaves)
+    out["params_gb"] = sum(p.numel() * p.element_size() for p in leaves) / 1e9
+    out["vocab_rows"] = table.shape[0]
+    out["experts"] = [g["moe"]["wi"].shape[1] for g in params["groups"] if "moe" in g]
+    prompt = make_batches(cfg, B, S, device=device).next(0)["tokens"]
+
+    parts = {}
+
+    @contextlib.contextmanager
+    def count(name):
+        k0, m0 = dist_counts(), mesh.stats()
+        yield
+        parts[name] = {"kernels": {k: v - k0[k] for k, v in dist_counts().items()},
+                       "moved": moved_since(mesh, m0)}
+
+    walls = []
+    with sharding.use_sharding(mesh, DIST_RULES), torch.no_grad():
+        greedy_generate(cfg, params, prompt, 2, max_seq=S + new)      # warm-up
+        dist_counts(zero=True)
+        stats = {}
+        toks = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=stats,
+                               part=count)
+        out["launches"] = dist_counts()
+        walls.append((stats["prefill_s"], stats["decode_s"]))
+        for _ in range(2):
+            again = {}
+            toks2 = greedy_generate(cfg, params, prompt, new, max_seq=S + new, stats=again)
+            check(torch.equal(toks, toks2) and torch.equal(stats["logits"], again["logits"]),
+                  f"[dist] rank {rank}: a second generation gave other tokens or logits")
+            walls.append((again["prefill_s"], again["decode_s"]))
+        out["forced"], (out["choices"], out["moe_input"]) = teacher_forced(
+            torch, api, cfg, params, prompt, ref_toks, device)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    out["toks"], out["parts"] = toks.cpu(), parts
+    out["prefill_ms_runs"] = [1e3 * p for p, _ in walls]
+    out["decode_ms_per_token_runs"] = [1e3 * d / (new - 1) for _, d in walls]
+    del stats
+
+    dist.barrier()
+    if rank == 0:
+        # the shard's row gather at the prefill's and a decode step's shape:
+        # the ids the near-data lookup hands it, clipped into the shard
+        rows_local = table.shape[0]
+        row_bytes = table.shape[1] * table.element_size()
+        for name, ids in (("prefill", prompt.reshape(-1)), ("decode", toks[:, 0])):
+            idx = (ids.long() - mesh.axis_index("model") * rows_local) \
+                .clamp(0, rows_local - 1).to(torch.int32).contiguous()
+            got, want = ops.gather_rows(table, idx), ref.gather_rows_ref(table, idx)
+            check(torch.equal(got, want), f"[dist] gather_rows {name}: not bitwise equal")
+            n_rows = torch.unique(idx).numel()
+            timing[f"gather_jamba_shard_{name}"] = flash_timing(
+                torch, "[dist]", f"gather_jamba_shard_{name}",
+                lambda idx=idx: ops.gather_rows(table, idx),
+                lambda idx=idx: ref.gather_rows_ref(table, idx),
+                lambda idx=idx: torch.index_select(table, 0, idx),
+                bound(idx.numel() * 4 + (n_rows + idx.numel()) * row_bytes, 0),
+                f"{idx.numel()} ids ({n_rows} distinct) of the shard "
+                f"{tuple(table.shape)} {table.dtype}")
+        # flash at jamba's prefill shape (k, v as the projections give them)
+        Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        g = torch.Generator(device=device)
+        g.manual_seed(0)
+        q, k, v = (torch.randn((B, S, h, D), generator=g, device=device)
+                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        fl = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        torch.testing.assert_close(fl, want)
+        err["flash_attention_tc"] = (fl.float() - want.float()).abs().max().item()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        nops = 4 * D * B * Hq * S * (S + 1) / 2
+        timing["flash_jamba_ranks"] = flash_timing(
+            torch, "[dist]", "flash_jamba_ranks", lambda: ops.flash_attention(q, k, v),
+            lambda: ref.flash_attention_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True),
+            bound(flash_fwd_bytes(B, S, S, Hq, Hkv, D), nops, BF16_TENSOR_OPS_PER_S),
+            f"forward B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16, k and v contiguous")
+        del q, k, v, qt, kt, vt, fl, want
+    dist.barrier()
+    del params, table, leaves
+    torch.cuda.empty_cache()
+
+    # (b) full rm1's forward, each rank its block of every table's rows
+    cfg = get_arch("dlrm-rm1").model
+    gen = torch.Generator(device=device)
+    gen.manual_seed(rm1_seed)                # phase 4's params
+    params = get_api(cfg).init(gen, cfg, keep=keep)
+    batch = {k: v.to(device) for k, v in one["rm1_batch"].items()}
+    tables = params["embed"]["emb_tables"]
+    T, R_loc, d = tables.shape
+    flat, seg = embedding_ops.local_bag_items(batch["sparse"], mesh.axis_index("model")
+                                              * R_loc, R_loc, R_loc, 0)
+    out["rm1_rows"], out["rm1_items"] = R_loc, flat.numel()
+    dist_counts(zero=True)
+    m0 = mesh.stats()
+    with sharding.use_sharding(mesh, DIST_RULES), torch.no_grad():
+        out["rm1_logits"] = dlrm.forward(params, cfg, batch).float().cpu()
+    out["rm1_launches"] = dist_counts()
+    out["rm1_moved"] = moved_since(mesh, m0)
+    dist.barrier()
+    if rank == 0:
+        nb, N = batch["sparse"].shape[0] * T, flat.numel()
+        table2 = tables.reshape(T * R_loc, d)
+        got = ops.embedding_bag(table2, flat, seg, nb)
+        want = ref.embedding_bag_ref(table2, flat, seg, nb)
+        diff = (got - want).abs()
+        check(bool((diff <= 1e-5 + 1e-5 * want.abs()).all()),
+              f"[dist] embedding_bag: max abs err {diff.max().item():.3g}")
+        err["embedding_bag"] = diff.max().item()
+        offsets = torch.searchsorted(seg, torch.arange(nb, dtype=torch.int32, device=device))
+        n_rows = torch.unique(flat).numel()
+        timing["bag_rm1_shard"] = flash_timing(
+            torch, "[dist]", "bag_rm1_shard",
+            lambda: ops.embedding_bag(table2, flat, seg, nb),
+            lambda: ref.embedding_bag_ref(table2, flat, seg, nb),
+            lambda: F.embedding_bag(flat, table2, offsets, mode="sum"),
+            bound(N * 4 * 2 + n_rows * d * table2.element_size() + nb * d * 4, N * d),
+            f"{N} items ({n_rows} distinct rows) of the shard {tuple(table2.shape)} "
+            f"{table2.dtype} into {nb} bags")
+    dist.barrier()
+    out["err"], out["timing"] = err, timing
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def dist_phase(torch, np, dev, tc, served, metrics):
+    """Phase 24: serving under a mesh, two gloo ranks on this one card
+    (``dist_rank``), held against the one-rank runs: jamba's tokens and
+    logits from phase 22 (``served``; its medians in ``metrics``) and
+    rm1's forward of phase 4's params, run here first. Returns (rank 0's
+    launches by path, its timings, its kernel errors, the metrics)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import DLRMBatches, make_batches
+    from repro_torch.launch import mesh
+    from repro_torch.models import dlrm
+    from repro_torch.models.registry import get_api
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="dist-", dir=build)
+    toks, logits = served
+    try:
+        # phase 22's run again, teacher-forced on its own tokens (so its
+        # logits bitwise), for the routing of each decode step
+        arch, layers = DIST_JAMBA
+        cfg = get_arch(arch).model.replace(num_layers=layers)
+        api = get_api(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = api.init(gen, cfg)
+        prompt = make_batches(cfg, toks.shape[0], 1024, device=dev).next(0)["tokens"]
+        one, (one_choices, one_input) = teacher_forced(torch, api, cfg, params, prompt,
+                                                       toks.to(dev), dev)
+        check(torch.equal(one, logits), "[dist] the one-rank run, teacher-forced on its "
+              "own tokens, did not repeat phase 22's logits bitwise")
+        del params, one
+        torch.cuda.empty_cache()
+
+        cfg = get_arch("dlrm-rm1").model
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(tc.seed)
+        params = get_api(cfg).init(gen, cfg)
+        batch = DLRMBatches(cfg, 128, seed=0, device=dev).next(0)
+        with torch.no_grad():
+            rm1_logits = dlrm.forward(params, cfg, batch).float().cpu()
+        del params
+        torch.save({"toks": toks, "logits": logits, "S": 1024,
+                    "rm1_batch": {k: batch[k].cpu() for k in ("dense", "sparse")}},
+                   os.path.join(work, "one_rank.pt"))
+        del batch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        mesh.spawn(dist_rank, DIST_WORLD, backend="gloo", device=f"cuda:{dev.index or 0}",
+                   args=(work, tc.seed))
+        spawn_s = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True)
+                 for r in range(DIST_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    r0 = ranks[0]
+    arch, layers = DIST_JAMBA
+    jcfg, rcfg = get_arch(arch).model, get_arch("dlrm-rm1").model
+    print(f"[dist] backend {r0['backend']}, world size {r0['world']}, the ranks' devices "
+          f"{[r['device'] for r in ranks]} ({r0['name']}); spawn to the last rank's "
+          f"end {spawn_s:.1f}s")
+    for r, res in enumerate(ranks):
+        print(f"[dist] rank {r}: {arch} at {layers} layers holds {res['vocab_rows']} of "
+              f"{jcfg.vocab_size} vocab rows and {res['experts']} of "
+              f"{jcfg.moe.num_experts} experts a MoE layer: {res['params']} params "
+              f"({res['params_gb']:.2f} GB), init {res['init_s']:.1f}s peaking at "
+              f"{res['init_peak_gb']:.2f} GB, serving peak {res['peak_gb']:.2f} GB; rm1 "
+              f"{res['rm1_rows']} rows a table, {res['rm1_items']} of the batch's items")
+        check(res["vocab_rows"] * DIST_WORLD == jcfg.vocab_size
+              and all(e * DIST_WORLD == jcfg.moe.num_experts for e in res["experts"]),
+              f"[dist] rank {r} holds other shards than its half")
+        check(res["rm1_rows"] * DIST_WORLD == rcfg.dlrm_rows_per_table,
+              f"[dist] rank {r} holds other rm1 rows than its half")
+    check(sum(r["rm1_items"] for r in ranks)
+          == 128 * rcfg.dlrm_num_tables * rcfg.dlrm_num_sparse,
+          "[dist] the ranks' rm1 items do not add up to the batch's")
+    for res in ranks[1:]:
+        check(torch.equal(res["toks"], r0["toks"]) and torch.equal(res["forced"], r0["forced"])
+              and torch.equal(res["rm1_logits"], r0["rm1_logits"]),
+              "[dist] the ranks disagree")
+
+    # jamba against phase 22's one-rank run. A decode step's logits are
+    # held on the rows routed alike in both runs (the same experts in every
+    # MoE layer), as phase 22 holds decode against prefill: with random
+    # weights the routing sits near ties, and context-parallel decode sums
+    # the softmax in another order, so a row's bf16 attention output may
+    # round the other way and flip its experts. Every row's input to the
+    # first MoE layer after the attention layer (before any routing can
+    # differ) is held on every step.
+    forced = r0["forced"]
+    scale = logits.abs().max().item()
+    pre = (forced[:, 0] - logits[:, 0]).abs().max().item() / scale
+    alike = (r0["choices"] == one_choices).all(-1).all(1).T           # (B, steps)
+    row_diff = (forced[:, 1:] - logits[:, 1:]).abs().amax(-1)        # (B, steps)
+    dec_all = row_diff.max().item() / scale
+    dec = (row_diff[alike].max().item() if alike.any() else 0.0) / scale
+    x_share = (r0["moe_input"] - one_input).abs().max().item() / one_input.abs().max().item()
+    same = r0["toks"] == toks
+    # a greedy token may differ only at or after a step where phase 22's top
+    # two logits were within twice the decode gate (a near-tie) or the
+    # teacher-forced runs routed the row otherwise
+    top2 = logits.topk(2, dim=-1).values
+    loose = (top2[..., 0] - top2[..., 1]) <= 2 * DIST_DECODE_TOL * scale
+    loose[:, 1:] |= ~alike
+    after_loose = loose.int().cumsum(dim=1) > 0
+    out = {"prefill_logits_share": pre, "decode_logits_share_routed_alike": dec,
+           "decode_logits_share_all_rows": dec_all, "decode_steps_routed_alike":
+           int(alike.sum()), "decode_steps": alike.numel(), "moe_input_share": x_share,
+           "tokens_equal": int(same.sum()), "tokens": same.numel(),
+           "near_ties_or_rerouted": int(loose.sum()),
+           "prefill_ms_runs": r0["prefill_ms_runs"],
+           "decode_ms_per_token_runs": r0["decode_ms_per_token_runs"],
+           "prefill_ms_median": statistics.median(r0["prefill_ms_runs"]),
+           "decode_ms_per_token_median": statistics.median(r0["decode_ms_per_token_runs"]),
+           "one_rank_prefill_ms_median": metrics["prefill_ms_median"],
+           "one_rank_decode_ms_per_token_median": metrics["decode_ms_per_token_median"],
+           "parts": r0["parts"], "spawn_s": spawn_s}
+    print(f"[dist] {arch} vs phase 22's one-rank run: prefill logits max abs diff {pre:.4g} "
+          f"of the largest logit {scale:.4g} (gate {DIST_PREFILL_TOL}); teacher-forced decode "
+          f"{dec:.4g} on the {out['decode_steps_routed_alike']} of {alike.numel()} row-steps "
+          f"routed alike (gate {DIST_DECODE_TOL}; {dec_all:.4g} over all); the first MoE "
+          f"input after attention {x_share:.4g} of its largest (gate {DIST_MOE_INPUT_TOL}); "
+          f"greedy tokens equal {out['tokens_equal']} of {out['tokens']} "
+          f"({out['near_ties_or_rerouted']} near-ties or rerouted row-steps)")
+    print(f"[dist] two ranks: prefill ms {r0['prefill_ms_runs']}, decode ms a token "
+          f"{r0['decode_ms_per_token_runs']}; medians {out['prefill_ms_median']:.2f}, "
+          f"{out['decode_ms_per_token_median']:.2f}; one rank (phase 22) "
+          f"{metrics['prefill_ms_median']:.2f}, {metrics['decode_ms_per_token_median']:.2f}")
+    n_dec = toks.shape[1] - 1
+    for name, part in r0["parts"].items():
+        per = 1 if name == "prefill" else n_dec
+        print(f"[dist] {name}: launches {part['kernels']}; collectives a "
+              f"{'prefill' if per == 1 else 'decode step'}: " + json.dumps(
+                  {k: {"calls": v["calls"] / per, "bytes": v["bytes"] / per}
+                   for k, v in part["moved"].items()}))
+
+    # rm1 against the one-rank forward
+    T, d = rcfg.dlrm_num_tables, rcfg.dlrm_bottom_mlp[-1]
+    rm1_scale = rm1_logits.abs().max().item()
+    rm1_diff = (r0["rm1_logits"] - rm1_logits).abs().max().item()
+    moved = r0["rm1_moved"]
+    out.update(rm1_logits_share=rm1_diff / rm1_scale, rm1_moved=moved,
+               rm1_items=[r["rm1_items"] for r in ranks])
+    print(f"[dist] rm1 forward, batch 128: items a rank {out['rm1_items']}; all-reduced "
+          f"{json.dumps(moved)} (B*T*d*4 = {128 * T * d * 4}); logits vs one rank: max abs "
+          f"diff {rm1_diff:.4g} of the largest {rm1_scale:.4g} (share {rm1_diff / rm1_scale:.4g},"
+          f" gate {DIST_RM1_TOL}); launches {r0['rm1_launches']}")
+
+    check(pre <= DIST_PREFILL_TOL, "[dist] prefill logits differ from phase 22's")
+    check(dec <= DIST_DECODE_TOL, "[dist] teacher-forced decode logits differ from phase "
+          "22's on the rows routed alike")
+    check(x_share <= DIST_MOE_INPUT_TOL, "[dist] the first MoE input after attention "
+          "differs from phase 22's")
+    check(bool((same | after_loose).all()), "[dist] a greedy token differs from phase 22's "
+          "before any near-tie or rerouting")
+    want = {"prefill": {"gather_rows": 1, "embedding_bag": 0, "flash_attention": 1,
+                        "flash_attention_tc": 1},
+            "decode": {"gather_rows": n_dec, "embedding_bag": 0, "flash_attention": 0,
+                       "flash_attention_tc": 0}}
+    check({k: p["kernels"] for k, p in r0["parts"].items()} == want,
+          f"[dist] {arch}: want one gather a forward and one flash a prefill (its one "
+          f"attention layer), got {r0['parts']}")
+    check(moved == {"all_reduce_sum": {"calls": 1, "bytes": 128 * T * d * 4}},
+          "[dist] rm1's near-data bag moved other than one B*T*d f32 all-reduce")
+    check(rm1_diff <= DIST_RM1_TOL * rm1_scale, "[dist] rm1 logits differ from one rank's")
+    from repro_torch.kernels import embedding_bag as eb
+    check(r0["rm1_launches"]["embedding_bag"] == eb.PASSES,
+          f"[dist] rm1: want one bag call ({eb.PASSES} launches), got {r0['rm1_launches']}")
+    launches = {"gather_prefill": r0["parts"]["prefill"]["kernels"]["gather_rows"],
+                "gather_decode": r0["parts"]["decode"]["kernels"]["gather_rows"],
+                "flash_prefill": r0["parts"]["prefill"]["kernels"]["flash_attention_tc"],
+                "bag": r0["rm1_launches"]["embedding_bag"]}
+    return launches, r0["timing"], r0["err"], out
+
+
 def train_loop_train(cfg, tc, batches, steps, state, mgr, on_metrics, start=0):
     """``train_loop.train`` of relaxed steps on the card."""
     from repro_torch.training import train_loop
@@ -4630,6 +5083,15 @@ def main():
     timing.update(enc_timing)
     print(f"[encdec] phase 23 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 24. serving under a mesh: two gloo ranks on this card ---------------------
+    t0 = time.perf_counter()
+    dist_launches, dist_timing, dist_err, dist_out = dist_phase(
+        torch, np, dev, tc, dec_out.pop("dist_served"), dec_out["serve"][DIST_JAMBA[0]])
+    timing.update(dist_timing)
+    for name, e in dist_err.items():
+        err[name] = max(err[name], e)
+    print(f"[dist] phase 24 wall time {time.perf_counter() - t0:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
     # for the gather, flash attention and wkv6, phases 12's and 16's relaxed
@@ -4828,7 +5290,16 @@ def main():
             ("scatter_update_logged", "dlrm-rm1 train (checked, f32 tables)",
              "update_logged_f32", soak_launches["scatter_update_logged"], *logged_src),
             ("gather_rows", "dlrm-rm1 checkpoint (checked, f32 tables)", "gather_f32",
-             soak_launches["gather_rows"], *gather_src), *decoder_paths, *encdec_paths):
+             soak_launches["gather_rows"], *gather_src), *decoder_paths, *encdec_paths,
+            # phase 24: rank 0 of two, each kernel over its shard
+            ("gather_rows", "jamba-v0.1-52b prefill (2 ranks, near-data shard)",
+             "gather_jamba_shard_prefill", dist_launches["gather_prefill"], *gather_src),
+            ("gather_rows", "jamba-v0.1-52b decode (2 ranks, near-data shard)",
+             "gather_jamba_shard_decode", dist_launches["gather_decode"], *gather_src),
+            ("flash_attention_tc", "jamba-v0.1-52b prefill (2 ranks)", "flash_jamba_ranks",
+             dist_launches["flash_prefill"], *flash_tc_src),
+            ("embedding_bag", "dlrm-rm1 forward (2 ranks, near-data shard)", "bag_rm1_shard",
+             dist_launches["bag"], *bag_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -4842,6 +5313,7 @@ def main():
     print(f"[soak] checked soak: {json.dumps(soak_out)}")
     print(f"[decoders] phase 22: {json.dumps(dec_out)}")
     print(f"[encdec] phase 23: {json.dumps(enc_out)}")
+    print(f"[dist] phase 24: {json.dumps(dist_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

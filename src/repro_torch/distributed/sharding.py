@@ -1,0 +1,257 @@
+"""Logical-axis sharding rules and per-arch parameter specs (counterpart of
+``repro.distributed.sharding``).
+
+The rules map *logical* axis names (batch, vocab, experts, cache_seq ...)
+to mesh axes. ``use_sharding(mesh, rules)`` installs a ``ShardingContext``
+(thread-local) that the islands read: the near-data lookup and bag
+(``core/embedding_ops.py``), context-parallel decode
+(``distributed/context_parallel.py``) and expert-parallel MoE
+(``models/moe.py``). Outside a context every call runs unsharded.
+
+A spec is the reference's ``PartitionSpec`` as a tuple: one entry per
+dimension, each a mesh axis name, a tuple of names or None; ``()`` is
+replicated.
+
+Eager PyTorch has no layout constraint, so ``constrain`` is the identity:
+every rank holds its activations whole and the islands hand each rank
+what it needs. Weights are held by their spec: ``local_shard`` takes a
+rank's part of a leaf (what ``jax.device_put`` with a ``NamedSharding``
+does), ``shard_params`` a tree's, and ``keep_shard`` gives the inits the
+same cut leaf by leaf, so that a rank never holds the whole model. In this
+slice only the leaves the islands read are held sharded (``ISLAND_LEAVES``:
+the token table's rows over ``vocab``, DLRM's table rows over
+``table_rows``, the experts over ``experts``); every other leaf stays whole
+on every rank, although ``param_specs`` names ``model`` for heads and
+ffn (the dense tensor parallelism XLA derives from those specs is not
+ported).
+"""
+from __future__ import annotations
+
+import contextlib
+import re
+import threading
+from typing import Any, Optional
+
+from repro_torch.tree import tree_map_with_path
+
+_state = threading.local()
+
+
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,              # "model" under Megatron-SP profile
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",      # auto-downgraded to None if kv_heads % tp != 0
+    "ffn": "model",
+    "vocab": "model",         # the disaggregated pool axis
+    "experts": "model",       # EP
+    "expert_ffn": None,
+    "cache_seq": None,        # "data" under context-parallel decode
+    "table_rows": "model",    # DLRM embedding pool rows
+}
+
+
+def _in_mesh(ax, mesh_axes):
+    """``ax`` (a name or a tuple of names) less the names not in the mesh;
+    None if nothing is left, the name if one is (as ``PartitionSpec``
+    writes it)."""
+    if ax is None:
+        return None
+    if isinstance(ax, (tuple, list)):
+        left = tuple(a for a in ax if a in mesh_axes)
+        return (left[0] if len(left) == 1 else left) or None
+    return ax if ax in mesh_axes else None
+
+
+class ShardingContext:
+    def __init__(self, mesh, rules: dict[str, Any]):
+        self.mesh = mesh
+        self.rules = dict(DEFAULT_RULES)
+        self.rules.update(rules or {})
+        self.mesh_axes = set(mesh.axis_names)
+
+    def spec(self, logical: tuple[Optional[str], ...]) -> tuple:
+        return tuple(_in_mesh(self.rules.get(name) if name else None, self.mesh_axes)
+                     for name in logical)
+
+    def axes(self, name: str):
+        """The mesh axes the rule ``name`` names, those in the mesh only
+        (a name, a tuple of names, or None)."""
+        return _in_mesh(self.rules.get(name), self.mesh_axes)
+
+
+@contextlib.contextmanager
+def use_sharding(mesh, rules: dict[str, Any] | None = None):
+    prev = getattr(_state, "ctx", None)
+    _state.ctx = ShardingContext(mesh, rules or {})
+    try:
+        yield _state.ctx
+    finally:
+        _state.ctx = prev
+
+
+def current() -> Optional[ShardingContext]:
+    return getattr(_state, "ctx", None)
+
+
+def constrain(x, logical: tuple[Optional[str], ...]):
+    """The identity: eager PyTorch has no sharding constraint to attach to
+    an activation (the reference's ``with_sharding_constraint``), and every
+    rank holds its activations whole."""
+    return x
+
+
+def named_sharding(logical: tuple[Optional[str], ...]) -> Optional[tuple]:
+    """The spec of ``logical`` under the current context (None without)."""
+    ctx = current()
+    if ctx is None:
+        return None
+    return ctx.spec(logical)
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs by path pattern
+# ---------------------------------------------------------------------------
+
+# (regex on '/'-joined path, logical axes per dim). First match wins.
+# Stacked (layer-axis) params get a leading None for the layer dim.
+_PARAM_RULES: list[tuple[str, tuple]] = [
+    (r"moe/(wi|wg)$", ("experts", "embed_w", "expert_ffn_w")),
+    (r"moe/wo$", ("experts", "expert_ffn_w", "embed_w")),
+    (r"moe/dense/(wi|wg)$", ("embed_w", "ffn_w")),
+    (r"moe/dense/wo$", ("ffn_w", "embed_w")),
+    (r"emb_tables$", ("tables", "table_rows", None)),
+    (r"embed/table$", ("vocab", None)),        # pool rows over model (paper)
+    (r"lm_head$", ("embed_w", "vocab")),
+    (r"(wq|wk|wv)$", ("embed_w", "heads_w")),
+    (r"wo$", ("heads_w", "embed_w")),          # attention out / mlp out
+    (r"(wi|wg)$", ("embed_w", "ffn_w")),
+    (r"router$", ("embed_w", None)),
+    (r"in_proj$", ("embed_w", "ffn_w")),
+    (r"out_proj$", ("ffn_w", "embed_w")),
+    (r"bc_proj$", ("ffn_w", None)),
+    (r"dt_proj$", ("ffn_w", None)),
+    (r".*", None),                              # biases, norms: replicated
+]
+
+# logical weight-axis -> rules key (weights may shard differently from acts)
+_WEIGHT_LOGICAL = {
+    "embed_w": "w_embed", "heads_w": "w_heads", "ffn_w": "w_ffn",
+    "expert_ffn_w": "w_expert_ffn",
+}
+
+DEFAULT_WEIGHT_RULES = {
+    "w_embed": None,          # fsdp profile: "data"
+    "w_heads": "model",
+    "w_ffn": "model",
+    "w_expert_ffn": None,     # fsdp profile for MoE: "data"
+    "vocab": "model",
+    "experts": "model",
+    "tables": None,
+    "table_rows": "model",
+}
+
+# the leaves this slice holds sharded: those the islands read
+ISLAND_LEAVES = (r"embed/table$", r"emb_tables$", r"moe/(wi|wg|wo)$")
+
+
+def spec_for(path: str, ndim: int, rules: dict[str, Any] | None = None,
+             mesh_axes: set[str] | None = None) -> tuple:
+    """The spec of the leaf at ``path`` ('/'-joined keys) with ``ndim``
+    dims, by ``_PARAM_RULES`` (``param_specs`` for one leaf)."""
+    r = dict(DEFAULT_WEIGHT_RULES)
+    r.update(rules or {})
+
+    def resolve(name):
+        ax = r.get(_WEIGHT_LOGICAL.get(name, name))
+        return ax if mesh_axes is None else _in_mesh(ax, mesh_axes)
+
+    for pat, logical in _PARAM_RULES:
+        if re.search(pat, path):
+            if logical is None:
+                return ()
+            axes = [resolve(n) if n else None for n in logical]
+            if ndim == len(axes) + 1:      # stacked (layer-axis) leaf
+                axes = [None] + axes
+            elif ndim != len(axes):
+                return ()
+            return tuple(axes[:ndim])
+    return ()
+
+
+def param_specs(params, rules: dict[str, Any] | None = None,
+                mesh_axes: set[str] | None = None):
+    """Spec tree for a params tree, by path-pattern rules."""
+    return tree_map_with_path(
+        lambda path, leaf: spec_for(path, leaf.ndim, rules, mesh_axes), params)
+
+
+def _divisible(shape, spec, sizes) -> tuple:
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec)),
+                       strict=False):
+        if ax is None:
+            out.append(None)
+            continue
+        n = 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            n *= sizes[a]
+        out.append(ax if dim % n == 0 else None)
+    return tuple(out)
+
+
+def check_divisibility(params, specs, mesh):
+    """Downgrade spec axes whose size doesn't divide the dim (e.g. kv=1 GQA)."""
+    return tree_map_with_path(
+        lambda _, leaf, spec: _divisible(tuple(leaf.shape), spec, mesh.sizes),
+        params, specs)
+
+
+def held_spec(path: str, shape, mesh, rules: dict[str, Any] | None = None) -> tuple:
+    """The spec by which a rank holds the leaf at ``path``: its
+    ``param_specs`` entry, downgraded where the mesh does not divide it,
+    for the island leaves; replicated for every other leaf."""
+    if not any(re.search(p, path) for p in ISLAND_LEAVES):
+        return ()
+    spec = spec_for(path, len(shape), rules, set(mesh.axis_names))
+    return _divisible(tuple(shape), spec, mesh.sizes)
+
+
+def local_slices(shape, spec, mesh) -> tuple:
+    """This rank's part of a leaf of ``shape`` held by ``spec``: one slice a
+    dim, block i of n along a dim sharded over n ranks (i the rank's
+    linear index over the dim's axes)."""
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec)),
+                       strict=False):
+        n = mesh.axis_size(ax)
+        if dim % n:
+            raise ValueError(f"dim {dim} does not split over {n} ranks ({ax})")
+        i, step = mesh.axis_index(ax) if ax is not None else 0, dim // n
+        out.append(slice(i * step, (i + 1) * step))
+    return tuple(out)
+
+
+def local_shard(leaf, spec, mesh):
+    """A rank's part of ``leaf`` by ``spec``, a tensor of its own (the
+    whole leaf itself where the spec shards nothing)."""
+    if all(ax is None for ax in spec):
+        return leaf
+    return leaf[local_slices(leaf.shape, spec, mesh)].clone()
+
+
+def shard_params(params, mesh, rules: dict[str, Any] | None = None):
+    """The tree a rank holds: each leaf cut by ``held_spec``."""
+    return tree_map_with_path(
+        lambda path, leaf: local_shard(leaf, held_spec(path, leaf.shape, mesh, rules),
+                                       mesh), params)
+
+
+def keep_shard(mesh, rules: dict[str, Any] | None = None):
+    """``keep(path, leaf)`` for the inits (``init_lm``, ``init_dlrm``): a
+    leaf drawn whole comes back as this rank's part of it, so that the
+    init holds one whole leaf at a time and never the whole model."""
+    def keep(path, leaf):
+        return local_shard(leaf, held_spec(path, leaf.shape, mesh, rules), mesh)
+    return keep

@@ -28,8 +28,10 @@ def _mlp_stack(ps, x, final_act=True):
     return x
 
 
-def init_dlrm(gen: torch.Generator, cfg):
-    """Random params on ``gen``'s device: tables ~ N(0, 1/d), MLPs uniform."""
+def init_dlrm(gen: torch.Generator, cfg, keep=None):
+    """Random params on ``gen``'s device: tables ~ N(0, 1/d), MLPs uniform.
+    ``keep(path, leaf)``, if given, cuts the tables once drawn
+    (``distributed.sharding.keep_shard``: a rank's rows)."""
     dt = cfg.activation_dtype
     d_emb = cfg.dlrm_bottom_mlp[-1]
     T, R = cfg.dlrm_num_tables, cfg.dlrm_rows_per_table
@@ -37,6 +39,8 @@ def init_dlrm(gen: torch.Generator, cfg):
     for t in range(T):   # one table's f32 draw at a time bounds the peak memory
         tables[t] = (torch.randn((R, d_emb), generator=gen, device=gen.device)
                      / math.sqrt(d_emb)).to(dt)
+    if keep is not None:
+        tables = keep("embed/emb_tables", tables)
     n_feat = T + 1
     n_inter = n_feat * (n_feat - 1) // 2
     top_in = d_emb + n_inter
@@ -56,8 +60,8 @@ def forward(params, cfg, batch):
         # relaxed lookup: reduced bag vectors prefetched at batch N-1
         bags = batch["embed_rows"]
     else:
-        bags = embedding_ops.bag_lookup(params["embed"]["emb_tables"],
-                                        batch["sparse"])      # (B, T, d_emb)
+        bags = embedding_ops.bag_lookup(params["embed"]["emb_tables"], batch["sparse"],
+                                        rows=cfg.dlrm_rows_per_table)   # (B, T, d_emb)
     feats = torch.cat([z0[:, None, :], bags.to(z0.dtype)], dim=1)
     inter = torch.bmm(feats, feats.transpose(1, 2))           # (B, F, F)
     iu = torch.triu_indices(feats.shape[1], feats.shape[1], offset=1,

@@ -14,8 +14,10 @@ Activations are in ``cfg.dtype``; norms (rms and layer), rotary angles
 (rope and qwen2-vl's M-RoPE), attention scores and softmax are in f32.
 Attention is GQA: prefill and training attention go through the
 flash-attention kernels (``ops.flash_attention``, forward and backward),
-single-token decode through the plain ``decode_attention``. A KV cache is
-updated in place. Cross-attention (whisper's decoder) takes its K/V as
+single-token decode through the plain ``decode_attention``, or under a
+``cache_seq`` rule through context-parallel decode over a cache sharded by
+sequence (``distributed/context_parallel.py``). A KV cache is updated in
+place. Cross-attention (whisper's decoder) takes its K/V as
 given and attends to them in full.
 """
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.distributed import context_parallel, sharding
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -273,6 +276,16 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
     if cache is not None:
         idx = cache_index or 0
         kc, vc = cache["k"], cache["v"]
+        ctx = sharding.current()
+        if ctx is not None and ctx.rules.get("cache_seq"):
+            # the cache sharded by sequence: context-parallel decode; a
+            # prefill (from 0) attends over its own k, v, whole on each rank
+            if S == 1:
+                out, _, _ = context_parallel.decode_attention_cp(q, kc, vc, k, v, idx)
+                return out.reshape(B, S, nq * hd) @ p["wo"], cache
+            context_parallel.write_prefill(cache, k, v, idx)
+            out = chunked_attention(q, k, v, causal=causal)
+            return out.reshape(B, S, nq * hd) @ p["wo"], cache
         if idx + S > kc.shape[1]:
             raise ValueError(f"cache of {kc.shape[1]} positions cannot take "
                              f"{S} tokens at {idx}")

@@ -1,7 +1,9 @@
 """Mixture-of-Experts FFN with top-k routing (counterpart of
-``repro.models.moe``), the path without a mesh: every expert on one card.
-The expert-parallel ``shard_map`` branch of the reference waits for the
-port's distribution.
+``repro.models.moe``). Without a mesh every expert runs on one card; under
+a sharding context the experts run expert-parallel: each rank holds ``E /
+n`` of them (``n`` the ``model`` axis), takes their windows of the global
+plan with the same capacity, and its partial output is summed over
+``model`` by ``all_reduce``, as the reference's ``shard_map`` body does.
 
 Routing is the reference's: f32 router logits (no TF32 on the card, in the
 forward or the backward), softmax, top-k, gates renormalised, and the load
@@ -35,6 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 
 _record: list | None = None   # set by ``recording``
@@ -55,15 +58,24 @@ def recording():
         _record = prev
 
 
-def init_moe(gen: torch.Generator, cfg, new=None):
+def init_moe(gen: torch.Generator, cfg, new=None, keep=None):
+    """The router, the experts and arctic's dense FFN. ``keep(path, leaf)``
+    cuts each expert leaf once drawn (a rank's experts): the leaf is drawn
+    whole, then its part goes to ``new``."""
     d = cfg.d_model
     e, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
     dt = cfg.activation_dtype
     scale = math.sqrt(1.0 / d)
+
+    def experts(name, shape, scale):
+        if keep is None:
+            return layers.uniform_init(gen, shape, scale, dt, new)
+        part = keep(f"moe/{name}", layers.uniform_init(gen, shape, scale, dt))
+        return (new or layers.fresh(gen.device))(part.shape, dt).copy_(part)
     p = {"router": layers.dense_init(gen, d, e, torch.float32, new),
-         "wi": layers.uniform_init(gen, (e, d, f), scale, dt, new),
-         "wg": layers.uniform_init(gen, (e, d, f), scale, dt, new),
-         "wo": layers.uniform_init(gen, (e, f, d), math.sqrt(1.0 / f), dt, new)}
+         "wi": experts("wi", (e, d, f), scale),
+         "wg": experts("wg", (e, d, f), scale),
+         "wo": experts("wo", (e, f, d), math.sqrt(1.0 / f))}
     if cfg.moe.dense_residual:
         p["dense"] = layers.init_mlp(gen, cfg, new=new)   # arctic: parallel dense FFN
     return p
@@ -192,35 +204,96 @@ def _plan(choice, num_experts: int, capacity: int):
     return src, slot, pair.reshape(-1), dropped
 
 
-def _moe_local(xt, gate, choice, wi, wg, wo, *, num_experts: int, capacity: int):
+def _moe_local(xt, gate, choice, wi, wg, wo, *, num_experts: int, capacity: int,
+               e_offset: int = 0):
     """Dispatch pre-routed tokens to the experts in (wi, wg, wo).
 
-    xt: (T, d); gate/choice: (T, k); wi/wg: (E, d, f); wo: (E, f, d).
-    Returns the (T, d) expert output, in the products' dtype.
+    xt: (T, d); gate/choice: (T, k); wi/wg: (E_loc, d, f); wo: (E_loc, f, d),
+    the experts ``e_offset .. e_offset + E_loc - 1`` of ``num_experts``.
+    They take their windows of the global plan (capacity ``capacity``); a
+    token's kept slots at other experts read a zero row, so the (T, d)
+    output, in the products' dtype, is this rank's part of the sum.
     """
     T, d = xt.shape
     E, C = num_experts, capacity
+    e_loc = wi.shape[0]
     src, slot, gate_idx, dropped = _plan(choice, E, C)
     if _record is not None:
         _record.append({"x": xt, "choice": choice, "dropped": dropped})
-    gts = torch.cat([gate.reshape(-1), gate.new_zeros(1)])[gate_idx].reshape(E, C)
-    xe = _Dispatch.apply(xt, src, slot).reshape(E, C, d)
+    if e_loc != E:
+        lo, hi = e_offset * C, (e_offset + e_loc) * C
+        src, gate_idx = src[lo:hi], gate_idx[lo:hi]
+        slot = torch.where((slot >= lo) & (slot < hi), slot - lo, e_loc * C)
+    gts = torch.cat([gate.reshape(-1), gate.new_zeros(1)])[gate_idx].reshape(e_loc, C)
+    xe = _Dispatch.apply(xt, src, slot).reshape(e_loc, C, d)
     h = torch.bmm(xe, wi)
     g = torch.bmm(xe, wg)
     y = torch.bmm(F.silu(g) * h, wo)
     y = y * gts[..., None].to(y.dtype)                         # gate (+mask drops)
-    return _Combine.apply(y.reshape(E * C, d), src, slot)
+    return _Combine.apply(y.reshape(e_loc * C, d), src, slot)
+
+
+def _moe_ep(p, cfg, x, ctx):
+    """The expert-parallel path (the reference's ``shard_map`` body): this
+    rank's experts over the tokens of every data group, its partial output
+    summed over ``model``.
+
+    x: (B, S, d), whole on every rank; under a ``seq`` rule (S > 1) this
+    rank's sequence block, all-gathered first and the output
+    reduce-scattered back. The routing and its aux are computed on every
+    rank over the whole batch (the reference's "pjit side"). Each data
+    group (the batch split over the ``batch`` rule's axes, as the reference
+    splits it) takes its own capacity windows; the groups run one after
+    the other here, where each rank holds the whole batch.
+    """
+    mesh = ctx.mesh
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    tp = mesh.axis_size("model")
+    if e % tp:
+        raise ValueError(f"{cfg.name}: {e} experts do not split over {tp} ranks")
+    e_loc = e // tp
+    seq_ax = ctx.axes("seq") if x.shape[1] > 1 else None
+    if seq_ax is not None:
+        x = mesh.all_gather(x, seq_ax, dim=1)
+    B, S, d = x.shape
+    gate, choice, aux = route(p["router"], x.reshape(B * S, d), k)
+    dp = ctx.axes("batch")
+    dp_total = mesh.axis_size(dp)
+    if B % dp_total:
+        dp_total = 1                                        # batch unshardable
+    b_loc = B // dp_total
+    C = _capacity(b_loc * S, k, e)
+    e_offset = mesh.axis_index("model") * e_loc
+    held = [p[n] if p[n].shape[0] == e_loc else p[n][e_offset:e_offset + e_loc]
+            for n in ("wi", "wg", "wo")]
+    parts = []
+    for g in range(dp_total):
+        t = slice(g * b_loc * S, (g + 1) * b_loc * S)
+        parts.append(_moe_local(x.reshape(B * S, d)[t], gate[t], choice[t], *held,
+                                num_experts=e, capacity=C, e_offset=e_offset))
+    out = torch.cat(parts).reshape(B, S, d)
+    if seq_ax is not None:
+        out = mesh.reduce_scatter(out, seq_ax, dim=1)
+    else:
+        out = mesh.all_reduce(out, "model")
+    return out, aux
 
 
 def moe_fwd(p, cfg, x):
     """x: (B, S, d) -> ((B, S, d), aux). Capacity-dropped tokens pass
-    through 0."""
+    through 0. Under a sharding context the experts run expert-parallel
+    (``_moe_ep``; ``wi``, ``wg``, ``wo`` this rank's experts or all of
+    them)."""
     B, S, d = x.shape
     e, k = cfg.moe.num_experts, cfg.moe.top_k
-    gate, choice, aux = route(p["router"], x.reshape(B * S, d), k)
-    out = _moe_local(x.reshape(B * S, d), gate, choice, p["wi"], p["wg"], p["wo"],
-                     num_experts=e, capacity=_capacity(B * S, k, e))
-    out = out.reshape(B, S, d)
+    ctx = sharding.current()
+    if ctx is None or "model" not in ctx.mesh_axes:
+        gate, choice, aux = route(p["router"], x.reshape(B * S, d), k)
+        out = _moe_local(x.reshape(B * S, d), gate, choice, p["wi"], p["wg"], p["wo"],
+                         num_experts=e, capacity=_capacity(B * S, k, e))
+        out = out.reshape(B, S, d)
+    else:
+        out, aux = _moe_ep(p, cfg, x, ctx)
     if cfg.moe.dense_residual:
         out = out + layers.mlp_fwd(p["dense"], cfg, x)
     return out.to(x.dtype), aux

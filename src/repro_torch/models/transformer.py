@@ -46,6 +46,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
+from repro_torch.distributed import context_parallel, sharding
 from repro_torch.models import layers, mamba, moe
 from repro_torch.tree import tree_map
 
@@ -63,7 +64,7 @@ def _is_homogeneous(cfg) -> bool:
 
 
 def _init_block(gen: torch.Generator, cfg, layer_type: str, ffn_type: str,
-                new=None):
+                new=None, keep=None):
     dt = cfg.activation_dtype
     p = {"norm1": layers.ones(gen, (cfg.d_model,), dt, new),
          "norm2": layers.ones(gen, (cfg.d_model,), dt, new)}
@@ -72,18 +73,23 @@ def _init_block(gen: torch.Generator, cfg, layer_type: str, ffn_type: str,
     else:
         p["mamba"] = mamba.init_mamba(gen, cfg, new)
     if ffn_type == "moe":
-        p["moe"] = moe.init_moe(gen, cfg, new)
+        p["moe"] = moe.init_moe(gen, cfg, new, keep)
     else:
         p["mlp"] = layers.init_mlp(gen, cfg, new=new)
     return p
 
 
-def init_lm(gen: torch.Generator, cfg):
-    """Random params on ``gen``'s device in the reference's tree layout."""
+def init_lm(gen: torch.Generator, cfg, keep=None):
+    """Random params on ``gen``'s device in the reference's tree layout.
+    ``keep(path, leaf)``, if given, cuts the token table and the experts
+    each as soon as it is drawn (``distributed.sharding.keep_shard``: a
+    rank's part); the draws are those of the whole model."""
     _check_supported(cfg)
     dt = cfg.activation_dtype
     table = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                          device=gen.device) * 0.02).to(dt)
+    if keep is not None:
+        table = keep("embed/table", table)
     params = {"embed": {"table": table},
               "final_norm": layers.ones(gen, (cfg.d_model,), dt)}
     if not cfg.tie_embeddings:
@@ -91,16 +97,18 @@ def init_lm(gen: torch.Generator, cfg):
     lt, ft, L = cfg.layer_types, cfg.ffn_types, cfg.num_layers
     if _is_homogeneous(cfg):
         stack = layers.Stack(L, gen.device)
-        trees = [_init_block(gen, cfg, lt[0], ft[0], stack.layer(i)) for i in range(L)]
+        trees = [_init_block(gen, cfg, lt[0], ft[0], stack.layer(i), keep)
+                 for i in range(L)]
         params["blocks"] = stack.tree(trees[0])
     elif cfg.arch_type == "jamba" and L % cfg.attn_layer_period == 0:
         period = cfg.attn_layer_period
         stacks = [layers.Stack(L // period, gen.device) for _ in range(period)]
-        groups = [[_init_block(gen, cfg, lt[i], ft[i], stacks[i].layer(g))
+        groups = [[_init_block(gen, cfg, lt[i], ft[i], stacks[i].layer(g), keep)
                    for i in range(period)] for g in range(L // period)]
         params["groups"] = [s.tree(t) for s, t in zip(stacks, groups[0], strict=True)]
     else:
-        params["layers"] = [_init_block(gen, cfg, lt[i], ft[i]) for i in range(L)]
+        params["layers"] = [_init_block(gen, cfg, lt[i], ft[i], keep=keep)
+                            for i in range(L)]
     return params
 
 
@@ -164,11 +172,17 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
     load-balancing term of the MoE blocks, None without one.
     """
     _check_supported(cfg)
+    ctx = sharding.current()
+    if ctx is not None and ctx.axes("seq"):
+        raise NotImplementedError(
+            f"{cfg.name}: a seq rule shards the activations by sequence (the "
+            "Megatron-SP profile), which the port's stack does not do: it holds "
+            "them whole on every rank until dense tensor parallelism is ported")
     S = tokens.shape[1]
     if embed_rows is not None:
         x = embed_rows.to(cfg.activation_dtype)
     else:
-        x = embedding_ops.lookup(params["embed"]["table"], tokens)
+        x = embedding_ops.lookup(params["embed"]["table"], tokens, rows=cfg.vocab_size)
     if vision_embeds is not None:
         sv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, sv:]], dim=1)
@@ -191,7 +205,13 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
 
 def head_matrix(params, cfg):
     if cfg.tie_embeddings:
-        return params["embed"]["table"].T
+        table = params["embed"]["table"]
+        if table.shape[0] != cfg.vocab_size:
+            raise NotImplementedError(
+                f"{cfg.name}: a tied head over a vocab-sharded table ({table.shape[0]} "
+                f"of {cfg.vocab_size} rows here) needs the vocab-parallel head of "
+                "dense tensor parallelism, not ported yet")
+        return table.T
     return params["lm_head"]
 
 
@@ -212,10 +232,13 @@ def lm_loss(params, cfg, batch):
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, device):
-    """Zeroed caches on ``device``, in the reference's tree for ``cfg``."""
+    """Zeroed caches on ``device``, in the reference's tree for ``cfg``.
+    Under a ``cache_seq`` rule an attention cache holds this rank's
+    ``max_seq / n`` positions (context-parallel decode)."""
     _check_supported(cfg)
     L, dt = cfg.num_layers, cfg.activation_dtype
-    kv = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kv = (batch, context_parallel.local_positions(max_seq), cfg.num_kv_heads,
+          cfg.resolved_head_dim)
 
     def entry(layer_type, lead=()):
         if layer_type == "attn":

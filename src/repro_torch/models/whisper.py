@@ -31,6 +31,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
+from repro_torch.distributed import context_parallel
 from repro_torch.models import layers
 
 
@@ -168,7 +169,12 @@ def lm_loss(params, cfg, batch):
 
 def init_kv_cache(cfg, batch: int, max_seq: int, device):
     """The decoder's self-attention caches, zeroed: {"k", "v"} of (L, B,
-    max_seq, Hkv, D) in the activation dtype."""
+    max_seq, Hkv, D) in the activation dtype. Not under a ``cache_seq``
+    rule: whisper's decoder cache is not sharded by sequence yet."""
+    if context_parallel.cache_axes():
+        raise NotImplementedError(
+            "whisper: the decoder's cache under a cache_seq rule (context-parallel "
+            "decode) is not ported yet; serve whisper without the rule")
     shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {n: torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
             for n in ("k", "v")}

@@ -109,6 +109,9 @@ def test_port_imports_no_jax_and_no_reference():
              "import repro_torch.serve, repro_torch.examples.serve_batched\n"
              "import repro_torch.pool.server, repro_torch.pool.remote\n"
              "import repro_torch.pool.protocol\n"
+             "import repro_torch.distributed.sharding\n"
+             "import repro_torch.distributed.context_parallel\n"
+             "import repro_torch.launch.mesh\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'ml_dtypes', 'repro')]\n"
              "print(bad); sys.exit(1 if bad else 0)")
