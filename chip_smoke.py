@@ -267,7 +267,24 @@ Phases, each of which exits non-zero on failure:
      L is), against the one-rank forward of phase 4's params. Rank 0
      holds the shards' gather and bag and flash at jamba's prefill shape
      against their plain versions and times them beside their bounds.
-Phases 6 to 24 print their wall time. Phases 4, 8, 10, 12 and 16 also
+ 25. training under a mesh: full dlrm-rm1 with f32 tables at batch 128,
+     two gloo ranks on this card under {"batch": ("data",)}, through
+     ``train_loop.train`` under ``sharding.use_sharding``: 4 relaxed steps
+     at (data, model) = (1, 2), each rank half of every table's rows, and
+     at (2, 1), each rank half of every batch, held against the one-rank
+     run of phase 4's params (losses within rtol 2e-5, the tables within
+     1e-5 of the largest value; each gap printed beside its gate), with
+     each step's host ms and each collective's calls, bytes and seconds;
+     then a crash drill at (1, 2) through one writer into a pmem pool
+     (``distributed.checkpoint.MeshCheckpoint``): the writer crashes
+     between step 1's undo COMMIT and its mirror apply, recovery at both
+     ranks (``recover_on_mesh``) gives each rank its block bitwise as it
+     held it after step 0, every committed undo entry equals the ranks'
+     images, and 2 resumed steps match the uninterrupted run within rtol
+     2e-5. Rank 0 holds the duplicate combine, the logged update, the
+     scratch update and the checkpoint gather on its block against their
+     plain versions and times them beside their bounds.
+Phases 6 to 25 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13, 16, 18 and 20 every scatter_update_logged launch
@@ -290,7 +307,9 @@ sharded pool; phase 21's run U, rm1 on f32 tables under the checker;
 phase 22's five served ids (flash, the gather in prefill and decode) and
 llama3.2-3b's training; phase 23's two served ids and their training;
 phase 24's rank 0: the gather on its shard in jamba's prefill and decode,
-flash in its prefill, the bag on its shard in rm1's forward);
+flash in its prefill, the bag on its shard in rm1's forward; phase 25's
+rank 0: the bag, both updates on its block of rm1's rows and the
+checkpoint's gather there);
 the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
@@ -4591,6 +4610,414 @@ def dist_phase(torch, np, dev, tc, served, metrics):
     return launches, r0["timing"], r0["err"], out
 
 
+DIST_TRAIN_RULES = {"batch": ("data",)}
+DIST_TRAIN_BATCH = 128
+DIST_TRAIN_STEPS = 4
+DIST_TRAIN_CRASH = 1       # the writer crashes between step 1's COMMIT and apply
+DIST_TRAIN_RESUMED = 2
+# phase 25's gates: the losses within tests/test_relaxed.py:39's rtol, the
+# gathered tables within 1e-5 of the largest table value (f32 tables; bf16
+# relaxed and strict differ from step 1, ROADMAP section 3)
+DIST_TRAIN_LOSS_RTOL = 2e-5
+DIST_TRAIN_TABLE_TOL = 1e-5
+
+
+def stats_since(mesh, before):
+    """{collective: {"calls", "bytes", "s"}} the mesh moved since ``before``
+    (an earlier ``mesh.stats()``)."""
+    now = mesh.stats()
+    return {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in ("calls", "bytes", "s")}
+            for k, v in now.items() if v["calls"] != before.get(k, {}).get("calls", 0)}
+
+
+def dist_train_rank(rank, world, device, work, seed):
+    """Phase 25, one rank of ``world`` gloo ranks sharing ``device``: full
+    dlrm-rm1 with f32 tables at batch 128. The one-rank run (every rank
+    runs it alone, for its own reference), then DIST_TRAIN_STEPS relaxed
+    steps through ``train_loop.train`` under (data, model) = (1, 2), each
+    rank its half of every table's rows, and under (2, 1), each rank the
+    tables whole and half of every batch; each rank holds its tables
+    against the one-rank run's. Then a crash drill at (1, 2) into a pmem
+    pool through one writer (``MeshCheckpoint``): the writer crashes
+    between step DIST_TRAIN_CRASH's undo COMMIT and its mirror apply,
+    every rank stops there, recovery at both ranks (``recover_on_mesh``),
+    DIST_TRAIN_RESUMED steps resumed. Rank 0 also holds the sparse tier's
+    kernels on its block against their plain versions and times them.
+    Writes its results to ``work/rank{rank}.pt``."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import CheckpointConfig, TrainConfig
+    from repro_torch.core import embedding_ops
+    from repro_torch.core.checkpoint.manager import check_undo_images, undo_image
+    from repro_torch.core.checkpoint.undo_log import UndoRing
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import DLRMBatches
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.checkpoint import MeshCheckpoint, recover_on_mesh
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_api
+    from repro_torch.pool import FaultSchedule, InjectedCrash
+    from repro_torch.pool.allocator import PoolAllocator
+    from repro_torch.training import train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("dlrm-rm1").model.replace(dtype="float32")
+    tc = TrainConfig(learning_rate=1e-3, embed_learning_rate=0.05, seed=seed)
+    T, R, d = cfg.dlrm_num_tables, cfg.dlrm_rows_per_table, cfg.dlrm_bottom_mlp[-1]
+    steps, writer = DIST_TRAIN_STEPS, rank == 0
+    meshes = {"1x2": make_local_mesh(model_parallel=2, device=device),
+              "2x1": make_local_mesh(model_parallel=1, device=device)}
+    out = {"device": str(device), "runs": {}}
+    err = {"embedding_bag": 0.0, "scatter_update": 0.0, "scatter_update_logged": 0.0,
+           "gather_rows": 0.0}
+
+    def say(msg):
+        print(f"[dist-train] rank {rank}: {msg}", flush=True)
+
+    def draw(mesh=None):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)                       # phase 4's params, f32
+        kw = {} if mesh is None else {"keep": sharding.keep_shard(mesh, DIST_TRAIN_RULES)}
+        state = train_loop.make_step_fns(cfg, tc)[0](get_api(cfg).init(gen, cfg, **kw))
+        torch.cuda.synchronize(device)
+        return state
+
+    def run(name, state, mesh=None, mgr=None, n=steps, start=0, on_step=None):
+        """``n`` relaxed steps from ``start`` (the batches made first), each
+        step's host seconds (the first with the warm-up) and collectives."""
+        batches = LookaheadIterator(DLRMBatches(cfg, DIST_TRAIN_BATCH, seed=0,
+                                                device=device), cfg, depth=n + 1,
+                                    start_step=start)
+        times, moved = [], []
+        torch.cuda.synchronize(device)
+        mark = [time.perf_counter(), mesh.stats() if mesh is not None else {}]
+
+        def on_metrics(k, m):
+            if on_step is not None:
+                on_step(k, m)
+            torch.cuda.synchronize(device)
+            now = time.perf_counter()
+            times.append(now - mark[0])
+            if mesh is not None:
+                moved.append(stats_since(mesh, mark[1]))
+                mark[1] = mesh.stats()
+            mark[0] = time.perf_counter()
+        try:
+            state, losses = train_loop.train(cfg, tc, batches, n, state=state,
+                                             start_step=start, ckpt_manager=mgr,
+                                             on_metrics=on_metrics)
+        finally:
+            out["runs"][name] = {"step_s": times, "moved": moved}
+        out["runs"][name]["losses"] = losses
+        return state
+
+    # (a) one rank, no context
+    torch.cuda.reset_peak_memory_stats(device)
+    state = run("one", draw())
+    one = state["embed"]["emb_tables"]
+    del state
+    torch.cuda.empty_cache()
+    scale = one.abs().max().item()
+    out["one_peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    say(f"one-rank run done, losses {out['runs']['one']['losses']}")
+
+    # (b) (1, 2): each rank its half of every table's rows; (c) (2, 1)
+    for name in ("1x2", "2x1"):
+        mesh = meshes[name]
+        torch.cuda.reset_peak_memory_stats(device)
+        with sharding.use_sharding(mesh, DIST_TRAIN_RULES):
+            state = draw(mesh)
+            zero_row_counts()
+            state = run(name, state, mesh)
+            c = row_counts()
+            out["runs"][name]["launches"] = {k: c[k] for k in (
+                "embedding_bag", "scatter_update", "scatter_update_wide",
+                "scatter_update_logged", "scatter_update_logged_wide")}
+        held = state["embed"]["emb_tables"]
+        base = mesh.axis_index("model") * held.shape[1] if held.shape[1] != R else 0
+        diff = (held - one[:, base:base + held.shape[1]]).abs().max().item()
+        out["runs"][name].update(rows_held=held.shape[1], table_diff=diff,
+                                 table_share=diff / scale,
+                                 peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        if name == "1x2":
+            block = held
+        del state, held
+        torch.cuda.empty_cache()
+        say(f"{name} run done, losses {out['runs'][name]['losses']}, table diff {diff:.4g}")
+
+    # (d) the sparse tier's kernels on rank 0's block, at the main path's
+    # shapes: batch 0's items in the block, against their plain versions
+    mesh = meshes["1x2"]
+    mesh.barrier()
+    if writer:
+        R_held = block.shape[1]
+        table = block.reshape(T * R_held, d)
+        ids = DLRMBatches(cfg, DIST_TRAIN_BATCH, seed=0, device=device).next(0)["sparse"]
+        flat, seg = embedding_ops.local_bag_items(ids, 0, R_held, R_held, 0)
+        N_all, N = ids.numel(), flat.numel()
+        # bag-row gradients of a training step's size (the loss is a mean
+        # over the batch), as phase 3 draws them
+        g = torch.randn((ids.shape[0] * T, d), generator=torch.Generator(device=device)
+                        .manual_seed(0), device=device) * 1e-3
+        sorted_idx, order = torch.sort(flat, stable=True)
+        first = torch.ones(N, dtype=torch.bool, device=device)
+        first[1:] = sorted_idx[1:] != sorted_idx[:-1]
+        comb_seg = torch.cumsum(first, 0, dtype=torch.int32) - 1
+        comb_src = seg[order].contiguous()
+        comb_starts = torch.nonzero(first).flatten().to(torch.int32)
+        got = ops.embedding_bag(g, comb_src, comb_seg, N)
+        want = ref.embedding_bag_ref(g, comb_src, comb_seg, N)
+        diff = (got - want).abs()
+        check(bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
+              and torch.equal(got, ops.embedding_bag(g, comb_src, comb_seg, N)),
+              f"[dist-train] embedding_bag (duplicate combine): max abs err "
+              f"{diff.max().item():.3g}")
+        err["embedding_bag"] = diff.max().item()
+        # the library's bags are the distinct rows; the kernel's N outputs
+        # beyond them are zero
+        lib_out = torch.nn.functional.embedding_bag(comb_src, g, comb_starts, mode="sum")
+        k = lib_out.shape[0]
+        check(bool(((lib_out - want[:k]).abs() <= 1e-5 + 1e-5 * want[:k].abs()).all()),
+              "[dist-train] the library's duplicate combine differs from the plain one")
+        del lib_out
+        uniq, comb = ops.combine_duplicates(flat, g, item_rows=seg)
+        n = int((uniq >= 0).sum())
+        pad = N_all - N                         # the trainer pads to the items
+        uniq = torch.cat([uniq, uniq.new_full((pad,), -1)])
+        upd = torch.cat([-0.05 * comb, comb.new_zeros((pad, d))])
+        real = uniq[:n].long()
+        t_tab = table.clone()
+        want_t, want_old = ref.scatter_update_logged_ref(t_tab.clone(), uniq, upd)
+        _, old = ops.scatter_update_logged(t_tab, uniq, upd)
+        check(torch.equal(t_tab, want_t) and torch.equal(old.view(torch.int32),
+                                                         want_old.view(torch.int32)),
+              "[dist-train] scatter_update_logged on the block: not bitwise equal")
+        scratch = torch.zeros_like(table)
+        want_s = ref.scatter_update_ref(scratch.clone(), uniq, upd)
+        ops.scatter_update(scratch, uniq, upd)
+        check(torch.equal(scratch, want_s), "[dist-train] scatter_update on the "
+              "block's scratch: not bitwise equal")
+        ids_local = uniq[:n].contiguous()
+        check(torch.equal(ops.gather_rows(t_tab, ids_local),
+                          ref.gather_rows_ref(t_tab, ids_local)),
+              "[dist-train] gather_rows on the block: not bitwise equal")
+        ops.scatter_update(scratch, uniq, -upd)
+        check(not scratch.any().item(), "[dist-train] the block's scratch not cleared")
+        nb = ids.shape[0] * T
+        out["block"] = {"table": list(table.shape), "items": N, "items_all": N_all,
+                        "rows": n, "bags": nb}
+        shapes = {
+            # idx and seg once, each bag row once, the f32 output
+            "bag_combine_rm1_block": (
+                lambda: ops.embedding_bag(g, comb_src, comb_seg, N),
+                lambda: ref.embedding_bag_ref(g, comb_src, comb_seg, N),
+                lambda: torch.nn.functional.embedding_bag(comb_src, g, comb_starts,
+                                                          mode="sum"),
+                bound(N * 4 * 2 + nb * d * 4 + N * d * 4, N * d)),
+            # a real slot: its id, its f32 delta, the row read, written and
+            # logged; a pad: its id and a zero undo row
+            "update_logged_rm1_block": (
+                lambda: ops.scatter_update_logged(t_tab, uniq, upd),
+                lambda: ref.scatter_update_logged_ref(t_tab, uniq, upd),
+                lambda: (t_tab.index_select(0, real), t_tab.index_add_(0, real, upd[:n])),
+                bound(n * (4 + d * 16) + (N_all - n) * (4 + d * 4), n * d)),
+            "scratch_update_rm1_block": (
+                lambda: ops.scatter_update(scratch, uniq, upd),
+                lambda: ref.scatter_update_ref(scratch, uniq, upd),
+                lambda: scratch.index_add_(0, real, upd[:n]),
+                bound(N_all * 4 + n * d * 12, n * d)),
+            # the ids once, each touched row read once and written once
+            "gather_rm1_block": (
+                lambda: ops.gather_rows(t_tab, ids_local),
+                lambda: ref.gather_rows_ref(t_tab, ids_local),
+                lambda: torch.index_select(t_tab, 0, ids_local),
+                bound(n * 4 + 2 * n * d * 4, 0)),
+        }
+        say(f"the block's kernels hold against their plain versions: {out['block']}")
+        out["timing"] = time_shapes(torch, "[dist-train]", shapes)
+        del t_tab, scratch, want_t, want_old, want_s, old, g, got, want
+    del block
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+    # (e) the crash drill at (1, 2) through one writer, into a pmem pool
+    cc = CheckpointConfig(directory=os.path.join(work, "ckpt"), dense_interval=1,
+                          pool_backend="pmem", pool_compress="none")
+    tc = dataclasses.replace(tc, checkpoint=cc)
+    images, snap = {}, {}
+    torch.cuda.reset_peak_memory_stats(device)
+    with sharding.use_sharding(mesh, DIST_TRAIN_RULES):
+        state = draw(mesh)
+        faults = FaultSchedule.crash_at("tier_e.between-commit-and-apply",
+                                        occurrence=DIST_TRAIN_CRASH + 1)
+        mgr = MeshCheckpoint(cfg, cc, embed_init=state["embed"],
+                             faults=faults if writer else None)
+        out["mirror_load_s"] = mgr.stats["mirror_load_s"]
+        mgr.add_feed_hook(lambda k, feed: images.__setitem__(k, undo_image(feed)))
+        table = state["embed"]["emb_tables"]          # updated in place
+
+        def keep(k, _):
+            if k == DIST_TRAIN_CRASH - 1:
+                snap["tables"] = table.clone()
+        zero_row_counts()
+        out["crashed"] = False
+        try:
+            run("crash", state, mesh, mgr, n=DIST_TRAIN_CRASH + 1, on_step=keep)
+        except InjectedCrash:
+            out["crashed"] = True
+            mgr.manager.pool.close()                  # the writer's process death
+        c = row_counts()
+        out["ckpt_launches"] = {k: c[k] for k in ("gather_rows", "gather_rows_wide")}
+        say(f"checkpointed run done, crashed {out['crashed']}")
+        out["gather_s"] = mgr.stats["gather_s"]
+        del state, table, mgr
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        state, start, rec = recover_on_mesh(cfg, cc.directory, draw(mesh))
+        torch.cuda.synchronize(device)
+        out["recover_s"] = time.perf_counter() - t
+        out["resume_at"] = start
+        out["recovered_bitwise"] = torch.equal(state["embed"]["emb_tables"], snap["tables"])
+        del snap
+        if writer:
+            out["rec"] = [rec.mirror_step, rec.dense_step, rec.rolled_back]
+            ring = UndoRing(PoolAllocator(rec.pool), cc.max_undo_logs)
+            out["undo_checked"] = check_undo_images(ring, images)
+            rec.pool.close()
+        del images
+        state = run("resumed", state, mesh, n=DIST_TRAIN_RESUMED, start=start)
+    out["ckpt_peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    out["err"] = err
+    del state
+    mesh.barrier()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def dist_train_phase(torch, np, dev, tc):
+    """Phase 25: full dlrm-rm1 (f32 tables) trained under a mesh, two gloo
+    ranks on this one card (``dist_train_rank``), held against the
+    one-rank run. Returns (rank 0's launches by path, its timings, its
+    kernel errors, the metrics)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    R_mirror_gb = 20 * 1_000_000 * 32 * 4 / 1e9
+    # RAM: the writer's host mirror, the pool's image, the recovered mirror
+    host_room("[dist-train]", "phase 25", build, 5 * R_mirror_gb, 2.5 * R_mirror_gb)
+    work = tempfile.mkdtemp(prefix="dist-train-", dir=build)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        mesh.spawn(dist_train_rank, DIST_WORLD, backend="gloo",
+                   device=f"cuda:{dev.index or 0}", args=(work, tc.seed), timeout=600)
+        spawn_s = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DIST_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dist_train_report(ranks, spawn_s)
+
+
+def dist_train_report(ranks, spawn_s):
+    """Phase 25's results from its ranks: printed, held to the gates."""
+    from repro_torch.configs import get_arch
+    R = get_arch("dlrm-rm1").model.dlrm_rows_per_table
+    tag, r0 = "[dist-train]", ranks[0]
+    one = r0["runs"]["one"]["losses"]
+    out = {"spawn_s": spawn_s, "one_losses": one, "block": r0.get("block"),
+           "mirror_load_s": r0["mirror_load_s"], "recover_s": [r["recover_s"] for r in ranks],
+           "gather_s": r0["gather_s"], "peak_gb": {}}
+    print(f"{tag} two gloo ranks on {[r['device'] for r in ranks]}; spawn to the last "
+          f"rank's end {spawn_s:.1f}s; one-rank losses {one}")
+    for name in ("1x2", "2x1"):
+        loss_gap = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r["runs"][name]["losses"], one, strict=True))
+        table_share = max(r["runs"][name]["table_share"] for r in ranks)
+        out[name] = {"losses": r0["runs"][name]["losses"], "loss_rel_gap": loss_gap,
+                     "table_share": table_share,
+                     "rows_held": [r["runs"][name]["rows_held"] for r in ranks],
+                     "step_ms": [[1e3 * s for s in r["runs"][name]["step_s"]] for r in ranks],
+                     "moved_per_step": r0["runs"][name]["moved"],
+                     "peak_gb": [r["runs"][name]["peak_gb"] for r in ranks]}
+        print(f"{tag} (data, model) = ({name[0]}, {name[2]}): rows held a table "
+              f"{out[name]['rows_held']}; losses {out[name]['losses']}; max relative gap "
+              f"to the one-rank run {loss_gap:.4g} (gate {DIST_TRAIN_LOSS_RTOL}); tables' max "
+              f"abs diff {table_share:.4g} of the largest value (gate {DIST_TRAIN_TABLE_TOL}); "
+              f"peak GB a rank {out[name]['peak_gb']}")
+        print(f"{tag} {name} step ms a rank {out[name]['step_ms']} (the first with the "
+              f"warm-up); one rank {[1e3 * s for s in r0['runs']['one']['step_s']]}")
+        print(f"{tag} {name} rank 0's collectives a step: "
+              + json.dumps(out[name]["moved_per_step"]))
+    out["one_step_ms"] = [1e3 * s for s in r0["runs"]["one"]["step_s"]]
+    out["one_peak_gb"] = [r["one_peak_gb"] for r in ranks]
+    out["ckpt_peak_gb"] = [r["ckpt_peak_gb"] for r in ranks]
+    crash, res = r0["runs"]["crash"], r0["runs"]["resumed"]
+    full = r0["runs"]["1x2"]["losses"]
+    want = full[DIST_TRAIN_CRASH:DIST_TRAIN_CRASH + DIST_TRAIN_RESUMED]
+    res_gap = max(abs(a - b) / abs(b) for r in ranks
+                  for a, b in zip(r["runs"]["resumed"]["losses"], want, strict=True))
+    out.update(crash_losses=crash["losses"] if "losses" in crash else None,
+               crash_step_ms=[1e3 * s for s in crash["step_s"]],
+               crash_moved_per_step=crash["moved"], resumed_losses=res["losses"],
+               resumed_rel_gap=res_gap, rec=r0["rec"], undo_checked=r0["undo_checked"])
+    print(f"{tag} crash drill at (1, 2), one writer: mirror load {r0['mirror_load_s']:.2f}s "
+          f"(rank 1 {ranks[1]['mirror_load_s']:.2f}s); step ms with the checkpoint "
+          f"{out['crash_step_ms']}; the writer's gather and merge {r0['gather_s']:.3f}s in "
+          f"all; crashed {r0['crashed']}; recovered (mirror step, dense step, rolled back) "
+          f"{r0['rec']} in {out['recover_s']} s a rank; blocks bitwise the tables after "
+          f"step {DIST_TRAIN_CRASH - 1}: {[r['recovered_bitwise'] for r in ranks]}; undo "
+          f"entries equal to the ranks' images {r0['undo_checked']}; resumed at "
+          f"{[r['resume_at'] for r in ranks]}: losses {res['losses']} vs {want} "
+          f"(gap {res_gap:.4g}, gate {DIST_TRAIN_LOSS_RTOL}); peak GB a rank "
+          f"{out['ckpt_peak_gb']}")
+    print(f"{tag} rank 0's collectives a checkpointed step: "
+          + json.dumps(crash["moved"]))
+    for name in ("1x2", "2x1"):
+        check(out[name]["loss_rel_gap"] <= DIST_TRAIN_LOSS_RTOL,
+              f"{tag} {name}: losses differ from the one-rank run's")
+        check(out[name]["table_share"] <= DIST_TRAIN_TABLE_TOL,
+              f"{tag} {name}: tables differ from the one-rank run's")
+    check(out["1x2"]["rows_held"] == [R // 2] * 2 and out["2x1"]["rows_held"] == [R] * 2,
+          f"{tag} the ranks hold other rows than their blocks")
+    check(r0["crashed"] and not ranks[1]["crashed"], f"{tag} the writer did not crash "
+          "alone at the scheduled step")
+    check(r0["rec"] == [DIST_TRAIN_CRASH - 1, DIST_TRAIN_CRASH - 1, True],
+          f"{tag} recovered {r0['rec']}")
+    check(all(r["recovered_bitwise"] for r in ranks), f"{tag} a recovered block differs "
+          "from the tables the rank held at the last committed step")
+    check(r0["undo_checked"] == DIST_TRAIN_CRASH + 1, f"{tag} {r0['undo_checked']} undo "
+          "entries checked")
+    check(all(r["resume_at"] == DIST_TRAIN_CRASH for r in ranks), f"{tag} resume step")
+    check(res_gap <= DIST_TRAIN_LOSS_RTOL, f"{tag} resumed losses differ from the "
+          "uninterrupted run's")
+    from repro_torch.kernels import embedding_bag as eb
+    n = DIST_TRAIN_STEPS
+    want_l = {"embedding_bag": (1 + 3 * n) * eb.PASSES, "scatter_update": 2 * n,
+              "scatter_update_wide": 2 * n, "scatter_update_logged": n,
+              "scatter_update_logged_wide": n}
+    for name in ("1x2", "2x1"):
+        got_l = [r["runs"][name]["launches"] for r in ranks]
+        check(all(g == want_l for g in got_l),
+              f"{tag} {name} launches a rank {got_l}, want {want_l}")
+    ck = r0["ckpt_launches"]
+    check(ck == {"gather_rows": DIST_TRAIN_CRASH + 1, "gather_rows_wide": DIST_TRAIN_CRASH + 1},
+          f"{tag} checkpoint gathers {ck}")
+    print(f"{tag} rank 0's launches, (1, 2) run: {r0['runs']['1x2']['launches']}; (2, 1) "
+          f"run: {r0['runs']['2x1']['launches']}; checkpointed run: {ck}")
+    launches = {"bag": r0["runs"]["1x2"]["launches"]["embedding_bag"],
+                "update": r0["runs"]["1x2"]["launches"]["scatter_update"],
+                "logged": r0["runs"]["1x2"]["launches"]["scatter_update_logged"],
+                "gather": ck["gather_rows"]}
+    return launches, r0["timing"], r0["err"], out
+
+
 def train_loop_train(cfg, tc, batches, steps, state, mgr, on_metrics, start=0):
     """``train_loop.train`` of relaxed steps on the card."""
     from repro_torch.training import train_loop
@@ -4769,9 +5196,10 @@ def main():
     scratch = torch.zeros((T * R, d), dtype=torch.float32, device=dev)
     sorted_items = torch.sort(flat, stable=True)[1]
     comb_src = seg[sorted_items].contiguous()
-    comb_seg = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                                       flat[sorted_items][1:] != flat[sorted_items][:-1]]),
-                            0, dtype=torch.int32) - 1
+    comb_first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                            flat[sorted_items][1:] != flat[sorted_items][:-1]])
+    comb_seg = torch.cumsum(comb_first, 0, dtype=torch.int32) - 1
+    comb_starts = torch.nonzero(comb_first).flatten().to(torch.int32)
     check_bag(tables, flat, seg, nb, "rm1 forward bag (bf16 table)")
     check_bag(g_rows, comb_src, comb_seg, N, "rm1 duplicate combine")
     check_update(tables.clone(), uniq, upd, "rm1 bf16 table")
@@ -4808,9 +5236,11 @@ def main():
                     lambda: torch.nn.functional.embedding_bag(
                         flat, tables, offsets, mode="sum"),
                     bound(bag_bytes(nb, n_rows, d * rows_b), N * d)),
+        # (the library's bags are the distinct rows' runs, in bf16)
         "bag_combine": (lambda: ops.embedding_bag(g_rows, comb_src, comb_seg, N),
                         lambda: ref.embedding_bag_ref(g_rows, comb_src, comb_seg, N),
-                        None,
+                        lambda: torch.nn.functional.embedding_bag(
+                            comb_src, g_rows, comb_starts, mode="sum"),
                         bound(bag_bytes(N, nb, d * rows_b), N * d)),
         "bag_corr_f32": (lambda: ops.embedding_bag(scratch, flat, seg, nb),
                          lambda: ref.embedding_bag_ref(scratch, flat, seg, nb),
@@ -5092,6 +5522,15 @@ def main():
         err[name] = max(err[name], e)
     print(f"[dist] phase 24 wall time {time.perf_counter() - t0:.1f}s")
 
+    # -- 25. full rm1 trained under a mesh: two gloo ranks on this card -------------
+    t0 = time.perf_counter()
+    dt_launches, dt_timing, dt_err, dt_out = dist_train_phase(torch, np, dev, tc)
+    timing.update(dt_timing)
+    for name, e in dt_err.items():
+        err[name] = max(err[name], e)
+    dt_out["wall_s"] = time.perf_counter() - t0
+    print(f"[dist-train] phase 25 wall time {dt_out['wall_s']:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
     # for the gather, flash attention and wkv6, phases 12's and 16's relaxed
@@ -5299,7 +5738,16 @@ def main():
             ("flash_attention_tc", "jamba-v0.1-52b prefill (2 ranks)", "flash_jamba_ranks",
              dist_launches["flash_prefill"], *flash_tc_src),
             ("embedding_bag", "dlrm-rm1 forward (2 ranks, near-data shard)", "bag_rm1_shard",
-             dist_launches["bag"], *bag_src)):
+             dist_launches["bag"], *bag_src),
+            # phase 25: rank 0 of two, the sparse tier on its block of rm1's rows
+            ("embedding_bag", "dlrm-rm1 train (2 ranks, a rank's block, f32)",
+             "bag_combine_rm1_block", dt_launches["bag"], *bag_src),
+            ("scatter_update", "dlrm-rm1 train (2 ranks, a rank's block, f32)",
+             "scratch_update_rm1_block", dt_launches["update"], *update_src),
+            ("scatter_update_logged", "dlrm-rm1 train (2 ranks, a rank's block, f32)",
+             "update_logged_rm1_block", dt_launches["logged"], *logged_src),
+            ("gather_rows", "dlrm-rm1 checkpoint (2 ranks, one writer, f32)",
+             "gather_rm1_block", dt_launches["gather"], *gather_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -5314,6 +5762,7 @@ def main():
     print(f"[decoders] phase 22: {json.dumps(dec_out)}")
     print(f"[encdec] phase 23: {json.dumps(enc_out)}")
     print(f"[dist] phase 24: {json.dumps(dist_out)}")
+    print(f"[dist-train] phase 25: {json.dumps(dt_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -411,13 +411,19 @@ class CheckpointManager:
         to a host f32 array, made before the first step updates them. The
         manifest names the leaf (``relaxed.embed_leaf``: "emb_tables" for
         DLRM, "table" for an LM), as the JAX package's does."""
-        name = relaxed.embed_leaf(self.cfg)
-        tab = embed[name]
+        tab = embed[relaxed.embed_leaf(self.cfg)]
         src = tab.detach().reshape(-1, tab.shape[-1])
         flat = np.empty(tuple(src.shape), dtype=np.float32)
         for s in range(0, src.shape[0], _LOAD_ROWS):  # bounds the f32 temp
             flat[s:s + _LOAD_ROWS] = src[s:s + _LOAD_ROWS].float().cpu().numpy()
-        self.table_shape = tuple(tab.shape)
+        self.load_mirror(flat, tuple(tab.shape), step)
+
+    def load_mirror(self, flat: np.ndarray, table_shape: tuple, step: int = -1):
+        """``init_mirror`` from the tables' rows already on the host: ``flat``
+        the (rows, d) f32 image of a leaf of ``table_shape`` (a writer that
+        gathered it from the ranks' blocks hands it in whole)."""
+        name = relaxed.embed_leaf(self.cfg)
+        self.table_shape = tuple(table_shape)
         if self._alloc is None:
             self._open_pool(2 * flat.nbytes + (1 << 20))
         dom = self._alloc.domain("embedding-mirror")
@@ -452,17 +458,22 @@ class CheckpointManager:
                 raise err
             raise RuntimeError("checkpoint writer failed") from err
 
-    def on_step(self, step: int, state: dict, feed: Optional[dict]):
+    def on_step(self, step: int, state: dict, feed: Optional[dict],
+                new_rows=None):
         """Called by the train loop after step N, before step N+1 updates
         the tables. Copies what the writer needs to the host and enqueues
-        it (blocks only when the writer is 8 items behind)."""
+        it (blocks only when the writer is 8 items behind). ``new_rows``:
+        the touched rows as updated, in the feed's id order (a writer that
+        gathered them from the ranks' blocks); by default they are gathered
+        here from ``state``'s tables."""
         self._raise_writer_err()
         if feed is None:   # strict step: no feed, nothing logged
             return
         ids, idx = touched_rows(feed)
-        tab = state["embed"][relaxed.embed_leaf(self.cfg)]
-        flat_tab = tab.view(-1, tab.shape[-1])
-        new_rows = ops.gather_rows(flat_tab, ids).float().cpu().numpy()
+        if new_rows is None:
+            tab = state["embed"][relaxed.embed_leaf(self.cfg)]
+            new_rows = ops.gather_rows(tab.view(-1, tab.shape[-1]), ids)
+        new_rows = new_rows.float().cpu().numpy()
         self._q.put(("tier_e", step, idx, new_rows))
         if (self.ccfg.dense_interval > 0
                 and step % self.ccfg.dense_interval == 0):

@@ -213,15 +213,18 @@ def recover(root: str, pool: Optional[PoolDevice] = None) -> RecoveredState:
         pool=dev)
 
 
-def resume_train_state(rec: RecoveredState, init_state: dict) -> tuple[dict, int]:
+def resume_train_state(rec: RecoveredState, init_state: dict,
+                       rows: Optional[slice] = None) -> tuple[dict, int]:
     """Overlay recovered arrays onto a freshly initialised train state.
 
     Every recovered leaf becomes a new tensor on the device of the leaf it
     replaces, in that leaf's dtype (the f32 mirror of a bf16 table holds
     bf16 values, so the cast is exact). ``init_state`` is not modified,
     but where no dense snapshot was recovered the state keeps its dense
-    leaves and moments, which training then updates in place.
-    Returns (state, resume_step).
+    leaves and moments, which training then updates in place. ``rows``:
+    the rows of each table (``rec.table_shape`` (T, R, d)) that the state
+    holds, a rank's block under a mesh; only they are taken from the
+    mirror. Returns (state, resume_step).
     """
     def like(tgt: torch.Tensor, src) -> torch.Tensor:
         return torch.as_tensor(src).to(device=tgt.device, dtype=tgt.dtype,
@@ -229,7 +232,10 @@ def resume_train_state(rec: RecoveredState, init_state: dict) -> tuple[dict, int
 
     state = dict(init_state)
     tgt = init_state["embed"][rec.table_name]
-    state["embed"] = {rec.table_name: like(tgt, rec.embed_rows)}
+    src = rec.embed_rows
+    if rows is not None:
+        src = np.asarray(src).reshape(rec.table_shape)[:, rows]
+    state["embed"] = {rec.table_name: like(tgt, src)}
     if rec.dense is not None:
         for key in ("dense", "opt_dense", "opt_embed"):
             state[key] = tree_map(like, init_state[key], rec.dense[key])

@@ -26,10 +26,29 @@ qwen2-vl, jamba, RWKV-6 (its wkv6 through its backward kernel,
 table, so its table gradient, and its update U, cover every row: the
 trainer then updates every row, and the correction reads U's rows straight
 from the dense update (``prefetch_corrected`` with no scratch).
+
+Under a sharding context (DLRM only; an LM raises, ROADMAP queue 1 item
+10(c)) each rank holds its block of every table's rows over the
+``table_rows`` axes, or the whole tables where nothing shards them, and
+its slice of the batch over the ``batch`` axes (``sharding.shard_batch``).
+The lookups then run near the data on the rank's block (``rows=`` the
+global row count), and the scratch is the block's size. The adjoint is
+the one-rank adjoint restricted to the block: the bag rows' gradients and
+the batch's ids are gathered over the data-parallel axes in rank order,
+which is batch order, scaled by 1/dp (each rank's loss is the mean over
+its own slice), and each rank combines the items of the global batch that
+fall in its block (``embedding_ops.local_bag_items``), in item order, so
+its ``(uniq, grad)`` are bitwise the one-rank combine's at its rows for
+the same gradients. ``uniq`` are block-local flat ids into the held (T *
+R_held, d) tables, as on one rank; the mesh checkpoint's writer maps them
+into the (T * R, d) stacked tables, the checkpoint's layout.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import embedding_ops
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 
 TRAINED = ("dlrm", "transformer", "qwen2vl", "rwkv6", "jamba", "whisper")
@@ -39,6 +58,34 @@ def check_trainable(cfg) -> None:
     if cfg.arch_type not in TRAINED:
         raise NotImplementedError(
             f"the port trains {TRAINED} so far, not {cfg.arch_type!r}")
+    if cfg.arch_type != "dlrm" and sharding.current() is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: under a sharding context the port trains DLRM only; "
+            "the LM trainers under a mesh are ROADMAP queue 1 item 10(c)")
+
+
+def _rows(cfg) -> int:
+    """The global row count of the embedding leaf: a DLRM table's rows, or
+    an LM's vocabulary."""
+    return cfg.dlrm_rows_per_table if cfg.arch_type == "dlrm" else cfg.vocab_size
+
+
+def block(cfg, table) -> tuple:
+    """Which rows of each DLRM table ``table`` (T, R_held, d) holds:
+    ``(R, base, psum)``, the global rows a table, the global row of the
+    block's first, and the sum over the ranks that hold the other blocks
+    (None where this rank holds the tables whole: no context, or no
+    ``table_rows`` axis, or one that does not divide R)."""
+    R = cfg.dlrm_rows_per_table
+    ctx = sharding.current()
+    if ctx is None:
+        return table.shape[1], 0, None
+    mesh, tp_ax = ctx.mesh, ctx.axes("table_rows")
+    tp = embedding_ops._axis_size(mesh, tp_ax)
+    if not embedding_ops._held(table.shape[1], R, tp, "the trainer's tables"):
+        return R, 0, None
+    return R, mesh.axis_index(tp_ax) * table.shape[1], \
+        (lambda x: mesh.all_reduce(x, tp_ax))
 
 
 def embed_leaf(cfg) -> str:
@@ -53,8 +100,9 @@ def lookup_rows(embed_params: dict, cfg, batch: dict):
     check_trainable(cfg)
     if cfg.arch_type == "dlrm":
         return embedding_ops.bag_lookup(embed_params["emb_tables"],
-                                        batch["sparse"])
-    return embedding_ops.lookup(embed_params["table"], batch["tokens"])
+                                        batch["sparse"], rows=_rows(cfg))
+    return embedding_ops.lookup(embed_params["table"], batch["tokens"],
+                                rows=_rows(cfg))
 
 
 def sparse_rows_grad(embed_params: dict, cfg, batch: dict, rows_grad):
@@ -65,15 +113,43 @@ def sparse_rows_grad(embed_params: dict, cfg, batch: dict, rows_grad):
     (T*R, d) stacked tables) with -1 pads, and their (N, d) f32 gradients,
     duplicates summed in item order. The JAX package's
     ``scatter_rows_grad`` is the same gradient, dense.
+
+    Under a sharding context (DLRM): the gradient at the rows of the
+    rank's block, from the global batch (the module's docstring), as
+    block-local flat ids, padded to the global batch's item count B * T *
+    L, the one-rank adjoint's length, so that every rank's feed has one
+    length.
     """
     check_trainable(cfg)
     table = embed_params[embed_leaf(cfg)]
+    if cfg.arch_type == "dlrm" and sharding.current() is not None:
+        return _sparse_rows_grad_mesh(table, cfg, batch["sparse"], rows_grad)
     g = rows_grad.reshape(-1, table.shape[-1]).contiguous()
     if cfg.arch_type == "dlrm":
         flat, seg = embedding_ops.bag_items(batch["sparse"], table.shape[1])
         return ops.combine_duplicates(flat, g, item_rows=seg)
     flat = batch["tokens"].reshape(-1).to(g.device).int()
     return ops.combine_duplicates(flat, g)
+
+
+def _sparse_rows_grad_mesh(table, cfg, ids, rows_grad):
+    ctx = sharding.current()
+    mesh, dp_ax = ctx.mesh, ctx.axes("batch")
+    dp = mesh.axis_size(dp_ax)
+    g = rows_grad
+    if dp > 1:
+        ids = mesh.all_gather(ids, dp_ax, 0)
+        g = mesh.all_gather(rows_grad, dp_ax, 0) * (1.0 / dp)
+    T, R_held, d = table.shape
+    _, base, _ = block(cfg, table)
+    flat, seg = embedding_ops.local_bag_items(ids, base, R_held, R_held, 0)
+    uniq, comb = ops.combine_duplicates(flat, g.reshape(-1, d).contiguous(),
+                                        item_rows=seg)
+    pad = ids.numel() - uniq.shape[0]
+    if pad:
+        uniq = torch.cat([uniq, uniq.new_full((pad,), -1)])
+        comb = torch.cat([comb, comb.new_zeros((pad, d))])
+    return uniq, comb
 
 
 def apply_embed_update(embed_params: dict, cfg, uniq, upd) -> None:
@@ -97,8 +173,10 @@ def prefetch_corrected(stale, scratch, uniq, upd, cfg, next_batch: dict):
 
     ``stale`` is ``lookup_rows`` of batch N+1 on the PRE-update table, and
     corr the same lookup in U. ``scratch`` is an all-zero f32 tensor of the
-    table's shape; U's rows are written into it, the correction is read
-    from it (an LM row that U does not touch reads an exact +0), and the
+    table's shape (under a context, of the rank's block: ``uniq`` is
+    block-local and the correction bag runs near the data); U's rows are
+    written into it, the correction is read from it (an LM row that U does
+    not touch reads an exact +0), and the
     same rows are cleared again (u + (-u) is exactly +0), so it is all zero
     again on return. With ``scratch`` None, U covers every row of the
     table in order (``upd`` is (V, d), a tied head's update) and the

@@ -1,3 +1,5 @@
 """Distribution of the PyTorch port over ``torch.distributed``: the
-logical-axis rules and parameter specs (``sharding``) and context-parallel
-decode (``context_parallel``); the mesh is ``repro_torch.launch.mesh``."""
+logical-axis rules, parameter specs and batch split (``sharding``),
+context-parallel decode (``context_parallel``), the mesh-trained DLRM's
+checkpoint through one writer (``checkpoint``) and gradient compression
+(``compression``); the mesh is ``repro_torch.launch.mesh``."""

@@ -24,6 +24,11 @@ the token table's rows over ``vocab``, DLRM's table rows over
 on every rank, although ``param_specs`` names ``model`` for heads and
 ffn (the dense tensor parallelism XLA derives from those specs is not
 ported).
+
+A batch is split by ``shard_batch``: each rank keeps its slice of the
+leading batch dimension over the ``batch`` rule's axes (the data-parallel
+axes), as the reference's ``batch_shardings`` lays a batch out
+(``positions3`` on its dimension 1).
 """
 from __future__ import annotations
 
@@ -255,3 +260,26 @@ def keep_shard(mesh, rules: dict[str, Any] | None = None):
     def keep(path, leaf):
         return local_shard(leaf, held_spec(path, leaf.shape, mesh, rules), mesh)
     return keep
+
+
+def shard_batch(batch: dict, mesh, rules: dict[str, Any] | None = None) -> dict:
+    """This rank's part of a global batch: the slice of each entry's leading
+    dimension (``positions3``: dimension 1) that the reference's
+    ``batch_shardings`` puts on this rank's device, block i of n over the
+    data-parallel axes (i the rank's linear index over them). Every rank
+    draws the global batch from one seed, so the parts are disjoint and
+    tile it. Raises where a batch dimension does not split over the axes."""
+    ax = _in_mesh({**DEFAULT_RULES, **(rules or {})}.get("batch"), set(mesh.axis_names))
+    n = mesh.axis_size(ax)
+    if n == 1:
+        return batch
+    i = mesh.axis_index(ax)
+    out = {}
+    for key, v in batch.items():
+        dim = 1 if key == "positions3" else 0
+        if v.shape[dim] % n:
+            raise ValueError(f"shard_batch: {key} {tuple(v.shape)} does not split "
+                             f"over {n} ranks ({ax}) on dimension {dim}")
+        step = v.shape[dim] // n
+        out[key] = v.narrow(dim, i * step, step).contiguous()
+    return out

@@ -12,8 +12,9 @@ The helpers are the one place that knows a backend's limits. Gloo (the
 CPU, or ranks sharing one card) takes CUDA tensors only for
 ``all_reduce`` and ``broadcast``, and sums no 16-bit float on the card.
 So an all-gather is the sum of a zeroed full buffer that holds the rank's
-own part, and a reduce-scatter is a sum followed by the rank's slice,
-both exact (each element is one operand plus zeros), on every backend:
+own part, as integer words (bitwise), and a reduce-scatter is a sum
+followed by the rank's slice, both exact (each element is one operand
+plus zeros), on every backend:
 NCCL (a card per rank) would take its own collectives, with fewer bytes,
 but no machine here has the cards to run it. This is transport: the
 tensors stay on their device.
@@ -21,7 +22,9 @@ tensors stay on their device.
 ``spawn`` starts N ranks with ``torch.multiprocessing`` (the spawn method:
 a parent that has touched CUDA cannot fork) and runs a module-level
 function in each, with the backend and each rank's device given by the
-caller; it never moves a rank to the CPU on its own.
+caller; it never moves a rank to the CPU on its own. Its ``timeout`` bounds
+every collective of every group the ranks open, so that the others fail
+in seconds, not in gloo's 30 minutes, when one rank dies.
 
 ``make_production_mesh`` (the TPU pod's 16 x 16) is not ported: it goes
 with the dry run.
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import datetime
 import math
 import os
 import socket
@@ -39,6 +43,10 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+
+# the bound on every collective of the groups this process opens; set by
+# ``spawn`` for its ranks (None: the backend's default)
+_timeout: datetime.timedelta | None = None
 
 
 @dataclasses.dataclass
@@ -123,7 +131,9 @@ class Mesh:
 
     def all_gather(self, x, axis, dim: int):
         """The ranks' ``x`` along ``axis`` concatenated on ``dim`` in their
-        order (tiled), on every rank."""
+        order (tiled), on every rank, bitwise in any dtype: the parts travel
+        as their bit patterns (an integer view of the buffer, each byte one
+        rank's or zero, so the sum carries nothing)."""
         n = self.axis_size(axis)
         if n == 1:
             return x
@@ -133,7 +143,27 @@ class Mesh:
         full = x.new_zeros(shape)
         i, step = self.axis_index(axis), x.shape[dim]
         full.narrow(dim, i * step, step).copy_(x)
-        return self._reduce(full, axis, dist.ReduceOp.SUM, "all_gather", fresh=True)
+        got = self._reduce(_words(full), axis, dist.ReduceOp.SUM, "all_gather", fresh=True)
+        return got.view(torch.uint8).view(full.dtype).view(full.shape)
+
+    def broadcast(self, x, axis, src: int):
+        """The ``x`` of the rank at index ``src`` along ``axis``, on every rank
+        of the axis: the others hand in a buffer of its shape and dtype (its
+        content is not read) and get it back filled. Bitwise in any dtype
+        (the bytes travel as an integer view)."""
+        if self.axis_size(axis) == 1:
+            return x
+        t0 = time.perf_counter()
+        group = self._group(axis)
+        buf = x.contiguous()
+        words = _words(buf)
+        dist.broadcast(words, src=dist.get_global_rank(group, src), group=group)
+        self._count("broadcast", words, t0)
+        return words.view(torch.uint8).view(buf.dtype).view(buf.shape)
+
+    def barrier(self):
+        """Every rank of the mesh waits for the others."""
+        dist.barrier(group=self._group(self.axis_names))
 
     def reduce_scatter(self, x, axis, dim: int):
         """The sum of the ranks' ``x`` along ``axis``, this rank keeping its
@@ -153,6 +183,13 @@ class Mesh:
         """{collective: {"calls", "bytes", "s"}} so far on this rank."""
         return {k: {"calls": c, "bytes": b, "s": s}
                 for k, (c, b, s) in sorted(self.moved.items())}
+
+
+def _words(t):
+    """A contiguous tensor's bytes as int32 words where they divide into
+    them, else as uint8 (a view; the types every backend moves)."""
+    flat = t.reshape(-1).view(torch.uint8)
+    return flat.view(torch.int32) if flat.numel() % 4 == 0 else flat
 
 
 def make_local_mesh(model_parallel: int = 1, *, device=None) -> Mesh:
@@ -177,11 +214,11 @@ def make_local_mesh(model_parallel: int = 1, *, device=None) -> Mesh:
     groups = {}
     # every rank makes every group, in one order (dist.new_group is collective)
     for d in range(shape[0]):
-        g = dist.new_group(grid[d])
+        g = dist.new_group(grid[d], timeout=_timeout)
         if coords["data"] == d:
             groups["model"] = g
     for m in range(shape[1]):
-        g = dist.new_group([grid[d][m] for d in range(shape[0])])
+        g = dist.new_group([grid[d][m] for d in range(shape[0])], timeout=_timeout)
         if coords["model"] == m:
             groups["data"] = g
     groups[AXES] = dist.group.WORLD
@@ -203,22 +240,25 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, fn, world, backend, devices, port, args):
+def _rank_main(rank, fn, world, backend, devices, port, args, timeout):
+    global _timeout
     device = torch.device(devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)
     # the ranks meet on the loopback: a sealed machine may have no other
     # interface that its own hostname resolves to
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    _timeout = None if timeout is None else datetime.timedelta(seconds=timeout)
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank, timeout=_timeout)
     try:
         fn(rank, world, device, *args)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(fn, world: int, *, backend: str, device, args=()) -> None:
+def spawn(fn, world: int, *, backend: str, device, args=(),
+          timeout: float | None = None) -> None:
     """Runs ``fn(rank, world, device, *args)`` in ``world`` new processes,
     each a rank of one default process group (``backend``, on a free
     loopback port), and waits for all of them; a rank that raises makes
@@ -227,7 +267,10 @@ def spawn(fn, world: int, *, backend: str, device, args=()) -> None:
     ``fn`` must be a module-level function (it is pickled by name).
     ``device``: each rank's device, one for all (``"cpu"``, ``"cuda:0"``)
     or a list, one per rank. NCCL needs a card per rank; ranks that share
-    one card, or run on the CPU, use gloo.
+    one card, or run on the CPU, use gloo. ``timeout``: seconds that any
+    collective (and the meeting at the start) may wait before it raises,
+    in every group the ranks open (default: the backend's, 30 minutes for
+    gloo), so that a rank left waiting on one that died fails soon.
     """
     devices = [device] * world if isinstance(device, (str, torch.device)) \
         else list(device)
@@ -238,5 +281,5 @@ def spawn(fn, world: int, *, backend: str, device, args=()) -> None:
         raise ValueError("nccl needs a card of its own for each rank; ranks "
                          "that share a card (or the CPU) use gloo")
     import torch.multiprocessing as mp
-    mp.spawn(_rank_main, args=(fn, world, backend, devices, free_port(), args),
+    mp.spawn(_rank_main, args=(fn, world, backend, devices, free_port(), args, timeout),
              nprocs=world, join=True)

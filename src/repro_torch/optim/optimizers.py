@@ -13,12 +13,16 @@ uses it), so that no second copy of the moments, no f32 update tree and no
 second param tree is ever held.
 
 The sparse tier's rules also have ``update_rows(uniq, g, state,
-table_shape) -> (updates, state)``, the touched-rows form the trainer
-runs: ``uniq`` are the flat row ids a step touched (ascending, then -1
-pads), ``g`` their (N, d) f32 gradients, and the f32 updates of those rows
-equal the dense ``update``'s there (a row with no gradient gets a zero
-update and keeps its state). SGD with momentum has none: its momentum
-moves rows that the batch did not touch.
+table_shape, rows=None, psum=None) -> (updates, state)``, the touched-rows
+form the trainer runs: ``uniq`` are the flat row ids a step touched
+(ascending, then -1 pads), ``g`` their (N, d) f32 gradients, and the f32
+updates of those rows equal the dense ``update``'s there (a row with no
+gradient gets a zero update and keeps its state). Under a mesh a rank
+holds a block of each table's rows: ``table_shape`` is the block's,
+``rows`` the global rows a table and ``psum`` the sum over the ranks that
+hold the other blocks, for a rule whose state spans a whole table. SGD
+with momentum has none: its momentum moves rows that the batch did not
+touch.
 """
 from __future__ import annotations
 
@@ -40,9 +44,9 @@ class Optimizer(NamedTuple):
     update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (updates, state)
     # (grads, state, params) -> state, params and moments updated in place
     update_inplace: Optional[Callable[[Any, Any, Any], Any]] = None
-    # (uniq, g, state, table_shape) -> (row updates, state): the sparse
-    # tier's touched-rows form, its state updated in place
-    update_rows: Optional[Callable[[Any, Any, Any, tuple], tuple]] = None
+    # (uniq, g, state, table_shape, rows=None, psum=None) -> (row updates,
+    # state): the sparse tier's touched-rows form, its state updated in place
+    update_rows: Optional[Callable[..., tuple]] = None
 
 
 def leaf_slices(*leaves):
@@ -74,7 +78,7 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
         new_m = tree_map(lambda m, g: momentum * m + g.float(), state, grads)
         return tree_map(lambda m: -lr * m, new_m), new_m
 
-    def update_rows(uniq, g, state, table_shape):
+    def update_rows(uniq, g, state, table_shape, rows=None, psum=None):
         return -lr * g, state
 
     return Optimizer(init, update,
@@ -160,7 +164,7 @@ def rowwise_adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
                        grads, new_a)
         return ups, new_a
 
-    def update_rows(uniq, g, state, table_shape):
+    def update_rows(uniq, g, state, table_shape, rows=None, psum=None):
         """The update at the touched rows; the accumulator is updated in
         place.
 
@@ -173,7 +177,11 @@ def rowwise_adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
         with no kernel. Its dense ``update`` takes the same mean over the
         whole table gradient, zeros included, so the two differ only in
         the f32 order of the sum. Pads (-1) carry a zero gradient and are
-        not written."""
+        not written. On a block of R_held of each table's ``rows`` rows
+        (``table_shape`` (T, R_held, d), ``uniq`` block-local), the
+        per-table sums are summed over the blocks by ``psum`` before the
+        division by ``rows * d``, so that every rank adds the global
+        table's mean."""
         from repro_torch.kernels import ops
         (acc,) = tree_leaves(state)
         g32 = g.float()
@@ -187,8 +195,11 @@ def rowwise_adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
                             T - 1).long()
         ssq = torch.sum(torch.square(g32), dim=1)
         mine = table == torch.arange(T, device=uniq.device)[:, None]    # (T, N)
+        sums = torch.where(mine, ssq, 0.0).sum(dim=1)
+        if psum is not None:
+            sums = psum(sums)
         per_table = acc.view(T)
-        per_table.add_(torch.where(mine, ssq, 0.0).sum(dim=1) / (R * d))
+        per_table.add_(sums / ((rows or R) * d))
         a = per_table[table].unsqueeze(1)
         return -lr * g32 / (torch.sqrt(a) + eps), state
 

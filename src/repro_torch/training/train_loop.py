@@ -36,6 +36,23 @@ optimizer has one, else its f32 updates added leaf by leaf), so a step
 returns a state that shares them with the state it was given; a caller
 that needs an earlier state clones it. At full width no second copy of
 the dense tier or its moments is ever held.
+
+Under a sharding context (``distributed.sharding.use_sharding``; DLRM
+only, an LM raises) each rank is one process holding its part of the
+state: the tables' rows over the ``table_rows`` axes, the dense tier and
+its moments whole, its slice of every batch over the ``batch`` axes
+(``train`` splits each batch it draws with ``sharding.shard_batch``).
+A step then computes what the reference's step jitted with its state and
+batch shardings computes: the dense grads are summed over the
+data-parallel axes and divided by their size before the clip, so the
+norm is the global gradient's, and the loss reported is the mean over
+them; the sparse adjoint, its update and the relaxed correction run on
+each rank's block (``core.relaxed``); a rule whose state spans a whole
+table (row-wise Adagrad's DLRM accumulator) sums its per-table terms over
+the blocks. The relaxed feed carries the rank's block-local flat ids, as
+on one rank; the one writer (``distributed.checkpoint``) maps them into
+the (T * R, d) stacked tables, the one-rank checkpoint's layout. The
+collectives go through the mesh's helpers (``launch.mesh``).
 """
 from __future__ import annotations
 
@@ -47,6 +64,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import relaxed as rx
 from repro_torch.core.checkpoint.manager import CheckpointManager
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models.registry import get_api
 from repro_torch.optim import optimizers as opt
@@ -60,11 +78,33 @@ def _add_updates_(params, updates) -> None:
         p.copy_(p.float() + u)
 
 
+def sync_dense_(g_dense, loss):
+    """Under a sharding context, in place: each dense grad becomes the sum
+    over the data-parallel axes divided by their size (one all-reduce per
+    dtype), and the loss the mean over them. Returns the loss."""
+    ctx = sharding.current()
+    if ctx is None:
+        return loss
+    mesh, ax = ctx.mesh, ctx.axes("batch")
+    dp = mesh.axis_size(ax)
+    if dp == 1:
+        return loss
+    leaves = tree_leaves(g_dense)
+    for dt in dict.fromkeys(g.dtype for g in leaves):
+        same = [g for g in leaves if g.dtype == dt]
+        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in same]), ax) / dp
+        for g, part in zip(same, flat.split([g.numel() for g in same]), strict=True):
+            g.copy_(part.view(g.shape))
+    return mesh.all_reduce(loss, ax) / dp
+
+
 def make_step_fns(cfg, train_cfg):
     """Returns (init_fn, strict_step, relaxed_step, warmup_fn).
 
     ``init_fn(params)`` builds the train state from a param tree (the JAX
-    package's takes a PRNG key; torch cannot reproduce its draws).
+    package's takes a PRNG key; torch cannot reproduce its draws); under a
+    mesh, from the rank's tree (``sharding.shard_params``). The steps read
+    the sharding context when they run.
     """
     api = get_api(cfg)
     rx.check_trainable(cfg)
@@ -101,9 +141,11 @@ def make_step_fns(cfg, train_cfg):
         return (loss.detach(), tree_map(lambda _: next(it), dense),
                 grads[len(leaves)], g_head)
 
-    def update_dense(state, g_dense):
-        """In place: clips the fresh grads, then updates the dense params
-        and the optimizer's moments. Returns (dense, opt state, norm)."""
+    def update_dense(state, g_dense, loss):
+        """In place: sums the fresh grads over the data-parallel axes under
+        a mesh, clips them, then updates the dense params and the
+        optimizer's moments. Returns (dense, opt state, norm, loss)."""
+        loss = sync_dense_(g_dense, loss)
         if train_cfg.grad_clip:
             gnorm = opt.global_norm_clip_(g_dense, train_cfg.grad_clip)
         else:
@@ -113,7 +155,7 @@ def make_step_fns(cfg, train_cfg):
         else:
             upd_d, od = dense_opt.update(g_dense, state["opt_dense"], state["dense"])
             _add_updates_(state["dense"], upd_d)
-        return state["dense"], od, gnorm
+        return state["dense"], od, gnorm, loss
 
     def sparse_update(state, batch, g_rows, g_head):
         """The embedding optimizer at the touched rows: (uniq row ids, f32
@@ -127,8 +169,11 @@ def make_step_fns(cfg, train_cfg):
             ops.scatter_update(g_all, uniq, g_emb)
             uniq = torch.arange(table.shape[0], dtype=torch.int32, device=table.device)
             g_emb = g_all
+        kw = {}
+        if cfg.arch_type == "dlrm":
+            kw["rows"], _, kw["psum"] = rx.block(cfg, table)
         upd, oe = embed_opt.update_rows(uniq, g_emb, state["opt_embed"],
-                                        tuple(table.shape))
+                                        tuple(table.shape), **kw)
         return uniq, upd, oe
 
     # -- strict ------------------------------------------------------------
@@ -137,7 +182,7 @@ def make_step_fns(cfg, train_cfg):
         rows = rx.lookup_rows(state["embed"], cfg, batch)
         with torch.enable_grad():
             loss, g_dense, g_rows, g_head = loss_and_grads(state, rows, batch)
-        dense, od, gnorm = update_dense(state, g_dense)
+        dense, od, gnorm, loss = update_dense(state, g_dense, loss)
         uniq, upd, oe = sparse_update(state, batch, g_rows, g_head)
         rx.apply_embed_update(state["embed"], cfg, uniq, upd)
         new_state = {**state, "dense": dense, "opt_dense": od, "opt_embed": oe,
@@ -163,7 +208,7 @@ def make_step_fns(cfg, train_cfg):
             loss, g_dense, g_rows, g_head = loss_and_grads(state, carry["rows"], batch)
         # batch N+1's stale rows, read before the in-place update below
         stale = rx.lookup_rows(state["embed"], cfg, next_batch)
-        dense, od, gnorm = update_dense(state, g_dense)
+        dense, od, gnorm, loss = update_dense(state, g_dense, loss)
         uniq, upd, oe = sparse_update(state, batch, g_rows, g_head)
         old_rows = rx.apply_embed_update_logged(state["embed"], cfg, uniq, upd)
         rows_next = rx.prefetch_corrected(stale, carry["scratch"], uniq, upd,
@@ -172,9 +217,10 @@ def make_step_fns(cfg, train_cfg):
                      "step": state["step"] + 1,
                      "prefetch": {**carry, "rows": rows_next}}
         # for the batch-aware checkpoint: the flat ids of the rows this step
-        # updated (distinct, ascending, then -1 pads), their f32 deltas, and
-        # the undo image: the pre-update rows of exactly those ids, in the
-        # table's dtype (+0 at the pads), captured by the update itself
+        # updated (distinct, ascending, then -1 pads; under a mesh, ids into
+        # the rank's block), their f32 deltas, and the undo image: the
+        # pre-update rows of exactly those ids, in the table's dtype (+0 at
+        # the pads), captured by the update itself
         ckpt_feed = {"touched": uniq, "delta": upd, "old_rows": old_rows}
         return new_state, {"loss": loss, "grad_norm": gnorm,
                            "ckpt_feed": ckpt_feed}
@@ -184,10 +230,13 @@ def make_step_fns(cfg, train_cfg):
 
 def init_state(cfg, train_cfg, device="cuda"):
     """A fresh train state, the params drawn from ``train_cfg.seed`` on
-    ``device``."""
+    ``device``; under a sharding context each rank keeps its part of them
+    as they are drawn (``sharding.keep_shard``)."""
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(train_cfg.seed)
-    return make_step_fns(cfg, train_cfg)[0](get_api(cfg).init(gen, cfg))
+    ctx = sharding.current()
+    kw = {} if ctx is None else {"keep": sharding.keep_shard(ctx.mesh, ctx.rules)}
+    return make_step_fns(cfg, train_cfg)[0](get_api(cfg).init(gen, cfg, **kw))
 
 
 def train(cfg, train_cfg, batches, num_steps: int, *, relaxed: bool = True,
@@ -207,10 +256,23 @@ def train(cfg, train_cfg, batches, num_steps: int, *, relaxed: bool = True,
     returning. ``checkpoint_dir``/``pool_backend`` build a manager over the
     dram or pmem pool when the caller passed none; the loop closes a
     manager it built.
+
+    Under a sharding context every rank runs this loop on the same global
+    batches and keeps its slice of each (``sharding.shard_batch``); a
+    fresh state holds the rank's part of the params, and the manager the
+    loop builds is a ``distributed.checkpoint.MeshCheckpoint`` (one writer,
+    the one-rank layout).
     """
     # full-f32 matmuls on the card, as the JAX reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     _, strict_step, relaxed_step, warmup = make_step_fns(cfg, train_cfg)
+    ctx = sharding.current()
+    if ctx is None:
+        def draw(step):
+            return batches.next(step)
+    else:
+        def draw(step):
+            return sharding.shard_batch(batches.next(step), ctx.mesh, ctx.rules)
     if state is None:
         state = init_state(cfg, train_cfg, device)
     own_manager = False
@@ -218,15 +280,19 @@ def train(cfg, train_cfg, batches, num_steps: int, *, relaxed: bool = True,
         cc = dataclasses.replace(
             train_cfg.checkpoint, directory=checkpoint_dir,
             **({"pool_backend": pool_backend} if pool_backend else {}))
-        ckpt_manager = CheckpointManager(cfg, cc, embed_init=state["embed"])
+        if ctx is None:
+            ckpt_manager = CheckpointManager(cfg, cc, embed_init=state["embed"])
+        else:
+            from repro_torch.distributed.checkpoint import MeshCheckpoint
+            ckpt_manager = MeshCheckpoint(cfg, cc, embed_init=state["embed"])
         own_manager = True
     losses = []
     if relaxed and state.get("prefetch") is None:
-        state = warmup(state, batches.next(start_step))
+        state = warmup(state, draw(start_step))
     for n in range(start_step, start_step + num_steps):
-        batch = batches.next(n)
+        batch = draw(n)
         if relaxed:
-            state, metrics = relaxed_step(state, batch, batches.next(n + 1))
+            state, metrics = relaxed_step(state, batch, draw(n + 1))
         else:
             state, metrics = strict_step(state, batch)
         losses.append(float(metrics["loss"]))

@@ -67,6 +67,7 @@ LOOKUPS = {"near_data": ("near_data", (4, 5)), "table_gather": ("table_gather", 
 BAGS = [(m, c) for m in ("near_data", "table_gather") for c in ("sum", "mean")]
 CP_POS = (3, 7, 8, 12)     # 16 positions, 8 a shard: each shard and the boundary
 PROMPT, NEW, MAX_SEQ = 6, 4, 10   # the prefill spans both shards, decode in shard 1
+TIMEOUT = 120      # seconds a collective may wait before it raises (a lost rank)
 
 
 def _parallel(jobs):
@@ -282,7 +283,7 @@ def runs(tmp_path_factory):
                                 stderr=subprocess.STDOUT, text=True)
     try:
         pmesh.spawn(_torch_rank, WORLD, backend="gloo", device="cpu",
-                    args=(str(inp_path), str(d)))
+                    args=(str(inp_path), str(d)), timeout=TIMEOUT)
         log = jax_proc.communicate(timeout=300)[0]
     finally:
         if jax_proc.poll() is None:
