@@ -23,11 +23,11 @@ Phases, each of which exits non-zero on failure:
   6. checkpointed training at full rm1 on a pmem pool (in a temporary
      directory under build/, removed at the end; pool_compress none, as in
      phases 20 and 21: zlib is driven at full width by phase 18, and its
-     tier-M of the dense tree took 13-22 s a step here): run A checkpoints 4
+     tier-M of the dense tree took 13-22 s a step here): run A checkpoints 2
      relaxed steps and recovers a mirror equal to its tables; run B
-     crashes between the undo COMMIT and the mirror apply of step 2,
-     recovers the step-1 mirror bitwise, and resumes with losses equal to
-     those of run A's state after step 1 with its relaxed carry rebuilt
+     crashes between the undo COMMIT and the mirror apply of step 1,
+     recovers the step-0 mirror bitwise, and resumes with losses equal to
+     those of run A's state after step 0 with its relaxed carry rebuilt
      (and within 1e-2 of run A's own). The launch counts are read around
      run A, and each of its steps' undo image, captured on the card by the
      logged update, must equal the pool's bitwise;
@@ -133,7 +133,7 @@ Phases, each of which exits non-zero on failure:
      10, the sequence mixer's launches counted per part, none of the row
      gather's; prefill and decode ms of each route in turns (gather, pool,
      pool, gather), the tier's hit rate, p50 and p99, the link and
-     host-to-card bytes. Then full dlrm-rm1 trains 3 relaxed steps into a
+     host-to-card bytes. Then full dlrm-rm1 trains 2 relaxed steps into a
      pmem pool while the tier serves from the same mirror, kept coherent by
      the manager's commit hook: after each commit the rows served (the
      step's touched rows and 4096 others) equal the card's tables bitwise
@@ -147,19 +147,20 @@ Phases, each of which exits non-zero on failure:
      a unix socket; removed at the end), the paper's arrangement. Run A, in
      this process: the manager loads the 2.56 GB f32 mirror over the
      socket (seconds and frames printed: it exceeds one frame's 1 GiB cap),
-     4 relaxed steps are checkpointed, each step's undo image captured on
-     the card must equal the node's bitwise, each tier-E step's link bytes
-     must stay within idx + new rows + 4 KB while its media bytes exceed
-     them (its ms printed beside phase 6's pmem pool, which does not
-     compress), and the mirror
-     recovered over a fresh connection must equal the tables bitwise. The
-     drill, on a fresh node: the train CLI (python -m
-     repro_torch.launch.train --full --pool-backend remote ...) in a
-     subprocess is SIGKILLed once the node's manifest shows 3 committed
-     steps; the node must be alive, the mirror recovered from POOL.json
+     1 relaxed step is checkpointed (zlib, the default, with a tier-M of
+     the dense tree at step 0), its undo image captured on the card must
+     equal the node's bitwise, the tier-E's link bytes must stay within
+     idx + new rows + 4 KB while its media bytes exceed them (its ms
+     printed beside phase 6's pmem pool, which does not compress), and the
+     mirror and dense step recovered over a fresh connection must be step
+     0's, the mirror equal to the tables bitwise. The drill, on a fresh
+     node: the train CLI (python -m repro_torch.launch.train --full
+     --pool-backend remote ..., zlib, a tier-M at step 0) in a subprocess
+     is SIGKILLed once the node's manifest shows 2 committed steps; the
+     node must be alive, the mirror recovered from POOL.json
      over a fresh connection must equal a clean replay on the card
-     bitwise, and 2 resumed steps (a manager on the recovered connection)
-     must give the losses of the replay's twin (its tables and dense tree
+     bitwise, and a resumed step (a manager on the recovered connection)
+     must give the loss of the replay's twin (its tables and dense tree
      at the recovered steps, the relaxed carry rebuilt); the trainer's
      launch counts per kernel, read from its last log line, must be those
      of its relaxed steps;
@@ -189,24 +190,25 @@ Phases, each of which exits non-zero on failure:
      steps (each step's undo image on the card equal to node 0's bitwise;
      the mirror load, each tier-E step, each replica refresh's seconds and
      link bytes and each node's used bytes printed, no replication
-     failure), then node 0 is SIGKILLed and its image deleted; the
+     failure; step 0's refresh makes the replica, step 2's refreshes it in
+     place), then node 0 is SIGKILLed and its image deleted; the
      survivors reopen (the lost node as typed errors), the manifest is
      elected 2 of 3, the replica is promoted in one epoch, the recovered
      mirror equals the card's tables at the replication watermark bitwise
-     (the step after it rolled back from the replica's undo ring), and 2
-     resumed steps give the uninterrupted twin's losses; every client's
+     (the step after it rolled back from the replica's undo ring), and a
+     resumed step gives the uninterrupted twin's loss; every client's
      reply stalls printed;
  21. full dlrm-rm1 with f32 tables trained under the crash-consistency
      checker (REPRO_POOL_CHECK=1) into a pmem pool under build/ (removed),
-     relaxed, dense_interval=1, pool_compress none: run U checkpoints 4
+     relaxed, dense_interval=1, pool_compress none: run U checkpoints 2
      steps (launch counts, 16-byte routes, the mirror equal to the
      tables), then an undo-commit persisted over a dirty payload in its
      ring must raise CommitBeforePayloadError; its state after step 0,
-     the relaxed carry dropped, is the twin, which takes steps 1-3 without
-     a manager. A crash run (seed 1) and a torn run (seed 32) under
+     the relaxed carry dropped, is the twin, which takes step 1 without a
+     manager. A crash run (seed 1) and a torn run (seed 32) under
      FaultSchedule.seeded(seed, the soak's POINTS, every=4) fault in step
      1's tier-E, are power-cycled, recovered under the checker (step 0,
-     gap 0, the mirror bitwise the twin's tables) and resumed to step 4:
+     gap 0, the mirror bitwise the twin's tables) and resumed to step 2:
      losses bitwise the twin's and within the reference soak's gap-0
      bound (rtol 1e-5) of run U's, the mirror bitwise the twin's tables.
      The fault that fired, each run's seconds, the checked tier-E seconds
@@ -284,7 +286,25 @@ Phases, each of which exits non-zero on failure:
      2e-5. Rank 0 holds the duplicate combine, the logged update, the
      scratch update and the checkpoint gather on its block against their
      plain versions and times them beside their bounds.
-Phases 6 to 25 print their wall time. Phases 4, 8, 10, 12 and 16 also
+ 26. the paper's evaluation model (``repro_torch.sim``, the simulator of
+     Figs. 11-13 for the paper's testbed; its batch times and joules are
+     the model's, not the card's): the four headline figures uncalibrated,
+     within tests/test_sim.py's bands; then calibrated
+     (``engine.calibrate_from_pool``) from phase 6 run A's pool counters
+     over its checkpointed steps (the mirror load left out; no undo
+     compression ratio, since phase 6 runs without zlib), every system x
+     RM's batch time printed and finite and positive; then one measured
+     pool batch (``calibration.measured_pool_batch``, the reference's
+     default sizes) on dram and on a pmem file under build/ in both
+     capture modes (wire: the image out and back through
+     ``UndoRing.append``; pool: the fused ``log_and_apply`` with zlib):
+     link and media bytes and the compression tallies equal to the
+     values tests/test_torch_sim.py pins, pool mode below wire mode in
+     link bytes, the energy terms, link_savings_x and energy_savings_pct
+     as benchmarks/fig13_energy.py forms them, each batch's wall seconds
+     on this host, and the calibration from the pmem pool-mode batch. It
+     launches no kernel.
+Phases 6 to 26 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13, 16, 18 and 20 every scatter_update_logged launch
@@ -422,9 +442,12 @@ def time_manager(mgr, times):
 
 
 def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
-                     plain_step_ms):
-    """Phase 6. Returns the launch counts of run A, the checkpointed path,
-    and its writer's tier-E ms per step."""
+                     plain_step_ms=None):
+    """Phase 6: run A checkpoints 2 relaxed steps; run B crashes between
+    the undo COMMIT and the mirror apply of step 1, recovers step 0 and
+    resumes to step 1. Returns the launch counts of run A, the checkpointed
+    path, its writer's tier-E ms per step, and its pool's counters over its
+    checkpointed steps (the mirror load left out)."""
     import contextlib
     import dataclasses
     import gc
@@ -479,7 +502,7 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
             t = state["embed"]["emb_tables"]   # updated in place: copy
             return t.to("cpu", torch.float32, copy=True).numpy().reshape(-1, d)
 
-        # run A: 4 relaxed steps, every step checkpointed, dense_interval=1
+        # run A: 2 relaxed steps, every step checkpointed, dense_interval=1
         tca = config("A")
         state = fresh_state()
         t = time.perf_counter()
@@ -487,40 +510,46 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         load_s = time.perf_counter() - t
         print(f"[ckpt] manager start + mirror load (2.56 GB f32 written and "
               f"fsynced): {load_s:.2f}s")
-        times, after1, stamps = {}, {"s": 0.0}, [time.perf_counter()]
+        # phase 26 reads the pool's counters over the checkpointed steps
+        # only, the mirror load left out
+        loaded = pool_counters(mgr.pool.metrics)
+        times, kept, stamps = {}, {"s": 0.0}, [time.perf_counter()]
         time_manager(mgr, times)
         timed_on_step = mgr.on_step
 
         def on_step(step, st, feed):
             timed_on_step(step, st, feed)
-            if step == 1:
-                # run A after step 1: the tables on the host in f32, and a
-                # twin state on the card with its relaxed carry dropped, as
-                # a resume rebuilds it (the tables, the dense leaves and
-                # their moments are updated in place: cloned)
+            if step == 0:
+                # run A after the step run B recovers: the tables on the
+                # host in f32, and a twin state on the card with its relaxed
+                # carry dropped, as a resume rebuilds it (the tables, the
+                # dense leaves and their moments are updated in place:
+                # cloned)
                 t = time.perf_counter()
-                after1["rows"] = host_tables(st)
-                after1["state"] = {
+                kept["rows"] = host_tables(st)
+                kept["state"] = {
                     **st, "prefetch": None,
                     "embed": {"emb_tables": st["embed"]["emb_tables"].clone()},
                     "dense": tree_map(torch.clone, st["dense"]),
                     "opt_dense": tree_map(torch.clone, st["opt_dense"])}
-                after1["s"] += time.perf_counter() - t   # not the step's time
+                kept["s"] += time.perf_counter() - t   # not the step's time
         mgr.on_step = on_step
         images = {}
 
         def on_metrics(n, m):
             torch.cuda.synchronize()
-            stamps.append(time.perf_counter() - after1["s"])
-            after1["feed"] = m["ckpt_feed"]
+            stamps.append(time.perf_counter() - kept["s"])
+            kept["feed"] = m["ckpt_feed"]
             t = time.perf_counter()        # the undo image to the host
             images[n] = undo_image(m["ckpt_feed"])
-            after1["s"] += time.perf_counter() - t
+            kept["s"] += time.perf_counter() - t
 
         eb.launches = su.launches = su.launches_logged = gr.launches = 0
         su.wide_launches_logged = 0
-        _, la = train_loop.train(cfg, tca, batches, 4, relaxed=True, state=state,
+        _, la = train_loop.train(cfg, tca, batches, 2, relaxed=True, state=state,
                                  ckpt_manager=mgr, on_metrics=on_metrics)
+        # (train flushed the writer; the checks below read the ring)
+        steps_metrics = metrics_since(loaded, mgr.pool.metrics)
         launches = {"embedding_bag": eb.launches, "scatter_update": su.launches,
                     "scatter_update_logged": su.launches_logged,
                     "gather_rows": gr.launches}
@@ -528,13 +557,14 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
               f"updates did not all move 16-byte chunks ({su.wide_launches_logged} "
               f"of {su.launches_logged})")
         checked = check_undo_images(mgr.ring, images)
-        check(checked == 4, f"run A: {checked} undo entries checked, want 4")
+        check(checked == 2, f"run A: {checked} undo entries checked, want 2")
         print(f"[ckpt] run A: the undo images of all {checked} steps, captured on "
               "the card by the logged update, equal the pool's bitwise")
         del images
         step_ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:], strict=True)]
-        print(f"[ckpt] run A losses {la} step ms (with on_step) {step_ms}; "
-              f"plain relaxed step (phase 4 median) {plain_step_ms:.2f} ms")
+        print(f"[ckpt] run A losses {la} step ms (with on_step) {step_ms}"
+              + ("" if plain_step_ms is None else
+                 f"; plain relaxed step (phase 4 median) {plain_step_ms:.2f} ms"))
         print(f"[ckpt] on_step ms {times['on_step']}; flush ms {times['flush']}; "
               f"writer tier-E ms {times['_do_tier_e']}, tier-M ms {times['_do_tier_m']}")
         # on_step's two halves again, with the writer idle: the touched rows
@@ -543,20 +573,20 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         parts = {"rows": [], "dense": []}
         for _ in range(3):
             t = time.perf_counter()
-            ids, _ = touched_rows(after1["feed"])
+            ids, _ = touched_rows(kept["feed"])
             ops.gather_rows(flat_tab, ids).float().cpu().numpy()
             parts["rows"].append(1e3 * (time.perf_counter() - t))
             t = time.perf_counter()
             tree_map(lambda x: x.detach().to("cpu", copy=True),
                      {k: state[k] for k in ("dense", "opt_dense", "opt_embed")})
             parts["dense"].append(1e3 * (time.perf_counter() - t))
-        del after1["feed"]
+        del kept["feed"]
         print(f"[ckpt] on_step parts with the writer idle, ms: touched rows "
               f"{parts['rows']}, dense tree {parts['dense']}")
         print(f"[ckpt] stats {json.dumps(mgr.stats)}")
         print(f"[ckpt] pool image {os.path.getsize(os.path.join(work, 'A', 'pool.img'))} "
               f"bytes; launches {launches}")
-        check(launches == checkpointed_launches(4),
+        check(launches == checkpointed_launches(2),
               f"checkpoint run: unexpected launch counts {launches}")
         print(mgr.pool.metrics.report())
         mgr.close()
@@ -567,29 +597,29 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         t = time.perf_counter()
         rec = recovery.recover(os.path.join(work, "A"))
         print(f"[ckpt] run A recover: {time.perf_counter() - t:.2f}s")
-        check(rec.mirror_step == 3 and rec.dense_step == 3 and not rec.rolled_back,
+        check(rec.mirror_step == rec.dense_step == 1 and not rec.rolled_back,
               f"run A recovered mirror@{rec.mirror_step} dense@{rec.dense_step}")
         check(np.array_equal(rec.embed_rows, final),
               "run A: recovered mirror differs from the final tables")
         rec.pool.close()
         del rec, final
         shutil.rmtree(os.path.join(work, "A"))
-        # the twin: run A's state after step 1, carry rebuilt, 2 relaxed steps
-        _, lt = train_loop.train(cfg, tca, batches, 2, relaxed=True,
-                                 state=after1.pop("state"), start_step=2)
+        # the twin: run A's state after step 0, carry rebuilt, 1 relaxed step
+        _, lt = train_loop.train(cfg, tca, batches, 1, relaxed=True,
+                                 state=kept.pop("state"), start_step=1)
         gc.collect()
         torch.cuda.empty_cache()
 
         # run B: the same seed and batches, power loss between the COMMIT
-        # and the mirror apply of step 2 (the third tier-E)
+        # and the mirror apply of step 1 (the second tier-E)
         tcb = config("B")
         state = fresh_state()
         mgr = CheckpointManager(cfg, tcb.checkpoint, embed_init=state["embed"],
                                 faults=FaultSchedule.crash_at(
-                                    "tier_e.between-commit-and-apply", occurrence=3))
+                                    "tier_e.between-commit-and-apply", occurrence=2))
         crashed = False
         try:
-            train_loop.train(cfg, tcb, batches, 4, relaxed=True, state=state,
+            train_loop.train(cfg, tcb, batches, 2, relaxed=True, state=state,
                              ckpt_manager=mgr)
         except InjectedCrash:
             crashed = True
@@ -604,47 +634,47 @@ def checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         print(f"[ckpt] run B recover: {time.perf_counter() - t:.2f}s, "
               f"mirror@{rec.mirror_step} dense@{rec.dense_step} "
               f"rolled_back={rec.rolled_back}")
-        check(rec.mirror_step == 1 and rec.dense_step == 1 and rec.rolled_back,
-              "run B: expected mirror@1, dense@1 with a rollback")
-        check(np.array_equal(rec.embed_rows, after1["rows"]),
-              "run B: recovered mirror differs from run A's tables after step 1")
-        del after1["rows"]
+        check(rec.mirror_step == rec.dense_step == 0 and rec.rolled_back,
+              "run B: expected mirror@0, dense@0 with a rollback")
+        check(np.array_equal(rec.embed_rows, kept["rows"]),
+              "run B: recovered mirror differs from run A's tables after step 0")
+        del kept["rows"]
 
-        # resume as the CLI does: a manager on the recovered pool, 2 relaxed
-        # steps (losses against run A's steps 2-3), then 1 strict step
+        # resume as the CLI does: a manager on the recovered pool, 1 relaxed
+        # step (its loss against run A's step 1), then 1 strict step
         state, start = recovery.resume_train_state(rec, fresh_state())
-        check(start == 2, f"resume step {start}")
+        check(start == 1, f"resume step {start}")
         mgr = CheckpointManager(cfg, tcb.checkpoint, pool=rec.pool)
         mgr.init_mirror(state["embed"], step=rec.mirror_step)
         del rec
         gr.launches = 0
-        state, lb = train_loop.train(cfg, tcb, batches, 2, relaxed=True,
+        state, lb = train_loop.train(cfg, tcb, batches, 1, relaxed=True,
                                      state=state, start_step=start, ckpt_manager=mgr)
         relaxed_gathers = gr.launches
         train_loop.train(cfg, tcb, batches, 1, relaxed=False, state=state,
-                         start_step=start + 2, ckpt_manager=mgr)
+                         start_step=start + 1, ckpt_manager=mgr)
         mgr.close()
-        rel = max(abs(x - y) / abs(y) for x, y in zip(lb, la[2:], strict=True))
-        print(f"[ckpt] resumed losses {lb}; run A's twin (state after step 1, "
-              f"carry rebuilt) {lt}; run A {la[2:]} (max relative difference "
-              f"{rel:.3g}); gather launches {relaxed_gathers} for 2 relaxed "
-              f"steps, {gr.launches} after 1 strict")
-        # The recovered state is run A's after step 1 bit for bit, so the
+        rel = max(abs(x - y) / abs(y) for x, y in zip(lb, la[start:], strict=True))
+        print(f"[ckpt] resumed losses {lb}; run A's twin (state after step 0, "
+              f"carry rebuilt) {lt}; run A {la[start:]} (max relative difference "
+              f"{rel:.3g}); gather launches {relaxed_gathers} for 1 relaxed "
+              f"step, {gr.launches} after 1 strict")
+        # The recovered state is run A's after step 0 bit for bit, so the
         # resumed losses equal the twin's exactly.
         check(lb == lt, "resumed losses differ from run A's twin")
         # Against run A itself they differ by the carry: run A's bags for
-        # step 2 were rounded to bf16 twice (the stale bag, then with the
-        # correction added), the resumed ones once, from the updated
-        # tables. bf16 keeps 8 bits, so a bag moves by up to 2^-9 of itself
+        # the resumed step were rounded to bf16 twice (the stale bag, then
+        # with the correction added), the resumed ones once, from the
+        # updated tables. bf16 keeps 8 bits, so a bag moves by up to 2^-9 of itself
         # and the loss by about 1e-3; 1e-2 bounds it.
         check(rel <= 1e-2, f"resumed losses differ from run A's by {rel:.3g}")
-        check(relaxed_gathers == 2 and gr.launches == 2,
+        check(relaxed_gathers == 1 and gr.launches == 1,
               "gather_rows: want 1 launch per relaxed step, 0 per strict step")
         del mgr, state
         gc.collect()
         torch.cuda.empty_cache()
         print("[ckpt] crash, bitwise recovery and resume: ok")
-        return launches, times["_do_tier_e"]
+        return launches, times["_do_tier_e"], steps_metrics
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2899,7 +2929,7 @@ DLRM_POOL_PROB_TOL = 0.0
 
 
 def dlrm_pool_serve_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
-    """Phase 17 (b): full dlrm-rm1 trains into a pmem pool (3 relaxed
+    """Phase 17 (b): full dlrm-rm1 trains into a pmem pool (2 relaxed
     steps, tier-E only) while the serving tier serves rows from the same
     mirror, kept coherent by the manager's commit hook. Serving traffic is
     requests of one sample each (its T x L zipf ids, as training draws
@@ -2995,11 +3025,11 @@ def dlrm_pool_serve_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
                         "request_batch_ms": round(request_ms[-1], 3)})
         mgr.on_step = on_step
         batches = LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev), cfg,
-                                    depth=4)
-        train_loop.train(cfg, tcp, batches, 3, relaxed=True, state=state,
+                                    depth=3)
+        train_loop.train(cfg, tcp, batches, 2, relaxed=True, state=state,
                          ckpt_manager=mgr)
         s = tier.stats()
-        check(len(log) == 3 and s["watermark"] == 2, f"pool dlrm: {log}, {s}")
+        check(len(log) == 2 and s["watermark"] == 1, f"pool dlrm: {log}, {s}")
         check(all(x["invalidated"] > 0 for x in log),
               "pool dlrm: a commit invalidated no cached row")
         print(f"[pool-dlrm] after each commit: {json.dumps(log)}")
@@ -3144,34 +3174,34 @@ def wire_stalls(tag, out, name, pool):
     print(f"{tag} {name}: reply stalls waited out {got}")
 
 
-def four_checkpointed_steps(tag, cfg, tc, Bsz, dev, state, mgr, where):
-    """4 relaxed steps of full rm1 checkpointed by ``mgr``: exactly the
-    launches of 4 such steps, every row kernel on the 16-byte route, and
-    each step's undo image, captured on the card by the logged update,
+def checkpointed_steps(tag, cfg, tc, Bsz, dev, state, mgr, where, n):
+    """n relaxed steps of full rm1 checkpointed by ``mgr``: exactly the
+    launches of that many steps, every row kernel on the 16-byte route,
+    and each step's undo image, captured on the card by the logged update,
     equal to the pool's (``where``) bitwise. Returns (state, losses,
     launches)."""
     from repro_torch.core.checkpoint.manager import check_undo_images, undo_image
     from repro_torch.data.lookahead import LookaheadIterator
     from repro_torch.data.synthetic import DLRMBatches
     batches = LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev), cfg,
-                                depth=5)
+                                depth=n + 1)
     images = {}
 
-    def on_metrics(n, m):
-        images[n] = undo_image(m["ckpt_feed"])
+    def on_metrics(step, m):
+        images[step] = undo_image(m["ckpt_feed"])
     zero_row_counts()
-    state, losses = train_loop_train(cfg, tc, batches, 4, state, mgr, on_metrics)
+    state, losses = train_loop_train(cfg, tc, batches, n, state, mgr, on_metrics)
     c = row_counts()
-    launches = {k: c[k] for k in checkpointed_launches(4)}
-    print(f"{tag} 4 relaxed steps, losses {losses}; launches {launches}")
-    check(launches == checkpointed_launches(4),
+    launches = {k: c[k] for k in checkpointed_launches(n)}
+    print(f"{tag} {n} relaxed steps, losses {losses}; launches {launches}")
+    check(launches == checkpointed_launches(n),
           f"{tag} unexpected launch counts {launches}")
     check(c["scatter_update_wide"] == c["scatter_update"]
           and c["gather_rows_wide"] == c["gather_rows"]
           and c["scatter_update_logged_wide"] == c["scatter_update_logged"],
           f"{tag} a row kernel launch off the 16-byte route: {c}")
     checked = check_undo_images(mgr.ring, images)
-    check(checked == 4, f"{tag} {checked} undo entries checked, want 4")
+    check(checked == n, f"{tag} {checked} undo entries checked, want {n}")
     print(f"{tag} the undo images of all {checked} steps, captured on the card "
           f"by the logged update, equal {where}'s bitwise")
     return state, losses, launches
@@ -3179,10 +3209,10 @@ def four_checkpointed_steps(tag, cfg, tc, Bsz, dev, state, mgr, where):
 
 def twin_and_resume(tag, cfg, tc, cc, Bsz, dev, fresh_state, rec, twin, m):
     """The uninterrupted twin, ``twin`` (the tables and the dense tree after
-    step m) with its relaxed carry rebuilt, takes 2 relaxed steps; then the
-    resume as the CLI does it: the state from ``rec``, a manager with
-    ``cc`` on the recovered pool, the mirror re-initialised at m, 2 relaxed
-    steps. Fails unless the two give the same losses. Returns the resumed
+    step m) with its relaxed carry rebuilt, takes 1 relaxed step; then the
+    resume as the CLI does it: the state from ``rec``, a manager with ``cc``
+    on the recovered pool, the mirror re-initialised at m, 1 relaxed step.
+    Fails unless the two give the same losses. Returns the resumed
     run's manager, still open, and its mirror load in seconds."""
     import gc
 
@@ -3195,10 +3225,10 @@ def twin_and_resume(tag, cfg, tc, cc, Bsz, dev, fresh_state, rec, twin, m):
 
     def batches(start):
         return LookaheadIterator(DLRMBatches(cfg, Bsz, seed=0, device=dev), cfg,
-                                 depth=3, start_step=start)
+                                 depth=2, start_step=start)
     twin = {**twin, "prefetch": None,
             "step": torch.tensor(m + 1, dtype=torch.int32, device=dev)}
-    _, lt = train_loop_train(cfg, tc, batches(m + 1), 2, twin, None, None,
+    _, lt = train_loop_train(cfg, tc, batches(m + 1), 1, twin, None, None,
                              start=m + 1)
     del twin
     gc.collect()
@@ -3210,7 +3240,7 @@ def twin_and_resume(tag, cfg, tc, cc, Bsz, dev, fresh_state, rec, twin, m):
     mgr.init_mirror(state["embed"], step=m)
     load_s = time.perf_counter() - t
     _, lb = train_loop_train(cfg, dataclasses.replace(tc, checkpoint=cc),
-                             batches(start), 2, state, mgr, None, start=start)
+                             batches(start), 1, state, mgr, None, start=start)
     mgr.flush()
     print(f"{tag} resumed at step {start} (mirror load {load_s:.2f}s): losses "
           f"{lb}; the uninterrupted twin's {lt}")
@@ -3276,7 +3306,9 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         return t.to("cpu", torch.float32, copy=True).numpy().reshape(-1, d)
 
     try:
-        # -- run A, in process: 4 relaxed steps over the unix socket -------
+        # -- run A, in process: 1 relaxed step over the unix socket --------
+        # (zlib, the default: its tier-E and step 0's tier-M of the dense
+        # tree, which recovery reads back)
         node_up("A")
         cca = dataclasses.replace(tc.checkpoint, directory=os.path.join(work, "A"),
                                   dense_interval=4, pool_backend="remote",
@@ -3308,8 +3340,8 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
                           "link_bytes": after.link_bytes() - before.link_bytes(),
                           "media_bytes": after.media_bytes() - before.media_bytes()})
         mgr._do_tier_e = measured_tier_e
-        state, _, launches = four_checkpointed_steps(
-            "[remote] run A:", cfg, tca, Bsz, dev, state, mgr, "the node")
+        state, _, launches = checkpointed_steps(
+            "[remote] run A:", cfg, tca, Bsz, dev, state, mgr, "the node", 1)
         for s_ in steps:
             print(f"[remote] tier-E step {s_['step']}: {s_['ms']:.1f} ms, link "
                   f"{s_['link_bytes']} B (idx {s_['idx_bytes']} + new rows "
@@ -3337,8 +3369,9 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         out["recover_a_s"] = time.perf_counter() - t
         print(f"[remote] run A recover over a fresh connection: "
               f"{out['recover_a_s']:.2f}s")
-        check(rec.mirror_step == 3 and not rec.rolled_back,
-              f"remote run A recovered mirror@{rec.mirror_step}")
+        check(rec.mirror_step == rec.dense_step == 0 and not rec.rolled_back,
+              f"remote run A recovered mirror@{rec.mirror_step} "
+              f"dense@{rec.dense_step}")
         check(np.array_equal(rec.embed_rows.view(np.uint32), final.view(np.uint32)),
               "remote run A: recovered mirror differs from the final tables")
         wire_stalls("[remote]", out, "run A recover", rec.pool)
@@ -3366,14 +3399,14 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
                 text=True, start_new_session=True)
         watcher = RemotePool(addr, tenant="drill", readonly=True, timeout=60.0)
         t0, committed = time.perf_counter(), -1
-        while committed < 2:
+        while committed < 1:        # 2 steps committed, step 0's tier-M too
             trainer = procs["trainer"]
             if trainer.poll() is not None:
                 with open(os.path.join(work, "trainer.log")) as f:
                     fail(f"remote drill: the trainer exited (exit "
                          f"{trainer.returncode}) before it was killed:\n"
                          f"{f.read()[-6000:]}")
-            check(time.perf_counter() - t0 < 600, "remote drill: fewer than 3 "
+            check(time.perf_counter() - t0 < 600, "remote drill: fewer than 2 "
                   "committed steps within 600 s")
             region = PoolAllocator(watcher).domain("manifest").get("manifest")
             man = JsonRegion(region).read() if region is not None else None
@@ -3408,7 +3441,7 @@ def remote_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state,
         print(f"[remote] drill recover over a fresh connection (POOL.json): "
               f"{out['recover_s']:.2f}s, mirror@{m} dense@{ds} gap={rec.gap} "
               f"rolled_back={rec.rolled_back}")
-        check(m >= 2 and 0 <= ds <= m, f"remote drill: recovered mirror@{m} "
+        check(m >= 1 and 0 <= ds <= m, f"remote drill: recovered mirror@{m} "
               f"dense@{ds}")
         wire_stalls("[remote]", out, "drill recover", rec.pool)
 
@@ -3770,8 +3803,8 @@ def sharded_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
                                        "opt_embed")})
             on_step(n, st, feed)
         mgr.on_step = keeping_on_step
-        state, _, launches = four_checkpointed_steps(
-            "[sharded]", cfg, tcs, Bsz, dev, state, mgr, f"node {lost}")
+        state, _, launches = checkpointed_steps(
+            "[sharded]", cfg, tcs, Bsz, dev, state, mgr, f"node {lost}", 4)
         for s_ in tier_e:
             print(f"[sharded] tier-E step {s_['step']}: {s_['s']:.2f}s, of which "
                   f"replication {s_['replication_s']:.2f}s")
@@ -3786,6 +3819,8 @@ def sharded_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
         print(f"[sharded] checkpoint stats {json.dumps(st)}")
         check(st["replica_refresh_failures"] == 0 and st["manifest_witness_failures"] == 0,
               f"sharded: replication degraded {st}")
+        # the refresh of step 0 makes the replica, that of step 2 refreshes
+        # it in place; step 3 is rolled back after the loss
         check(st["replica_refreshes"] == 2 and st["ship_steps"] == 4,
               f"sharded: {st['replica_refreshes']} mirror refreshes and "
               f"{st['ship_steps']} ships, want 2 and 4")
@@ -3882,16 +3917,18 @@ def sharded_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
         shutil.rmtree(work, ignore_errors=True)
 
 
-# Phase 21's faulted runs. FaultSchedule.seeded(seed, POINTS, every=SOAK_STEPS)
+# Phase 21's faulted runs. FaultSchedule.seeded(seed, POINTS, every=SOAK_EVERY)
 # arms each of the soak's points, which fire once a step at dense_interval=1,
-# at occurrence crc32(f"{seed}:{point}") % SOAK_STEPS + 1. For these two seeds
+# at occurrence crc32(f"{seed}:{point}") % SOAK_EVERY + 1. For these two seeds
 # no point is armed before its second occurrence, and the first to come due
 # fires in step 1's tier-E, after step 0 was committed: seed 1 crashes before
 # step 1's undo payload persists (nothing to roll back), seed 32 tears step
 # 1's mirror apply (the committed entry rolls the torn rows back). Both
-# recover step SOAK_RECOVERED with the dense tier caught up (gap 0).
+# recover step SOAK_RECOVERED with the dense tier caught up (gap 0). Each run
+# takes SOAK_STEPS steps, enough for step 1's tier-E.
 SOAK_SEEDS = (("crash", 1), ("torn", 32))
-SOAK_STEPS = 4
+SOAK_EVERY = 4
+SOAK_STEPS = 2
 SOAK_RECOVERED = 0
 
 
@@ -3930,7 +3967,7 @@ def checked_soak_phase(torch, np, cfg, tc, Bsz, dev, pmem_tier_e_ms):
     one known-bad sequence (an undo-commit persist over a dirty payload)
     must raise ``CommitBeforePayloadError``, and the twin takes the
     remaining steps without a manager. Then a crash run and a torn run under
-    ``FaultSchedule.seeded(seed, POINTS, every=SOAK_STEPS)``: after the
+    ``FaultSchedule.seeded(seed, POINTS, every=SOAK_EVERY)``: after the
     ``InjectedCrash`` the pool is power-cycled and recovered under the
     checker, at step SOAK_RECOVERED with gap 0 and a mirror bitwise the
     twin's tables, and resumed to step SOAK_STEPS, whose losses must be the
@@ -4089,7 +4126,7 @@ def checked_soak_phase(torch, np, cfg, tc, Bsz, dev, pmem_tier_e_ms):
             t0 = time.perf_counter()
             name = f"{kind}{seed}"
             tcf = config(name)
-            faults = FaultSchedule.seeded(seed, POINTS, every=SOAK_STEPS, kind=kind)
+            faults = FaultSchedule.seeded(seed, POINTS, every=SOAK_EVERY, kind=kind)
             state = fresh()
             mgr = CheckpointManager(cfg, tcf.checkpoint, embed_init=state["embed"],
                                     faults=faults)
@@ -5026,16 +5063,209 @@ def train_loop_train(cfg, tc, batches, steps, state, mgr, on_metrics, start=0):
                             on_metrics=on_metrics)
 
 
-def main():
-    import numpy as np
+def pool_counters(metrics):
+    """A copy of ``metrics.snapshot()`` (a snapshot's per-kind entries are
+    the live counters' own dicts)."""
+    return json.loads(json.dumps(metrics.snapshot()))
+
+
+def metrics_since(before, metrics):
+    """The port's PoolMetrics of the traffic ``metrics`` counted since
+    ``before``, a ``pool_counters`` copy of the same pool's: each kind's
+    ops, bytes and modelled seconds, the near-memory and compression meters
+    and the compression tallies."""
+    from repro_torch.pool import PoolMetrics
+    m = PoolMetrics.from_snapshot(pool_counters(metrics))
+    for side, table in (("media", m.media), ("link", m.link)):
+        for kind, st in (before.get(side) or {}).items():
+            now = table[kind]
+            now.ops -= int(st["ops"])
+            now.nbytes -= int(st["nbytes"])
+            now.time_s -= float(st["time_s"])
+            if now.ops == 0:
+                del table[kind]
+    m.ndp_time_s -= before["ndp_time_s"]
+    m.comp_raw_bytes -= before["comp_raw_bytes"]
+    m.comp_stored_bytes -= before["comp_stored_bytes"]
+    m.comp_time_s -= before["comp_time_s"]
+    for kind, (raw, stored) in before["comp"].items():
+        m.comp[kind] = [m.comp[kind][0] - raw, m.comp[kind][1] - stored]
+        if m.comp[kind][0] == 0:
+            del m.comp[kind]
+    return m
+
+
+# Phase 26's pinned numbers: measured_pool_batch at the reference's default
+# sizes (seed 0), the same on dram and pmem; tests/test_torch_sim.py holds
+# the CPU's run to the same values
+SIM_PINNED = {"wire": {"link_bytes": 11549832, "media_bytes": 22232728,
+                       "comp": {}},
+              "pool": {"link_bytes": 4505352, "media_bytes": 18335402,
+                       "comp": {"undo": [3522264, 1573601]}}}
+# tests/test_sim.py's bands for the paper's four headline figures
+SIM_BANDS = {"pmem_over_cxl_x": (4.2, 6.2), "cxl_d_vs_pcie": (0.10, 0.35),
+             "relaxation_gain": (0.07, 0.25), "energy_saving": (0.66, 0.86)}
+
+
+def sim_headline(engine, energy, models_rm):
+    """Each system's batch time a RM (s, the model's) and the paper's four
+    headline figures, as tests/test_sim.py forms them."""
+    t = {rm: {s: engine.simulate(s, w).batch_time for s in engine.SYSTEMS}
+         for rm, w in models_rm.RMS.items()}
+    e = energy.energy_table()
+    rms = list(models_rm.RMS)
+    return t, {
+        "pmem_over_cxl_x": statistics.fmean(t[r]["PMEM"] / t[r]["CXL"] for r in rms),
+        "cxl_d_vs_pcie": statistics.fmean(1 - t[r]["CXL-D"] / t[r]["PCIe"] for r in rms),
+        "relaxation_gain": statistics.fmean(1 - t[r]["CXL"] / t[r]["CXL-B"] for r in rms),
+        "energy_saving": statistics.fmean(1 - e[r]["CXL"] for r in rms)}
+
+
+def sim_phase(steps_metrics):
+    """Phase 26: the simulator of paper Figs. 11-13, calibrated from phase
+    6's checkpointed rm1 steps and from measured pool batches on this host.
+    Its batch times and joules are the model's of the paper's testbed, not
+    measurements of the card. Returns the numbers it printed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.sim import calibration, energy, engine, models_rm
+    out = {}
+    engine.clear_pool_calibration()
+    times, fig = sim_headline(engine, energy, models_rm)
+    out["uncalibrated"] = fig
+    print(f"[sim] the model's batch times, uncalibrated (s): {json.dumps(times)}")
+    for name, (lo, hi) in SIM_BANDS.items():
+        print(f"[sim] {name}: {fig[name]!r} (tests/test_sim.py's band {lo}-{hi})")
+        check(lo <= fig[name] <= hi, f"sim: uncalibrated {name} {fig[name]} "
+              f"outside {lo}-{hi}")
+
+    def calibrated(tag, metrics):
+        cal = engine.calibrate_from_pool(metrics)
+        try:
+            t, f = sim_headline(engine, energy, models_rm)
+        finally:
+            engine.clear_pool_calibration()
+        print(f"[sim] {tag}: calibrate_from_pool -> {json.dumps(cal)}")
+        print(f"[sim] {tag}: the model's batch times, calibrated (s): {json.dumps(t)}")
+        for name in SIM_BANDS:
+            print(f"[sim] {tag}: {name} calibrated {f[name]!r}, uncalibrated "
+                  f"{fig[name]!r}")
+        bad = [(rm, s_, v) for rm, row in t.items() for s_, v in row.items()
+               if not (math.isfinite(v) and v > 0)]
+        check(not bad, f"sim {tag}: calibrated batch times not finite and "
+              f"positive: {bad}")
+        return {"cal": cal, "figures": f, "batch_time_s": t}
+
+    # (a) phase 6's run A: full rm1's 2 checkpointed steps into a pmem pool
+    print(f"[sim] phase 6 run A's counters over its checkpointed steps "
+          f"(mirror load left out):\n{steps_metrics.report()}")
+    out["phase6"] = calibrated("phase 6 rm1", steps_metrics)
+    if "undo_comp_ratio" not in out["phase6"]["cal"]:
+        print("[sim] phase 6 rm1: no undo_comp_ratio: phase 6 runs without "
+              "zlib (pool_compress none), so the pool compressed nothing")
+
+    # (b) one measured batch a backend and capture mode, at the reference's
+    # default sizes
+    work = tempfile.mkdtemp(prefix="sim-", dir=os.path.join(ROOT, "build"))
+    try:
+        cells = {}
+        for backend in ("dram", "pmem"):
+            for mode in ("wire", "pool"):
+                t0 = time.perf_counter()
+                m = calibration.measured_pool_batch(
+                    backend, mode, path=os.path.join(work, f"{backend}-{mode}.img"))
+                wall = time.perf_counter() - t0
+                cell = {"wall_s": wall, "link_bytes": m.link_bytes(),
+                        "media_bytes": m.media_bytes(),
+                        "undo_comp_ratio": m.comp_ratio("undo"), "comp": m.comp,
+                        "energy_j": m.energy()}
+                cells[backend, mode] = (cell, m)
+                print(f"[sim] measured batch {backend} {mode}: {json.dumps(cell)}")
+                want = SIM_PINNED[mode]
+                check(cell["link_bytes"] == want["link_bytes"]
+                      and cell["media_bytes"] == want["media_bytes"]
+                      and m.comp == want["comp"],
+                      f"sim: measured batch {backend} {mode}: bytes "
+                      f"{cell['link_bytes']}, {cell['media_bytes']}, {m.comp}; "
+                      f"the CPU tests pin {want}")
+            wire, pool = cells[backend, "wire"][0], cells[backend, "pool"][0]
+            check(pool["link_bytes"] < wire["link_bytes"], f"sim {backend}: pool "
+                  "mode moved no fewer link bytes than wire mode")
+            # benchmarks/fig13_energy.py's two rows
+            out[f"{backend}_link_savings_x"] = (wire["link_bytes"]
+                                                / max(1, pool["link_bytes"]))
+            out[f"{backend}_energy_savings_pct"] = 100 * (
+                1 - pool["energy_j"]["total"] / max(wire["energy_j"]["total"], 1e-12))
+            print(f"[sim] {backend}: link_savings_x "
+                  f"{out[f'{backend}_link_savings_x']!r}, energy_savings_pct "
+                  f"{out[f'{backend}_energy_savings_pct']!r}")
+        out["measured"] = {f"{b}-{m_}": c for (b, m_), (c, _) in cells.items()}
+        out["pmem_pool"] = calibrated("pmem pool-mode batch", cells["pmem", "pool"][1])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def start_on_card():
+    """What every run of this script starts with: a CUDA card, the
+    checkout's src/ on the path, full-f32 matmuls. Returns the card."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("no src/repro_torch beside this script: run it from the repo's root")
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 matmuls
+    return torch.device("cuda")
+
+
+def rm1_training(torch, cfg, dev):
+    """The train config of phases 4 on, and ``fresh_state``: full rm1's
+    state made anew from the config's seed."""
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.registry import get_api
+    from repro_torch.training import train_loop
+    tc = TrainConfig(learning_rate=1e-3, embed_learning_rate=0.05)
+
+    def fresh_state():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(tc.seed)
+        init_fn = train_loop.make_step_fns(cfg, tc)[0]
+        state = init_fn(get_api(cfg).init(gen, cfg))
+        torch.cuda.synchronize()
+        return state
+    return tc, fresh_state
+
+
+def ckpt_sim_alone():
+    """Phases 6 and 26 alone (phase 26 reads phase 6's counters), from the
+    repo's root: python3 -c "import chip_smoke; chip_smoke.ckpt_sim_alone()"."""
+    import numpy as np
+    import torch
+    dev = start_on_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+
+    _build.build()
+    cfg = get_arch("dlrm-rm1").model
+    tc, fresh_state = rm1_training(torch, cfg, dev)
+    t0 = time.perf_counter()
+    _, _, metrics = checkpoint_phase(torch, np, cfg, tc, 128, dev, fresh_state)
+    print(f"[ckpt] phase 6 wall time {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    zero_row_counts()
+    out = sim_phase(metrics)
+    check(not any(row_counts().values()), f"sim: a kernel launched: {row_counts()}")
+    print(f"[sim] phase 26 wall time {time.perf_counter() - t0:.1f}s")
+    print(f"[sim] phase 26: {json.dumps(out)}")
+
+
+def main():
+    import numpy as np
+    import torch
+    dev = start_on_card()
+    from repro_torch.configs import get_arch
     from repro_torch.core import embedding_ops
     from repro_torch.data.lookahead import LookaheadIterator
     from repro_torch.data.synthetic import DLRMBatches, zipf_indices
@@ -5049,8 +5279,6 @@ def main():
     from repro_torch.training import train_loop
     from repro_torch.tree import tree_map
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 matmuls
-    dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
@@ -5292,15 +5520,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 4. full-width dlrm-rm1 through the port's train -------------------------
-    tc = TrainConfig(learning_rate=1e-3, embed_learning_rate=0.05)
-
-    def fresh_state():
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(tc.seed)
-        init_fn = train_loop.make_step_fns(cfg, tc)[0]
-        state = init_fn(get_api(cfg).init(gen, cfg))
-        torch.cuda.synchronize()
-        return state
+    tc, fresh_state = rm1_training(torch, cfg, dev)
 
     def run(state, steps, relaxed, start=0):
         # every batch of the run is made first (set-up, on the host), so
@@ -5385,9 +5605,8 @@ def main():
     step = {"relaxed_ms_median": statistics.median(rt[1:]),
             "strict_ms_median": statistics.median(stt)}
     t0 = time.perf_counter()
-    ck_launches, ck_tier_e_ms = checkpoint_phase(torch, np, cfg, tc, Bsz, dev,
-                                                 fresh_state,
-                                                 step["relaxed_ms_median"])
+    ck_launches, ck_tier_e_ms, ck_metrics = checkpoint_phase(
+        torch, np, cfg, tc, Bsz, dev, fresh_state, step["relaxed_ms_median"])
     print(f"[ckpt] phase 6 wall time {time.perf_counter() - t0:.1f}s")
     # -- 7. the flash-attention kernel on the card ---------------------------------
     t0 = time.perf_counter()
@@ -5530,6 +5749,13 @@ def main():
         err[name] = max(err[name], e)
     dt_out["wall_s"] = time.perf_counter() - t0
     print(f"[dist-train] phase 25 wall time {dt_out['wall_s']:.1f}s")
+
+    # -- 26. the paper's evaluation model, calibrated from phase 6's steps --------
+    t0 = time.perf_counter()
+    zero_row_counts()
+    sim_out = sim_phase(ck_metrics)
+    check(not any(row_counts().values()), f"sim: a kernel launched: {row_counts()}")
+    print(f"[sim] phase 26 wall time {time.perf_counter() - t0:.1f}s")
 
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
@@ -5763,6 +5989,7 @@ def main():
     print(f"[encdec] phase 23: {json.dumps(enc_out)}")
     print(f"[dist] phase 24: {json.dumps(dist_out)}")
     print(f"[dist-train] phase 25: {json.dumps(dt_out)}")
+    print(f"[sim] phase 26: {json.dumps(sim_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,8 @@ Slot layout (``repro_torch.pool.undo_codec``) for step N (slot = N mod nslots):
 
     header  step i64 | n i64 | d i64 | flags i64 | stored_len i64
             | payload-crc u32 | commit u32
-    payload idx int64[n] | old_rows f32[n,d], possibly compressed pool-side
+    payload idx int64[n] | old_rows f32[n,d] | (old_acc f32[n,d])
+            possibly compressed pool-side
 
 The writer persists the payload first (``undo-payload`` barrier), then sets
 the COMMIT word and persists it separately (``undo-commit``, the paper's
@@ -20,7 +21,9 @@ both tiers are durable.
 
 The hot path is ``log_and_apply``: ONE near-memory op (``undo_log_append``)
 captures the pre-update image, logs and commits it, and applies the new
-rows, all inside the memory node.
+rows, all inside the memory node. ``append`` is the host-driven write of
+an image the host holds (the calibration rig's wire mode); both paths
+write the same slot bytes.
 
 Ring growth is crash-safe by ordering: the new ring is allocated and every
 still-committed entry is carried over FIRST; the meta flip, the only
@@ -36,8 +39,8 @@ it as a pure reader, which never sweeps, grows or writes. Over a remote
 pool (a memory node) the fused append, the committed-set scan and the GC
 are one wire round trip each; a read-only tenant's ring reads and never
 writes. ``slot_image`` is the sharded pool's commit-coupled replication
-unit (``ShardedPool.ship_slot``). The JAX package's host-driven ``append``
-is not ported.
+unit (``ShardedPool.ship_slot``). A read-only ring refuses ``append``,
+``log_and_apply`` and ``gc``.
 """
 from __future__ import annotations
 
@@ -137,6 +140,30 @@ class UndoRing:
     def _check_writer(self, op: str):
         if getattr(self.alloc, "readonly", False):
             raise TenantIsolationError(f"readonly undo ring: {op} denied")
+
+    def _write_slot(self, step: int, idx: np.ndarray, old_rows: np.ndarray,
+                    old_acc: Optional[np.ndarray]):
+        """Host-driven slot write through the same two-barrier commit
+        (``uc.write_slot``) the near-memory executor uses, so the host and
+        fused paths write the same bytes. Persists the bytes written, not
+        the whole slot."""
+        buf, _, _ = uc.pack_slot(step, idx, old_rows, old_acc,
+                                 mode=self.compress,
+                                 slot_bytes=self.slot_bytes)
+        uc.write_slot(self.device, self._slot_off(step), buf)
+
+    def append(self, step: int, idx: np.ndarray, old_rows: np.ndarray,
+               old_acc: Optional[np.ndarray] = None):
+        """Log and commit a step's undo image written from the host: the
+        rows (and optimizer accumulator rows) at ``idx`` before the update.
+        The calibration rig's wire mode logs through it."""
+        self._check_writer("append")
+        idx = np.asarray(idx).reshape(-1)
+        old_rows = np.asarray(old_rows, np.float32).reshape(idx.size, -1)
+        self._ensure_capacity(uc.slot_nbytes(idx.size, old_rows.shape[-1],
+                                             old_acc is not None))
+        self._write_slot(step, idx, old_rows, old_acc)
+        self._note_live(step)
 
     def log_and_apply(self, step: int, mirror: Region, idx: np.ndarray,
                       new_rows: np.ndarray) -> dict:

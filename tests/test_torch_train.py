@@ -112,6 +112,8 @@ def test_port_imports_no_jax_and_no_reference():
              "import repro_torch.distributed.sharding\n"
              "import repro_torch.distributed.context_parallel\n"
              "import repro_torch.launch.mesh\n"
+             "import repro_torch.sim.engine, repro_torch.sim.energy\n"
+             "import repro_torch.sim.models_rm, repro_torch.sim.calibration\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'ml_dtypes', 'repro')]\n"
              "print(bad); sys.exit(1 if bad else 0)")
