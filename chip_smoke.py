@@ -142,7 +142,11 @@ Phases, each of which exits non-zero on failure:
      stacked tables, the bags reduced near the data) against the bag
      kernel's: f32 bags within 1e-5, click probabilities within
      DLRM_POOL_PROB_TOL (0: bitwise, the gap measured);
- 18. full-width dlrm-rm1 checkpointed into a memory node in a process of
+ 18. (18, 20 and 21 run at once, each in a child process of this script,
+     ``python3 chip_smoke.py --drill N``, with its own directories and
+     sockets under build/; their seconds are taken while they share the
+     host, and a child that fails or gives no result line fails the run)
+     full-width dlrm-rm1 checkpointed into a memory node in a process of
      its own (python -m repro_torch.pool.server, a pmem image under build/,
      a unix socket; removed at the end), the paper's arrangement. Run A, in
      this process: the manager loads the 2.56 GB f32 mirror over the
@@ -205,10 +209,10 @@ Phases, each of which exits non-zero on failure:
      tables), then an undo-commit persisted over a dirty payload in its
      ring must raise CommitBeforePayloadError; its state after step 0,
      the relaxed carry dropped, is the twin, which takes step 1 without a
-     manager. A crash run (seed 1) and a torn run (seed 32) under
-     FaultSchedule.seeded(seed, the soak's POINTS, every=4) fault in step
-     1's tier-E, are power-cycled, recovered under the checker (step 0,
-     gap 0, the mirror bitwise the twin's tables) and resumed to step 2:
+     manager. A torn run (seed 32) under FaultSchedule.seeded(seed, the
+     soak's POINTS, every=4) faults in step 1's tier-E, is power-cycled,
+     recovered under the checker (step 0, gap 0, rolled back, the mirror
+     bitwise the twin's tables) and resumed to step 2:
      losses bitwise the twin's and within the reference soak's gap-0
      bound (rtol 1e-5) of run U's, the mirror bitwise the twin's tables.
      The fault that fired, each run's seconds, the checked tier-E seconds
@@ -304,7 +308,33 @@ Phases, each of which exits non-zero on failure:
      as benchmarks/fig13_energy.py forms them, each batch's wall seconds
      on this host, and the calibration from the pmem pool-mode batch. It
      launches no kernel.
-Phases 6 to 26 print their wall time. Phases 4, 8, 10, 12 and 16 also
+ 27. dense tensor parallelism and the Megatron-SP residual stream: full
+     tinyllama-1.1b (22 layers, bf16, remat) at two gloo ranks sharing
+     this card, (data, model) = (1, 2), under the rules the port's
+     ``launch.dryrun.build_rules`` gives its profile (heads, kv heads and,
+     for training, the sequence over model), each rank drawing the whole
+     model's random stream and keeping its column, row and vocab blocks.
+     Rank 0 first runs the one-rank reference alone. Then, at batch 1 x
+     1024 (cut from 4 x 1024: every layer's stream crosses gloo as f32
+     through the host), 2 strict and 2 relaxed steps: losses, gradient
+     norms and the params gathered whole against the one-rank run within
+     TP_LOSS_RTOL / TP_PARAM_MAX / TP_PARAM_MEAN, relaxed == strict
+     bitwise, each step's host ms, collectives and launches a rank, peak
+     memory; a crash drill through one writer (tier-E only: a full-width
+     tier-M is about 13 GB), the writer crashing between step 1's undo
+     COMMIT and its mirror apply, recovery at both ranks bitwise the
+     twin's blocks, one resumed step bitwise the uninterrupted one;
+     serving at batch 4, prompt 1024, 32 new tokens under the decode
+     rules (each rank its kv heads over every position): tokens equal to
+     the one-rank run's, logits within TP_LOGIT_TOL, prefill and decode ms
+     beside one rank's; context-parallel decode ({"batch": None,
+     "cache_seq": "model"}) teacher-forced on the one-rank tokens, every
+     row's logits within CP_LOGIT_TOL. Rank 0 holds flash (forward with
+     lse and backward at 16/2 heads, the prefill shape), the gather on its
+     (16000, 2048) vocab block, the duplicate combine, the updates of the
+     block and its f32 scratch and the logged update against their plain
+     versions and times them beside their bounds.
+Phases 6 to 27 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13, 16, 18 and 20 every scatter_update_logged launch
@@ -329,7 +359,10 @@ llama3.2-3b's training; phase 23's two served ids and their training;
 phase 24's rank 0: the gather on its shard in jamba's prefill and decode,
 flash in its prefill, the bag on its shard in rm1's forward; phase 25's
 rank 0: the bag, both updates on its block of rm1's rows and the
-checkpoint's gather there);
+checkpoint's gather there; phase 27's rank 0: flash's forward and
+backward at its heads in training and its forward in the prefill, the
+gather on its vocab block in training, serving and the checkpoint, the
+combine, both updates and the logged update on its block);
 the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
@@ -3926,7 +3959,11 @@ def sharded_checkpoint_phase(torch, np, cfg, tc, Bsz, dev, fresh_state):
 # 1's mirror apply (the committed entry rolls the torn rows back). Both
 # recover step SOAK_RECOVERED with the dense tier caught up (gap 0). Each run
 # takes SOAK_STEPS steps, enough for step 1's tier-E.
-SOAK_SEEDS = (("crash", 1), ("torn", 32))
+# the torn run alone: a crash run's recovery without a rollback is what
+# phase 6 run A's and phase 18's recoveries and
+# tests/test_torch_checkpoint.py::test_seeded_fault_after_a_committed_step_recovers_as_jax
+# (both seeds, under the checker) drive already
+SOAK_SEEDS = (("torn", 32),)
 SOAK_EVERY = 4
 SOAK_STEPS = 2
 SOAK_RECOVERED = 0
@@ -5055,6 +5092,730 @@ def dist_train_report(ranks, spawn_s):
     return launches, r0["timing"], r0["err"], out
 
 
+TP_ARCH = "tinyllama-1.1b"
+TP_WORLD = 2
+TP_B, TP_S = 1, 1024          # the training batch (cut from phase 12's 4 x 1024)
+TP_SERVE_B, TP_NEW = 4, 32    # serving: phase 8's batch 4, prompt 1024, 32 tokens
+TP_STEPS = 2                  # strict steps, then relaxed ones, from the seed's params
+TP_CRASH = 1                  # the writer crashes between step 1's COMMIT and apply
+CP_RULES = {"batch": None, "cache_seq": "model"}
+# Phase 27's gates, each set from the differences measured on an H100 80GB
+# HBM3 at 700 W against the one-rank run of the same steps: bf16 rounds a
+# row-parallel output on each rank before the f32 sum rounds it again (in
+# f32 the two-rank losses were the one-rank ones to the bit). The losses'
+# relative gap (measured 5.1e-4); step 0's gradient norm, taken before any
+# update (5.7e-4); each leaf's
+# mean difference as a share of its largest magnitude (1.41e-3); the least
+# share, over the leaves that moved, of a leaf's moved elements whose
+# update after the steps has the one-rank update's sign (0.9939:
+# AdamW's first steps move an element by about the learning rate whatever
+# its gradient's size, so an element whose gradient is near zero moves
+# either way on a rounding, and the largest difference, 0.256 of a leaf's
+# largest, is printed but not a gate; the bf16 norms at 1.0 do not move
+# by 1e-3, and the replicated leaves and their moments are held bitwise
+# across the ranks instead); the logits of
+# serving and of context-parallel decode, teacher-forced on the one-rank
+# tokens, on every row as a share of the largest logit (1.33e-2 and
+# 1.07e-2). A greedy token may differ only where the one-rank logits tie
+# within the two runs' difference (bf16 logits tie exactly: the first
+# differing token measured had a top-2 gap of 0)
+TP_LOSS_RTOL = 2e-3
+TP_NORM0_RTOL = 2e-3
+TP_PARAM_MEAN = 3e-3
+TP_SIGN_MIN = 0.98
+TP_LOGIT_TOL = 3e-2
+CP_LOGIT_TOL = 2.5e-2
+
+
+def tp_counts(zero=False):
+    """The launch counters of phase 27's kernels (flash by route and
+    direction, the row kernels); with ``zero`` they are set to 0 first."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import scatter_update as su
+    counters = (("flash_attention_tc", fa, "tc_launches"),
+                ("flash_attention_bwd", fa, "bwd_launches"),
+                ("gather_rows", gr, "launches"), ("embedding_bag", eb, "launches"),
+                ("scatter_update", su, "launches"),
+                ("scatter_update_logged", su, "launches_logged"))
+    if zero:
+        for _, mod, attr in counters:
+            setattr(mod, attr, 0)
+    return {k: getattr(mod, attr) for k, mod, attr in counters}
+
+
+def tp_rank(rank, world, device, work, seed):
+    """Phase 27, one rank of ``world`` gloo ranks sharing ``device``:
+    full-width tinyllama-1.1b under dense tensor parallelism and the
+    Megatron-SP residual stream, the rules the port's ``build_rules`` gives
+    its profile at (data, model) = (1, 2). Rank 0 first runs the one-rank
+    reference alone (TP_STEPS strict steps, a greedy generation). Then
+    both ranks: TP_STEPS strict and TP_STEPS relaxed steps from the seed's
+    params (each rank drawing the whole model's random stream and keeping
+    its blocks), the crash drill through one writer (tier-E only), serving
+    under the decode rules, and context-parallel decode teacher-forced on
+    the one-rank tokens. Rank 0 holds the kernels at its shapes against
+    their plain versions and times them. Writes ``work/rank{rank}.pt``."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES, CheckpointConfig, TrainConfig
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.checkpoint import (MeshCheckpoint, _whole_leaves,
+                                                    recover_on_mesh)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_api
+    from repro_torch.pool import FaultSchedule, InjectedCrash
+    from repro_torch.training import train_loop
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.training.serve_loop import greedy_generate
+    from repro_torch.training.state import split_params
+    from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = get_arch(TP_ARCH)
+    cfg = bundle.model
+    tc = TrainConfig(embed_learning_rate=0.05, seed=seed)
+    api = get_api(cfg)
+    writer = rank == 0
+    mesh = make_local_mesh(model_parallel=world, device=device)
+    train_rules, _, _ = dryrun.build_rules(bundle, SHAPES["train_4k"], mesh)
+    serve_rules, _, _ = dryrun.build_rules(bundle, SHAPES["decode_32k"], mesh)
+    out = {"device": str(device), "train_rules": train_rules, "serve_rules": serve_rules,
+           "runs": {}}
+
+    def say(msg):
+        print(f"[tp] rank {rank}: {msg}", flush=True)
+
+    def params(rules=None):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        kw = {} if rules is None else {"keep": sharding.keep_shard(mesh, rules)}
+        p = api.init(gen, cfg, **kw)
+        torch.cuda.synchronize(device)
+        return p
+
+    def run(name, state, relaxed, n=TP_STEPS, start=0, mgr=None, on_step=None):
+        """``n`` steps from ``start`` (the batches made first): losses,
+        gradient norms, each step's host ms and collectives, launches."""
+        batches = LookaheadIterator(make_batches(cfg, TP_B, TP_S, device=device), cfg,
+                                    depth=n + 2, start_step=start)
+        rec = out["runs"][name] = {"losses": [], "norms": [], "step_ms": [], "moved": []}
+        torch.cuda.synchronize(device)
+        tp_counts(zero=True)
+        ctx = sharding.current()
+        mark = [time.perf_counter(), mesh.stats() if ctx else {}]
+
+        def on_metrics(k, m):
+            rec["losses"].append(float(m["loss"]))
+            rec["norms"].append(float(m["grad_norm"]))
+            if on_step is not None:
+                on_step(k, m)
+            torch.cuda.synchronize(device)
+            rec["step_ms"].append(1e3 * (time.perf_counter() - mark[0]))
+            if ctx is not None:
+                rec["moved"].append(stats_since(mesh, mark[1]))
+                mark[1] = mesh.stats()
+            mark[0] = time.perf_counter()
+        try:
+            state, _ = train_loop.train(cfg, tc, batches, n, relaxed=relaxed, state=state,
+                                        start_step=start, ckpt_manager=mgr,
+                                        on_metrics=on_metrics)
+        finally:
+            rec["launches"] = tp_counts()
+        return state
+
+    def generate(p, rules=None):
+        prompt = make_batches(cfg, TP_SERVE_B, TP_S, device=device).next(0)["tokens"]
+        parts = {}
+
+        @contextlib.contextmanager
+        def part(name):
+            # each part's launches: the counts before and after it
+            before = tp_counts()
+            yield
+            parts[name] = {k: v - before[k] for k, v in tp_counts().items()}
+        with torch.no_grad():
+            greedy_generate(cfg, p, prompt, 2, max_seq=TP_S + TP_NEW)       # warm-up
+            tp_counts(zero=True)
+            before = mesh.stats()
+            st = {}
+            toks = greedy_generate(cfg, p, prompt, TP_NEW, stats=st, part=part)
+            return {"tokens": toks, "logits": st["logits"],
+                    "prefill_ms": 1e3 * st["prefill_s"],
+                    "decode_ms": 1e3 * st["decode_s"] / (TP_NEW - 1),
+                    "launches": tp_counts(), "parts": parts,
+                    "moved": stats_since(mesh, before)}
+
+    def replicated_equal(state):
+        """The replicated dense leaves and their AdamW moments that differ
+        from rank 0's, bit for bit (every rank calls it)."""
+        differ = []
+
+        def same(path, x):
+            if not sharding.is_tp_leaf(path):
+                got = mesh.broadcast(x.clone(), mesh.axis_names, 0)
+                if not torch.equal(x, got):
+                    differ.append(path)
+                return 1
+            return 0
+        n = sum(tree_leaves(tree_map_with_path(same, {
+            "dense": state["dense"], "m": state["opt_dense"]["m"],
+            "v": state["opt_dense"]["v"]})))
+        return {"leaves": n, "differ": differ}
+
+    def whole(state):
+        return {"dense": _whole_leaves(state["dense"]),
+                "table": mesh.all_gather(state["embed"]["table"], "model", 0)}
+
+    # (a) the one-rank reference, rank 0 alone
+    ref_one = {}
+    if writer:
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(device)
+        init_fn = train_loop.make_step_fns(cfg, tc)[0]
+        state = run("one", init_fn(params()), relaxed=False)
+        ref_one["dense"] = tree_map(torch.clone, state["dense"])
+        ref_one["table"] = state["embed"]["table"].clone()
+        out["one_peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        del state
+        torch.cuda.empty_cache()
+        p = params()
+        ref_one["serve"] = generate(p)
+        del p
+        torch.cuda.empty_cache()
+        out["one_serve"] = {k: v for k, v in ref_one["serve"].items()
+                            if k not in ("tokens", "logits")}
+        out["one_s"] = time.perf_counter() - t
+        say(f"one-rank reference: losses {out['runs']['one']['losses']}, prefill "
+            f"{out['one_serve']['prefill_ms']:.1f} ms, decode "
+            f"{out['one_serve']['decode_ms']:.2f} ms a token")
+    mesh.barrier()
+
+    # (b) TP + SP training, strict then relaxed from the same params
+    t = time.perf_counter()
+    kept = None
+    with sharding.use_sharding(mesh, train_rules):
+        for name, relaxed in (("strict", False), ("relaxed", True)):
+            torch.cuda.reset_peak_memory_stats(device)
+            state = train_loop.make_step_fns(cfg, tc)[0](params(train_rules))
+            if name == "strict":
+                out["held"] = {"wq": list(state["dense"]["blocks"]["attn"]["wq"].shape),
+                               "wo": list(state["dense"]["blocks"]["attn"]["wo"].shape),
+                               "wi": list(state["dense"]["blocks"]["mlp"]["wi"].shape),
+                               "lm_head": list(state["dense"]["lm_head"].shape),
+                               "table": list(state["embed"]["table"].shape),
+                               "adam_m_wq": list(state["opt_dense"]["m"]["blocks"]["attn"]
+                                                 ["wq"].shape)}
+            state = run(name, state, relaxed)
+            out["runs"][name]["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+            out["runs"][name]["replicated"] = replicated_equal(state)
+            local = {"dense": state["dense"], "table": state["embed"]["table"]}
+            if name == "strict":
+                # the params re-gathered whole, against the one-rank run's:
+                # each leaf's differences, and the share of its elements
+                # that moved in the one-rank run whose update has that
+                # run's sign (the updates from the seed's params)
+                w = whole(state)
+                if writer:
+                    dense0, embed0 = split_params(params())
+                    gaps, signs = [], []
+                    for a, b, z in zip(tree_leaves(w), tree_leaves(
+                            {"dense": ref_one.pop("dense"), "table": ref_one.pop("table")}),
+                            tree_leaves({"dense": dense0, "table": embed0["table"]}),
+                            strict=True):
+                        s_ = b.float().abs().max().item() or 1.0
+                        d = (a.float() - b.float()).abs()
+                        gaps.append((d.max().item() / s_, d.mean().item() / s_))
+                        ua, ub = a.float() - z.float(), b.float() - z.float()
+                        moved = int((ub != 0).sum())
+                        if moved:
+                            signs.append(int(((ua.sign() == ub.sign()) & (ub != 0)).sum())
+                                         / moved)
+                        del d, ua, ub
+                    del dense0, embed0
+                    out["param_max_share"] = max(g[0] for g in gaps)
+                    out["param_mean_share"] = max(g[1] for g in gaps)
+                    out["sign_agree_min"] = min(signs)
+                    out["sign_leaves"] = [len(signs), len(gaps)]
+                del w
+                kept = tree_map(torch.clone, local)
+            else:
+                out["relaxed_is_strict"] = (
+                    out["runs"]["relaxed"]["losses"] == out["runs"]["strict"]["losses"]
+                    and all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves(local), tree_leaves(kept), strict=True)))
+                batch0 = sharding.shard_batch(
+                    make_batches(cfg, TP_B, TP_S, device=device).next(0), mesh, train_rules)
+                block = state["embed"]["table"].clone()
+            del state, local
+            torch.cuda.empty_cache()
+            say(f"{name}: losses {out['runs'][name]['losses']}")
+    del kept
+    torch.cuda.empty_cache()
+    out["train_s"] = time.perf_counter() - t
+
+    # (c) the crash drill through one writer, tier-E only (a full-width
+    # tier-M of tinyllama is about 13 GB): the writer crashes between step
+    # TP_CRASH's undo COMMIT and its mirror apply
+    t = time.perf_counter()
+    cc = CheckpointConfig(directory=os.path.join(work, "ckpt"), dense_interval=0,
+                          pool_backend="pmem", pool_compress="none")
+    snap = {}
+    with sharding.use_sharding(mesh, train_rules):
+        state = train_loop.make_step_fns(cfg, tc)[0](params(train_rules))
+        faults = FaultSchedule.crash_at("tier_e.between-commit-and-apply",
+                                        occurrence=TP_CRASH + 1)
+        mgr = MeshCheckpoint(cfg, cc, embed_init=state["embed"],
+                             faults=faults if writer else None)
+        out["mirror_load_s"] = mgr.stats["mirror_load_s"]
+        out["ckpt_gathers"] = 0
+        inner = mgr.on_step
+
+        def counted(step, st, feed):
+            # the checkpoint's own gathers: the count before and after each call
+            before = gr.launches
+            try:
+                return inner(step, st, feed)
+            finally:
+                out["ckpt_gathers"] += gr.launches - before
+        mgr.on_step = counted
+
+        def keep(k, _):
+            if k == TP_CRASH - 1:   # the twin: the state after this step, in place
+                snap["table"] = state["embed"]["table"].clone()
+                snap["dense"] = tree_map(torch.clone, state["dense"])
+                snap["opt_dense"] = {**tree_map(torch.clone, {
+                    "m": state["opt_dense"]["m"], "v": state["opt_dense"]["v"]}),
+                    "t": torch.tensor(k + 1, dtype=torch.int32, device=device)}
+        out["crashed"] = False
+        try:
+            run("crash", state, relaxed=True, n=TP_CRASH + 1, mgr=mgr, on_step=keep)
+        except InjectedCrash:
+            out["crashed"] = True
+            mgr.manager.pool.close()           # the writer's process death
+        out["gather_s"] = mgr.stats["gather_s"]
+        del state, mgr
+        torch.cuda.empty_cache()
+        t_rec = time.perf_counter()
+        fresh = train_loop.make_step_fns(cfg, tc)[0](params(train_rules))
+        # no tier-M: the dense tree comes from the twin, the table from the pool
+        fresh = {**fresh, "dense": snap.pop("dense"), "opt_dense": snap.pop("opt_dense")}
+        state, start, rec = recover_on_mesh(cfg, cc.directory, fresh)
+        torch.cuda.synchronize(device)
+        out["recover_s"] = time.perf_counter() - t_rec
+        out["resume_at"] = start
+        out["recovered_bitwise"] = torch.equal(state["embed"]["table"], snap.pop("table"))
+        if writer:
+            out["rec"] = [rec.mirror_step, rec.dense_step, rec.rolled_back]
+            rec.pool.close()
+        state = run("resumed", state, relaxed=True, n=1, start=start)
+        del state, fresh
+    torch.cuda.empty_cache()
+    out["drill_s"] = time.perf_counter() - t
+    say(f"crash drill: crashed {out['crashed']}, resumed at {out['resume_at']}, "
+        f"losses {out['runs']['resumed']['losses']}")
+
+    # (d) serving under the decode rules (heads and kv heads over model; the
+    # cache holds the rank's kv heads over every position), then
+    # context-parallel decode teacher-forced on the one-rank tokens
+    t = time.perf_counter()
+    with sharding.use_sharding(mesh, serve_rules):
+        p = params(serve_rules)
+        got = generate(p)
+        out["serve"] = {k: v for k, v in got.items() if k not in ("tokens", "logits")}
+        del p
+    torch.cuda.empty_cache()
+    one_tokens = mesh.broadcast(ref_one["serve"]["tokens"] if writer else
+                                got["tokens"].new_empty(got["tokens"].shape),
+                                mesh.axis_names, 0)
+    with sharding.use_sharding(mesh, serve_rules):
+        p = params(serve_rules)
+        prompt = make_batches(cfg, TP_SERVE_B, TP_S, device=device).next(0)["tokens"]
+        forced = forced_logits(torch, api, cfg, p, prompt, one_tokens, device)
+        del p
+    torch.cuda.empty_cache()
+    if writer:
+        want = ref_one["serve"]
+        scale = want["logits"].abs().max().item()
+        gap = (forced - want["logits"].cpu()).abs()
+        out["serve"]["logit_share"] = gap.max().item() / scale
+        out["serve"]["prefill_logit_share"] = gap[:, 0].max().item() / scale
+        # the greedy tokens: equal, or apart from the first position at which
+        # the one-rank run's two best logits lie closer than the two runs'
+        # logits there do (a near tie)
+        same = got["tokens"] == want["tokens"]
+        out["serve"]["tokens_equal"] = int(same.sum())
+        out["serve"]["tokens"] = int(same.numel())
+        cols = torch.nonzero(~same.all(dim=0)).flatten()
+        out["serve"]["first_differing"] = None
+        if cols.numel():
+            t0_ = int(cols[0])
+            rows = torch.nonzero(~same[:, t0_]).flatten().tolist()
+            top2 = want["logits"][rows, t0_].topk(2, dim=-1).values
+            out["serve"]["first_differing"] = {
+                "position": t0_, "rows": rows,
+                "top2_gap": (top2[:, 0] - top2[:, 1]).tolist(),
+                "logit_gap": gap[rows, t0_].amax(dim=-1).tolist()}
+    del got
+    with sharding.use_sharding(mesh, CP_RULES):
+        p = params(CP_RULES)
+        prompt = make_batches(cfg, TP_SERVE_B, TP_S, device=device).next(0)["tokens"]
+        tp_counts(zero=True)
+        logits = forced_logits(torch, api, cfg, p, prompt, one_tokens, device)
+        out["cp"] = {"launches": tp_counts(),
+                     "cache_positions": (TP_S + TP_NEW) // world}
+        del p
+    if writer:
+        out["cp"]["logit_share"] = (logits - want["logits"].cpu()).abs().max().item() / scale
+        out["cp"]["rows"] = int(logits.shape[0] * logits.shape[1])
+    out["serve_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+
+    # (e) rank 0: the kernels at its shapes against their plain versions, timed
+    if writer:
+        serve_ids = {"prefill": make_batches(cfg, TP_SERVE_B, TP_S,
+                                             device=device).next(0)["tokens"],
+                     "decode": one_tokens[:, 0]}
+        out["timing"], out["err"], out["shapes"] = tp_kernels(torch, device, cfg, block,
+                                                              batch0, serve_ids)
+        del block
+    mesh.barrier()
+    out["stats"] = mesh.stats()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def forced_logits(torch, api, cfg, params, prompt, toks, device):
+    """A prefill of ``prompt`` and a decode step on each of ``toks`` but
+    the last, at positions S, S + 1, ... (a greedy run's inputs, given):
+    the (B, steps + 1, V) f32 logits on the host."""
+    B, S = prompt.shape
+    steps = toks.shape[1] - 1
+    with torch.no_grad():
+        caches = api.init_cache(cfg, B, S + steps + 1, device)
+        logits, caches = api.prefill(params, cfg, prompt, caches)
+        out = [logits]
+        for s in range(steps):
+            logits, caches = api.decode_step(params, cfg, toks[:, s:s + 1], S + s, caches)
+            out.append(logits)
+        return torch.stack(out, 1).cpu()
+
+
+def tp_kernels(torch, device, cfg, block, batch, serve_ids):
+    """Phase 27's kernels at rank 0's shapes (its 16 of 32 query heads and 2
+    of 4 kv heads, its (16000, 2048) bf16 vocab block), each against its
+    plain version and timed beside its bound and one library call. The
+    lookups are the near-data lookup's: the training batch's ids, the
+    serving prefill's (``serve_ids["prefill"]``, B x S) and a decode step's
+    (``serve_ids["decode"]``, B), each clamped into the block."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    tag = "[tp]"
+    err = {"flash_attention_tc": 0.0, "flash_attention_bwd_tc": 0.0, "gather_rows": 0.0,
+           "embedding_bag": 0.0, "scatter_update": 0.0, "scatter_update_logged": 0.0}
+    D = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads // TP_WORLD, cfg.num_kv_heads // TP_WORLD
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    timing = {}
+    # flash forward with lse and backward at the training shape
+    q, k, v, do = rnd(TP_B, TP_S, hq, D), rnd(TP_B, TP_S, hkv, D), rnd(TP_B, TP_S, hkv, D), \
+        rnd(TP_B, TP_S, hq, D)
+    pairs = TP_S * (TP_S + 1) // 2
+    got = flash_train_shape(torch, err, tag, "tinyllama_tp", q, k, v, do, True, pairs, True)
+    timing["flash_lse_tp"], timing["flash_bwd_tp"] = got["flash_lse_tinyllama_tp"], \
+        got["flash_bwd_tinyllama_tp"]
+    # flash forward at the serving prefill's shape
+    q, k, v = rnd(TP_SERVE_B, TP_S, hq, D), rnd(TP_SERVE_B, TP_S, hkv, D), \
+        rnd(TP_SERVE_B, TP_S, hkv, D)
+    flash_hold(torch, err, q, k, v, "tp prefill shape")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    timing["flash_prefill_tp"] = flash_timing(
+        torch, tag, "flash_prefill_tp",
+        lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+        bound(flash_fwd_bytes(TP_SERVE_B, TP_S, TP_S, hq, hkv, D),
+              4 * D * TP_SERVE_B * hq * pairs, BF16_TENSOR_OPS_PER_S),
+        f"prefill shape B={TP_SERVE_B} S={TP_S} Hq={hq} Hkv={hkv} D={D} bf16 causal")
+    del q, k, v, do, qt, kt, vt
+    # the sparse tier on the vocab block: the near-data lookup gathers every
+    # token id clamped into the block, the adjoint combines the tokens in it
+    V_held, d = block.shape
+    toks = batch["tokens"].reshape(-1).to(torch.int32)
+    ids = toks.clamp(0, V_held - 1).contiguous()
+    keep = toks < V_held
+    flat = toks[keep].contiguous()
+    seg = torch.nonzero(keep).squeeze(1).to(torch.int32)
+    N_all, N = toks.numel(), flat.numel()
+    g = torch.randn((N_all, d), generator=gen, device=device) * 1e-3
+    uniq, comb = ops.combine_duplicates(flat, g, item_rows=seg)
+    n = int((uniq >= 0).sum())
+    pad = N_all - N
+    uniq = torch.cat([uniq, uniq.new_full((pad,), -1)])
+    upd = torch.cat([-0.05 * comb, comb.new_zeros((pad, d))])
+    real = uniq[:n].long()
+    real_ids = uniq[:n].contiguous()
+    distinct = torch.unique(ids).numel()
+    sorted_idx, order = torch.sort(flat, stable=True)
+    first = torch.ones(N, dtype=torch.bool, device=device)
+    first[1:] = sorted_idx[1:] != sorted_idx[:-1]
+    comb_seg = torch.cumsum(first, 0, dtype=torch.int32) - 1
+    comb_src = seg[order].contiguous()
+    comb_starts = torch.nonzero(first).flatten().to(torch.int32)
+    served = {k: v.reshape(-1).to(torch.int32).clamp(0, V_held - 1).contiguous()
+              for k, v in serve_ids.items()}
+    for what, idx in (("lookup", ids), ("checkpoint", real_ids),
+                      ("serving prefill", served["prefill"]),
+                      ("serving decode", served["decode"])):
+        a, b = ops.gather_rows(block, idx), ref.gather_rows_ref(block, idx)
+        check(torch.equal(a, b), f"{tag} gather_rows on the block ({what}): not bitwise")
+    a = ops.embedding_bag(g, comb_src, comb_seg, N)
+    b = ref.embedding_bag_ref(g, comb_src, comb_seg, N)
+    e = (a - b).abs()
+    check(bool((e <= 1e-5 + 1e-5 * b.abs()).all()) and torch.equal(
+        a, ops.embedding_bag(g, comb_src, comb_seg, N)),
+        f"{tag} embedding_bag (duplicate combine): max abs err {e.max().item():.3g}")
+    err["embedding_bag"] = e.max().item()
+    t_tab = block.clone()
+    want_t, want_old = ref.scatter_update_logged_ref(t_tab.clone(), uniq, upd)
+    _, old = ops.scatter_update_logged(t_tab, uniq, upd)
+    check(torch.equal(t_tab, want_t) and torch.equal(old.view(torch.int16),
+                                                     want_old.view(torch.int16)),
+          f"{tag} scatter_update_logged on the block: not bitwise equal")
+    s_tab = block.clone()
+    want_s = ref.scatter_update_ref(s_tab.clone(), uniq, upd)
+    ops.scatter_update(s_tab, uniq, upd)
+    check(torch.equal(s_tab, want_s), f"{tag} scatter_update on the block: not bitwise")
+    scratch = torch.zeros((V_held, d), dtype=torch.float32, device=device)
+    want_f = ref.scatter_update_ref(scratch.clone(), uniq, upd)
+    ops.scatter_update(scratch, uniq, upd)
+    check(torch.equal(scratch, want_f), f"{tag} scatter_update on the block's scratch: "
+          "not bitwise")
+    del want_t, want_old, want_s, want_f, old
+    upd_bf16 = upd[:n].to(torch.bfloat16)
+    shapes = {
+        # the ids once, each distinct row read once, every row written once
+        "gather_tp_lookup": (lambda: ops.gather_rows(block, ids),
+                             lambda: ref.gather_rows_ref(block, ids),
+                             lambda: torch.index_select(block, 0, ids),
+                             bound(N_all * 4 + distinct * d * 2 + N_all * d * 2, 0)),
+        **{f"gather_tp_serve_{k}": (
+            lambda i=i: ops.gather_rows(block, i), lambda i=i: ref.gather_rows_ref(block, i),
+            lambda i=i: torch.index_select(block, 0, i),
+            bound(i.numel() * 4 + torch.unique(i).numel() * d * 2 + i.numel() * d * 2, 0))
+           for k, i in served.items()},
+        "gather_tp_checkpoint": (lambda: ops.gather_rows(block, real_ids),
+                                 lambda: ref.gather_rows_ref(block, real_ids),
+                                 lambda: torch.index_select(block, 0, real_ids),
+                                 bound(n * 4 + 2 * n * d * 2, 0)),
+        "bag_combine_tp": (lambda: ops.embedding_bag(g, comb_src, comb_seg, N),
+                           lambda: ref.embedding_bag_ref(g, comb_src, comb_seg, N),
+                           lambda: F.embedding_bag(comb_src, g, comb_starts, mode="sum"),
+                           bound(N * 4 * 2 + N * d * 4 + n * d * 4, N * d)),
+        "update_f32_tp": (lambda: ops.scatter_update(scratch, uniq, upd),
+                          lambda: ref.scatter_update_ref(scratch, uniq, upd),
+                          lambda: scratch.index_add_(0, real, upd[:n]),
+                          bound(N_all * 4 + n * d * 12, n * d)),
+        "update_bf16_tp": (lambda: ops.scatter_update(s_tab, uniq, upd),
+                           lambda: ref.scatter_update_ref(s_tab, uniq, upd),
+                           lambda: s_tab.index_add_(0, real, upd_bf16),
+                           bound(N_all * 4 + n * d * (4 + 2 * 2), n * d)),
+        "update_logged_tp": (lambda: ops.scatter_update_logged(t_tab, uniq, upd),
+                             lambda: ref.scatter_update_logged_ref(t_tab, uniq, upd),
+                             lambda: (t_tab.index_select(0, real),
+                                      t_tab.index_add_(0, real, upd_bf16)),
+                             bound(n * (4 + d * (4 + 3 * 2)) + (N_all - n) * (4 + d * 2),
+                                   n * d)),
+    }
+    timing.update(time_shapes(torch, tag, shapes))
+    return timing, err, {"block": [V_held, d], "ids": N_all, "distinct": distinct,
+                         "items_in_block": N, "rows_touched": n,
+                         "serve_ids": {k: i.numel() for k, i in served.items()}}
+
+
+def tp_phase(torch, np, dev, tc):
+    """Phase 27: full-width tinyllama-1.1b under dense tensor parallelism and
+    the Megatron-SP residual stream, two gloo ranks on this one card
+    (``tp_rank``), held against the one-rank run. Returns (rank 0's
+    launches by path, its timings, its kernel errors, the metrics)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="tp-", dir=build)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        mesh.spawn(tp_rank, TP_WORLD, backend="gloo", device=f"cuda:{dev.index or 0}",
+                   args=(work, tc.seed), timeout=600)
+        spawn_s = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TP_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return tp_report(ranks, spawn_s)
+
+
+def tp_report(ranks, spawn_s):
+    """Phase 27's results from its ranks: printed, held to the gates."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(TP_ARCH).model
+    tag, r0 = "[tp]", ranks[0]
+    one = r0["runs"]["one"]
+    out = {"spawn_s": spawn_s, "rules": r0["train_rules"], "held": r0["held"],
+           "one_losses": one["losses"], "one_step_ms": one["step_ms"],
+           "one_peak_gb": r0["one_peak_gb"], "one_serve": r0["one_serve"],
+           "seconds": {k: r0[k] for k in ("one_s", "train_s", "drill_s", "serve_s")}}
+    print(f"{tag} two gloo ranks on {[r['device'] for r in ranks]}, (data, model) = "
+          f"(1, {TP_WORLD}), rules {r0['train_rules']}; spawn to the last rank's end "
+          f"{spawn_s:.1f}s; rank 0's parts (s) {out['seconds']}")
+    print(f"{tag} rank 0 holds {r0['held']} (whole: wq {[cfg.num_layers, cfg.d_model, cfg.d_model]}, "
+          f"table {[cfg.vocab_size, cfg.d_model]})")
+    loss_gap = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["runs"]["strict"]["losses"], one["losses"], strict=True))
+    norm_gap = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["runs"]["strict"]["norms"], one["norms"], strict=True))
+    norm0_gap = max(abs(r["runs"]["strict"]["norms"][0] - one["norms"][0]) / one["norms"][0]
+                    for r in ranks)
+    out.update(loss_rel_gap=loss_gap, norm_rel_gap=norm_gap, norm0_rel_gap=norm0_gap,
+               param_max_share=r0["param_max_share"], param_mean_share=r0["param_mean_share"],
+               sign_agree_min=r0["sign_agree_min"], sign_leaves=r0["sign_leaves"],
+               replicated={n: [r["runs"][n]["replicated"] for r in ranks]
+                           for n in ("strict", "relaxed")})
+    for name in ("strict", "relaxed"):
+        rr = r0["runs"][name]
+        out[name] = {"losses": rr["losses"], "norms": rr["norms"],
+                     "step_ms": [r["runs"][name]["step_ms"] for r in ranks],
+                     "peak_gb": [r["runs"][name]["peak_gb"] for r in ranks],
+                     "launches": [r["runs"][name]["launches"] for r in ranks],
+                     "moved_per_step": rr["moved"]}
+        print(f"{tag} {name}: losses {rr['losses']} (one rank {one['losses']}), gradient "
+              f"norms {rr['norms']} (one rank {one['norms']}); step ms a rank "
+              f"{out[name]['step_ms']} (one rank {one['step_ms']}); peak GB a rank "
+              f"{out[name]['peak_gb']} (one rank {r0['one_peak_gb']:.2f}); launches a rank "
+              f"{out[name]['launches']}")
+        print(f"{tag} {name} rank 0's collectives a step: " + json.dumps(rr["moved"]))
+    print(f"{tag} against the one-rank run: losses {loss_gap:.4g} relative (gate "
+          f"{TP_LOSS_RTOL}), step 0's gradient norm {norm0_gap:.4g} (gate {TP_NORM0_RTOL}; "
+          f"every step's {norm_gap:.4g}), params' largest difference "
+          f"{r0['param_max_share']:.4g} of a leaf's largest, mean "
+          f"{r0['param_mean_share']:.4g} (gate {TP_PARAM_MEAN}), the least share of a leaf's "
+          f"moved elements updated with the one-rank sign {r0['sign_agree_min']:.6g} (gate "
+          f"{TP_SIGN_MIN}; leaves that moved, of all: {r0['sign_leaves']}); relaxed == strict "
+          f"bitwise {[r['relaxed_is_strict'] for r in ranks]}; replicated leaves and moments "
+          f"against rank 0's {out['replicated']}")
+    res = r0["runs"]["resumed"]
+    crash = r0["runs"]["crash"]
+    out.update(mirror_load_s=r0["mirror_load_s"], gather_s=r0["gather_s"],
+               recover_s=[r["recover_s"] for r in ranks], rec=r0["rec"],
+               crash_losses=crash["losses"], crash_step_ms=crash["step_ms"],
+               resumed_losses=res["losses"], ckpt_launches=crash["launches"])
+    print(f"{tag} crash drill (tier-E only, one writer): mirror load "
+          f"{r0['mirror_load_s']:.2f}s, step ms {crash['step_ms']}, the writer's gather and "
+          f"merge {r0['gather_s']:.3f}s, crashed {[r['crashed'] for r in ranks]}, recovered "
+          f"{r0['rec']} in {out['recover_s']} s a rank, blocks bitwise the twin's "
+          f"{[r['recovered_bitwise'] for r in ranks]}; resumed at "
+          f"{[r['resume_at'] for r in ranks]}: loss {res['losses']} vs the run's "
+          f"{crash['losses'][TP_CRASH:]}; launches {crash['launches']}")
+    sv = r0["serve"]
+    out["serve"] = {"prefill_ms": [r["serve"]["prefill_ms"] for r in ranks],
+                    "decode_ms": [r["serve"]["decode_ms"] for r in ranks],
+                    "launches": sv["launches"], "parts": sv["parts"], "moved": sv["moved"],
+                    "logit_share": sv["logit_share"]}
+    out["serve"].update({k: sv[k] for k in ("tokens_equal", "tokens", "first_differing",
+                                            "prefill_logit_share")})
+    print(f"{tag} serving B={TP_SERVE_B} prompt {TP_S} + {TP_NEW} tokens: prefill ms a rank "
+          f"{out['serve']['prefill_ms']} (one rank {r0['one_serve']['prefill_ms']:.2f}), decode "
+          f"ms a token {out['serve']['decode_ms']} (one rank "
+          f"{r0['one_serve']['decode_ms']:.3f}); greedy tokens equal to the one-rank run's: "
+          f"{sv['tokens_equal']} of {sv['tokens']}, the first that differs "
+          f"{sv['first_differing']}; teacher-forced on the one-rank tokens, every row's logits "
+          f"within {sv['logit_share']:.4g} of the largest (the prefill's "
+          f"{sv['prefill_logit_share']:.4g}; gate {TP_LOGIT_TOL}); launches "
+          f"{sv['parts']}; collectives {json.dumps(sv['moved'])}")
+    cp = r0["cp"]
+    out["cp"] = cp
+    print(f"{tag} context-parallel decode ({CP_RULES}, {cp['cache_positions']} cache "
+          f"positions a rank), teacher-forced on the one-rank tokens: every one of "
+          f"{cp['rows']} rows' logits within {cp['logit_share']:.4g} of the largest (gate "
+          f"{CP_LOGIT_TOL}); launches {cp['launches']}")
+    print(f"{tag} rank 0's shapes {r0['shapes']}; its collectives in all "
+          + json.dumps(r0["stats"]))
+    check(r0["held"]["wq"] == [cfg.num_layers, cfg.d_model, cfg.d_model // TP_WORLD]
+          and r0["held"]["wo"] == [cfg.num_layers, cfg.d_model // TP_WORLD, cfg.d_model]
+          and r0["held"]["wi"] == [cfg.num_layers, cfg.d_model, cfg.d_ff // TP_WORLD]
+          and r0["held"]["lm_head"] == [cfg.d_model, cfg.vocab_size // TP_WORLD]
+          and r0["held"]["table"] == [cfg.vocab_size // TP_WORLD, cfg.d_model]
+          and r0["held"]["adam_m_wq"] == r0["held"]["wq"],
+          f"{tag} rank 0 holds {r0['held']}, not its blocks")
+    check(all(math.isfinite(x) for r in ranks for n in ("strict", "relaxed")
+              for x in r["runs"][n]["losses"]), f"{tag} a non-finite loss")
+    check(loss_gap <= TP_LOSS_RTOL, f"{tag} losses {loss_gap:.4g} from the one-rank run's")
+    check(norm0_gap <= TP_NORM0_RTOL, f"{tag} step 0's gradient norm {norm0_gap:.4g} from "
+          "the one-rank run's")
+    check(r0["param_mean_share"] <= TP_PARAM_MEAN and r0["sign_agree_min"] >= TP_SIGN_MIN,
+          f"{tag} params differ from the one-rank run's")
+    check(all(rep_["leaves"] > 0 and not rep_["differ"]
+              for reps in out["replicated"].values() for rep_ in reps),
+          f"{tag} a replicated leaf differs across the ranks: {out['replicated']}")
+    check(all(r["relaxed_is_strict"] for r in ranks), f"{tag} relaxed differs from strict")
+    check(all(r["runs"]["strict"]["losses"] == r0["runs"]["strict"]["losses"]
+              for r in ranks), f"{tag} the ranks report different losses")
+    check(r0["crashed"] and not ranks[1]["crashed"], f"{tag} the writer did not crash "
+          "alone at the scheduled step")
+    check(r0["rec"] == [TP_CRASH - 1, -1, True], f"{tag} recovered {r0['rec']}")
+    check(all(r["recovered_bitwise"] for r in ranks), f"{tag} a recovered block differs "
+          "from the twin's")
+    check(all(r["resume_at"] == TP_CRASH for r in ranks), f"{tag} resume step")
+    check(res["losses"] == crash["losses"][TP_CRASH:TP_CRASH + 1], f"{tag} the resumed "
+          "loss differs from the uninterrupted step's")
+    fd = sv["first_differing"]
+    check(fd is None or all(t <= g for t, g in zip(fd["top2_gap"], fd["logit_gap"],
+                                                     strict=True)),
+          f"{tag} a served token differs from the one-rank run's where the one-rank "
+          f"logits were no near tie: {fd}")
+    check(sv["logit_share"] <= TP_LOGIT_TOL, f"{tag} served logits beyond the gate")
+    check(cp["logit_share"] <= CP_LOGIT_TOL, f"{tag} context-parallel decode's logits "
+          "beyond the gate")
+    for name in ("strict", "relaxed"):
+        for r in ranks:
+            c = r["runs"][name]["launches"]
+            need = ("flash_attention_tc", "flash_attention_bwd", "gather_rows", "embedding_bag",
+                    "scatter_update") + (("scatter_update_logged",) if name == "relaxed" else ())
+            check(all(c[k] > 0 for k in need), f"{tag} {name}: a kernel of the path never "
+                  f"launched: {c}")
+    check(all(r["serve"]["parts"]["prefill"]["flash_attention_tc"] > 0
+              and r["serve"]["parts"]["prefill"]["gather_rows"] == 1
+              and r["serve"]["parts"]["decode"]["gather_rows"] == TP_NEW - 1 for r in ranks),
+          f"{tag} serving: want flash and one gather in the prefill and one gather a decode "
+          f"step, got {[r['serve']['parts'] for r in ranks]}")
+    check(all(r["ckpt_gathers"] == TP_CRASH + 1 for r in ranks), f"{tag} the checkpoint's "
+          f"gathers a rank {[r['ckpt_gathers'] for r in ranks]}, want one a checkpointed step")
+    rl, sl = r0["runs"]["relaxed"]["launches"], r0["runs"]["strict"]["launches"]
+    launches = {"flash_lse": rl["flash_attention_tc"], "flash_bwd": rl["flash_attention_bwd"],
+                "gather": rl["gather_rows"], "bag": rl["embedding_bag"],
+                "update_f32": rl["scatter_update"], "update_bf16": sl["scatter_update"],
+                "logged": rl["scatter_update_logged"],
+                "ckpt_gather": r0["ckpt_gathers"],
+                "flash_prefill": sv["parts"]["prefill"]["flash_attention_tc"],
+                "gather_serve_prefill": sv["parts"]["prefill"]["gather_rows"],
+                "gather_serve_decode": sv["parts"]["decode"]["gather_rows"]}
+    return launches, r0["timing"], r0["err"], out
+
+
 def train_loop_train(cfg, tc, batches, steps, state, mgr, on_metrics, start=0):
     """``train_loop.train`` of relaxed steps on the card."""
     from repro_torch.training import train_loop
@@ -5205,6 +5966,111 @@ def sim_phase(steps_metrics):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+DRILLS = (18, 20, 21)
+DRILL_MARK = "DRILL_RESULT "
+# each drill's host needs, in units of full rm1's 2.56 GB f32 mirror (the
+# phases' own host_room calls): RAM, disk
+DRILL_ROOM = {18: (8, 2), 20: (10, 4), 21: (8, 2)}
+# free device memory the three need together: their peaks were 11.12, 8.39
+# and 11.04 GB (measured on an H100 80GB HBM3 at 700 W), and each holds a context
+DRILL_CARD_GB = 33
+
+
+def drill_child(num, pmem_tier_e_ms):
+    """One pool drill in a process of its own (``python3 chip_smoke.py
+    --drill N [--tier-e-ms JSON]``, started by ``drills_phase``): phase 18,
+    20 or 21 on full rm1 from the config's seed, as ``main`` would run it.
+    Prints the phase's lines and, last, DRILL_MARK and one JSON object:
+    its launches, its numbers, its wall seconds and its peak device GB."""
+    import numpy as np
+    import torch
+    dev = start_on_card()
+    from repro_torch.configs import get_arch
+    cfg = get_arch("dlrm-rm1").model
+    tc, fresh_state = rm1_training(torch, cfg, dev)
+    t0 = time.perf_counter()
+    if num == 18:
+        launches, out = remote_checkpoint_phase(torch, np, cfg, tc, 128, dev, fresh_state,
+                                                pmem_tier_e_ms)
+    elif num == 20:
+        launches, out = sharded_checkpoint_phase(torch, np, cfg, tc, 128, dev, fresh_state)
+    elif num == 21:
+        launches, out = checked_soak_phase(torch, np, cfg, tc, 128, dev, pmem_tier_e_ms)
+    else:
+        fail(f"no drill {num}: the drills are phases {DRILLS}")
+    print(DRILL_MARK + json.dumps({
+        "launches": launches, "out": out, "wall_s": time.perf_counter() - t0,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+
+
+def drills_phase(torch, pmem_tier_e_ms):
+    """Phases 18, 20 and 21, the rm1 pool drills, run at once: each in a
+    child process of this script (``drill_child``) with its own work
+    directory and sockets under build/ (each phase makes its own), the
+    checker (REPRO_POOL_CHECK=1) set in phase 21's environment alone. Their
+    seconds are taken while they share the host's cores, disk and memory.
+    Each child's lines are printed; a child that exits non-zero, or gives
+    no result line, fails the run. Returns {phase: (launches, numbers)}."""
+    import shutil
+    import tempfile
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    mirror_gb = 20 * 1_000_000 * 32 * 4 / 1e9
+    host_room("[drills]", "phases 18, 20 and 21 at once", build,
+              sum(r for r, _ in DRILL_ROOM.values()) * mirror_gb,
+              sum(d for _, d in DRILL_ROOM.values()) * mirror_gb)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    print(f"[drills] device memory free before the drills {free_gb:.1f} GB")
+    check(free_gb >= DRILL_CARD_GB, f"the drills need {DRILL_CARD_GB} GB of free device "
+          f"memory, {free_gb:.1f} GB free")
+    work = tempfile.mkdtemp(prefix="drills-", dir=build)
+    base = {k: v for k, v in os.environ.items() if k != "REPRO_POOL_CHECK"}
+    procs, wall, results = {}, {}, {}
+    t0 = time.perf_counter()
+    try:
+        for num in DRILLS:
+            env = {**base, "REPRO_POOL_CHECK": "1"} if num == 21 else base
+            with open(os.path.join(work, f"{num}.log"), "w") as log:
+                procs[num] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--drill", str(num),
+                     "--tier-e-ms", json.dumps(list(pmem_tier_e_ms))],
+                    env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True,
+                    start_new_session=True)
+        while len(wall) < len(procs):
+            check(time.perf_counter() - t0 < 900, "drills: not all exited within 900 s: "
+                  f"{sorted(set(procs) - set(wall))}")
+            for num, proc in procs.items():
+                if num not in wall and proc.poll() is not None:
+                    wall[num] = time.perf_counter() - t0
+            time.sleep(0.2)
+        for num in DRILLS:
+            with open(os.path.join(work, f"{num}.log")) as log:
+                text = log.read()
+            lines = text.splitlines()
+            got = [ln[len(DRILL_MARK):] for ln in lines if ln.startswith(DRILL_MARK)]
+            for ln in lines:
+                if not ln.startswith(DRILL_MARK):
+                    print(ln)
+            rc = procs[num].returncode
+            check(rc == 0 and len(got) == 1, f"drill {num}: exit {rc}, "
+                  f"{len(got)} result lines:\n{text[-6000:]}")
+            res = json.loads(got[0])
+            results[num] = (res["launches"], res["out"])
+            print(f"[drills] phase {num}: exit {rc}, done {wall[num]:.1f}s after the "
+                  f"start (its phase {res['wall_s']:.1f}s, sharing the host with the "
+                  f"other drills), peak device memory {res['peak_gb']:.2f} GB")
+    finally:
+        for proc in procs.values():      # none outlives the phase
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return results
 
 
 def start_on_card():
@@ -5693,11 +6559,13 @@ def main():
                                                  fresh_state)
     print(f"[pool-serve] phase 17 wall time {time.perf_counter() - t0:.1f}s")
 
-    # -- 18. full rm1 checkpointed into a memory node in its own process ------------
+    # -- 18, 20, 21. the pool drills, each in a process of its own, at once --------
     t0 = time.perf_counter()
-    remote_launches, remote_out = remote_checkpoint_phase(
-        torch, np, cfg, tc, Bsz, dev, fresh_state, ck_tier_e_ms)
-    print(f"[remote] phase 18 wall time {time.perf_counter() - t0:.1f}s")
+    drills = drills_phase(torch, ck_tier_e_ms)
+    remote_launches, remote_out = drills[18]
+    sharded_launches, sharded_out = drills[20]
+    soak_launches, soak_out = drills[21]
+    print(f"[drills] phases 18, 20 and 21 wall time {time.perf_counter() - t0:.1f}s")
 
     # -- 19. row-wise Adagrad on the sparse tier at full width ---------------------
     t0 = time.perf_counter()
@@ -5705,18 +6573,6 @@ def main():
                                                        check_gather)
     timing.update(ada_timing)
     print(f"[adagrad] phase 19 wall time {time.perf_counter() - t0:.1f}s")
-
-    # -- 20. full rm1 checkpointed into a sharded pool of three memory nodes ------
-    t0 = time.perf_counter()
-    sharded_launches, sharded_out = sharded_checkpoint_phase(torch, np, cfg, tc, Bsz,
-                                                             dev, fresh_state)
-    print(f"[sharded] phase 20 wall time {time.perf_counter() - t0:.1f}s")
-
-    # -- 21. full rm1 trained under the checker through seeded crashes -----------
-    t0 = time.perf_counter()
-    soak_launches, soak_out = checked_soak_phase(torch, np, cfg, tc, Bsz, dev,
-                                                 ck_tier_e_ms)
-    print(f"[soak] phase 21 wall time {time.perf_counter() - t0:.1f}s")
 
     # -- 22. the remaining decoder families at full width --------------------------
     t0 = time.perf_counter()
@@ -5756,6 +6612,15 @@ def main():
     sim_out = sim_phase(ck_metrics)
     check(not any(row_counts().values()), f"sim: a kernel launched: {row_counts()}")
     print(f"[sim] phase 26 wall time {time.perf_counter() - t0:.1f}s")
+
+    # -- 27. tinyllama-1.1b under dense TP and Megatron-SP: two gloo ranks --------
+    t0 = time.perf_counter()
+    tp_launches, tp_timing, tp_err, tp_out = tp_phase(torch, np, dev, tc)
+    timing.update(tp_timing)
+    for name, e in tp_err.items():
+        err[name] = max(err.get(name, 0.0), e)
+    tp_out["wall_s"] = time.perf_counter() - t0
+    print(f"[tp] phase 27 wall time {tp_out['wall_s']:.1f}s")
 
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
@@ -5973,7 +6838,30 @@ def main():
             ("scatter_update_logged", "dlrm-rm1 train (2 ranks, a rank's block, f32)",
              "update_logged_rm1_block", dt_launches["logged"], *logged_src),
             ("gather_rows", "dlrm-rm1 checkpoint (2 ranks, one writer, f32)",
-             "gather_rm1_block", dt_launches["gather"], *gather_src)):
+             "gather_rm1_block", dt_launches["gather"], *gather_src),
+            # phase 27: rank 0 of two, tinyllama-1.1b under TP + SP at its shapes
+            ("flash_attention_tc", "tinyllama-1.1b train (2 ranks, TP + SP, 16/2 heads)",
+             "flash_lse_tp", tp_launches["flash_lse"], *flash_tc_src),
+            ("flash_attention_bwd_tc", "tinyllama-1.1b train (2 ranks, TP + SP, 16/2 heads)",
+             "flash_bwd_tp", tp_launches["flash_bwd"], *bwd_tc_src),
+            ("gather_rows", "tinyllama-1.1b train (2 ranks, near-data vocab block)",
+             "gather_tp_lookup", tp_launches["gather"], *gather_src),
+            ("embedding_bag", "tinyllama-1.1b train (2 ranks, a rank's vocab block)",
+             "bag_combine_tp", tp_launches["bag"], *bag_src),
+            ("scatter_update", "tinyllama-1.1b train (2 ranks, the block's f32 scratch)",
+             "update_f32_tp", tp_launches["update_f32"], *update_src),
+            ("scatter_update", "tinyllama-1.1b train (strict, 2 ranks, the bf16 block)",
+             "update_bf16_tp", tp_launches["update_bf16"], *update_src),
+            ("scatter_update_logged", "tinyllama-1.1b train (2 ranks, the bf16 block)",
+             "update_logged_tp", tp_launches["logged"], *logged_src),
+            ("gather_rows", "tinyllama-1.1b checkpoint (2 ranks, one writer)",
+             "gather_tp_checkpoint", tp_launches["ckpt_gather"], *gather_src),
+            ("flash_attention_tc", "tinyllama-1.1b prefill (2 ranks, TP, 16/2 heads)",
+             "flash_prefill_tp", tp_launches["flash_prefill"], *flash_tc_src),
+            ("gather_rows", "tinyllama-1.1b prefill (2 ranks, near-data vocab block)",
+             "gather_tp_serve_prefill", tp_launches["gather_serve_prefill"], *gather_src),
+            ("gather_rows", "tinyllama-1.1b decode (2 ranks, near-data vocab block)",
+             "gather_tp_serve_decode", tp_launches["gather_serve_decode"], *gather_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -5990,6 +6878,7 @@ def main():
     print(f"[dist] phase 24: {json.dumps(dist_out)}")
     print(f"[dist-train] phase 25: {json.dumps(dt_out)}")
     print(f"[sim] phase 26: {json.dumps(sim_out)}")
+    print(f"[tp] phase 27: {json.dumps(tp_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5997,4 +6886,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--drill"]:
+        drill_child(int(sys.argv[2]), json.loads(sys.argv[4]) if sys.argv[3:4] == [
+            "--tier-e-ms"] else [])
+    else:
+        main()

@@ -10,7 +10,8 @@ def full() -> base.ArchBundle:
         moe=base.MoEConfig(num_experts=128, top_k=2, d_ff_expert=4864,
                            dense_residual=True),
         source="hf:Snowflake/snowflake-arctic-base; hf")
-    return base.ArchBundle(model=m)
+    s = base.ShardingProfile(fsdp=True, seq_shard_activations=True)
+    return base.ArchBundle(model=m, sharding=s)
 
 
 def smoke() -> base.ArchBundle:

@@ -206,7 +206,39 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One cell of the reference's (arch x shape) grid."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class ShardingProfile:
+    """How the arch maps onto the (pod, data, model) mesh (the reference's
+    fields; ``launch.dryrun.build_rules`` reads ``fsdp`` and
+    ``seq_shard_activations``)."""
+    tp: bool = True                 # shard heads/ffn over "model"
+    fsdp: bool = False              # shard weights over "data" too (huge archs)
+    vocab_shard: bool = True        # embedding pool rows over "model"
+    expert_parallel: bool = True    # MoE experts over "model"
+    seq_shard_activations: bool = False  # Megatron-SP residual stream
+    context_parallel_decode: bool = False  # long_500k: shard cache seq over "data"
+    lookup_strategy: str = "auto"   # near_data | table_gather | auto
+
+
+@dataclass(frozen=True)
 class ArchBundle:
     """Everything the launcher needs for one --arch id."""
     model: ModelConfig
     train: TrainConfig = field(default_factory=TrainConfig)
+    sharding: ShardingProfile = field(default_factory=ShardingProfile)

@@ -8,7 +8,8 @@ def full() -> base.ArchBundle:
         num_layers=52, d_model=6144, num_heads=48, num_kv_heads=1,
         d_ff=24576, vocab_size=49152, rope_theta=10000.0,
         source="arXiv:2405.04324; hf")
-    return base.ArchBundle(model=m)
+    s = base.ShardingProfile(fsdp=True, seq_shard_activations=True)
+    return base.ArchBundle(model=m, sharding=s)
 
 
 def smoke() -> base.ArchBundle:

@@ -12,7 +12,9 @@ def full() -> base.ArchBundle:
                            layer_period=2),
         mamba=base.MambaConfig(d_state=16, d_conv=4, expand=2),
         sub_quadratic=True, source="arXiv:2403.19887; hf")
-    return base.ArchBundle(model=m)
+    s = base.ShardingProfile(fsdp=True, seq_shard_activations=True,
+                             context_parallel_decode=True)
+    return base.ArchBundle(model=m, sharding=s)
 
 
 def smoke() -> base.ArchBundle:

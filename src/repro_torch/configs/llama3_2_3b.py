@@ -8,7 +8,8 @@ def full() -> base.ArchBundle:
         num_layers=28, d_model=3072, num_heads=24, num_kv_heads=8,
         d_ff=8192, vocab_size=128256, rope_theta=500000.0,
         source="hf:meta-llama/Llama-3.2-1B; unverified")
-    return base.ArchBundle(model=m)
+    s = base.ShardingProfile(seq_shard_activations=True)
+    return base.ArchBundle(model=m, sharding=s)
 
 
 def smoke() -> base.ArchBundle:
@@ -17,4 +18,5 @@ def smoke() -> base.ArchBundle:
         model=b.model.replace(num_layers=2, d_model=96, num_heads=6,
                               num_kv_heads=2, d_ff=192, vocab_size=512,
                               dtype="float32", remat=False,
-                              attn_chunk=64, loss_chunk=256))
+                              attn_chunk=64, loss_chunk=256),
+        sharding=b.sharding)

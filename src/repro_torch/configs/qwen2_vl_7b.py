@@ -9,7 +9,8 @@ def full() -> base.ArchBundle:
         d_ff=18944, vocab_size=152064, rope_theta=1000000.0,
         mrope_sections=(16, 24, 24),
         source="arXiv:2409.12191; hf")
-    return base.ArchBundle(model=m)
+    s = base.ShardingProfile(seq_shard_activations=True)
+    return base.ArchBundle(model=m, sharding=s)
 
 
 def smoke() -> base.ArchBundle:
@@ -19,4 +20,5 @@ def smoke() -> base.ArchBundle:
                               num_kv_heads=2, d_ff=128, vocab_size=512,
                               head_dim=16, mrope_sections=(2, 3, 3),
                               dtype="float32", remat=False,
-                              attn_chunk=64, loss_chunk=256))
+                              attn_chunk=64, loss_chunk=256),
+        sharding=b.sharding)

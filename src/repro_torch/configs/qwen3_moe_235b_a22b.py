@@ -10,7 +10,8 @@ def full() -> base.ArchBundle:
         rope_theta=1000000.0,
         moe=base.MoEConfig(num_experts=128, top_k=8, d_ff_expert=1536),
         source="hf:Qwen/Qwen3-30B-A3B; hf")
-    return base.ArchBundle(model=m)
+    s = base.ShardingProfile(fsdp=True, seq_shard_activations=True)
+    return base.ArchBundle(model=m, sharding=s)
 
 
 def smoke() -> base.ArchBundle:

@@ -8,7 +8,8 @@ def full() -> base.ArchBundle:
         num_layers=32, d_model=2560, num_heads=40, num_kv_heads=40,
         d_ff=8960, vocab_size=65536, rope_theta=0.0, act="relu_sq",
         sub_quadratic=True, source="arXiv:2404.05892; hf")
-    return base.ArchBundle(model=m)
+    s = base.ShardingProfile(seq_shard_activations=True)
+    return base.ArchBundle(model=m, sharding=s)
 
 
 def smoke() -> base.ArchBundle:
@@ -17,4 +18,5 @@ def smoke() -> base.ArchBundle:
         model=b.model.replace(num_layers=2, d_model=128, num_heads=2,
                               num_kv_heads=2, d_ff=256, vocab_size=512,
                               dtype="float32", remat=False,
-                              loss_chunk=256))
+                              loss_chunk=256),
+        sharding=b.sharding)

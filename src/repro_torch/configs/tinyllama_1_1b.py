@@ -8,7 +8,8 @@ def full() -> base.ArchBundle:
         num_layers=22, d_model=2048, num_heads=32, num_kv_heads=4,
         d_ff=5632, vocab_size=32000, rope_theta=10000.0,
         source="arXiv:2401.02385; hf")
-    return base.ArchBundle(model=m)
+    s = base.ShardingProfile(seq_shard_activations=True)
+    return base.ArchBundle(model=m, sharding=s)
 
 
 def smoke() -> base.ArchBundle:
@@ -17,4 +18,5 @@ def smoke() -> base.ArchBundle:
         model=b.model.replace(num_layers=2, d_model=64, num_heads=4,
                               num_kv_heads=2, d_ff=128, vocab_size=512,
                               dtype="float32", remat=False,
-                              attn_chunk=64, loss_chunk=256))
+                              attn_chunk=64, loss_chunk=256),
+        sharding=b.sharding)

@@ -9,7 +9,8 @@ def full() -> base.ArchBundle:
         num_kv_heads=8, d_ff=2048, vocab_size=51865, rope_theta=0.0,
         act="gelu", tie_embeddings=True,
         source="arXiv:2212.04356; unverified")
-    return base.ArchBundle(model=m)
+    s = base.ShardingProfile(seq_shard_activations=True)
+    return base.ArchBundle(model=m, sharding=s)
 
 
 def smoke() -> base.ArchBundle:
@@ -18,4 +19,5 @@ def smoke() -> base.ArchBundle:
         model=b.model.replace(num_layers=2, encoder_layers=2, d_model=64,
                               num_heads=4, num_kv_heads=4, d_ff=128,
                               vocab_size=512, dtype="float32", remat=False,
-                              attn_chunk=64, loss_chunk=256))
+                              attn_chunk=64, loss_chunk=256),
+        sharding=b.sharding)

@@ -223,8 +223,8 @@ def resume_train_state(rec: RecoveredState, init_state: dict,
     but where no dense snapshot was recovered the state keeps its dense
     leaves and moments, which training then updates in place. ``rows``:
     the rows of each table (``rec.table_shape`` (T, R, d)) that the state
-    holds, a rank's block under a mesh; only they are taken from the
-    mirror. Returns (state, resume_step).
+    holds, a rank's block under a mesh (an LM's (V, d) table: its rows);
+    only they are taken from the mirror. Returns (state, resume_step).
     """
     def like(tgt: torch.Tensor, src) -> torch.Tensor:
         return torch.as_tensor(src).to(device=tgt.device, dtype=tgt.dtype,
@@ -234,7 +234,7 @@ def resume_train_state(rec: RecoveredState, init_state: dict,
     tgt = init_state["embed"][rec.table_name]
     src = rec.embed_rows
     if rows is not None:
-        src = np.asarray(src).reshape(rec.table_shape)[:, rows]
+        src = np.asarray(src).reshape(rec.table_shape)[..., rows, :]
     state["embed"] = {rec.table_name: like(tgt, src)}
     if rec.dense is not None:
         for key in ("dense", "opt_dense", "opt_embed"):

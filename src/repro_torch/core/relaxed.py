@@ -27,9 +27,10 @@ table, so its table gradient, and its update U, cover every row: the
 trainer then updates every row, and the correction reads U's rows straight
 from the dense update (``prefetch_corrected`` with no scratch).
 
-Under a sharding context (DLRM only; an LM raises, ROADMAP queue 1 item
-10(c)) each rank holds its block of every table's rows over the
-``table_rows`` axes, or the whole tables where nothing shards them, and
+Under a sharding context (DLRM and the dense decoders; the other LMs
+raise, ROADMAP queue 1 item 10(c)) each rank holds its block of every
+table's rows over the ``table_rows`` axes (an LM: its block of the token
+table over ``vocab``), or the whole tables where nothing shards them, and
 its slice of the batch over the ``batch`` axes (``sharding.shard_batch``).
 The lookups then run near the data on the rank's block (``rows=`` the
 global row count), and the scratch is the block's size. The adjoint is
@@ -41,14 +42,19 @@ fall in its block (``embedding_ops.local_bag_items``), in item order, so
 its ``(uniq, grad)`` are bitwise the one-rank combine's at its rows for
 the same gradients. ``uniq`` are block-local flat ids into the held (T *
 R_held, d) tables, as on one rank; the mesh checkpoint's writer maps them
-into the (T * R, d) stacked tables, the checkpoint's layout.
+into the (T * R, d) stacked tables, the checkpoint's layout. An LM's
+adjoint follows the same pattern: the token ids and the rows' gradients
+(whole on every rank of the TP axis, ``tensor_parallel.shard_stream``'s
+backward) gathered over the data-parallel axes, each rank combining the
+tokens in its vocab block, its ids block-local; the correction's scratch
+is the block's.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import embedding_ops
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, tensor_parallel
 from repro_torch.kernels import ops
 
 TRAINED = ("dlrm", "transformer", "qwen2vl", "rwkv6", "jamba", "whisper")
@@ -58,10 +64,13 @@ def check_trainable(cfg) -> None:
     if cfg.arch_type not in TRAINED:
         raise NotImplementedError(
             f"the port trains {TRAINED} so far, not {cfg.arch_type!r}")
-    if cfg.arch_type != "dlrm" and sharding.current() is not None:
+    if sharding.current() is None or cfg.arch_type == "dlrm":
+        return
+    if not tensor_parallel.dense_decoder(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: under a sharding context the port trains DLRM only; "
-            "the LM trainers under a mesh are ROADMAP queue 1 item 10(c)")
+            f"{cfg.name}: under a sharding context the port trains DLRM and the "
+            f"dense decoders; {cfg.arch_type} under a mesh is ROADMAP queue 1 "
+            "item 10(c)")
 
 
 def _rows(cfg) -> int:
@@ -71,21 +80,22 @@ def _rows(cfg) -> int:
 
 
 def block(cfg, table) -> tuple:
-    """Which rows of each DLRM table ``table`` (T, R_held, d) holds:
+    """Which rows of each DLRM table ``table`` (T, R_held, d) holds (an
+    LM's token table (V_held, d): which of the vocabulary's):
     ``(R, base, psum)``, the global rows a table, the global row of the
     block's first, and the sum over the ranks that hold the other blocks
     (None where this rank holds the tables whole: no context, or no
-    ``table_rows`` axis, or one that does not divide R)."""
-    R = cfg.dlrm_rows_per_table
+    ``table_rows`` (``vocab``) axis, or one that does not divide R)."""
+    dlrm = cfg.arch_type == "dlrm"
+    R, held = _rows(cfg), table.shape[1 if dlrm else 0]
     ctx = sharding.current()
     if ctx is None:
-        return table.shape[1], 0, None
-    mesh, tp_ax = ctx.mesh, ctx.axes("table_rows")
+        return held, 0, None
+    mesh, tp_ax = ctx.mesh, ctx.axes("table_rows" if dlrm else "vocab")
     tp = embedding_ops._axis_size(mesh, tp_ax)
-    if not embedding_ops._held(table.shape[1], R, tp, "the trainer's tables"):
+    if not embedding_ops._held(held, R, tp, "the trainer's tables"):
         return R, 0, None
-    return R, mesh.axis_index(tp_ax) * table.shape[1], \
-        (lambda x: mesh.all_reduce(x, tp_ax))
+    return R, mesh.axis_index(tp_ax) * held, (lambda x: mesh.all_reduce(x, tp_ax))
 
 
 def embed_leaf(cfg) -> str:
@@ -114,16 +124,17 @@ def sparse_rows_grad(embed_params: dict, cfg, batch: dict, rows_grad):
     duplicates summed in item order. The JAX package's
     ``scatter_rows_grad`` is the same gradient, dense.
 
-    Under a sharding context (DLRM): the gradient at the rows of the
-    rank's block, from the global batch (the module's docstring), as
-    block-local flat ids, padded to the global batch's item count B * T *
-    L, the one-rank adjoint's length, so that every rank's feed has one
-    length.
+    Under a sharding context: the gradient at the rows of the rank's
+    block, from the global batch (the module's docstring), as block-local
+    flat ids, padded to the global batch's item count (B * T * L, or an
+    LM's B * S), the one-rank adjoint's length, so that every rank's feed
+    has one length.
     """
     check_trainable(cfg)
     table = embed_params[embed_leaf(cfg)]
-    if cfg.arch_type == "dlrm" and sharding.current() is not None:
-        return _sparse_rows_grad_mesh(table, cfg, batch["sparse"], rows_grad)
+    if sharding.current() is not None:
+        ids = batch["sparse"] if cfg.arch_type == "dlrm" else batch["tokens"]
+        return _sparse_rows_grad_mesh(table, cfg, ids, rows_grad)
     g = rows_grad.reshape(-1, table.shape[-1]).contiguous()
     if cfg.arch_type == "dlrm":
         flat, seg = embedding_ops.bag_items(batch["sparse"], table.shape[1])
@@ -140,9 +151,16 @@ def _sparse_rows_grad_mesh(table, cfg, ids, rows_grad):
     if dp > 1:
         ids = mesh.all_gather(ids, dp_ax, 0)
         g = mesh.all_gather(rows_grad, dp_ax, 0) * (1.0 / dp)
-    T, R_held, d = table.shape
+    d = table.shape[-1]
     _, base, _ = block(cfg, table)
-    flat, seg = embedding_ops.local_bag_items(ids, base, R_held, R_held, 0)
+    if cfg.arch_type == "dlrm":
+        R_held = table.shape[1]
+        flat, seg = embedding_ops.local_bag_items(ids, base, R_held, R_held, 0)
+    else:        # the tokens in the rank's vocab block, in item order
+        local = ids.reshape(-1).to(torch.int32) - base
+        keep = (local >= 0) & (local < table.shape[0])
+        flat = local[keep].contiguous()
+        seg = torch.nonzero(keep).squeeze(1).to(torch.int32)
     uniq, comb = ops.combine_duplicates(flat, g.reshape(-1, d).contiguous(),
                                         item_rows=seg)
     pad = ids.numel() - uniq.shape[0]

@@ -1,7 +1,9 @@
-"""Checkpointing and recovering a mesh-trained DLRM through one writer.
+"""Checkpointing and recovering a model trained under a mesh through one
+writer: DLRM, and the dense decoders with tensor parallelism.
 
 The reference's checkpoint manager knows no mesh: it mirrors the global
-(T * R, d) tables and logs the global batch's touched rows. Under a mesh
+(T * R, d) tables (an LM's (V, d) token table) and logs the global batch's
+touched rows. Under a mesh
 the port keeps that layout, one f32 mirror and one undo ring, so that a
 checkpoint stays exchangeable between the packages and ``recover`` is
 unchanged; the rank at coordinate 0 on every axis is the writer and holds
@@ -17,12 +19,18 @@ the ``CheckpointManager``.
   tables, and gather the feeds (ids, deltas, undo images, each padded to
   the batch's item count by the trainer) and the rows to the writer,
   which merges them into ascending ids with the pads last: the feed a
-  one-rank run would give.
-  Tier-M writes the dense tree and the optimizer state, whole on every
-  rank, from the writer alone.
+  one-rank run would give. An LM is one table of V rows (T = 1), its
+  block over the ``vocab`` axes.
+  Tier-M writes the dense tree and the optimizer state from the writer
+  alone: whole on every rank, or under tensor parallelism gathered whole
+  from the ranks' blocks first (the ranks at data coordinate 0 take part),
+  so that the blob has the one-rank layout that ``store.serialize_tree``
+  writes and either package recovers.
 * ``recover_on_mesh``: the writer runs ``recover`` (rollback included),
   then every rank takes its block of the recovered mirror and the dense
-  tree from it; the relaxed carry is rebuilt by the trainer's warm-up.
+  tree from it (under tensor parallelism its blocks of the dense leaves
+  and their moments, sent block by block); the relaxed carry is rebuilt
+  by the trainer's warm-up.
 
 Where a rank holds the tables whole (no ``table_rows`` axis in the mesh)
 the writer has every row and checkpoints alone. Every method is called by
@@ -33,6 +41,7 @@ one scheduled step, and ``mesh.spawn``'s timeout ends a rank left waiting.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -42,30 +51,35 @@ import torch
 from repro_torch.core import relaxed as rx
 from repro_torch.core.checkpoint import recovery
 from repro_torch.core.checkpoint.manager import CheckpointManager
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, tensor_parallel
 from repro_torch.kernels import ops
 from repro_torch.pool.remote import chunk_bytes
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_map_with_path
 
 
 class _Layout:
     """Where the tables lie on the mesh, read from the current context:
-    the writer, the ``table_rows`` axis (``tp_ax``, None where the rank
-    holds the tables whole), the other axes (``rest``) and whether this
-    rank sends its block to the writer."""
+    the writer, the ``table_rows`` (an LM's ``vocab``) axis (``tp_ax``,
+    None where the rank holds the tables whole), the other axes (``rest``)
+    and whether this rank sends its block to the writer. ``shape`` is the
+    one-rank checkpoint's table shape; ``view`` shows a held table as (T,
+    R_held, d)."""
 
     def __init__(self, cfg, table):
         ctx = sharding.current()
         if ctx is None:
             raise RuntimeError("a mesh checkpoint needs a sharding context")
-        if cfg.arch_type != "dlrm":
-            raise NotImplementedError(
-                f"{cfg.name}: the mesh checkpoint writes DLRM tables only; the "
-                "LM trainers under a mesh are ROADMAP queue 1 item 10(c)")
+        rx.check_trainable(cfg)
         mesh = self.mesh = ctx.mesh
-        self.T, self.R_held, self.d = table.shape
+        dlrm = cfg.arch_type == "dlrm"
+        if dlrm:
+            self.T, self.R_held, self.d = table.shape
+        else:
+            self.T, (self.R_held, self.d) = 1, table.shape
         self.R, self.base, psum = rx.block(cfg, table)
-        self.tp_ax = ctx.axes("table_rows") if psum is not None else None
+        self.shape = (self.T, self.R, self.d) if dlrm else (self.R, self.d)
+        self.tp_ax = ctx.axes("table_rows" if dlrm else "vocab") \
+            if psum is not None else None
         self.rest = tuple(a for a in mesh.axis_names if a != self.tp_ax)
         self.writer = mesh.axis_index(mesh.axis_names) == 0
         self.sender = all(mesh.coords[a] == 0 for a in self.rest)
@@ -81,6 +95,57 @@ class _Layout:
 
     def rest_group(self):
         return self.rest[0] if len(self.rest) == 1 else self.rest
+
+    def view(self, table):
+        return table.view(self.T, self.R_held, self.d)
+
+
+def _whole_leaves(tree):
+    """``tree`` (dense params or their moments) with every tensor-parallel
+    block all-gathered whole over the TP axis (every rank of the axis
+    calls it)."""
+    ctx = sharding.current()
+
+    def whole(path, x):
+        dim = tensor_parallel.sharded_dim(path, x.dim())
+        return x if dim is None else ctx.mesh.all_gather(x, ctx.tp, dim)
+    return tree_map_with_path(whole, tree)
+
+
+def _send_blocks(like, src=None):
+    """Every rank's blocks of a recovered tree, sent by the writer: ``src``
+    (the writer's whole leaves, host arrays; None on the other ranks) laid
+    out as ``like`` (this rank's held tree). A replicated leaf is broadcast
+    whole; a tensor-parallel one block by block, cut on the host, each rank
+    keeping its own, so that no rank holds a whole dense leaf on the card."""
+    ctx = sharding.current()
+    mesh = ctx.mesh
+
+    def on_card(x, mine):
+        return torch.as_tensor(x).to(device=mine.device, dtype=mine.dtype)
+
+    def send(path, mine, whole=None):
+        dim = tensor_parallel.sharded_dim(path, mine.dim())
+        if dim is None:
+            buf = torch.empty_like(mine) if whole is None \
+                else on_card(whole, mine).reshape(mine.shape)
+            return mesh.broadcast(buf, mesh.axis_names, 0)
+        n, step, kept = tensor_parallel.size(), mine.shape[dim], None
+        for j in range(n):
+            if whole is None:
+                buf = torch.empty_like(mine)
+            else:
+                shape = list(mine.shape)
+                shape[dim] *= n
+                block = torch.as_tensor(whole).reshape(shape).narrow(dim, j * step, step)
+                buf = on_card(block.contiguous(), mine)
+            got = mesh.broadcast(buf, mesh.axis_names, 0)
+            if j == mesh.axis_index(ctx.tp):
+                kept = got
+        return kept
+    if src is None:
+        return tree_map_with_path(send, like)
+    return tree_map_with_path(send, like, src)
 
 
 def _pack(parts):
@@ -101,7 +166,7 @@ def _unpack(buf, like, n: int):
 
 
 class MeshCheckpoint:
-    """The two-tier checkpoint of a DLRM trained under the current sharding
+    """The two-tier checkpoint of a model trained under the current sharding
     context, written by one rank (the module's docstring). Every rank makes
     one, with the same arguments; ``pool`` and ``faults`` reach the writer's
     ``CheckpointManager`` (``manager``, None on the other ranks). It stands
@@ -134,6 +199,7 @@ class MeshCheckpoint:
         t0 = time.perf_counter()
         table = embed[rx.embed_leaf(self.cfg)]
         lay = _Layout(self.cfg, table)
+        table = lay.view(table)
         if lay.tp_ax is None:
             if self.writer:
                 self.manager.init_mirror(embed, step)
@@ -151,7 +217,7 @@ class MeshCheckpoint:
                         at = t * lay.R + j * lay.R_held
                         flat[at + s:at + e] = got.float().cpu().numpy()
             if self.writer:
-                self.manager.load_mirror(flat, (lay.T, lay.R, lay.d), step)
+                self.manager.load_mirror(flat, lay.shape, step)
         self.stats["mirror_load_s"] = time.perf_counter() - t0
 
     def on_step(self, step: int, state: dict, feed: Optional[dict]):
@@ -162,6 +228,7 @@ class MeshCheckpoint:
             if self.writer:
                 self.manager.on_step(step, state, None)
             return
+        state = self._dense_whole(step, state)
         table = state["embed"][rx.embed_leaf(self.cfg)]
         lay = _Layout(self.cfg, table)
         if lay.tp_ax is None:
@@ -197,6 +264,21 @@ class MeshCheckpoint:
             self.stats["gather_s"] += time.perf_counter() - t0
             self._hand_on(step, state, merged, g_new[keep])
 
+    def _dense_whole(self, step, state):
+        """On a tier-M step under tensor parallelism, the ranks at data
+        coordinate 0 gather the dense tree and its moments whole; returns
+        the writer's state with them, else ``state`` itself."""
+        ctx = sharding.current()
+        K = self.ccfg.dense_interval
+        if ctx.tp is None or tensor_parallel.size() == 1 or K <= 0 or step % K:
+            return state
+        if any(self.mesh.coords[a] for a in self.mesh.axis_names if a != ctx.tp):
+            return state
+        t0 = time.perf_counter()
+        whole = {k: _whole_leaves(state[k]) for k in ("dense", "opt_dense")}
+        self.stats["gather_s"] += time.perf_counter() - t0
+        return {**state, **whole} if self.writer else state
+
     def _hand_on(self, step, state, feed, new_rows):
         for fn in self._hooks:
             fn(step, feed)
@@ -216,10 +298,12 @@ def recover_on_mesh(cfg, root: str, init_state: dict, *, pool=None):
     it with a fresh state of its own, ``init_state``): the writer runs
     ``recovery.recover(root, pool)``, rollback included; after a barrier
     every rank takes its block of the recovered mirror (moved once, in
-    pieces, over the ``table_rows`` axis and then over the others) and the
-    dense tree (params and optimizer states, whole), overlaid by
-    ``recovery.resume_train_state``. Returns (state, resume step, the
-    writer's ``RecoveredState`` or None on the other ranks)."""
+    pieces, over the ``table_rows`` (``vocab``) axis and then over the
+    others) and the dense tree (params and optimizer states, broadcast
+    leaf by leaf; under tensor parallelism block by block, each rank
+    keeping its own: ``_send_blocks``),
+    overlaid by ``recovery.resume_train_state``. Returns (state, resume
+    step, the writer's ``RecoveredState`` or None on the other ranks)."""
     leaf = rx.embed_leaf(cfg)
     table = init_state["embed"][leaf]
     lay = _Layout(cfg, table)
@@ -232,12 +316,19 @@ def recover_on_mesh(cfg, root: str, init_state: dict, *, pool=None):
                         dtype=torch.int64, device=table.device)
     mirror_step, dense_step, has_dense, rolled = \
         (int(v) for v in mesh.broadcast(meta, world, 0).cpu())
+
+    dense = None
+    if has_dense:
+        dense = {key: _send_blocks(init_state[key], rec.dense[key] if lay.writer else None)
+                 for key in ("dense", "opt_dense", "opt_embed")}
     if lay.writer:
         mine = slice(0, lay.R_held) if lay.tp_ax is not None else None
-        state, start = recovery.resume_train_state(rec, init_state, rows=mine)
-        block = state["embed"][leaf]
+        state, start = recovery.resume_train_state(
+            dataclasses.replace(rec, dense=dense), init_state, rows=mine)
+        held = state["embed"][leaf]
     else:
-        block = torch.empty_like(table)
+        held = torch.empty_like(table)
+    block = lay.view(held)
 
     if lay.tp_ax is not None and lay.sender:
         me = mesh.axis_index(lay.tp_ax)
@@ -259,19 +350,10 @@ def recover_on_mesh(cfg, root: str, init_state: dict, *, pool=None):
             if not first:
                 block[t, s:e] = got
 
-    dense = None
-    if has_dense:
-        dense = {}
-        for key in ("dense", "opt_dense", "opt_embed"):
-            src = state[key] if lay.writer else init_state[key]
-            got = [mesh.broadcast(x if lay.writer else torch.empty_like(x), world, 0)
-                   for x in tree_leaves(src)]
-            it = iter(got)
-            dense[key] = tree_map(lambda _: next(it), src)
     if lay.writer:
         return state, start, rec
     local = recovery.RecoveredState(
-        embed_rows=block, table_name=leaf, table_shape=tuple(block.shape),
+        embed_rows=held, table_name=leaf, table_shape=tuple(held.shape),
         dense=dense, mirror_step=mirror_step, dense_step=dense_step,
         rolled_back=bool(rolled),
         gap=mirror_step - dense_step if dense_step >= 0 else -1)

@@ -28,9 +28,12 @@ from repro_torch.distributed import sharding
 
 def cache_axes(ctx=None):
     """The mesh axes the current ``cache_seq`` rule shards the cache over,
-    as a tuple (empty: no rule, or none of its axes in the mesh)."""
+    as a tuple (empty: no rule, or none of its axes in the mesh, or a
+    ``heads`` rule: under dense tensor parallelism a cache holds the rank's
+    kv heads over every position, where the reference's decode rules name
+    both, ROADMAP section 3)."""
     ctx = ctx or sharding.current()
-    if ctx is None:
+    if ctx is None or ctx.tp is not None:
         return ()
     ax = ctx.axes("cache_seq")
     return () if ax is None else ((ax,) if isinstance(ax, str) else tuple(ax))

@@ -5,25 +5,34 @@ The rules map *logical* axis names (batch, vocab, experts, cache_seq ...)
 to mesh axes. ``use_sharding(mesh, rules)`` installs a ``ShardingContext``
 (thread-local) that the islands read: the near-data lookup and bag
 (``core/embedding_ops.py``), context-parallel decode
-(``distributed/context_parallel.py``) and expert-parallel MoE
-(``models/moe.py``). Outside a context every call runs unsharded.
+(``distributed/context_parallel.py``), expert-parallel MoE
+(``models/moe.py``) and dense tensor parallelism
+(``distributed/tensor_parallel.py``). Outside a context every call runs
+unsharded.
 
 A spec is the reference's ``PartitionSpec`` as a tuple: one entry per
 dimension, each a mesh axis name, a tuple of names or None; ``()`` is
 replicated.
 
 Eager PyTorch has no layout constraint, so ``constrain`` is the identity:
-every rank holds its activations whole and the islands hand each rank
-what it needs. Weights are held by their spec: ``local_shard`` takes a
-rank's part of a leaf (what ``jax.device_put`` with a ``NamedSharding``
-does), ``shard_params`` a tree's, and ``keep_shard`` gives the inits the
-same cut leaf by leaf, so that a rank never holds the whole model. In this
-slice only the leaves the islands read are held sharded (``ISLAND_LEAVES``:
-the token table's rows over ``vocab``, DLRM's table rows over
-``table_rows``, the experts over ``experts``); every other leaf stays whole
-on every rank, although ``param_specs`` names ``model`` for heads and
-ffn (the dense tensor parallelism XLA derives from those specs is not
-ported).
+the modules hand each rank what it needs themselves. Weights are held by
+their spec: ``local_shard`` takes a rank's part of a leaf (what
+``jax.device_put`` with a ``NamedSharding`` does), ``shard_params`` a
+tree's, and ``keep_shard`` gives the inits the same cut leaf by leaf, so
+that a rank never holds the whole model. Two kinds of leaf are held
+sharded (``held_spec``):
+  * the islands' leaves (``ISLAND_LEAVES``: the token table's rows over
+    ``vocab``, DLRM's table rows over ``table_rows``, the experts over
+    ``experts``), always;
+  * the dense decoder's projections (``TP_LEAVES``: column blocks of
+    ``wq|wk|wv|wi|wg``, row blocks of ``wo``, vocab blocks of ``lm_head``),
+    where the rules name ``heads`` (the dense tensor parallelism that XLA
+    derives from ``param_specs`` in the reference;
+    ``launch.dryrun.build_rules`` writes the rule). ``DEFAULT_RULES``
+    leave ``heads``, ``kv_heads`` and ``ffn`` out (the reference's name
+    ``model`` for them), so that a context is tensor-parallel exactly when
+    its rules name ``heads``; without, every other leaf is held whole on
+    every rank, as the serving and DLRM layouts under a mesh do.
 
 A batch is split by ``shard_batch``: each rank keeps its slice of the
 leading batch dimension over the ``batch`` rule's axes (the data-parallel
@@ -46,9 +55,8 @@ DEFAULT_RULES: dict[str, Any] = {
     "batch": ("pod", "data"),
     "seq": None,              # "model" under Megatron-SP profile
     "embed": None,
-    "heads": "model",
-    "kv_heads": "model",      # auto-downgraded to None if kv_heads % tp != 0
-    "ffn": "model",
+    # no heads / kv_heads / ffn rule (the reference's: "model"): a context
+    # is tensor-parallel exactly when its rules name heads
     "vocab": "model",         # the disaggregated pool axis
     "experts": "model",       # EP
     "expert_ffn": None,
@@ -70,11 +78,19 @@ def _in_mesh(ax, mesh_axes):
 
 
 class ShardingContext:
+    """The rules in force (``rules``: the defaults updated by the caller's).
+    ``tp``: the mesh axis of dense tensor parallelism, the ``heads`` rule's
+    (None: no such rule, and the dense leaves are held whole); ``sp``:
+    whether the residual stream is sharded by sequence over it (a ``seq``
+    rule naming the same axis, the Megatron-SP profile)."""
+
     def __init__(self, mesh, rules: dict[str, Any]):
         self.mesh = mesh
         self.rules = dict(DEFAULT_RULES)
         self.rules.update(rules or {})
         self.mesh_axes = set(mesh.axis_names)
+        self.tp = tp_axis(self.rules, self.mesh_axes)
+        self.sp = self.tp is not None and self.axes("seq") == self.tp
 
     def spec(self, logical: tuple[Optional[str], ...]) -> tuple:
         return tuple(_in_mesh(self.rules.get(name) if name else None, self.mesh_axes)
@@ -98,6 +114,21 @@ def use_sharding(mesh, rules: dict[str, Any] | None = None):
 
 def current() -> Optional[ShardingContext]:
     return getattr(_state, "ctx", None)
+
+
+@contextlib.contextmanager
+def restore(ctx: Optional[ShardingContext]):
+    """Installs ``ctx``, a context taken by ``current()`` elsewhere, on
+    this thread for the duration (None: no context). The context is
+    thread-local, and autograd runs a card's backward, with the recompute
+    of a checkpointed block, on a thread of its own: the recompute
+    restores the forward's context so that it issues the same collectives."""
+    prev = getattr(_state, "ctx", None)
+    _state.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _state.ctx = prev
 
 
 def constrain(x, logical: tuple[Optional[str], ...]):
@@ -157,8 +188,24 @@ DEFAULT_WEIGHT_RULES = {
     "table_rows": "model",
 }
 
-# the leaves this slice holds sharded: those the islands read
+# the leaves held sharded under every context: those the islands read
 ISLAND_LEAVES = (r"embed/table$", r"emb_tables$", r"moe/(wi|wg|wo)$")
+# the dense decoder's leaves held by their spec under a ``heads`` rule
+TP_LEAVES = (r"attn/(wq|wk|wv|wo)$", r"mlp/(wi|wg|wo)$", r"lm_head$")
+
+
+def tp_axis(rules: dict[str, Any] | None, mesh_axes) -> Optional[str]:
+    """The mesh axis that the ``heads`` rule of ``rules`` names, if it is
+    one axis of the mesh; else None."""
+    ax = _in_mesh((rules or {}).get("heads"), set(mesh_axes))
+    if isinstance(ax, tuple):
+        raise NotImplementedError(f"a heads rule over several axes {ax}: dense "
+                                  "tensor parallelism runs over one mesh axis")
+    return ax
+
+
+def is_tp_leaf(path: str) -> bool:
+    return any(re.search(p, path) for p in TP_LEAVES)
 
 
 def spec_for(path: str, ndim: int, rules: dict[str, Any] | None = None,
@@ -214,12 +261,22 @@ def check_divisibility(params, specs, mesh):
 
 
 def held_spec(path: str, shape, mesh, rules: dict[str, Any] | None = None) -> tuple:
-    """The spec by which a rank holds the leaf at ``path``: its
-    ``param_specs`` entry, downgraded where the mesh does not divide it,
-    for the island leaves; replicated for every other leaf."""
+    """The spec by which a rank holds the leaf at ``path`` (``shape`` the
+    whole leaf's): its ``param_specs`` entry, downgraded where the mesh does
+    not divide it, for the island leaves; for the dense projections
+    (``TP_LEAVES``) where ``rules`` name ``heads``, the entry itself
+    (raises where the mesh does not divide the leaf: the layers take every
+    rank's block to be the same size); replicated for every other leaf."""
+    axes = set(mesh.axis_names)
+    if tp_axis(rules, axes) is not None and is_tp_leaf(path):
+        spec = spec_for(path, len(shape), rules, axes)
+        if _divisible(tuple(shape), spec, mesh.sizes) != tuple(spec):
+            raise ValueError(f"dense tensor parallelism: {path} {tuple(shape)} does "
+                             f"not split by {spec} over {mesh.sizes}")
+        return spec
     if not any(re.search(p, path) for p in ISLAND_LEAVES):
         return ()
-    spec = spec_for(path, len(shape), rules, set(mesh.axis_names))
+    spec = spec_for(path, len(shape), rules, axes)
     return _divisible(tuple(shape), spec, mesh.sizes)
 
 

@@ -1,0 +1,319 @@
+"""Dense tensor parallelism and the Megatron-SP residual stream (port-only:
+the reference gets both from XLA, which derives them from ``param_specs``
+and the dry run's activation rules, ``src/repro/launch/dryrun.py:81-109``).
+
+Under a context whose rules name ``heads`` (``sharding.ShardingContext.tp``,
+the ``model`` axis; ``launch.dryrun.build_rules`` writes the rule) each
+rank holds its column block of ``wq|wk|wv|wi|wg`` (its ``Hq/tp`` query
+heads, ``Hkv/tp`` kv heads, ``ffn/tp`` MLP columns), its row block of the
+attention and MLP ``wo``, and its vocab block of ``lm_head`` and of the
+token table (``sharding.held_spec``). A block then runs as Megatron's:
+
+    column-parallel:  y_r = enter(x) @ W_r        (no collective forward)
+    row-parallel:     z   = row_parallel(y_r, V_r) = leave(y_r @ V_r)
+
+With a ``seq`` rule over the same axis (``ShardingContext.sp``, the
+reference's ``seq_shard_activations`` profile) the residual stream between
+blocks is each rank's ``S/tp`` rows: the norms run on the shard, ``enter``
+all-gathers the stream along the sequence before the column-parallel
+projections (its backward reduce-scatters) and ``leave`` reduce-scatters
+after the row-parallel ones (its backward all-gathers). Without it the
+stream is whole on every rank, ``enter`` is the identity with an
+all-reduce backward and ``leave`` an all-reduce with an identity
+backward.
+
+The operators are ``torch.autograd.Function``s over the mesh's helpers
+(``launch/mesh.py``); every rank issues the same collectives in the same
+order, in the backward and in a remat recompute too. Gloo forms the
+all-gather and the reduce-scatter from all-reduces and moves bf16 as f32
+copies (``Mesh._reduce``), so on two ranks sharing a card a collective
+moves about ``tp`` times the textbook bytes.
+
+The head is vocab-parallel (``vocab_xent``): each rank's logits are its
+vocab block's, the max and the sum of exponentials are all-reduced over
+the vocab axis in f32, the label's logit is taken on the rank that holds
+it, and the loss is the same on every rank.
+
+Which replicated leaves see only part of the work: under SP every norm
+(each sees its rank's rows), and under TP the q/k norms of qwen3's
+``qk_norm`` (each sees its rank's heads). Their gradients are partial
+sums over the TP axis (``partial_leaf``), which the trainer sums
+(``training.train_loop.sync_dense_``).
+
+The dense decoders are the families this runs (arch type ``transformer``,
+no MoE block, an untied head); the rest raise under a ``heads`` rule
+(``check_supported``), ROADMAP queue 1 item 10(c).
+"""
+from __future__ import annotations
+
+import re
+
+import torch
+
+from repro_torch.distributed import sharding
+
+_SEQ = 1      # the sequence dimension of a (B, S, d) stream
+
+
+def axis():
+    """The mesh axis of dense tensor parallelism in force (None: off)."""
+    ctx = sharding.current()
+    return None if ctx is None else ctx.tp
+
+
+def size() -> int:
+    ctx = sharding.current()
+    return 1 if ctx is None or ctx.tp is None else ctx.mesh.axis_size(ctx.tp)
+
+
+def seq_parallel() -> bool:
+    """Whether the residual stream is sharded by sequence (SP). A ``seq``
+    rule without a ``heads`` one over the same axis raises."""
+    ctx = sharding.current()
+    if ctx is None or not ctx.axes("seq"):
+        return False
+    if not ctx.sp:
+        raise NotImplementedError(
+            f"a seq rule over {ctx.axes('seq')!r} shards the residual stream by "
+            f"sequence (Megatron-SP), which the port runs only with dense tensor "
+            f"parallelism over the same axis (a heads rule over it; it has "
+            f"{ctx.tp!r})")
+    return True
+
+
+def dense_decoder(cfg) -> bool:
+    """Whether ``cfg`` is a dense decoder: arch type ``transformer``, no MoE
+    block, an untied head (the LMs that run under a mesh so far)."""
+    return (cfg.arch_type == "transformer" and "moe" not in cfg.ffn_types
+            and not cfg.tie_embeddings)
+
+
+def check_supported(cfg) -> None:
+    """Raises under a ``heads`` rule for a model the port does not yet run
+    with dense tensor parallelism."""
+    if axis() is not None and not dense_decoder(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: dense tensor parallelism (a heads rule) runs the dense "
+            f"decoders (arch type transformer, no MoE, an untied head); "
+            f"{cfg.arch_type} under it is ROADMAP queue 1 item 10(c)")
+
+
+def _mesh_ax():
+    ctx = sharding.current()
+    return ctx.mesh, ctx.tp
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, all-reduce backward (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax):
+        ctx.mesh, ctx.ax = mesh, ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.ax), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward, identity backward (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax):
+        return mesh.all_reduce(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax, dim):
+        ctx.mesh, ctx.ax, ctx.dim = mesh, ax, dim
+        return mesh.all_gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, ctx.ax, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax, dim):
+        ctx.mesh, ctx.ax, ctx.dim = mesh, ax, dim
+        return mesh.reduce_scatter(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.ax, ctx.dim), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block of ``dim`` forward, all-gather backward (the
+    reverse of ``_Gather`` for a tensor every rank holds whole)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax, dim):
+        ctx.mesh, ctx.ax, ctx.dim = mesh, ax, dim
+        n = mesh.axis_size(ax)
+        if x.shape[dim] % n:
+            raise ValueError(f"sequence parallelism: dim {dim} of {tuple(x.shape)} "
+                             f"does not split over {n} ranks")
+        step = x.shape[dim] // n
+        return x.narrow(dim, mesh.axis_index(ax) * step, step).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g.contiguous(), ctx.ax, ctx.dim), None, None, None
+
+
+def copy(x, mesh, ax):
+    return _Copy.apply(x, mesh, ax)
+
+
+def reduce(x, mesh, ax):
+    return _Reduce.apply(x, mesh, ax)
+
+
+def gather(x, mesh, ax, dim):
+    return _Gather.apply(x, mesh, ax, dim)
+
+
+def reduce_scatter(x, mesh, ax, dim):
+    return _ReduceScatter.apply(x, mesh, ax, dim)
+
+
+def split(x, mesh, ax, dim):
+    return _Split.apply(x, mesh, ax, dim)
+
+
+def enter(x):
+    """The (B, S|S/tp, d) stream as the column-parallel projections take it:
+    whole (B, S, d), gathered along the sequence under SP."""
+    if size() == 1:
+        return x
+    mesh, ax = _mesh_ax()
+    return gather(x, mesh, ax, _SEQ) if seq_parallel() else copy(x, mesh, ax)
+
+
+def leave(y):
+    """A row-parallel projection's partial (B, S, d) summed over the ranks:
+    each rank's S/tp rows of it under SP, whole without."""
+    if size() == 1:
+        return y
+    mesh, ax = _mesh_ax()
+    return reduce_scatter(y, mesh, ax, _SEQ) if seq_parallel() else reduce(y, mesh, ax)
+
+
+def row_parallel(y, w):
+    """``leave(y @ w)`` (``w`` a row block)."""
+    return leave(y @ w)
+
+
+def shard_stream(x):
+    """The whole (B, S, d) stream cut to this rank's S/tp rows under SP
+    (the backward gathers the rows' gradients whole again), else ``x``."""
+    if not seq_parallel() or size() == 1:
+        return x
+    mesh, ax = _mesh_ax()
+    return split(x, mesh, ax, _SEQ)
+
+
+def gather_stream(x):
+    """The stream whole along the sequence under SP (the head's input),
+    else ``x``."""
+    if not seq_parallel() or size() == 1:
+        return x
+    mesh, ax = _mesh_ax()
+    return gather(x, mesh, ax, _SEQ)
+
+
+def local_heads(cfg) -> tuple[int, int]:
+    """(query heads, kv heads) a rank holds."""
+    n = size()
+    return cfg.num_heads // n, cfg.num_kv_heads // n
+
+
+def vocab_block(w_out, vocab: int):
+    """(mesh, vocab axis, first row) where ``w_out`` (d, V_held) is a rank's
+    vocab block of a ``vocab``-row head; None where it is whole."""
+    if w_out.shape[-1] == vocab:
+        return None
+    ctx = sharding.current()
+    ax = None if ctx is None else ctx.axes("vocab")
+    n = 1 if ax is None else ctx.mesh.axis_size(ax)
+    if n == 1 or w_out.shape[-1] * n != vocab:
+        raise ValueError(f"a head of {w_out.shape[-1]} columns is neither the "
+                         f"{vocab}-token vocabulary nor its block over the vocab axis")
+    return ctx.mesh, ax, ctx.mesh.axis_index(ax) * w_out.shape[-1]
+
+
+def to_head(hidden, w_out, vocab: int):
+    """The (B, S, d) hidden states as a vocab-parallel head takes them: the
+    backward sums the ranks' partial gradients (an all-reduce), unless SP
+    gathered them along the sequence already (whose backward sums)."""
+    blk = vocab_block(w_out, vocab)
+    if blk is None or seq_parallel():
+        return hidden
+    return copy(hidden, blk[0], blk[1])
+
+
+def head_logits(h, w_out, vocab: int):
+    """(B, V) f32 logits of the last positions ``h`` (B, d); a vocab block's
+    are all-gathered along the vocabulary (serving: no gradient)."""
+    logits = (h @ w_out).float()
+    blk = vocab_block(w_out, vocab)
+    if blk is None:
+        return logits
+    return blk[0].all_gather(logits, blk[1], -1)
+
+
+def vocab_xent(h, w_out, y, m, blk):
+    """Summed cross-entropy of one chunk over a vocab-parallel head, and its
+    weight: h (B, c, d) whole on every rank, ``w_out`` (d, V/n) this rank's
+    block, labels ``y`` (B, c), mask ``m``; ``blk`` from ``vocab_block``.
+    The max and the sum of exponentials are all-reduced in f32 (the max
+    carries no gradient: any constant shifts the log-sum-exp exactly), the
+    label's logit comes from the rank that holds it; every rank returns the
+    same sum."""
+    mesh, ax, base = blk
+    logits = (h @ w_out).float()                              # (B, c, V/n)
+    mx = mesh.all_reduce(logits.detach().amax(dim=-1), ax, op="max")
+    se = reduce(torch.exp(logits - mx[..., None]).sum(dim=-1), mesh, ax)
+    lse = torch.log(se) + mx
+    local = y - base
+    mine = (local >= 0) & (local < logits.shape[-1])
+    ll = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    ll = reduce(torch.where(mine, ll, 0.0), mesh, ax)
+    return ((lse - ll) * m).sum(), m.sum()
+
+
+_HEAD_NORMS = re.compile(r"(q_norm|k_norm)$")
+
+
+def partial_leaf(path: str) -> bool:
+    """Whether the gradient of the dense leaf at ``path`` is a partial sum
+    over the TP axis: a replicated leaf that sees only the rank's rows (every
+    norm under SP) or heads (q/k norms)."""
+    if axis() is None or size() == 1 or sharding.is_tp_leaf(path):
+        return False
+    return seq_parallel() or bool(_HEAD_NORMS.search(path))
+
+
+def sharded_dim(path: str, ndim: int):
+    """The dimension of the dense (or optimizer-moment) leaf at ``path``
+    that its ``param_specs`` entry splits over the TP axis, or None (a
+    replicated leaf, or one axis of a single rank)."""
+    ctx = sharding.current()
+    if ctx is None or ctx.tp is None or not sharding.is_tp_leaf(path):
+        return None
+    for i, ax in enumerate(sharding.spec_for(path, ndim, ctx.rules, ctx.mesh_axes)):
+        if ax is not None and ctx.mesh.axis_size(ax) > 1:
+            return i
+    return None

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.distributed import context_parallel, sharding
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -90,9 +91,16 @@ def uniform_init(gen: torch.Generator, shape, scale: float, dtype, new=None):
         .uniform_(-scale, scale, generator=gen)
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, new=None):
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, new=None,
+               keep=None, path: str = ""):
+    """A (d_in, d_out) uniform draw. With ``keep`` (``sharding.keep_shard``)
+    the leaf is drawn whole, as on one rank, and ``keep(path, leaf)``, the
+    rank's block of it, is what ``new`` allocates and holds."""
     scale = math.sqrt(1.0 / d_in)
-    return uniform_init(gen, (d_in, d_out), scale, dtype, new)
+    if keep is None:
+        return uniform_init(gen, (d_in, d_out), scale, dtype, new)
+    block = keep(path, uniform_init(gen, (d_in, d_out), scale, dtype))
+    return block if new is None else new(block.shape, dtype).copy_(block)
 
 
 def ones(gen: torch.Generator, shape, dtype, new=None):
@@ -216,14 +224,13 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 
-def init_attention(gen: torch.Generator, cfg, new=None):
+def init_attention(gen: torch.Generator, cfg, new=None, keep=None):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     dt = cfg.activation_dtype
-    p = {"wq": dense_init(gen, d, nq * hd, dt, new),
-         "wk": dense_init(gen, d, nkv * hd, dt, new),
-         "wv": dense_init(gen, d, nkv * hd, dt, new),
-         "wo": dense_init(gen, nq * hd, d, dt, new)}
+    p = {name: dense_init(gen, a, b, dt, new, keep, f"attn/{name}")
+         for name, a, b in (("wq", d, nq * hd), ("wk", d, nkv * hd),
+                            ("wv", d, nkv * hd), ("wo", nq * hd, d))}
     if cfg.qk_norm:
         p["q_norm"] = ones(gen, (hd,), dt, new)
         p["k_norm"] = ones(gen, (hd,), dt, new)
@@ -247,9 +254,20 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
     cache; S > 1 goes through flash (not causal), S == 1 through the plain
     decode attention over all Sk keys, as in the reference. Returns (out,
     cache).
+
+    Under dense tensor parallelism (``distributed.tensor_parallel``) the
+    rank runs its ``Hq/tp`` query and ``Hkv/tp`` kv heads (its column
+    blocks of wq, wk, wv; local q head h reads local kv head h // G, as on
+    one rank), its cache holds those kv heads over every position, and the
+    output projection is its row block of wo, summed over the ranks; under
+    SP ``x`` is the rank's S/tp rows, gathered whole first, and the output
+    is its rows again. Context-parallel decode (a ``cache_seq`` rule) runs
+    without it.
     """
+    x = tp.enter(x)
     B, S, _ = x.shape
-    hd, nq, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    nq, nkv = tp.local_heads(cfg)
     q = (x @ p["wq"]).reshape(B, S, nq, hd)
     if cross_kv is not None:
         if cfg.qk_norm:
@@ -259,7 +277,7 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
             out = decode_attention(q, k, v, k.shape[1])
         else:
             out = chunked_attention(q, k, v, causal=False)
-        return out.reshape(B, S, nq * hd) @ p["wo"], cache
+        return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
     k = (x @ p["wk"]).reshape(B, S, nkv, hd)
     v = (x @ p["wv"]).reshape(B, S, nkv, hd)
     if cfg.qk_norm:
@@ -277,15 +295,15 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
         idx = cache_index or 0
         kc, vc = cache["k"], cache["v"]
         ctx = sharding.current()
-        if ctx is not None and ctx.rules.get("cache_seq"):
+        if ctx is not None and ctx.rules.get("cache_seq") and ctx.tp is None:
             # the cache sharded by sequence: context-parallel decode; a
             # prefill (from 0) attends over its own k, v, whole on each rank
             if S == 1:
                 out, _, _ = context_parallel.decode_attention_cp(q, kc, vc, k, v, idx)
-                return out.reshape(B, S, nq * hd) @ p["wo"], cache
+                return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
             context_parallel.write_prefill(cache, k, v, idx)
             out = chunked_attention(q, k, v, causal=causal)
-            return out.reshape(B, S, nq * hd) @ p["wo"], cache
+            return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
         if idx + S > kc.shape[1]:
             raise ValueError(f"cache of {kc.shape[1]} positions cannot take "
                              f"{S} tokens at {idx}")
@@ -293,10 +311,10 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
         vc[:, idx:idx + S] = v.to(vc.dtype)
         if S == 1:
             out = decode_attention(q, kc, vc, idx + 1)
-            return out.reshape(B, S, nq * hd) @ p["wo"], cache
+            return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
         k, v, q_offset = kc[:, :idx + S], vc[:, :idx + S], idx
     out = chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
-    return out.reshape(B, S, nq * hd) @ p["wo"], cache
+    return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -310,23 +328,27 @@ def _check_act(cfg) -> None:
                                   "(the ported MLPs are silu and gelu)")
 
 
-def init_mlp(gen: torch.Generator, cfg, d_ff=None, new=None):
+def init_mlp(gen: torch.Generator, cfg, d_ff=None, new=None, keep=None):
     """SwiGLU MLP params (silu): wi, wg (d, f) and wo (f, d); a gelu MLP
-    has wi and wo only."""
+    has wi and wo only. ``keep``: as ``dense_init``'s (the rank's blocks)."""
     _check_act(cfg)
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.activation_dtype
-    if cfg.act == "gelu":
-        return {"wi": dense_init(gen, d, f, dt, new), "wo": dense_init(gen, f, d, dt, new)}
-    return {"wi": dense_init(gen, d, f, dt, new), "wg": dense_init(gen, d, f, dt, new),
-            "wo": dense_init(gen, f, d, dt, new)}
+    names = (("wi", d, f), ("wo", f, d)) if cfg.act == "gelu" else \
+        (("wi", d, f), ("wg", d, f), ("wo", f, d))
+    return {name: dense_init(gen, a, b, dt, new, keep, f"mlp/{name}")
+            for name, a, b in names}
 
 
 def mlp_fwd(p, cfg, x):
+    """Under dense tensor parallelism wi and wg are the rank's column blocks
+    and wo its row block: the stream enters whole (gathered under SP) and
+    the output is summed over the ranks (each rank's rows under SP)."""
     _check_act(cfg)
+    x = tp.enter(x)
     if cfg.act == "gelu":   # jax.nn.gelu(approximate=True)
-        return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+        return tp.row_parallel(F.gelu(x @ p["wi"], approximate="tanh"), p["wo"])
+    return tp.row_parallel(F.silu(x @ p["wg"]) * (x @ p["wi"]), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +365,7 @@ def _chunk_xent(h, w_out, y, m):
 
 
 def chunked_softmax_xent(hidden, w_out, labels, *, chunk: int = 8192,
-                         mask=None):
+                         mask=None, vocab: int | None = None):
     """Cross-entropy without materialising (tokens x vocab) logits.
 
     hidden: (B, S, d); w_out: (d, V); labels: (B, S) ints; mask optional
@@ -352,22 +374,27 @@ def chunked_softmax_xent(hidden, w_out, labels, *, chunk: int = 8192,
     each chunk runs under ``torch.utils.checkpoint``, so its logits are
     recomputed in the backward and never saved, as the reference's
     ``jax.checkpoint`` per chunk does (``src/repro/models/layers.py:341``).
+    ``vocab``: the global vocabulary; where ``w_out`` is a rank's block of
+    it the head is vocab-parallel (``tensor_parallel.vocab_xent``), and
+    ``hidden`` must come through ``tensor_parallel.to_head``.
     """
     B, S, _ = hidden.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
     recompute = torch.is_grad_enabled() and (hidden.requires_grad
                                              or w_out.requires_grad)
+    blk = None if vocab is None else tp.vocab_block(w_out, vocab)
+    fn = _chunk_xent if blk is None else \
+        (lambda h, w, y, m: tp.vocab_xent(h, w, y, m, blk))
     loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, S, min(chunk, S)):
         args = (hidden[:, s0:s0 + chunk], w_out, labels[:, s0:s0 + chunk].long(),
                 mask[:, s0:s0 + chunk].float())
         if recompute:
-            li, ci = torch.utils.checkpoint.checkpoint(_chunk_xent, *args,
-                                                       use_reentrant=False)
+            li, ci = torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
         else:
-            li, ci = _chunk_xent(*args)
+            li, ci = fn(*args)
         loss = loss + li
         count = count + ci
     return loss, count

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
+from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 from repro_torch.tree import tree_map
@@ -44,6 +45,7 @@ def _check_supported(cfg) -> None:
     if cfg.arch_type != "rwkv6" or cfg.d_model % HEAD_K:
         raise NotImplementedError(f"{cfg.name}: not an rwkv6 config with "
                                   f"heads of {HEAD_K}")
+    tensor_parallel.check_supported(cfg)
 
 
 def _token_shift(x, prev):

@@ -34,6 +34,16 @@ caches they were given.
 reference does (``src/repro/models/transformer.py:205``); a stack with no
 MoE block adds nothing.
 
+Under a sharding context whose rules name ``heads`` the dense decoders run
+with dense tensor parallelism (``distributed.tensor_parallel``): each
+rank holds its column, row and vocab blocks of the projections and the
+head, and its kv heads in the caches (the reference's ``cache_seq`` rule
+for decode is not applied then: a cache holds the rank's heads over every
+position). Under a ``seq`` rule over the same axis (Megatron-SP) the
+residual stream between blocks is each rank's S/tp rows; the final hidden
+states are gathered whole along the sequence before the head, which is
+vocab-parallel.
+
 Training differentiates ``lm_loss`` with torch autograd. With ``cfg.remat``
 each block runs under ``torch.utils.checkpoint``, as the reference wraps
 its block in ``jax.checkpoint`` (``src/repro/models/transformer.py:139``):
@@ -47,6 +57,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
 from repro_torch.distributed import context_parallel, sharding
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers, mamba, moe
 from repro_torch.tree import tree_map
 
@@ -69,21 +80,22 @@ def _init_block(gen: torch.Generator, cfg, layer_type: str, ffn_type: str,
     p = {"norm1": layers.ones(gen, (cfg.d_model,), dt, new),
          "norm2": layers.ones(gen, (cfg.d_model,), dt, new)}
     if layer_type == "attn":
-        p["attn"] = layers.init_attention(gen, cfg, new)
+        p["attn"] = layers.init_attention(gen, cfg, new, keep)
     else:
         p["mamba"] = mamba.init_mamba(gen, cfg, new)
     if ffn_type == "moe":
         p["moe"] = moe.init_moe(gen, cfg, new, keep)
     else:
-        p["mlp"] = layers.init_mlp(gen, cfg, new=new)
+        p["mlp"] = layers.init_mlp(gen, cfg, new=new, keep=keep)
     return p
 
 
 def init_lm(gen: torch.Generator, cfg, keep=None):
     """Random params on ``gen``'s device in the reference's tree layout.
-    ``keep(path, leaf)``, if given, cuts the token table and the experts
-    each as soon as it is drawn (``distributed.sharding.keep_shard``: a
-    rank's part); the draws are those of the whole model."""
+    ``keep(path, leaf)``, if given, cuts the token table, the experts and
+    (under dense tensor parallelism) each layer's projections and the head
+    as soon as it is drawn (``distributed.sharding.keep_shard``: a rank's
+    part); the draws are those of the whole model."""
     _check_supported(cfg)
     dt = cfg.activation_dtype
     table = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
@@ -93,7 +105,8 @@ def init_lm(gen: torch.Generator, cfg, keep=None):
     params = {"embed": {"table": table},
               "final_norm": layers.ones(gen, (cfg.d_model,), dt)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
+        params["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
+                                              keep=keep, path="lm_head")
     lt, ft, L = cfg.layer_types, cfg.ffn_types, cfg.num_layers
     if _is_homogeneous(cfg):
         stack = layers.Stack(L, gen.device)
@@ -170,14 +183,14 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
     ``positions3`` (3, B, S), if given, are the M-RoPE positions. With grad
     on and ``cfg.remat``, each block is checkpointed. aux is the summed
     load-balancing term of the MoE blocks, None without one.
+
+    Under SP the rows are cut to the rank's S/tp after the lookup (the
+    gradient of ``embed_rows`` comes back whole) and the hidden states
+    returned are gathered whole again.
     """
     _check_supported(cfg)
-    ctx = sharding.current()
-    if ctx is not None and ctx.axes("seq"):
-        raise NotImplementedError(
-            f"{cfg.name}: a seq rule shards the activations by sequence (the "
-            "Megatron-SP profile), which the port's stack does not do: it holds "
-            "them whole on every rank until dense tensor parallelism is ported")
+    tp.check_supported(cfg)
+    sp = tp.seq_parallel()
     S = tokens.shape[1]
     if embed_rows is not None:
         x = embed_rows.to(cfg.activation_dtype)
@@ -187,31 +200,34 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
         sv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, sv:]], dim=1)
     positions = (cache_index or 0) + torch.arange(S, device=tokens.device)
+    if sp:
+        x = tp.shard_stream(x)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    ctx = sharding.current()    # the recompute may run on autograd's own thread
+
+    def recomputed(bp, x, lt, ft):
+        with sharding.restore(ctx):
+            return _block_fwd(bp, cfg, lt, ft, x, positions, positions3)
     total_aux = None
     for bp, lt, ft, cache in _walk(params, cfg, caches):
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                lambda bp, x, lt=lt, ft=ft: _block_fwd(bp, cfg, lt, ft, x, positions,
-                                                       positions3),
-                bp, x, use_reentrant=False)
+                recomputed, bp, x, lt, ft, use_reentrant=False)
         else:
             x, aux = _block_fwd(bp, cfg, lt, ft, x, positions, positions3, cache,
                                 cache_index)
         if aux is not None:
             total_aux = aux if total_aux is None else total_aux + aux
-    return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), caches, total_aux
+    h = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (tp.gather_stream(h) if sp else h), caches, total_aux
 
 
 def head_matrix(params, cfg):
+    """(d, V) or, where the table or ``lm_head`` is a rank's vocab block,
+    (d, V/n): the vocab-parallel head (``tensor_parallel.vocab_xent``,
+    ``head_logits``)."""
     if cfg.tie_embeddings:
-        table = params["embed"]["table"]
-        if table.shape[0] != cfg.vocab_size:
-            raise NotImplementedError(
-                f"{cfg.name}: a tied head over a vocab-sharded table ({table.shape[0]} "
-                f"of {cfg.vocab_size} rows here) needs the vocab-parallel head of "
-                "dense tensor parallelism, not ported yet")
-        return table.T
+        return params["embed"]["table"].T
     return params["lm_head"]
 
 
@@ -224,20 +240,36 @@ def lm_loss(params, cfg, batch):
                                     vision_embeds=batch.get("vision_embeds"),
                                     positions3=batch.get("positions3"),
                                     embed_rows=batch.get("embed_rows"))
+    w = head_matrix(params, cfg)
     loss, count = layers.chunked_softmax_xent(
-        hidden, head_matrix(params, cfg), batch["labels"],
-        chunk=cfg.loss_chunk, mask=batch.get("loss_mask"))
-    loss = loss / torch.clamp(count, min=1.0)
+        tp.to_head(hidden, w, cfg.vocab_size), w, batch["labels"],
+        chunk=cfg.loss_chunk, mask=batch.get("loss_mask"), vocab=cfg.vocab_size)
+    loss = loss / torch.clamp(_global_count(count), min=1.0)
     return loss if aux is None else loss + 0.01 * aux
+
+
+def _global_count(count):
+    """Under a sharding context, the token count over the data-parallel
+    ranks divided by their number n: each rank's loss is then its sum over
+    the global count times n, so that the trainer's mean of the ranks'
+    gradients (``train_loop.sync_dense_``) is the global mean's, as the
+    reference's step over the whole batch computes it."""
+    ctx = sharding.current()
+    ax = None if ctx is None else ctx.axes("batch")
+    n = 1 if ax is None else ctx.mesh.axis_size(ax)
+    if n == 1:
+        return count
+    return ctx.mesh.all_reduce(count.detach(), ax) / n
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, device):
     """Zeroed caches on ``device``, in the reference's tree for ``cfg``.
     Under a ``cache_seq`` rule an attention cache holds this rank's
-    ``max_seq / n`` positions (context-parallel decode)."""
+    ``max_seq / n`` positions (context-parallel decode); under a ``heads``
+    rule its ``Hkv / tp`` kv heads over every position instead."""
     _check_supported(cfg)
     L, dt = cfg.num_layers, cfg.activation_dtype
-    kv = (batch, context_parallel.local_positions(max_seq), cfg.num_kv_heads,
+    kv = (batch, context_parallel.local_positions(max_seq), tp.local_heads(cfg)[1],
           cfg.resolved_head_dim)
 
     def entry(layer_type, lead=()):
@@ -265,7 +297,7 @@ def prefill(params, cfg, tokens, caches, *, vision_embeds=None, positions3=None)
     hidden, caches, _ = forward_hidden(params, cfg, tokens, caches=caches,
                                        cache_index=0, vision_embeds=vision_embeds,
                                        positions3=positions3)
-    return (hidden[:, -1] @ head_matrix(params, cfg)).float(), caches
+    return tp.head_logits(hidden[:, -1], head_matrix(params, cfg), cfg.vocab_size), caches
 
 
 def decode_step(params, cfg, tokens, pos: int, caches):
@@ -274,4 +306,4 @@ def decode_step(params, cfg, tokens, pos: int, caches):
     the reference's serving does (it passes no M-RoPE positions here)."""
     hidden, caches, _ = forward_hidden(params, cfg, tokens, caches=caches,
                                        cache_index=pos)
-    return (hidden[:, -1] @ head_matrix(params, cfg)).float(), caches
+    return tp.head_logits(hidden[:, -1], head_matrix(params, cfg), cfg.vocab_size), caches

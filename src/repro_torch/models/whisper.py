@@ -31,7 +31,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
-from repro_torch.distributed import context_parallel
+from repro_torch.distributed import context_parallel, tensor_parallel
 from repro_torch.models import layers
 
 
@@ -86,6 +86,7 @@ def _enc_block(bp, cfg, x, pos):
 def encode(params, cfg, frames):
     """frames: (B, Sf, d) precomputed frame embeddings (the stub frontend)
     -> the encoder's output (B, Sf, d) in the activation dtype."""
+    tensor_parallel.check_supported(cfg)
     _, Sf, d = frames.shape
     x = frames.to(cfg.activation_dtype)
     x = x + layers.sinusoidal_positions(Sf, d, device=x.device).to(x.dtype)[None]
@@ -130,6 +131,7 @@ def decode_hidden(params, cfg, tokens, xkv, *, caches=None, cache_index=None,
     the self-attention's {"k", "v"} of (L, B, Smax, Hkv, D), written in
     place. The token rows go through the row-gather kernel unless
     ``embed_rows`` gives them (the relaxed lookup's prefetch)."""
+    tensor_parallel.check_supported(cfg)
     S, d = tokens.shape[1], cfg.d_model
     if embed_rows is not None:
         x = embed_rows.to(cfg.activation_dtype)

@@ -221,10 +221,27 @@ def make_optimizer(name: str, lr: float, cfg=None) -> Optimizer:
     raise ValueError(name)
 
 
-def _clip_scale(grads, max_norm: float):
-    """(global f32 L2 norm of grads, the f32 scale that clips it)."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+def _clip_scale(grads, max_norm: float, split=None):
+    """(global f32 L2 norm of grads, the f32 scale that clips it).
+
+    ``split``: ``(sharded, psum)`` under tensor parallelism, ``sharded`` a
+    bool per leaf (in ``tree_leaves`` order) telling a rank's block of a
+    leaf from a leaf every rank holds whole, and ``psum`` the sum over the
+    ranks that hold the blocks. The squares of the blocks are summed over
+    them and those of the whole leaves are counted once, so every rank
+    clips by the one global norm (a norm of its own would clip each rank
+    by another scale, and the whole leaves would drift apart)."""
+    def sq(g):
+        return torch.sum(torch.square(g.float()))
+    leaves = tree_leaves(grads)
+    if split is None:
+        norm = torch.sqrt(sum(sq(g) for g in leaves))
+    else:
+        sharded, psum = split
+        zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        blocks = sum((sq(g) for g, s in zip(leaves, sharded, strict=True) if s), zero)
+        whole = sum((sq(g) for g, s in zip(leaves, sharded, strict=True) if not s), zero)
+        norm = torch.sqrt(psum(blocks) + whole)
     return norm, torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
 
 
@@ -238,10 +255,11 @@ def global_norm_clip(grads, max_norm: float):
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def global_norm_clip_(grads, max_norm: float):
+def global_norm_clip_(grads, max_norm: float, split=None):
     """``global_norm_clip`` in place: scales each grad leaf with ``mul_``
-    (the same bits as ``g * scale.to(g.dtype)``) and returns the norm."""
-    norm, scale = _clip_scale(grads, max_norm)
+    (the same bits as ``g * scale.to(g.dtype)``) and returns the norm.
+    ``split``: as ``_clip_scale``'s (tensor parallelism)."""
+    norm, scale = _clip_scale(grads, max_norm, split)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
     return norm

@@ -5,6 +5,11 @@ fills the KV caches, decode adds one token against them, and
 The decode position is a host int, so on the kernels' route the loop never
 waits for the card to read it; the next token stays on the card.
 
+Under a sharding context every rank runs the same loop on the same
+prompt: the models read the context (the near-data lookup, dense tensor
+parallelism with each rank's kv heads in its caches, or context-parallel
+decode), and each rank gets the whole logits and tokens.
+
 A request's extras ride in its batch: qwen2-vl's ``vision_embeds`` and
 ``positions3`` go to the prefill (its decode steps use plain rope, as the
 reference's do); whisper's ``frames`` are encoded once a request by

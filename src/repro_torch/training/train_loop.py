@@ -37,14 +37,19 @@ returns a state that shares them with the state it was given; a caller
 that needs an earlier state clones it. At full width no second copy of
 the dense tier or its moments is ever held.
 
-Under a sharding context (``distributed.sharding.use_sharding``; DLRM
-only, an LM raises) each rank is one process holding its part of the
-state: the tables' rows over the ``table_rows`` axes, the dense tier and
-its moments whole, its slice of every batch over the ``batch`` axes
-(``train`` splits each batch it draws with ``sharding.shard_batch``).
+Under a sharding context (``distributed.sharding.use_sharding``; DLRM and
+the dense decoders, the other LMs raise) each rank is one process holding
+its part of the state: the tables' rows over the ``table_rows`` axes (an
+LM's token table over ``vocab``), the dense tier and its moments whole,
+or under a ``heads`` rule the dense decoder's column, row and vocab
+blocks (``distributed.tensor_parallel``), and its slice of every batch
+over the ``batch`` axes (``train`` splits each batch it draws with
+``sharding.shard_batch``).
 A step then computes what the reference's step jitted with its state and
 batch shardings computes: the dense grads are summed over the
-data-parallel axes and divided by their size before the clip, so the
+data-parallel axes and divided by their size before the clip (a
+replicated leaf that saw only the rank's rows or heads is first summed
+over the TP axis; the clip sums the blocks' squares over it), so the
 norm is the global gradient's, and the loss reported is the mean over
 them; the sparse adjoint, its update and the relaxed correction run on
 each rank's block (``core.relaxed``); a rule whose state spans a whole
@@ -64,12 +69,19 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import relaxed as rx
 from repro_torch.core.checkpoint.manager import CheckpointManager
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, tensor_parallel
 from repro_torch.kernels import ops
 from repro_torch.models.registry import get_api
 from repro_torch.optim import optimizers as opt
 from repro_torch.training import state as st
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+
+
+def tree_items(tree) -> list:
+    """(path, leaf) for each leaf, in ``tree_leaves`` order."""
+    out = []
+    tree_map_with_path(lambda path, leaf: out.append((path, leaf)), tree)
+    return out
 
 
 def _add_updates_(params, updates) -> None:
@@ -78,24 +90,50 @@ def _add_updates_(params, updates) -> None:
         p.copy_(p.float() + u)
 
 
+def _sum_(mesh, ax, leaves, n) -> None:
+    """Each of ``leaves`` becomes its sum over ``ax`` divided by ``n``, in
+    place: one all-reduce per dtype."""
+    for dt in dict.fromkeys(g.dtype for g in leaves):
+        same = [g for g in leaves if g.dtype == dt]
+        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in same]), ax)
+        if n != 1:
+            flat = flat / n
+        for g, part in zip(same, flat.split([g.numel() for g in same]), strict=True):
+            g.copy_(part.view(g.shape))
+
+
 def sync_dense_(g_dense, loss):
-    """Under a sharding context, in place: each dense grad becomes the sum
-    over the data-parallel axes divided by their size (one all-reduce per
-    dtype), and the loss the mean over them. Returns the loss."""
+    """Under a sharding context, in place: the grads of the replicated
+    leaves that saw only the rank's rows or heads under tensor parallelism
+    (``tensor_parallel.partial_leaf``) summed over the TP axis; then each
+    dense grad becomes the sum over the data-parallel axes divided by
+    their size (one all-reduce per dtype), and the loss the mean over
+    them. Returns the loss."""
     ctx = sharding.current()
     if ctx is None:
         return loss
-    mesh, ax = ctx.mesh, ctx.axes("batch")
+    mesh = ctx.mesh
+    part = [g for path, g in tree_items(g_dense) if tensor_parallel.partial_leaf(path)]
+    if part:
+        _sum_(mesh, ctx.tp, part, 1)
+    ax = ctx.axes("batch")
     dp = mesh.axis_size(ax)
     if dp == 1:
         return loss
-    leaves = tree_leaves(g_dense)
-    for dt in dict.fromkeys(g.dtype for g in leaves):
-        same = [g for g in leaves if g.dtype == dt]
-        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in same]), ax) / dp
-        for g, part in zip(same, flat.split([g.numel() for g in same]), strict=True):
-            g.copy_(part.view(g.shape))
+    _sum_(mesh, ax, tree_leaves(g_dense), dp)
     return mesh.all_reduce(loss, ax) / dp
+
+
+def clip_split(g_dense):
+    """``global_norm_clip_``'s ``split`` under tensor parallelism (None
+    without): which leaves are a rank's blocks, and their sum over the TP
+    axis."""
+    ctx = sharding.current()
+    if ctx is None or tensor_parallel.size() == 1:
+        return None
+    sharded = [tensor_parallel.sharded_dim(path, g.dim()) is not None
+               for path, g in tree_items(g_dense)]
+    return sharded, (lambda x: ctx.mesh.all_reduce(x, ctx.tp))
 
 
 def make_step_fns(cfg, train_cfg):
@@ -147,7 +185,8 @@ def make_step_fns(cfg, train_cfg):
         optimizer's moments. Returns (dense, opt state, norm, loss)."""
         loss = sync_dense_(g_dense, loss)
         if train_cfg.grad_clip:
-            gnorm = opt.global_norm_clip_(g_dense, train_cfg.grad_clip)
+            gnorm = opt.global_norm_clip_(g_dense, train_cfg.grad_clip,
+                                          clip_split(g_dense))
         else:
             gnorm = torch.zeros(())
         if dense_opt.update_inplace is not None:

@@ -428,9 +428,10 @@ def test_param_specs_and_divisibility_match_jax(arch):
 def test_context_spec_and_pick_match_jax():
     """``ShardingContext.spec`` against the reference's on the same rules
     (names not in the mesh dropped), and ``_pick`` on the cases of
-    ``test_auto_strategy_picks_by_traffic``."""
+    ``test_auto_strategy_picks_by_traffic``. The heads rules are given as
+    the reference's defaults (the port's defaults leave them out)."""
     rules = {"batch": ("pod", "data"), "seq": "model", "cache_seq": ("data", "model"),
-             "vocab": "pod"}
+             "vocab": "pod", "heads": "model", "kv_heads": "model"}
     logical = [("batch", None, "heads", None), ("batch", "seq", "embed"),
                ("cache_seq", "vocab", "experts", "kv_heads"), (None,), ()]
     jmesh = jax.make_mesh((1, 1), pmesh.AXES)

@@ -111,7 +111,9 @@ def test_port_imports_no_jax_and_no_reference():
              "import repro_torch.pool.protocol\n"
              "import repro_torch.distributed.sharding\n"
              "import repro_torch.distributed.context_parallel\n"
-             "import repro_torch.launch.mesh\n"
+             "import repro_torch.distributed.tensor_parallel\n"
+             "import repro_torch.distributed.checkpoint\n"
+             "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
              "import repro_torch.sim.engine, repro_torch.sim.energy\n"
              "import repro_torch.sim.models_rm, repro_torch.sim.calibration\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
