@@ -324,7 +324,7 @@ Phases, each of which exits non-zero on failure:
      tier-M is about 13 GB), the writer crashing between step 1's undo
      COMMIT and its mirror apply, recovery at both ranks bitwise the
      twin's blocks, one resumed step bitwise the uninterrupted one;
-     serving at batch 4, prompt 1024, 32 new tokens under the decode
+     serving at batch 4, prompt 1024, 16 new tokens under the decode
      rules (each rank its kv heads over every position): tokens equal to
      the one-rank run's, logits within TP_LOGIT_TOL, prefill and decode ms
      beside one rank's; context-parallel decode ({"batch": None,
@@ -334,7 +334,31 @@ Phases, each of which exits non-zero on failure:
      (16000, 2048) vocab block, the duplicate combine, the updates of the
      block and its f32 scratch and the logged update against their plain
      versions and times them beside their bounds.
-Phases 6 to 27 print their wall time. Phases 4, 8, 10, 12 and 16 also
+ 28. FSDP and a kv head the mesh does not divide: full-width granite-20b
+     (d 6144, 48 heads, one kv head, d_ff 24576, vocab 49152; depth cut
+     to FS_LAYERS of 52 layers) at four gloo ranks sharing this card,
+     (data, model) = (2, 2), under the rules ``build_rules`` gives its own
+     profile (the weights' embed dimension over data, heads and the
+     sequence over model, the kv head whole on every model rank). Each
+     rank holds a quarter of every projection and of the head, gathered
+     at its use (``distributed.fsdp``). Rank 0 first runs the one-rank
+     reference alone (2 strict steps, a generation). Then, at a global
+     batch of 4 x 512: one strict step, and 2 relaxed steps into a mesh
+     checkpoint (tier-E) whose writer crashes in step 1, recovery at every
+     rank bitwise the twin's blocks; relaxed == strict bitwise after step
+     0; each rank's held elements exactly a quarter of each blocked leaf
+     and every other leaf whole, its peak (less the checks' copies) below
+     half the one-rank peak, its collectives a step; the losses, step 0's
+     gradient norm and rank 0's blocks against the one-rank run within
+     FS_LOSS0_RTOL / FS_LOSS_RTOL / FS_NORM0_RTOL / FS_PARAM_MEAN;
+     serving at batch 2, prompt 512, a prefill and 2 decode steps under
+     the decode rules, each step gathering every layer's blocks, logits
+     within FS_LOGIT_TOL. Rank 0 holds flash (24 query heads and the one
+     kv head of dim 128, with lse and backward, and the prefill shape),
+     the gather on its (24576, 6144) vocab block, the duplicate combine,
+     both updates and the logged update against their plain versions and
+     times them beside their bounds.
+Phases 6 to 28 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13, 16, 18 and 20 every scatter_update_logged launch
@@ -359,10 +383,11 @@ llama3.2-3b's training; phase 23's two served ids and their training;
 phase 24's rank 0: the gather on its shard in jamba's prefill and decode,
 flash in its prefill, the bag on its shard in rm1's forward; phase 25's
 rank 0: the bag, both updates on its block of rm1's rows and the
-checkpoint's gather there; phase 27's rank 0: flash's forward and
-backward at its heads in training and its forward in the prefill, the
-gather on its vocab block in training, serving and the checkpoint, the
-combine, both updates and the logged update on its block);
+checkpoint's gather there; phase 27's rank 0 and phase 28's: flash's
+forward and backward at its heads in training and its forward in the
+prefill, the gather on its vocab block in training, serving and the
+checkpoint, the combine, both updates and the logged update on its
+block);
 the last line is
 {"ok": true, "device": {...}}. Phase 1 prints each kernel's registers,
 shared memory and spills from ptxas.
@@ -370,6 +395,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -5095,7 +5121,9 @@ def dist_train_report(ranks, spawn_s):
 TP_ARCH = "tinyllama-1.1b"
 TP_WORLD = 2
 TP_B, TP_S = 1, 1024          # the training batch (cut from phase 12's 4 x 1024)
-TP_SERVE_B, TP_NEW = 4, 32    # serving: phase 8's batch 4, prompt 1024, 32 tokens
+# serving: phase 8's batch 4 and prompt 1024, 16 new tokens (cut from 32
+# for the script's time; each decode step a rank is 0.22 s)
+TP_SERVE_B, TP_NEW = 4, 16
 TP_STEPS = 2                  # strict steps, then relaxed ones, from the seed's params
 TP_CRASH = 1                  # the writer crashes between step 1's COMMIT and apply
 CP_RULES = {"batch": None, "cache_seq": "model"}
@@ -5269,7 +5297,7 @@ def tp_rank(rank, world, device, work, seed):
         return {"leaves": n, "differ": differ}
 
     def whole(state):
-        return {"dense": _whole_leaves(state["dense"]),
+        return {"dense": _whole_leaves(state["dense"], cfg),
                 "table": mesh.all_gather(state["embed"]["table"], "model", 0)}
 
     # (a) the one-rank reference, rank 0 alone
@@ -5505,47 +5533,52 @@ def forced_logits(torch, api, cfg, params, prompt, toks, device):
         return torch.stack(out, 1).cpu()
 
 
-def tp_kernels(torch, device, cfg, block, batch, serve_ids):
+def tp_kernels(torch, device, cfg, block, batch, serve_ids, tag="[tp]", key="tp",
+               heads=None, train=(TP_B, TP_S), serve=(TP_SERVE_B, TP_S)):
     """Phase 27's kernels at rank 0's shapes (its 16 of 32 query heads and 2
     of 4 kv heads, its (16000, 2048) bf16 vocab block), each against its
     plain version and timed beside its bound and one library call. The
     lookups are the near-data lookup's: the training batch's ids, the
     serving prefill's (``serve_ids["prefill"]``, B x S) and a decode step's
-    (``serve_ids["decode"]``, B), each clamped into the block."""
+    (``serve_ids["decode"]``, B), each clamped into the block. Phase 28
+    calls it at its own rank's shapes: ``heads`` (query, kv heads of a
+    rank), ``train`` and ``serve`` (a rank's batch and sequence), its
+    names ending in ``key``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
-    tag = "[tp]"
     err = {"flash_attention_tc": 0.0, "flash_attention_bwd_tc": 0.0, "gather_rows": 0.0,
            "embedding_bag": 0.0, "scatter_update": 0.0, "scatter_update_logged": 0.0}
     D = cfg.resolved_head_dim
-    hq, hkv = cfg.num_heads // TP_WORLD, cfg.num_kv_heads // TP_WORLD
+    hq, hkv = heads or (cfg.num_heads // TP_WORLD, cfg.num_kv_heads // TP_WORLD)
+    (tb, ts), (sb, ss) = train, serve
     gen = torch.Generator(device=device).manual_seed(0)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
     timing = {}
     # flash forward with lse and backward at the training shape
-    q, k, v, do = rnd(TP_B, TP_S, hq, D), rnd(TP_B, TP_S, hkv, D), rnd(TP_B, TP_S, hkv, D), \
-        rnd(TP_B, TP_S, hq, D)
-    pairs = TP_S * (TP_S + 1) // 2
-    got = flash_train_shape(torch, err, tag, "tinyllama_tp", q, k, v, do, True, pairs, True)
-    timing["flash_lse_tp"], timing["flash_bwd_tp"] = got["flash_lse_tinyllama_tp"], \
-        got["flash_bwd_tinyllama_tp"]
+    q, k, v, do = rnd(tb, ts, hq, D), rnd(tb, ts, hkv, D), rnd(tb, ts, hkv, D), \
+        rnd(tb, ts, hq, D)
+    pairs = ts * (ts + 1) // 2
+    arch = "tinyllama_tp" if key == "tp" else f"{cfg.name}_{key}"
+    got = flash_train_shape(torch, err, tag, arch, q, k, v, do, True, pairs, True)
+    timing[f"flash_lse_{key}"], timing[f"flash_bwd_{key}"] = got[f"flash_lse_{arch}"], \
+        got[f"flash_bwd_{arch}"]
     # flash forward at the serving prefill's shape
-    q, k, v = rnd(TP_SERVE_B, TP_S, hq, D), rnd(TP_SERVE_B, TP_S, hkv, D), \
-        rnd(TP_SERVE_B, TP_S, hkv, D)
-    flash_hold(torch, err, q, k, v, "tp prefill shape")
+    q, k, v = rnd(sb, ss, hq, D), rnd(sb, ss, hkv, D), rnd(sb, ss, hkv, D)
+    flash_hold(torch, err, q, k, v, f"{key} prefill shape")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    timing["flash_prefill_tp"] = flash_timing(
-        torch, tag, "flash_prefill_tp",
+    pairs = ss * (ss + 1) // 2
+    timing[f"flash_prefill_{key}"] = flash_timing(
+        torch, tag, f"flash_prefill_{key}",
         lambda: ops.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-        bound(flash_fwd_bytes(TP_SERVE_B, TP_S, TP_S, hq, hkv, D),
-              4 * D * TP_SERVE_B * hq * pairs, BF16_TENSOR_OPS_PER_S),
-        f"prefill shape B={TP_SERVE_B} S={TP_S} Hq={hq} Hkv={hkv} D={D} bf16 causal")
+        bound(flash_fwd_bytes(sb, ss, ss, hq, hkv, D), 4 * D * sb * hq * pairs,
+              BF16_TENSOR_OPS_PER_S),
+        f"prefill shape B={sb} S={ss} Hq={hq} Hkv={hkv} D={D} bf16 causal")
     del q, k, v, do, qt, kt, vt
     # the sparse tier on the vocab block: the near-data lookup gathers every
     # token id clamped into the block, the adjoint combines the tokens in it
@@ -5604,32 +5637,32 @@ def tp_kernels(torch, device, cfg, block, batch, serve_ids):
     upd_bf16 = upd[:n].to(torch.bfloat16)
     shapes = {
         # the ids once, each distinct row read once, every row written once
-        "gather_tp_lookup": (lambda: ops.gather_rows(block, ids),
+        f"gather_{key}_lookup": (lambda: ops.gather_rows(block, ids),
                              lambda: ref.gather_rows_ref(block, ids),
                              lambda: torch.index_select(block, 0, ids),
                              bound(N_all * 4 + distinct * d * 2 + N_all * d * 2, 0)),
-        **{f"gather_tp_serve_{k}": (
+        **{f"gather_{key}_serve_{k}": (
             lambda i=i: ops.gather_rows(block, i), lambda i=i: ref.gather_rows_ref(block, i),
             lambda i=i: torch.index_select(block, 0, i),
             bound(i.numel() * 4 + torch.unique(i).numel() * d * 2 + i.numel() * d * 2, 0))
            for k, i in served.items()},
-        "gather_tp_checkpoint": (lambda: ops.gather_rows(block, real_ids),
+        f"gather_{key}_checkpoint": (lambda: ops.gather_rows(block, real_ids),
                                  lambda: ref.gather_rows_ref(block, real_ids),
                                  lambda: torch.index_select(block, 0, real_ids),
                                  bound(n * 4 + 2 * n * d * 2, 0)),
-        "bag_combine_tp": (lambda: ops.embedding_bag(g, comb_src, comb_seg, N),
+        f"bag_combine_{key}": (lambda: ops.embedding_bag(g, comb_src, comb_seg, N),
                            lambda: ref.embedding_bag_ref(g, comb_src, comb_seg, N),
                            lambda: F.embedding_bag(comb_src, g, comb_starts, mode="sum"),
                            bound(N * 4 * 2 + N * d * 4 + n * d * 4, N * d)),
-        "update_f32_tp": (lambda: ops.scatter_update(scratch, uniq, upd),
+        f"update_f32_{key}": (lambda: ops.scatter_update(scratch, uniq, upd),
                           lambda: ref.scatter_update_ref(scratch, uniq, upd),
                           lambda: scratch.index_add_(0, real, upd[:n]),
                           bound(N_all * 4 + n * d * 12, n * d)),
-        "update_bf16_tp": (lambda: ops.scatter_update(s_tab, uniq, upd),
+        f"update_bf16_{key}": (lambda: ops.scatter_update(s_tab, uniq, upd),
                            lambda: ref.scatter_update_ref(s_tab, uniq, upd),
                            lambda: s_tab.index_add_(0, real, upd_bf16),
                            bound(N_all * 4 + n * d * (4 + 2 * 2), n * d)),
-        "update_logged_tp": (lambda: ops.scatter_update_logged(t_tab, uniq, upd),
+        f"update_logged_{key}": (lambda: ops.scatter_update_logged(t_tab, uniq, upd),
                              lambda: ref.scatter_update_logged_ref(t_tab, uniq, upd),
                              lambda: (t_tab.index_select(0, real),
                                       t_tab.index_add_(0, real, upd_bf16)),
@@ -5804,6 +5837,617 @@ def tp_report(ranks, spawn_s):
           f"step, got {[r['serve']['parts'] for r in ranks]}")
     check(all(r["ckpt_gathers"] == TP_CRASH + 1 for r in ranks), f"{tag} the checkpoint's "
           f"gathers a rank {[r['ckpt_gathers'] for r in ranks]}, want one a checkpointed step")
+    rl, sl = r0["runs"]["relaxed"]["launches"], r0["runs"]["strict"]["launches"]
+    launches = {"flash_lse": rl["flash_attention_tc"], "flash_bwd": rl["flash_attention_bwd"],
+                "gather": rl["gather_rows"], "bag": rl["embedding_bag"],
+                "update_f32": rl["scatter_update"], "update_bf16": sl["scatter_update"],
+                "logged": rl["scatter_update_logged"],
+                "ckpt_gather": r0["ckpt_gathers"],
+                "flash_prefill": sv["parts"]["prefill"]["flash_attention_tc"],
+                "gather_serve_prefill": sv["parts"]["prefill"]["gather_rows"],
+                "gather_serve_decode": sv["parts"]["decode"]["gather_rows"]}
+    return launches, r0["timing"], r0["err"], out
+
+
+FS_ARCH = "granite-20b"
+FS_MESH = (2, 2)              # (data, model): four gloo ranks sharing the card
+# of granite-20b's 52 layers: full width, the depth cut to 1 (from 2:
+# a 2-layer step moved 7.4 GB a rank through gloo, 15 s a step, and the
+# phase took 123 s)
+FS_LAYERS = 1
+FS_B, FS_S = 4, 512           # the global training batch: a data rank's 2 x 512
+FS_SERVE_B, FS_NEW = 2, 3     # serving: batch 2, prompt FS_S, a prefill and 2 decode steps
+FS_CRASH = 1                  # the writer crashes between step 1's COMMIT and apply
+# Phase 28's gates against the one-rank run at the same depth, each set
+# from the differences measured on an H100 80GB HBM3 at 700 W (PERF.md
+# section 6; at 2 layers): step 0's loss, before any update
+# (measured 5.1e-6: the gathers move bits, a row-parallel output is
+# rounded on each rank before the sum); the later step's (3.5e-3: the
+# gradients reduce-scattered in bf16 round otherwise than one rank's, and
+# AdamW's first step moves an element whose gradient is near zero by
+# about the learning rate either way); step 0's gradient norm (4.6e-5);
+# each leaf's mean difference on rank 0's blocks after step 0 as a share
+# of its largest magnitude (4.8e-4; the largest, 0.269, is printed, not a
+# gate); the least share of a leaf's moved elements updated with the
+# one-rank sign (0.9965); the served logits on every row up to the first
+# greedy token that differs, as a share of the largest logit (7.3e-3)
+FS_LOSS0_RTOL = 1e-4
+FS_LOSS_RTOL = 1e-2
+FS_NORM0_RTOL = 2e-3
+FS_PARAM_MEAN = 3e-3
+FS_SIGN_MIN = 0.98
+FS_LOGIT_TOL = 3e-2
+
+
+def fsdp_model():
+    """granite-20b at full width, its depth cut to FS_LAYERS, under its own
+    profile (fsdp, Megatron-SP): (bundle, cfg)."""
+    from repro_torch.configs import get_arch
+    full = get_arch(FS_ARCH)
+    cfg = full.model.replace(num_layers=FS_LAYERS)
+    return dataclasses.replace(full, model=cfg), cfg
+
+
+def fsdp_rank(rank, world, device, work, seed):
+    """Phase 28, one rank of ``world`` gloo ranks sharing ``device``:
+    full-width granite-20b cut to FS_LAYERS layers under the rules the
+    port's ``build_rules`` gives its profile at (data, model) = FS_MESH:
+    FSDP (``w_embed`` over data), dense TP and Megatron-SP over model, and
+    its one kv head replicated over model. Rank 0 first runs the one-rank
+    reference alone (2 strict steps, a greedy generation). Then every
+    rank: one strict step
+    from the seed's params (each rank drawing the whole model's random
+    stream and keeping its blocks), then FS_CRASH + 1 relaxed steps into a
+    mesh checkpoint (tier-E only) whose writer crashes in the last, and
+    recovery at every rank; serving under the decode rules. Rank 0 holds
+    the kernels at its shapes against their plain versions and times them.
+    Writes ``work/rank{rank}.pt``."""
+    import torch
+
+    from repro_torch.configs.base import SHAPES, CheckpointConfig, TrainConfig
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.distributed import fsdp, sharding
+    from repro_torch.distributed.checkpoint import MeshCheckpoint, recover_on_mesh
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_api
+    from repro_torch.pool import FaultSchedule, InjectedCrash
+    from repro_torch.training import train_loop
+    from repro_torch.training.serve_loop import greedy_generate
+    from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle, cfg = fsdp_model()
+    tc = TrainConfig(embed_learning_rate=0.05, seed=seed)
+    api = get_api(cfg)
+    init_fn = train_loop.make_step_fns(cfg, tc)[0]
+    writer = rank == 0
+    mesh = make_local_mesh(model_parallel=FS_MESH[1], device=device)
+    rules = {}
+    for kind, shape in (("train", "train_4k"), ("serve", "decode_32k")):
+        act, weights, _ = dryrun.build_rules(bundle, SHAPES[shape], mesh)
+        rules[kind] = {**act, **weights}
+    out = {"device": str(device), "rules": rules, "runs": {},
+           "coords": [mesh.coords["data"], mesh.coords["model"]]}
+    t_all = time.perf_counter()
+
+    def say(msg):
+        print(f"[fsdp] rank {rank}: {msg}", flush=True)
+
+    def params(kind=None):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        kw = {} if kind is None else {"keep": sharding.keep_shard(mesh, rules[kind])}
+        p = api.init(gen, cfg, **kw)
+        torch.cuda.synchronize(device)
+        return p
+
+    def run(name, state, relaxed, n, start=0, mgr=None, on_step=None):
+        """``n`` steps from ``start``: losses, gradient norms, each step's
+        host ms and collectives, launches."""
+        batches = LookaheadIterator(make_batches(cfg, FS_B, FS_S, device=device), cfg,
+                                    depth=n + 2, start_step=start)
+        rec = out["runs"][name] = {"losses": [], "norms": [], "step_ms": [], "moved": []}
+        torch.cuda.synchronize(device)
+        tp_counts(zero=True)
+        ctx = sharding.current()
+        mark = [time.perf_counter(), mesh.stats() if ctx else {}]
+
+        def on_metrics(k, m):
+            rec["losses"].append(float(m["loss"]))
+            rec["norms"].append(float(m["grad_norm"]))
+            if on_step is not None:
+                on_step(k, m)
+            torch.cuda.synchronize(device)
+            rec["step_ms"].append(1e3 * (time.perf_counter() - mark[0]))
+            if ctx is not None:
+                rec["moved"].append(stats_since(mesh, mark[1]))
+                mark[1] = mesh.stats()
+            mark[0] = time.perf_counter()
+        try:
+            train_loop.train(cfg, tc, batches, n, relaxed=relaxed, state=state,
+                             start_step=start, ckpt_manager=mgr, on_metrics=on_metrics)
+        finally:
+            rec["launches"] = tp_counts()
+
+    def generate(p):
+        prompt = make_batches(cfg, FS_SERVE_B, FS_S, device=device).next(0)["tokens"]
+        parts = {}
+
+        @contextlib.contextmanager
+        def part(name):
+            before = tp_counts()
+            yield
+            parts[name] = {k: v - before[k] for k, v in tp_counts().items()}
+        with torch.no_grad():
+            tp_counts(zero=True)
+            before = mesh.stats()
+            st = {}
+            toks = greedy_generate(cfg, p, prompt, FS_NEW, stats=st, part=part)
+            return {"tokens": toks, "logits": st["logits"],
+                    "prefill_ms": 1e3 * st["prefill_s"],
+                    "decode_ms": 1e3 * st["decode_s"] / (FS_NEW - 1),
+                    "launches": tp_counts(), "parts": parts,
+                    "moved": stats_since(mesh, before)}
+
+    def held_paths(tree):
+        """{path: (held spec, whole shape)} of ``tree``'s dense leaves under
+        the train rules."""
+        specs = {}
+
+        def one(path, x):
+            whole = fsdp.whole_shape(cfg, path, x.dim()) if sharding.is_tp_leaf(path) \
+                else tuple(x.shape)
+            specs[path] = (sharding.held_spec(path, whole, mesh, rules["train"]), whole)
+        tree_map_with_path(one, tree)
+        return specs
+
+    def mine(path, x):
+        """Rank 0's block of a whole leaf ``x`` of the one-rank tree."""
+        spec, whole = specs_d[path]
+        return x[sharding.local_slices(whole, spec, mesh)].clone()
+
+    def replicated_equal(state):
+        """The leaves held whole and their AdamW moments that differ from
+        rank 0's, bit for bit (every rank calls it)."""
+        differ = []
+
+        def same(path, x):
+            if not fsdp.held_dims(cfg, path, x.dim()):
+                got = mesh.broadcast(x.clone(), mesh.axis_names, 0)
+                if not torch.equal(x, got):
+                    differ.append(path)
+                return 1
+            return 0
+        with sharding.use_sharding(mesh, rules["train"]):
+            n = sum(tree_leaves(tree_map_with_path(same, {
+                "dense": state["dense"], "m": state["opt_dense"]["m"],
+                "v": state["opt_dense"]["v"]})))
+        return {"leaves": n, "differ": differ}
+
+    def in_place(state):
+        return {"dense": state["dense"], "m": state["opt_dense"]["m"],
+                "v": state["opt_dense"]["v"], "table": state["embed"]["table"]}
+
+    # (a) the one-rank reference, rank 0 alone: the state after step 0 cut
+    # to rank 0's blocks, the losses, norms and peak, and a generation
+    specs_d = None
+    one = {}
+    if writer:
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(device)
+        state = init_fn(params())
+        specs_d = held_paths(state["dense"])
+        t_spec = sharding.held_spec("embed/table", tuple(state["embed"]["table"].shape),
+                                    mesh, rules["train"])
+
+        def after0(k, _):
+            if k == 0:
+                one["dense"] = tree_map_with_path(mine, state["dense"])
+                one["table"] = state["embed"]["table"][sharding.local_slices(
+                    tuple(state["embed"]["table"].shape), t_spec, mesh)].clone()
+        run("one", state, relaxed=False, n=2, on_step=after0)
+        out["one_peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        out["one_elems"] = {"dense": sum(x.numel() for x in tree_leaves(state["dense"])),
+                            "table": state["embed"]["table"].numel()}
+        del state
+        torch.cuda.empty_cache()
+        p = params()
+        one["serve"] = generate(p)
+        del p
+        torch.cuda.empty_cache()
+        out["one_serve"] = {k: v for k, v in one["serve"].items()
+                            if k not in ("tokens", "logits")}
+        out["one_s"] = time.perf_counter() - t
+        say(f"one-rank reference: losses {out['runs']['one']['losses']}, peak "
+            f"{out['one_peak_gb']:.2f} GB, prefill {out['one_serve']['prefill_ms']:.1f} ms, "
+            f"decode {out['one_serve']['decode_ms']:.2f} ms a token")
+    mesh.barrier()
+    for axes in ("data", "model", mesh.axis_names):    # each group's first use
+        x = torch.ones((4, 4), dtype=torch.bfloat16, device=device)
+        dims = {0: "data", 1: "model"} if axes == mesh.axis_names else {0: axes}
+        mesh.reduce_scatter_blocks(mesh.all_gather_blocks(x, dims), dims)
+    mesh.moved.clear()
+
+    # (b) one strict step, then the relaxed steps through the mesh
+    # checkpoint, whose writer crashes in step FS_CRASH; recovery
+    t = time.perf_counter()
+    cc = CheckpointConfig(directory=os.path.join(work, "ckpt"), dense_interval=0,
+                          pool_backend="pmem", pool_compress="none")
+    with sharding.use_sharding(mesh, rules["train"]):
+        torch.cuda.reset_peak_memory_stats(device)
+        state = init_fn(params("train"))
+        spec = held_paths(state["dense"])
+        held = {"params": sum(x.numel() for x in tree_leaves(state["dense"])),
+                "moments": sum(x.numel() for k in ("m", "v")
+                               for x in tree_leaves(state["opt_dense"][k])),
+                "table": state["embed"]["table"].numel()}
+        # a quarter of each leaf held in blocks, every other leaf whole
+        want = sum(math.prod(w) // mesh.axis_size(tuple(a for a in s if a)) for s, w
+                   in spec.values())
+        out["held"] = {**held, "want_params": want, "want_moments": 2 * want,
+                       "want_table": cfg.vocab_size * cfg.d_model // FS_MESH[1],
+                       "bytes": {"params": sum(x.numel() * x.element_size()
+                                               for x in tree_leaves(state["dense"])),
+                                 "moments": sum(x.numel() * x.element_size()
+                                                for k in ("m", "v") for x in
+                                                tree_leaves(state["opt_dense"][k])),
+                                 "table": state["embed"]["table"].numel()
+                                 * state["embed"]["table"].element_size()},
+                       "shapes": {"wq": list(state["dense"]["blocks"]["attn"]["wq"].shape),
+                                  "wk": list(state["dense"]["blocks"]["attn"]["wk"].shape),
+                                  "attn_wo": list(state["dense"]["blocks"]["attn"]["wo"].shape),
+                                  "wi": list(state["dense"]["blocks"]["mlp"]["wi"].shape),
+                                  "mlp_wo": list(state["dense"]["blocks"]["mlp"]["wo"].shape),
+                                  "lm_head": list(state["dense"]["lm_head"].shape),
+                                  "table": list(state["embed"]["table"].shape),
+                                  "adam_m_wk": list(state["opt_dense"]["m"]["blocks"]
+                                                    ["attn"]["wk"].shape)}}
+        init0 = tree_map(torch.clone, state["dense"]) if writer else None
+        table0 = state["embed"]["table"].clone() if writer else None
+        # the copies the checks hold on the card beside the run (rank 0's:
+        # its initial blocks and the one-rank run's blocks after step 0)
+        checks = 2 * nbytes({"d": init0, "t": table0}) if writer else 0
+        run("strict", state, relaxed=False, n=1)
+        out["runs"]["strict"]["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        out["runs"]["strict"]["checks_gb"] = checks / 1e9
+        out["runs"]["strict"]["replicated"] = replicated_equal(state)
+        strict = {k: tree_map(torch.clone, v) for k, v in in_place(state).items()}
+        checks = nbytes(strict)
+        if writer:
+            # rank 0's blocks against the one-rank run's after step 0: each
+            # leaf's differences, and the share of its elements that moved in
+            # the one-rank run whose update has that run's sign
+            gaps, signs = [], []
+            for a, b, z in zip(tree_leaves({"d": state["dense"], "t": state["embed"]["table"]}),
+                               tree_leaves({"d": one.pop("dense"), "t": one.pop("table")}),
+                               tree_leaves({"d": init0, "t": table0}), strict=True):
+                s_ = b.float().abs().max().item() or 1.0
+                d = (a.float() - b.float()).abs()
+                gaps.append((d.max().item() / s_, d.mean().item() / s_))
+                ua, ub = a.float() - z.float(), b.float() - z.float()
+                moved = int((ub != 0).sum())
+                if moved:
+                    signs.append(int(((ua.sign() == ub.sign()) & (ub != 0)).sum()) / moved)
+                del d, ua, ub
+            out["param_max_share"] = max(g[0] for g in gaps)
+            out["param_mean_share"] = max(g[1] for g in gaps)
+            out["sign_agree_min"] = min(signs)
+            out["sign_leaves"] = [len(signs), len(gaps)]
+            del init0, table0
+        del state
+        torch.cuda.empty_cache()
+        say(f"strict: losses {out['runs']['strict']['losses']}")
+
+        torch.cuda.reset_peak_memory_stats(device)
+        state = init_fn(params("train"))
+        faults = FaultSchedule.crash_at("tier_e.between-commit-and-apply",
+                                        occurrence=FS_CRASH + 1)
+        mgr = MeshCheckpoint(cfg, cc, embed_init=state["embed"],
+                             faults=faults if writer else None)
+        out["mirror_load_s"] = mgr.stats["mirror_load_s"]
+        out["ckpt_gathers"] = 0
+        inner = mgr.on_step
+
+        def counted(step, st, feed):
+            # the checkpoint's own gathers: the count before and after each call
+            before = gr.launches
+            try:
+                return inner(step, st, feed)
+            finally:
+                out["ckpt_gathers"] += gr.launches - before
+        mgr.on_step = counted
+        snap = {}
+
+        def keep(k, _):
+            if k == FS_CRASH - 1:   # the twin: the state after this step, in place
+                snap.update({n_: tree_map(torch.clone, v) for n_, v in in_place(state).items()})
+                snap["t"] = torch.tensor(k + 1, dtype=torch.int32, device=device)
+        out["crashed"] = False
+        try:
+            run("relaxed", state, relaxed=True, n=FS_CRASH + 1, mgr=mgr, on_step=keep)
+        except InjectedCrash:
+            out["crashed"] = True
+            mgr.manager.pool.close()           # the writer's process death
+        out["runs"]["relaxed"]["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        # the strict run's state and the twin
+        out["runs"]["relaxed"]["checks_gb"] = (checks + nbytes(snap)) / 1e9
+        out["runs"]["relaxed"]["replicated"] = replicated_equal(state)
+        out["relaxed_is_strict"] = (
+            out["runs"]["relaxed"]["losses"][:1] == out["runs"]["strict"]["losses"]
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves({k: snap[k] for k in strict}), tree_leaves(strict), strict=True)))
+        del strict
+        out["gather_s"] = mgr.stats["gather_s"]
+        batch0 = sharding.shard_batch(make_batches(cfg, FS_B, FS_S, device=device).next(0),
+                                      mesh, rules["train"])
+        block = state["embed"]["table"].clone() if writer else None
+        del state, mgr
+        torch.cuda.empty_cache()
+        t_rec = time.perf_counter()
+        fresh = init_fn(params("train"))
+        # no tier-M: the dense tree comes from the twin, the table from the pool
+        fresh = {**fresh, "dense": snap.pop("dense"),
+                 "opt_dense": {"m": snap.pop("m"), "v": snap.pop("v"), "t": snap.pop("t")}}
+        state, start, rec = recover_on_mesh(cfg, cc.directory, fresh)
+        torch.cuda.synchronize(device)
+        out["recover_s"] = time.perf_counter() - t_rec
+        out["resume_at"] = start
+        out["recovered_bitwise"] = torch.equal(state["embed"]["table"], snap.pop("table"))
+        if writer:
+            out["rec"] = [rec.mirror_step, rec.dense_step, rec.rolled_back]
+            rec.pool.close()
+        del state, fresh
+    torch.cuda.empty_cache()
+    out["train_s"] = time.perf_counter() - t
+    say(f"relaxed: losses {out['runs']['relaxed']['losses']}, crashed {out['crashed']}, "
+        f"recovered to resume at {out['resume_at']}")
+
+    # (c) serving under the decode rules: every layer's blocks gathered a
+    # step; the cache holds the one kv head over every position
+    t = time.perf_counter()
+    with sharding.use_sharding(mesh, rules["serve"]):
+        p = params("serve")
+        got = generate(p)
+        del p
+    torch.cuda.empty_cache()
+    out["serve"] = {k: v for k, v in got.items() if k not in ("tokens", "logits")}
+    toks0 = mesh.broadcast(got["tokens"].clone(), mesh.axis_names, 0)
+    out["serve"]["tokens_as_rank0"] = bool(torch.equal(toks0, got["tokens"]))
+    if writer:
+        want = one["serve"]
+        scale = want["logits"].abs().max().item()
+        same = got["tokens"] == want["tokens"]
+        cols = torch.nonzero(~same.all(dim=0)).flatten()
+        # the logits are teacher-forced on the one-rank tokens up to the first
+        # position where a greedy token differs (that position included)
+        upto = int(cols[0]) + 1 if cols.numel() else FS_NEW
+        gap = (got["logits"][:, :upto] - want["logits"][:, :upto]).abs()
+        out["serve"].update(logit_share=gap.max().item() / scale,
+                            prefill_logit_share=gap[:, 0].max().item() / scale,
+                            tokens_equal=int(same.sum()), tokens=int(same.numel()),
+                            compared_positions=upto, first_differing=None)
+        if cols.numel():
+            t0_ = int(cols[0])
+            rows = torch.nonzero(~same[:, t0_]).flatten().tolist()
+            top2 = want["logits"][rows, t0_].topk(2, dim=-1).values
+            out["serve"]["first_differing"] = {
+                "position": t0_, "rows": rows,
+                "top2_gap": (top2[:, 0] - top2[:, 1]).tolist(),
+                "logit_gap": gap[rows, t0_].amax(dim=-1).tolist()}
+    out["serve_s"] = time.perf_counter() - t
+
+    # (d) rank 0: the kernels at its shapes against their plain versions, timed
+    if writer:
+        t = time.perf_counter()
+        serve_ids = {"prefill": make_batches(cfg, FS_SERVE_B, FS_S,
+                                             device=device).next(0)["tokens"],
+                     "decode": got["tokens"][:, 0]}
+        out["timing"], out["err"], out["shapes"] = tp_kernels(
+            torch, device, cfg, block, batch0, serve_ids, tag="[fsdp]", key="fsdp",
+            heads=(cfg.num_heads // FS_MESH[1], 1), train=(FS_B // FS_MESH[0], FS_S),
+            serve=(FS_SERVE_B, FS_S))
+        out["kernels_s"] = time.perf_counter() - t
+        del block
+    del got
+    mesh.barrier()
+    out["stats"] = mesh.stats()
+    out["rank_s"] = time.perf_counter() - t_all
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def nbytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def fsdp_phase(torch, np, dev, tc):
+    """Phase 28: full-width granite-20b (FS_LAYERS layers) under FSDP, dense
+    TP, Megatron-SP and one kv head replicated over model, four gloo ranks
+    on this one card (``fsdp_rank``), held against the one-rank run.
+    Returns (rank 0's launches by path, its timings, its kernel errors, the
+    metrics)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fsdp-", dir=build)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        mesh.spawn(fsdp_rank, math.prod(FS_MESH), backend="gloo",
+                   device=f"cuda:{dev.index or 0}", args=(work, tc.seed), timeout=600)
+        spawn_s = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(math.prod(FS_MESH))]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return fsdp_report(ranks, spawn_s)
+
+
+def fsdp_report(ranks, spawn_s):
+    """Phase 28's results from its ranks: printed, held to the gates."""
+    _, cfg = fsdp_model()
+    tag, r0 = "[fsdp]", ranks[0]
+    one = r0["runs"]["one"]
+    d, V, n_q = cfg.d_model, cfg.vocab_size, cfg.num_heads * cfg.resolved_head_dim
+    kv, ff, L = cfg.num_kv_heads * cfg.resolved_head_dim, cfg.d_ff, cfg.num_layers
+    out = {"spawn_s": spawn_s, "mesh": list(FS_MESH), "layers": L,
+           "layers_full": 52, "rules": r0["rules"], "held": [r["held"] for r in ranks],
+           "one_losses": one["losses"], "one_step_ms": one["step_ms"],
+           "one_peak_gb": r0["one_peak_gb"], "one_elems": r0["one_elems"],
+           "one_serve": r0["one_serve"],
+           "seconds": {k: r0[k] for k in ("one_s", "train_s", "serve_s", "kernels_s",
+                                           "rank_s")}}
+    print(f"{tag} four gloo ranks on {[r['device'] for r in ranks]}, (data, model) = "
+          f"{FS_MESH}, granite-20b at full width (d {d}, {cfg.num_heads} heads, "
+          f"{cfg.num_kv_heads} kv head, d_ff {ff}, vocab {V}), depth cut to {L} of 52 "
+          f"layers; train rules {r0['rules']['train']}, serve rules {r0['rules']['serve']}; "
+          f"spawn to the last rank's end {spawn_s:.1f}s; rank 0's parts (s) {out['seconds']}")
+    for r in ranks:
+        h = r["held"]
+        print(f"{tag} rank {r['coords']} holds params {h['params']:,} elements "
+              f"({h['bytes']['params'] / 1e9:.3f} GB; want {h['want_params']:,}), moments "
+              f"{h['moments']:,} ({h['bytes']['moments'] / 1e9:.3f} GB; want "
+              f"{h['want_moments']:,}), table block {h['table']:,} "
+              f"({h['bytes']['table'] / 1e9:.3f} GB); the one-rank tree: params "
+              f"{r0['one_elems']['dense']:,}, moments {2 * r0['one_elems']['dense']:,}, "
+              f"table {r0['one_elems']['table']:,}; shapes {h['shapes']}")
+    losses4 = [r["runs"]["relaxed"]["losses"] for r in ranks]
+    loss0_gap = max(abs(ls[0] - one["losses"][0]) / abs(one["losses"][0]) for ls in losses4)
+    loss_gap = max(abs(a - b) / abs(b) for ls in losses4
+                   for a, b in zip(ls, one["losses"], strict=True))
+    norm0_gap = max(abs(r["runs"]["strict"]["norms"][0] - one["norms"][0]) / one["norms"][0]
+                    for r in ranks)
+    out.update(loss0_rel_gap=loss0_gap, loss_rel_gap=loss_gap, norm0_rel_gap=norm0_gap,
+               param_max_share=r0["param_max_share"], param_mean_share=r0["param_mean_share"],
+               sign_agree_min=r0["sign_agree_min"], sign_leaves=r0["sign_leaves"],
+               replicated={n: [r["runs"][n]["replicated"] for r in ranks]
+                           for n in ("strict", "relaxed")})
+    for name in ("strict", "relaxed"):
+        rr = r0["runs"][name]
+        out[name] = {"losses": rr["losses"], "norms": rr["norms"],
+                     "step_ms": [r["runs"][name]["step_ms"] for r in ranks],
+                     "launches": [r["runs"][name]["launches"] for r in ranks],
+                     "moved_per_step": [r["runs"][name]["moved"] for r in ranks],
+                     "peak_gb": [r["runs"][name]["peak_gb"] for r in ranks],
+                     "checks_gb": [r["runs"][name]["checks_gb"] for r in ranks]}
+        print(f"{tag} {name}: losses {rr['losses']} (one rank {one['losses']}), gradient "
+              f"norms {rr['norms']} (one rank {one['norms']}); step ms a rank "
+              f"{out[name]['step_ms']} (one rank {one['step_ms']}); peak GB a rank "
+              f"{out[name]['peak_gb']}, of which the checks' copies {out[name]['checks_gb']} "
+              f"(one rank {r0['one_peak_gb']:.2f}); launches a rank {out[name]['launches']}")
+        for r in ranks:
+            print(f"{tag} {name} rank {r['coords']}'s collectives a step: "
+                  + json.dumps(r["runs"][name]["moved"]))
+    print(f"{tag} against the one-rank run: step 0's loss {loss0_gap:.4g} relative (gate "
+          f"{FS_LOSS0_RTOL}), every step's {loss_gap:.4g} (gate {FS_LOSS_RTOL}), step 0's "
+          f"gradient norm {norm0_gap:.4g} (gate {FS_NORM0_RTOL}), "
+          f"rank 0's blocks after step 0: largest difference {r0['param_max_share']:.4g} of a "
+          f"leaf's largest, mean {r0['param_mean_share']:.4g} (gate {FS_PARAM_MEAN}), the "
+          f"least share of a leaf's moved elements updated with the one-rank sign "
+          f"{r0['sign_agree_min']:.6g} (gate {FS_SIGN_MIN}; leaves that moved, of all: "
+          f"{r0['sign_leaves']}); relaxed == strict bitwise "
+          f"{[r['relaxed_is_strict'] for r in ranks]}; leaves held whole and their moments "
+          f"against rank 0's {out['replicated']}")
+    out.update(mirror_load_s=r0["mirror_load_s"], gather_s=r0["gather_s"],
+               recover_s=[r["recover_s"] for r in ranks], rec=r0["rec"])
+    print(f"{tag} crash drill (tier-E only, one writer): mirror load "
+          f"{r0['mirror_load_s']:.2f}s, the writer's gather and merge {r0['gather_s']:.3f}s, "
+          f"crashed {[r['crashed'] for r in ranks]}, recovered {r0['rec']} in "
+          f"{out['recover_s']} s a rank, blocks bitwise the twin's "
+          f"{[r['recovered_bitwise'] for r in ranks]}; resume at "
+          f"{[r['resume_at'] for r in ranks]}")
+    sv = r0["serve"]
+    out["serve"] = {"prefill_ms": [r["serve"]["prefill_ms"] for r in ranks],
+                    "decode_ms": [r["serve"]["decode_ms"] for r in ranks],
+                    "launches": sv["launches"], "parts": sv["parts"],
+                    "moved": [r["serve"]["moved"] for r in ranks]}
+    out["serve"].update({k: sv[k] for k in ("tokens_equal", "tokens", "first_differing",
+                                            "logit_share", "prefill_logit_share",
+                                            "compared_positions")})
+    print(f"{tag} serving B={FS_SERVE_B} prompt {FS_S} + {FS_NEW} tokens (no warm-up): "
+          f"prefill ms a rank {out['serve']['prefill_ms']} (one rank "
+          f"{r0['one_serve']['prefill_ms']:.2f}), decode ms a token "
+          f"{out['serve']['decode_ms']} (one rank {r0['one_serve']['decode_ms']:.3f}); "
+          f"greedy tokens equal to the one-rank run's: {sv['tokens_equal']} of "
+          f"{sv['tokens']}, the first that differs {sv['first_differing']}; logits over "
+          f"the first {sv['compared_positions']} positions within {sv['logit_share']:.4g} of "
+          f"the largest (the prefill's {sv['prefill_logit_share']:.4g}; gate "
+          f"{FS_LOGIT_TOL}); launches {sv['parts']}; rank 0's collectives "
+          f"{json.dumps(sv['moved'])}")
+    print(f"{tag} rank 0's shapes {r0['shapes']}; each rank's collectives in all "
+          + json.dumps([r["stats"] for r in ranks]))
+    dq = (d // FS_MESH[0], n_q // FS_MESH[1])
+    check(r0["held"]["shapes"] == {
+        "wq": [L, *dq], "wk": [L, d // FS_MESH[0], kv // FS_MESH[1]],
+        "attn_wo": [L, n_q // FS_MESH[1], d // FS_MESH[0]],
+        "wi": [L, d // FS_MESH[0], ff // FS_MESH[1]],
+        "mlp_wo": [L, ff // FS_MESH[1], d // FS_MESH[0]],
+        "lm_head": [d // FS_MESH[0], V // FS_MESH[1]], "table": [V // FS_MESH[1], d],
+        "adam_m_wk": [L, d // FS_MESH[0], kv // FS_MESH[1]]},
+        f"{tag} rank 0 holds {r0['held']['shapes']}, not its (data, model) blocks")
+    check(all(r["held"]["params"] == r["held"]["want_params"]
+              and r["held"]["moments"] == r["held"]["want_moments"]
+              and r["held"]["table"] == r["held"]["want_table"] for r in ranks),
+          f"{tag} a rank holds other than a quarter of each blocked leaf and every other "
+          f"leaf whole: {[r['held'] for r in ranks]}")
+    check(all(math.isfinite(x) for r in ranks for n in ("strict", "relaxed")
+              for x in r["runs"][n]["losses"]), f"{tag} a non-finite loss")
+    check(all(r["runs"][n]["losses"] == r0["runs"][n]["losses"] for r in ranks
+              for n in ("strict", "relaxed")), f"{tag} the ranks report different losses")
+    check(loss0_gap <= FS_LOSS0_RTOL, f"{tag} step 0's loss {loss0_gap:.4g} from the "
+          "one-rank run's")
+    check(loss_gap <= FS_LOSS_RTOL, f"{tag} losses {loss_gap:.4g} from the one-rank run's")
+    check(norm0_gap <= FS_NORM0_RTOL, f"{tag} step 0's gradient norm {norm0_gap:.4g} from "
+          "the one-rank run's")
+    check(r0["param_mean_share"] <= FS_PARAM_MEAN and r0["sign_agree_min"] >= FS_SIGN_MIN,
+          f"{tag} params differ from the one-rank run's")
+    check(all(rep_["leaves"] > 0 and not rep_["differ"]
+              for reps in out["replicated"].values() for rep_ in reps),
+          f"{tag} a leaf held whole differs across the ranks: {out['replicated']}")
+    check(all(r["relaxed_is_strict"] for r in ranks), f"{tag} relaxed differs from strict")
+    check(r0["crashed"] and not any(r["crashed"] for r in ranks[1:]),
+          f"{tag} the writer did not crash alone at the scheduled step")
+    check(r0["rec"] == [FS_CRASH - 1, -1, True], f"{tag} recovered {r0['rec']}")
+    check(all(r["recovered_bitwise"] for r in ranks), f"{tag} a recovered block differs "
+          "from the twin's")
+    check(all(r["resume_at"] == FS_CRASH for r in ranks), f"{tag} resume step")
+    check(all(r["serve"]["tokens_as_rank0"] for r in ranks), f"{tag} the ranks served "
+          "different tokens")
+    fd = sv["first_differing"]
+    check(fd is None or all(t <= g for t, g in zip(fd["top2_gap"], fd["logit_gap"],
+                                                     strict=True)),
+          f"{tag} a served token differs from the one-rank run's where the one-rank "
+          f"logits were no near tie: {fd}")
+    check(sv["logit_share"] <= FS_LOGIT_TOL, f"{tag} served logits beyond the gate")
+    check(all(r["runs"][n]["peak_gb"] - r["runs"][n]["checks_gb"] < r0["one_peak_gb"] / 2
+              for r in ranks for n in ("strict", "relaxed")), f"{tag} a rank's peak, less "
+          "the checks' copies, is not below half the one-rank run's")
+    for name in ("strict", "relaxed"):
+        for r in ranks:
+            c = r["runs"][name]["launches"]
+            need = ("flash_attention_tc", "flash_attention_bwd", "gather_rows", "embedding_bag",
+                    "scatter_update") + (("scatter_update_logged",) if name == "relaxed" else ())
+            check(all(c[k] > 0 for k in need), f"{tag} {name}: a kernel of the path never "
+                  f"launched: {c}")
+    check(all(r["serve"]["parts"]["prefill"]["flash_attention_tc"] > 0
+              and r["serve"]["parts"]["prefill"]["gather_rows"] == 1
+              and r["serve"]["parts"]["decode"]["gather_rows"] == FS_NEW - 1 for r in ranks),
+          f"{tag} serving: want flash and one gather in the prefill and one gather a decode "
+          f"step, got {[r['serve']['parts'] for r in ranks]}")
+    # the ranks at data 0 hold the blocks of one copy of the table and send
+    # them (one gather a checkpointed step); the others hold copies
+    check(all(r["ckpt_gathers"] == (FS_CRASH + 1 if r["coords"][0] == 0 else 0)
+              for r in ranks), f"{tag} the checkpoint's gathers a rank "
+          f"{[r['ckpt_gathers'] for r in ranks]}, want one a checkpointed step on the "
+          "ranks at data 0, none on the others")
     rl, sl = r0["runs"]["relaxed"]["launches"], r0["runs"]["strict"]["launches"]
     launches = {"flash_lse": rl["flash_attention_tc"], "flash_bwd": rl["flash_attention_bwd"],
                 "gather": rl["gather_rows"], "bag": rl["embedding_bag"],
@@ -6003,6 +6647,12 @@ def drill_child(num, pmem_tier_e_ms):
     print(DRILL_MARK + json.dumps({
         "launches": launches, "out": out, "wall_s": time.perf_counter() - t0,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+    # the result is out and the phase released what it made: end without
+    # the interpreter's teardown, where a native thread left joinable once
+    # aborted drill 21 after its result line ("terminate called without an
+    # active exception", exit -6)
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def drills_phase(torch, pmem_tier_e_ms):
@@ -6157,6 +6807,11 @@ def main():
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {len(logs)} built, {len(_build.KERNELS) - len(logs)} cached, "
           f"{time.perf_counter() - t0:.1f}s")
+    # the ranks of phases 24, 25, 27 and 28 fork from a server that imports
+    # torch once, beside phases 2-23 (a fresh rank spent 17 s in imports)
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.start_fork_server()
+    atexit.register(mesh_lib.stop_fork_server)
 
     # -- 2. the card -----------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6622,6 +7277,15 @@ def main():
     tp_out["wall_s"] = time.perf_counter() - t0
     print(f"[tp] phase 27 wall time {tp_out['wall_s']:.1f}s")
 
+    # -- 28. granite-20b under FSDP, TP and SP with one kv head: four gloo ranks ---
+    t0 = time.perf_counter()
+    fs_launches, fs_timing, fs_err, fs_out = fsdp_phase(torch, np, dev, tc)
+    timing.update(fs_timing)
+    for name, e in fs_err.items():
+        err[name] = max(err.get(name, 0.0), e)
+    fs_out["wall_s"] = time.perf_counter() - t0
+    print(f"[fsdp] phase 28 wall time {fs_out['wall_s']:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
     # for the gather, flash attention and wkv6, phases 12's and 16's relaxed
@@ -6861,7 +7525,32 @@ def main():
             ("gather_rows", "tinyllama-1.1b prefill (2 ranks, near-data vocab block)",
              "gather_tp_serve_prefill", tp_launches["gather_serve_prefill"], *gather_src),
             ("gather_rows", "tinyllama-1.1b decode (2 ranks, near-data vocab block)",
-             "gather_tp_serve_decode", tp_launches["gather_serve_decode"], *gather_src)):
+             "gather_tp_serve_decode", tp_launches["gather_serve_decode"], *gather_src),
+            # phase 28: rank 0 of four, granite-20b under FSDP + TP + SP at its shapes
+            ("flash_attention_tc",
+             "granite-20b train (4 ranks, FSDP + TP + SP, 24/1 heads, kv replicated)",
+             "flash_lse_fsdp", fs_launches["flash_lse"], *flash_tc_src),
+            ("flash_attention_bwd_tc",
+             "granite-20b train (4 ranks, FSDP + TP + SP, 24/1 heads, kv replicated)",
+             "flash_bwd_fsdp", fs_launches["flash_bwd"], *bwd_tc_src),
+            ("gather_rows", "granite-20b train (4 ranks, near-data vocab block)",
+             "gather_fsdp_lookup", fs_launches["gather"], *gather_src),
+            ("embedding_bag", "granite-20b train (4 ranks, a rank's vocab block)",
+             "bag_combine_fsdp", fs_launches["bag"], *bag_src),
+            ("scatter_update", "granite-20b train (4 ranks, the block's f32 scratch)",
+             "update_f32_fsdp", fs_launches["update_f32"], *update_src),
+            ("scatter_update", "granite-20b train (strict, 4 ranks, the bf16 block)",
+             "update_bf16_fsdp", fs_launches["update_bf16"], *update_src),
+            ("scatter_update_logged", "granite-20b train (4 ranks, the bf16 block)",
+             "update_logged_fsdp", fs_launches["logged"], *logged_src),
+            ("gather_rows", "granite-20b checkpoint (4 ranks, one writer)",
+             "gather_fsdp_checkpoint", fs_launches["ckpt_gather"], *gather_src),
+            ("flash_attention_tc", "granite-20b prefill (4 ranks, FSDP + TP, 24/1 heads)",
+             "flash_prefill_fsdp", fs_launches["flash_prefill"], *flash_tc_src),
+            ("gather_rows", "granite-20b prefill (4 ranks, near-data vocab block)",
+             "gather_fsdp_serve_prefill", fs_launches["gather_serve_prefill"], *gather_src),
+            ("gather_rows", "granite-20b decode (4 ranks, near-data vocab block)",
+             "gather_fsdp_serve_decode", fs_launches["gather_serve_decode"], *gather_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -6879,6 +7568,7 @@ def main():
     print(f"[dist-train] phase 25: {json.dumps(dt_out)}")
     print(f"[sim] phase 26: {json.dumps(sim_out)}")
     print(f"[tp] phase 27: {json.dumps(tp_out)}")
+    print(f"[fsdp] phase 28: {json.dumps(fs_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

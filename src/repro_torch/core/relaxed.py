@@ -27,8 +27,9 @@ table, so its table gradient, and its update U, cover every row: the
 trainer then updates every row, and the correction reads U's rows straight
 from the dense update (``prefetch_corrected`` with no scratch).
 
-Under a sharding context (DLRM and the dense decoders; the other LMs
-raise, ROADMAP queue 1 item 10(c)) each rank holds its block of every
+Under a sharding context (DLRM and the dense decoders, under dense TP,
+Megatron-SP and FSDP; the other LMs raise, ROADMAP queue 1 item 10(c))
+each rank holds its block of every
 table's rows over the ``table_rows`` axes (an LM: its block of the token
 table over ``vocab``), or the whole tables where nothing shards them, and
 its slice of the batch over the ``batch`` axes (``sharding.shard_batch``).
@@ -69,8 +70,9 @@ def check_trainable(cfg) -> None:
     if not tensor_parallel.dense_decoder(cfg):
         raise NotImplementedError(
             f"{cfg.name}: under a sharding context the port trains DLRM and the "
-            f"dense decoders; {cfg.arch_type} under a mesh is ROADMAP queue 1 "
-            "item 10(c)")
+            f"dense decoders; {cfg.arch_type}"
+            f"{' with MoE blocks' if 'moe' in cfg.ffn_types else ''} under a mesh "
+            "(the MoE and mamba blocks under TP and FSDP) is ROADMAP queue 1 item 10(c)")
 
 
 def _rows(cfg) -> int:

@@ -1,5 +1,5 @@
 """Checkpointing and recovering a model trained under a mesh through one
-writer: DLRM, and the dense decoders with tensor parallelism.
+writer: DLRM, and the dense decoders with tensor parallelism and FSDP.
 
 The reference's checkpoint manager knows no mesh: it mirrors the global
 (T * R, d) tables (an LM's (V, d) token table) and logs the global batch's
@@ -22,15 +22,17 @@ the ``CheckpointManager``.
   one-rank run would give. An LM is one table of V rows (T = 1), its
   block over the ``vocab`` axes.
   Tier-M writes the dense tree and the optimizer state from the writer
-  alone: whole on every rank, or under tensor parallelism gathered whole
-  from the ranks' blocks first (the ranks at data coordinate 0 take part),
-  so that the blob has the one-rank layout that ``store.serialize_tree``
-  writes and either package recovers.
+  alone: whole on every rank, or where the ranks hold blocks of it gathered
+  whole from them first, leaf by leaf to the writer's host, over every
+  axis a leaf's held spec names (under tensor parallelism the ranks at
+  data coordinate 0 take part, under FSDP every rank, each holding a
+  block of its own), so that the blob has the one-rank layout that
+  ``store.serialize_tree`` writes and either package recovers.
 * ``recover_on_mesh``: the writer runs ``recover`` (rollback included),
   then every rank takes its block of the recovered mirror and the dense
-  tree from it (under tensor parallelism its blocks of the dense leaves
-  and their moments, sent block by block); the relaxed carry is rebuilt
-  by the trainer's warm-up.
+  tree from it (where it holds blocks of the dense leaves and their
+  moments, cut again by their held spec and sent block by block); the
+  relaxed carry is rebuilt by the trainer's warm-up.
 
 Where a rank holds the tables whole (no ``table_rows`` axis in the mesh)
 the writer has every row and checkpoints alone. Every method is called by
@@ -42,6 +44,7 @@ one scheduled step, and ``mesh.spawn``'s timeout ends a rank left waiting.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Optional
 
@@ -51,7 +54,7 @@ import torch
 from repro_torch.core import relaxed as rx
 from repro_torch.core.checkpoint import recovery
 from repro_torch.core.checkpoint.manager import CheckpointManager
-from repro_torch.distributed import sharding, tensor_parallel
+from repro_torch.distributed import fsdp, sharding
 from repro_torch.kernels import ops
 from repro_torch.pool.remote import chunk_bytes
 from repro_torch.tree import tree_map_with_path
@@ -100,24 +103,41 @@ class _Layout:
         return table.view(self.T, self.R_held, self.d)
 
 
-def _whole_leaves(tree):
-    """``tree`` (dense params or their moments) with every tensor-parallel
-    block all-gathered whole over the TP axis (every rank of the axis
-    calls it)."""
+def _whole_leaves(tree, cfg, to_host=False):
+    """``tree`` (dense params or their moments) with every block
+    all-gathered whole over the axes its rank holds it by (the TP axis, and
+    ``data`` too under FSDP; every rank of those axes calls it). With
+    ``to_host`` each gathered leaf is moved to the host at once on the
+    writer and dropped on the others (None), so that no rank holds the
+    whole tree on the card."""
     ctx = sharding.current()
+    writer = ctx.mesh.axis_index(ctx.mesh.axis_names) == 0
 
     def whole(path, x):
-        dim = tensor_parallel.sharded_dim(path, x.dim())
-        return x if dim is None else ctx.mesh.all_gather(x, ctx.tp, dim)
+        dims = fsdp.held_dims(cfg, path, x.dim())
+        got = ctx.mesh.all_gather_blocks(x, dims) if dims else x
+        if not to_host:
+            return got
+        return got.detach().to("cpu", copy=True) if writer else None
     return tree_map_with_path(whole, tree)
 
 
-def _send_blocks(like, src=None):
+def _held_axes(cfg, tree) -> set:
+    """The mesh axes over which a rank holds blocks of some leaf of
+    ``tree``."""
+    axes = set()
+    tree_map_with_path(lambda path, x: axes.update(
+        fsdp.held_dims(cfg, path, x.dim()).values()), tree)
+    return axes
+
+
+def _send_blocks(like, cfg, src=None):
     """Every rank's blocks of a recovered tree, sent by the writer: ``src``
     (the writer's whole leaves, host arrays; None on the other ranks) laid
-    out as ``like`` (this rank's held tree). A replicated leaf is broadcast
-    whole; a tensor-parallel one block by block, cut on the host, each rank
-    keeping its own, so that no rank holds a whole dense leaf on the card."""
+    out as ``like`` (this rank's held tree). A leaf held whole is broadcast
+    whole; a blocked one block by block, each cut on the host and sent to
+    every rank, the ranks it belongs to keeping it, so that no rank holds a
+    whole dense leaf on the card."""
     ctx = sharding.current()
     mesh = ctx.mesh
 
@@ -125,22 +145,28 @@ def _send_blocks(like, src=None):
         return torch.as_tensor(x).to(device=mine.device, dtype=mine.dtype)
 
     def send(path, mine, whole=None):
-        dim = tensor_parallel.sharded_dim(path, mine.dim())
-        if dim is None:
+        dims = fsdp.held_dims(cfg, path, mine.dim())
+        if not dims:
             buf = torch.empty_like(mine) if whole is None \
                 else on_card(whole, mine).reshape(mine.shape)
             return mesh.broadcast(buf, mesh.axis_names, 0)
-        n, step, kept = tensor_parallel.size(), mine.shape[dim], None
-        for j in range(n):
+        axes = tuple(a for a in mesh.axis_names if a in dims.values())
+        shape = list(mine.shape)
+        for d, ax in dims.items():
+            shape[d] *= mesh.sizes[ax]
+        kept = None
+        for pos in itertools.product(*(range(mesh.sizes[a]) for a in axes)):
+            at = dict(zip(axes, pos, strict=True))
             if whole is None:
                 buf = torch.empty_like(mine)
             else:
-                shape = list(mine.shape)
-                shape[dim] *= n
-                block = torch.as_tensor(whole).reshape(shape).narrow(dim, j * step, step)
+                cut = [slice(None)] * mine.dim()
+                for d, ax in dims.items():
+                    cut[d] = slice(at[ax] * mine.shape[d], (at[ax] + 1) * mine.shape[d])
+                block = torch.as_tensor(whole).reshape(shape)[tuple(cut)]
                 buf = on_card(block.contiguous(), mine)
             got = mesh.broadcast(buf, mesh.axis_names, 0)
-            if j == mesh.axis_index(ctx.tp):
+            if all(mesh.coords[a] == i for a, i in at.items()):
                 kept = got
         return kept
     if src is None:
@@ -265,17 +291,22 @@ class MeshCheckpoint:
             self._hand_on(step, state, merged, g_new[keep])
 
     def _dense_whole(self, step, state):
-        """On a tier-M step under tensor parallelism, the ranks at data
-        coordinate 0 gather the dense tree and its moments whole; returns
-        the writer's state with them, else ``state`` itself."""
-        ctx = sharding.current()
+        """On a tier-M step where the ranks hold blocks of the dense tree
+        (tensor parallelism, FSDP), the ranks that hold the blocks of one
+        copy of it (coordinate 0 on every axis no block lies over; under
+        FSDP every rank) gather it and its moments whole, leaf by leaf, to
+        the writer's host; returns the writer's state with them, else
+        ``state`` itself."""
         K = self.ccfg.dense_interval
-        if ctx.tp is None or tensor_parallel.size() == 1 or K <= 0 or step % K:
+        if K <= 0 or step % K:
             return state
-        if any(self.mesh.coords[a] for a in self.mesh.axis_names if a != ctx.tp):
+        axes = _held_axes(self.cfg, state["dense"])
+        if not axes or any(self.mesh.coords[a] for a in self.mesh.axis_names
+                           if a not in axes):
             return state
         t0 = time.perf_counter()
-        whole = {k: _whole_leaves(state[k]) for k in ("dense", "opt_dense")}
+        whole = {k: _whole_leaves(state[k], self.cfg, to_host=True)
+                 for k in ("dense", "opt_dense")}
         self.stats["gather_s"] += time.perf_counter() - t0
         return {**state, **whole} if self.writer else state
 
@@ -319,7 +350,8 @@ def recover_on_mesh(cfg, root: str, init_state: dict, *, pool=None):
 
     dense = None
     if has_dense:
-        dense = {key: _send_blocks(init_state[key], rec.dense[key] if lay.writer else None)
+        dense = {key: _send_blocks(init_state[key], cfg,
+                                   rec.dense[key] if lay.writer else None)
                  for key in ("dense", "opt_dense", "opt_embed")}
     if lay.writer:
         mine = slice(0, lay.R_held) if lay.tp_ax is not None else None

@@ -24,15 +24,26 @@ sharded (``held_spec``):
   * the islands' leaves (``ISLAND_LEAVES``: the token table's rows over
     ``vocab``, DLRM's table rows over ``table_rows``, the experts over
     ``experts``), always;
-  * the dense decoder's projections (``TP_LEAVES``: column blocks of
-    ``wq|wk|wv|wi|wg``, row blocks of ``wo``, vocab blocks of ``lm_head``),
-    where the rules name ``heads`` (the dense tensor parallelism that XLA
-    derives from ``param_specs`` in the reference;
-    ``launch.dryrun.build_rules`` writes the rule). ``DEFAULT_RULES``
+  * the dense decoder's projections and head (``TP_LEAVES``: ``wq|wk|wv|
+    wi|wg`` (embed, heads or ffn), ``wo`` (heads or ffn, embed),
+    ``lm_head`` (embed, vocab)), where the rules name ``heads`` (dense
+    tensor parallelism: the heads, ffn and vocab dimensions over
+    ``model``) or ``w_embed`` (FSDP: the embed dimension over ``data``
+    too), by the reference's spec: ``param_specs``' entry downgraded where
+    the mesh does not divide it, as ``check_divisibility`` places it (XLA
+    derives both from that placement in the reference;
+    ``launch.dryrun.build_rules`` writes the rules). Granite's
+    (6144, 128) ``wk`` is then a (data, model) block. ``DEFAULT_RULES``
     leave ``heads``, ``kv_heads`` and ``ffn`` out (the reference's name
     ``model`` for them), so that a context is tensor-parallel exactly when
-    its rules name ``heads``; without, every other leaf is held whole on
-    every rank, as the serving and DLRM layouts under a mesh do.
+    its rules name ``heads``; without either rule every other leaf is held
+    whole on every rank, as the serving and DLRM layouts under a mesh do.
+    A layer takes a held leaf to its compute layout at its use
+    (``distributed.fsdp``).
+
+A context's rules are the reference's activation and weight rules in one
+dict (``{**act_rules, **weight_rules}``; their names do not clash, and
+``spec_for`` reads the weight names among them).
 
 A batch is split by ``shard_batch``: each rank keeps its slice of the
 leading batch dimension over the ``batch`` rule's axes (the data-parallel
@@ -80,9 +91,10 @@ def _in_mesh(ax, mesh_axes):
 class ShardingContext:
     """The rules in force (``rules``: the defaults updated by the caller's).
     ``tp``: the mesh axis of dense tensor parallelism, the ``heads`` rule's
-    (None: no such rule, and the dense leaves are held whole); ``sp``:
-    whether the residual stream is sharded by sequence over it (a ``seq``
-    rule naming the same axis, the Megatron-SP profile)."""
+    (None: no such rule); ``fsdp``: the mesh axis of the ``w_embed``
+    weight rule (None: no such rule); without either the dense leaves are
+    held whole. ``sp``: whether the residual stream is sharded by sequence
+    over the TP axis (a ``seq`` rule naming it, the Megatron-SP profile)."""
 
     def __init__(self, mesh, rules: dict[str, Any]):
         self.mesh = mesh
@@ -90,6 +102,7 @@ class ShardingContext:
         self.rules.update(rules or {})
         self.mesh_axes = set(mesh.axis_names)
         self.tp = tp_axis(self.rules, self.mesh_axes)
+        self.fsdp = fsdp_axis(self.rules, self.mesh_axes)
         self.sp = self.tp is not None and self.axes("seq") == self.tp
 
     def spec(self, logical: tuple[Optional[str], ...]) -> tuple:
@@ -191,6 +204,8 @@ DEFAULT_WEIGHT_RULES = {
 # the leaves held sharded under every context: those the islands read
 ISLAND_LEAVES = (r"embed/table$", r"emb_tables$", r"moe/(wi|wg|wo)$")
 # the dense decoder's leaves held by their spec under a ``heads`` rule
+# (dense tensor parallelism) or a ``w_embed`` rule (FSDP): the same leaves
+# under either; its norms are held whole under both
 TP_LEAVES = (r"attn/(wq|wk|wv|wo)$", r"mlp/(wi|wg|wo)$", r"lm_head$")
 
 
@@ -204,8 +219,27 @@ def tp_axis(rules: dict[str, Any] | None, mesh_axes) -> Optional[str]:
     return ax
 
 
+def fsdp_axis(rules: dict[str, Any] | None, mesh_axes) -> Optional[str]:
+    """The mesh axis that the ``w_embed`` weight rule of ``rules`` names
+    (FSDP), if it is one axis of the mesh; else None."""
+    ax = _in_mesh((rules or {}).get("w_embed"), set(mesh_axes))
+    if isinstance(ax, tuple):
+        raise NotImplementedError(f"a w_embed rule over several axes {ax}: FSDP "
+                                  "runs over one mesh axis")
+    return ax
+
+
 def is_tp_leaf(path: str) -> bool:
+    """Whether the leaf at ``path`` is one of the dense decoder's
+    projections or its head (``TP_LEAVES``), which a rank holds by its
+    spec under a ``heads`` or a ``w_embed`` rule."""
     return any(re.search(p, path) for p in TP_LEAVES)
+
+
+def blocks_dense(rules: dict[str, Any] | None, mesh_axes) -> bool:
+    """Whether ``rules`` hold the dense decoder's leaves by their spec: they
+    name ``heads`` or ``w_embed`` (an axis of the mesh)."""
+    return tp_axis(rules, mesh_axes) is not None or fsdp_axis(rules, mesh_axes) is not None
 
 
 def spec_for(path: str, ndim: int, rules: dict[str, Any] | None = None,
@@ -260,20 +294,29 @@ def check_divisibility(params, specs, mesh):
         params, specs)
 
 
+_KV_LEAVES = re.compile(r"attn/(wk|wv)$")
+
+
 def held_spec(path: str, shape, mesh, rules: dict[str, Any] | None = None) -> tuple:
     """The spec by which a rank holds the leaf at ``path`` (``shape`` the
     whole leaf's): its ``param_specs`` entry, downgraded where the mesh does
-    not divide it, for the island leaves; for the dense projections
-    (``TP_LEAVES``) where ``rules`` name ``heads``, the entry itself
-    (raises where the mesh does not divide the leaf: the layers take every
-    rank's block to be the same size); replicated for every other leaf."""
+    not divide it (``check_divisibility``), for the island leaves and, where
+    ``rules`` name ``heads`` or ``w_embed``, for the dense projections and
+    head (``TP_LEAVES``); replicated for every other leaf. Under a
+    ``heads`` rule a TP leaf's heads, ffn or vocab dimension must split
+    over the TP axis (raises: the layers take every rank's block of them
+    to be the same size), but ``wk``/``wv``'s, whose kv heads a rank may
+    hold whole (``tensor_parallel.kv_replicated``)."""
     axes = set(mesh.axis_names)
-    if tp_axis(rules, axes) is not None and is_tp_leaf(path):
+    if is_tp_leaf(path) and blocks_dense(rules, axes):
         spec = spec_for(path, len(shape), rules, axes)
-        if _divisible(tuple(shape), spec, mesh.sizes) != tuple(spec):
+        held = _divisible(tuple(shape), spec, mesh.sizes)
+        tp = tp_axis(rules, axes)
+        if tp is not None and not _KV_LEAVES.search(path) and any(
+                a == tp and h != tp for a, h in zip(spec, held, strict=True)):
             raise ValueError(f"dense tensor parallelism: {path} {tuple(shape)} does "
                              f"not split by {spec} over {mesh.sizes}")
-        return spec
+        return held
     if not any(re.search(p, path) for p in ISLAND_LEAVES):
         return ()
     spec = spec_for(path, len(shape), rules, axes)

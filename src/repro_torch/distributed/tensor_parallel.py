@@ -4,10 +4,17 @@ and the dry run's activation rules, ``src/repro/launch/dryrun.py:81-109``).
 
 Under a context whose rules name ``heads`` (``sharding.ShardingContext.tp``,
 the ``model`` axis; ``launch.dryrun.build_rules`` writes the rule) each
-rank holds its column block of ``wq|wk|wv|wi|wg`` (its ``Hq/tp`` query
-heads, ``Hkv/tp`` kv heads, ``ffn/tp`` MLP columns), its row block of the
-attention and MLP ``wo``, and its vocab block of ``lm_head`` and of the
-token table (``sharding.held_spec``). A block then runs as Megatron's:
+rank computes with its column block of ``wq|wk|wv|wi|wg`` (its ``Hq/tp``
+query heads, ``Hkv/tp`` kv heads, ``ffn/tp`` MLP columns), its row block
+of the attention and MLP ``wo``, and its vocab block of ``lm_head`` and
+of the token table: the blocks it holds (``sharding.held_spec``), or under
+FSDP its held blocks gathered over ``data`` at their use
+(``distributed.fsdp``). Where ``model`` does not divide the kv heads
+(granite-20b's one; ``kv_replicated``, the reference's ``kv_heads: None``)
+a rank reads ``wk``/``wv`` whole and projects the kv heads that its own
+query heads read (``kv_cols``): rank r's query heads ``[r Hq/tp, (r+1)
+Hq/tp)`` read kv heads ``h // (Hq/Hkv)``, so its flash call sees plain GQA
+over them. A block then runs as Megatron's:
 
     column-parallel:  y_r = enter(x) @ W_r        (no collective forward)
     row-parallel:     z   = row_parallel(y_r, V_r) = leave(y_r @ V_r)
@@ -41,8 +48,8 @@ sums over the TP axis (``partial_leaf``), which the trainer sums
 (``training.train_loop.sync_dense_``).
 
 The dense decoders are the families this runs (arch type ``transformer``,
-no MoE block, an untied head); the rest raise under a ``heads`` rule
-(``check_supported``), ROADMAP queue 1 item 10(c).
+no MoE block, an untied head); the rest raise under a ``heads`` or a
+``w_embed`` rule (``check_supported``), ROADMAP queue 1 item 10(c).
 """
 from __future__ import annotations
 
@@ -89,13 +96,16 @@ def dense_decoder(cfg) -> bool:
 
 
 def check_supported(cfg) -> None:
-    """Raises under a ``heads`` rule for a model the port does not yet run
-    with dense tensor parallelism."""
-    if axis() is not None and not dense_decoder(cfg):
+    """Raises under a ``heads`` or a ``w_embed`` rule for a model the port
+    does not yet run with dense tensor parallelism or FSDP."""
+    ctx = sharding.current()
+    if ctx is not None and (ctx.tp is not None or ctx.fsdp is not None) \
+            and not dense_decoder(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: dense tensor parallelism (a heads rule) runs the dense "
-            f"decoders (arch type transformer, no MoE, an untied head); "
-            f"{cfg.arch_type} under it is ROADMAP queue 1 item 10(c)")
+            f"{cfg.name}: dense tensor parallelism and FSDP (a heads or a w_embed "
+            f"rule) run the dense decoders (arch type transformer, no MoE, an "
+            f"untied head); {cfg.arch_type}{' with MoE blocks' if 'moe' in cfg.ffn_types else ''}"
+            " under them is ROADMAP queue 1 item 10(c)")
 
 
 def _mesh_ax():
@@ -211,11 +221,6 @@ def leave(y):
     return reduce_scatter(y, mesh, ax, _SEQ) if seq_parallel() else reduce(y, mesh, ax)
 
 
-def row_parallel(y, w):
-    """``leave(y @ w)`` (``w`` a row block)."""
-    return leave(y @ w)
-
-
 def shard_stream(x):
     """The whole (B, S, d) stream cut to this rank's S/tp rows under SP
     (the backward gathers the rows' gradients whole again), else ``x``."""
@@ -234,9 +239,50 @@ def gather_stream(x):
     return gather(x, mesh, ax, _SEQ)
 
 
-def local_heads(cfg) -> tuple[int, int]:
-    """(query heads, kv heads) a rank holds."""
+def kv_replicated(cfg) -> bool:
+    """Whether each rank reads the kv heads whole: dense tensor parallelism
+    over more ranks than divide ``cfg``'s kv heads (the reference's
+    ``kv_heads: None``)."""
     n = size()
+    return n > 1 and cfg.num_kv_heads % n != 0
+
+
+def _kv_range(cfg) -> tuple[int, int]:
+    """(first kv head, kv heads) that this rank's query heads read where
+    the kv heads are replicated; raises where they would not be plain GQA
+    (each local query head h reading local kv head h // (its group))."""
+    n, Hq, Hkv = size(), cfg.num_heads, cfg.num_kv_heads
+    nq, G = Hq // n, Hq // Hkv
+    r = sharding.current().mesh.axis_index(axis())
+    first = r * nq // G
+    count = ((r + 1) * nq - 1) // G - first + 1
+    if nq % count or any((r * nq + h) // G - first != h // (nq // count)
+                         for h in range(nq)):
+        raise NotImplementedError(
+            f"{cfg.name}: {Hq} query heads and {Hkv} kv heads over {n} model ranks "
+            f"give rank {r} kv heads {first}..{first + count - 1} that its query heads "
+            "do not read as plain GQA")
+    return first, count
+
+
+def kv_cols(cfg):
+    """The columns of a whole ``wk``/``wv`` that this rank projects where the
+    kv heads are replicated (a slice: the kv heads its query heads read),
+    else None."""
+    if not kv_replicated(cfg):
+        return None
+    first, count = _kv_range(cfg)
+    hd = cfg.resolved_head_dim
+    return slice(first * hd, (first + count) * hd)
+
+
+def local_heads(cfg) -> tuple[int, int]:
+    """(query heads, kv heads) a rank computes: its ``Hq/tp`` query heads,
+    and its ``Hkv/tp`` kv heads or, where they are replicated, the ones its
+    query heads read."""
+    n = size()
+    if kv_replicated(cfg):
+        return cfg.num_heads // n, _kv_range(cfg)[1]
     return cfg.num_heads // n, cfg.num_kv_heads // n
 
 
@@ -264,26 +310,28 @@ def to_head(hidden, w_out, vocab: int):
     return copy(hidden, blk[0], blk[1])
 
 
-def head_logits(h, w_out, vocab: int):
+def head_logits(h, w_out, vocab: int, mm=torch.matmul):
     """(B, V) f32 logits of the last positions ``h`` (B, d); a vocab block's
-    are all-gathered along the vocabulary (serving: no gradient)."""
-    logits = (h @ w_out).float()
+    are all-gathered along the vocabulary (serving: no gradient). ``mm``:
+    the product with the head (``fsdp.matmul`` for a held ``lm_head``)."""
+    logits = mm(h, w_out).float()
     blk = vocab_block(w_out, vocab)
     if blk is None:
         return logits
     return blk[0].all_gather(logits, blk[1], -1)
 
 
-def vocab_xent(h, w_out, y, m, blk):
+def vocab_xent(h, w_out, y, m, blk, mm=torch.matmul):
     """Summed cross-entropy of one chunk over a vocab-parallel head, and its
     weight: h (B, c, d) whole on every rank, ``w_out`` (d, V/n) this rank's
-    block, labels ``y`` (B, c), mask ``m``; ``blk`` from ``vocab_block``.
+    block (``mm``: the product with it, as ``head_logits``'), labels ``y``
+    (B, c), mask ``m``; ``blk`` from ``vocab_block``.
     The max and the sum of exponentials are all-reduced in f32 (the max
     carries no gradient: any constant shifts the log-sum-exp exactly), the
     label's logit comes from the rank that holds it; every rank returns the
     same sum."""
     mesh, ax, base = blk
-    logits = (h @ w_out).float()                              # (B, c, V/n)
+    logits = mm(h, w_out).float()                             # (B, c, V/n)
     mx = mesh.all_reduce(logits.detach().amax(dim=-1), ax, op="max")
     se = reduce(torch.exp(logits - mx[..., None]).sum(dim=-1), mesh, ax)
     lse = torch.log(se) + mx
@@ -304,16 +352,3 @@ def partial_leaf(path: str) -> bool:
     if axis() is None or size() == 1 or sharding.is_tp_leaf(path):
         return False
     return seq_parallel() or bool(_HEAD_NORMS.search(path))
-
-
-def sharded_dim(path: str, ndim: int):
-    """The dimension of the dense (or optimizer-moment) leaf at ``path``
-    that its ``param_specs`` entry splits over the TP axis, or None (a
-    replicated leaf, or one axis of a single rank)."""
-    ctx = sharding.current()
-    if ctx is None or ctx.tp is None or not sharding.is_tp_leaf(path):
-        return None
-    for i, ax in enumerate(sharding.spec_for(path, ndim, ctx.rules, ctx.mesh_axes)):
-        if ax is not None and ctx.mesh.axis_size(ax) > 1:
-            return i
-    return None

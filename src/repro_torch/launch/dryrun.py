@@ -3,18 +3,25 @@
 
 ``build_rules(bundle, shape, mesh)`` gives the activation rules, the
 weight rules and the data-parallel axes of one (arch x shape) cell, as the
-reference's does: batch over the data axes, heads and kv heads over
-``model``, the sequence over ``model`` for training under the Megatron-SP
-profile (``ShardingProfile.seq_shard_activations``), and for decode the
-cache's sequence over ``model`` (batch > 1) or over every axis (batch 1).
-Under these rules the port runs the dense decoders with dense tensor
-parallelism (``distributed.tensor_parallel``; ``heads`` turns it on).
+reference's does: batch over the data axes, heads over ``model``, kv heads
+over ``model`` where it divides them (else None: every model rank keeps
+the kv heads whole), the sequence over ``model`` for training under the
+Megatron-SP profile (``ShardingProfile.seq_shard_activations``), for
+decode the cache's sequence over ``model`` (batch > 1) or over every axis
+(batch 1), and under an ``fsdp`` profile the weight rule ``w_embed`` over
+``data`` (ZeRO-3: the weights' ``embed`` dimension over ``data`` as well
+as their heads or ffn dimension over ``model``). Under these rules the
+port runs the dense decoders with dense tensor parallelism
+(``distributed.tensor_parallel``; ``heads`` turns it on) and FSDP
+(``distributed.fsdp``; ``w_embed`` turns it on). A context takes both
+dicts as one: ``use_sharding(mesh, {**act_rules, **weight_rules})``.
 
-Two cases the port does not lay out raise ``NotImplementedError`` naming
-ROADMAP queue 1 item 10(c): a profile with ``fsdp`` (the weights'
-``embed`` dimension over ``data`` as well: granite, jamba, qwen3-moe,
-arctic), and heads or kv heads that ``model`` does not divide (granite's
-one kv head; the reference falls back to sharding the kv sequence there).
+Where ``model`` does not divide the kv heads (granite-20b's one) the
+reference sets ``kv_heads`` None and keeps ``kv_seq`` None: each model
+rank holds the kv heads whole. It shards the kv sequence over ``model``
+(``kv_seq``) only where the *query* heads do not divide (arctic-480b's 56
+heads at model 16). The port refuses that case with
+``NotImplementedError``, ROADMAP queue 1 item 10(c).
 
 This module holds the rules only. The lowering of every cell and its
 cost model (the reference's ``lower_train_cell``, ``lower_serve_cell``,
@@ -31,17 +38,15 @@ def build_rules(bundle, shape, mesh):
     axes = set(mesh.axis_names)
     tp = mesh.sizes.get("model", 1)
     dp = tuple(a for a in ("pod", "data") if a in axes)
-    if prof.fsdp:
+    if cfg.num_heads % tp:
         raise NotImplementedError(
-            f"{cfg.name}: its profile shards the weights over data too (fsdp, "
-            "w_embed over data), which the port does not lay out: ROADMAP queue 1 "
+            f"{cfg.name}: {cfg.num_heads} query heads over {tp} model ranks; the "
+            "reference shards the kv sequence over model there (kv_seq, a partial "
+            "softmax across the ranks), which the port does not: ROADMAP queue 1 "
             "item 10(c)")
-    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_heads} heads and {cfg.num_kv_heads} kv heads over "
-            f"{tp} model ranks; the reference shards the kv sequence where the heads "
-            "do not divide, which the port does not: ROADMAP queue 1 item 10(c)")
-    act_rules = {"batch": dp, "heads": "model", "kv_heads": "model", "kv_seq": None}
+    act_rules = {"batch": dp, "heads": "model",
+                 "kv_heads": "model" if cfg.num_kv_heads % tp == 0 else None,
+                 "kv_seq": None}
     if prof.seq_shard_activations and shape.kind == "train":
         act_rules["seq"] = "model"
     if shape.kind == "decode":
@@ -51,4 +56,5 @@ def build_rules(bundle, shape, mesh):
             act_rules["batch"] = None
         else:
             act_rules["cache_seq"] = "model"
-    return act_rules, {}, dp
+    weight_rules = {"w_embed": "data"} if prof.fsdp else {}
+    return act_rules, weight_rules, dp

@@ -19,12 +19,16 @@ NCCL (a card per rank) would take its own collectives, with fewer bytes,
 but no machine here has the cards to run it. This is transport: the
 tensors stay on their device.
 
-``spawn`` starts N ranks with ``torch.multiprocessing`` (the spawn method:
-a parent that has touched CUDA cannot fork) and runs a module-level
-function in each, with the backend and each rank's device given by the
-caller; it never moves a rank to the CPU on its own. Its ``timeout`` bounds
-every collective of every group the ranks open, so that the others fail
-in seconds, not in gloo's 30 minutes, when one rank dies.
+``spawn`` starts N ranks with ``torch.multiprocessing`` and runs a
+module-level function in each, with the backend and each rank's device
+given by the caller; it never moves a rank to the CPU on its own. The
+ranks fork from a fork server (a parent that has touched CUDA cannot fork
+itself), a process that has imported torch once and never touches CUDA
+(``start_fork_server``): a fresh interpreter spends seconds importing
+torch and, at its first ``torch.utils.checkpoint``, ``torch._dynamo``
+(about 17 s of a rank's start on the card machine). Its ``timeout``
+bounds every collective of every group the ranks open, so that the others
+fail in seconds, not in gloo's 30 minutes, when one rank dies.
 
 ``make_production_mesh`` (the TPU pod's 16 x 16) is not ported: it goes
 with the dry run.
@@ -179,6 +183,50 @@ class Mesh:
         full = self._reduce(x, axis, dist.ReduceOp.SUM, "reduce_scatter")
         return full.narrow(dim, i * step, step).contiguous()
 
+    def _block_axes(self, dims: dict) -> tuple:
+        """The mesh axes that ``dims`` ({dim: axis name}) name, in the mesh's
+        order (the key of their process group)."""
+        named = set(dims.values())
+        return tuple(a for a in self.axis_names if a in named)
+
+    def all_gather_blocks(self, x, dims: dict):
+        """The whole of a tensor whose ranks each hold one block of it:
+        ``dims`` maps each sharded dimension of ``x`` to the mesh axis that
+        splits it (one axis a dimension), block i of n along a dimension on
+        the rank whose index along its axis is i. One sum over the ranks of
+        those axes, bitwise in any dtype (as ``all_gather``: each rank's
+        bytes in their place, zeros elsewhere)."""
+        axes = self._block_axes(dims)
+        if self.axis_size(axes) == 1:
+            return x
+        shape = list(x.shape)
+        for d, ax in dims.items():
+            shape[d] *= self.sizes[ax]
+        full = x.new_zeros(shape)
+        part = full
+        for d, ax in dims.items():
+            part = part.narrow(d, self.coords[ax] * x.shape[d], x.shape[d])
+        part.copy_(x)
+        got = self._reduce(_words(full), axes, dist.ReduceOp.SUM, "all_gather", fresh=True)
+        return got.view(torch.uint8).view(full.dtype).view(full.shape)
+
+    def reduce_scatter_blocks(self, x, dims: dict):
+        """The sum of the ranks' ``x`` over the axes that ``dims`` names,
+        this rank keeping its block (the reverse of ``all_gather_blocks``):
+        one sum, so each element is rounded once."""
+        axes = self._block_axes(dims)
+        if self.axis_size(axes) == 1:
+            return x
+        for d, ax in dims.items():
+            if x.shape[d] % self.sizes[ax]:
+                raise ValueError(f"reduce_scatter_blocks: dim {d} of {tuple(x.shape)} "
+                                 f"does not split over {ax}")
+        part = self._reduce(x, axes, dist.ReduceOp.SUM, "reduce_scatter")
+        for d, ax in dims.items():
+            step = x.shape[d] // self.sizes[ax]
+            part = part.narrow(d, self.coords[ax] * step, step)
+        return part.contiguous()
+
     def stats(self) -> dict:
         """{collective: {"calls", "bytes", "s"}} so far on this rank."""
         return {k: {"calls": c, "bytes": b, "s": s}
@@ -240,6 +288,29 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# what every rank imports, loaded once in the fork server
+_PRELOAD = ["torch", "torch._dynamo", "torch.utils.checkpoint", "torch.distributed"]
+
+
+def start_fork_server() -> None:
+    """Starts the fork server that ``spawn``'s ranks fork from, if it is
+    not running, with ``_PRELOAD`` imported in it (a caller that spawns
+    later may start it early, so that the imports overlap its own work).
+    The server touches no CUDA; it ends when this process does, or at
+    ``stop_fork_server``."""
+    from multiprocessing import forkserver
+    forkserver.set_forkserver_preload(_PRELOAD)
+    forkserver.ensure_running()
+
+
+def stop_fork_server() -> None:
+    """Ends the fork server, if this process started one."""
+    from multiprocessing import forkserver
+    server = forkserver._forkserver
+    if server._forkserver_pid is not None:
+        server._stop()
+
+
 def _rank_main(rank, fn, world, backend, devices, port, args, timeout):
     global _timeout
     device = torch.device(devices[rank])
@@ -260,9 +331,10 @@ def _rank_main(rank, fn, world, backend, devices, port, args, timeout):
 def spawn(fn, world: int, *, backend: str, device, args=(),
           timeout: float | None = None) -> None:
     """Runs ``fn(rank, world, device, *args)`` in ``world`` new processes,
-    each a rank of one default process group (``backend``, on a free
-    loopback port), and waits for all of them; a rank that raises makes
-    this raise (``torch.multiprocessing.ProcessRaisedException``).
+    forked from the fork server (``start_fork_server``), each a rank of one
+    default process group (``backend``, on a free loopback port), and
+    waits for all of them; a rank that raises makes this raise
+    (``torch.multiprocessing.ProcessRaisedException``).
 
     ``fn`` must be a module-level function (it is pickled by name).
     ``device``: each rank's device, one for all (``"cpu"``, ``"cuda:0"``)
@@ -281,5 +353,7 @@ def spawn(fn, world: int, *, backend: str, device, args=(),
         raise ValueError("nccl needs a card of its own for each rank; ranks "
                          "that share a card (or the CPU) use gloo")
     import torch.multiprocessing as mp
-    mp.spawn(_rank_main, args=(fn, world, backend, devices, free_port(), args, timeout),
-             nprocs=world, join=True)
+    start_fork_server()
+    mp.start_processes(_rank_main, args=(fn, world, backend, devices, free_port(), args,
+                                         timeout),
+                       nprocs=world, join=True, start_method="forkserver")

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch.distributed import context_parallel, sharding
+from repro_torch.distributed import context_parallel, fsdp, sharding
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_leaves, tree_map
@@ -256,19 +256,24 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
     cache).
 
     Under dense tensor parallelism (``distributed.tensor_parallel``) the
-    rank runs its ``Hq/tp`` query and ``Hkv/tp`` kv heads (its column
-    blocks of wq, wk, wv; local q head h reads local kv head h // G, as on
-    one rank), its cache holds those kv heads over every position, and the
-    output projection is its row block of wo, summed over the ranks; under
-    SP ``x`` is the rank's S/tp rows, gathered whole first, and the output
-    is its rows again. Context-parallel decode (a ``cache_seq`` rule) runs
-    without it.
+    rank runs its ``Hq/tp`` query heads and the kv heads they read (its
+    ``Hkv/tp``, or where ``model`` does not divide the kv heads those of
+    the whole wk, wv that its query heads read; local q head h reads local
+    kv head h // G, as on one rank), its cache holds those kv heads over
+    every position, and the output projection is its row block of wo,
+    summed over the ranks; under SP ``x`` is the rank's S/tp rows,
+    gathered whole first, and the output is its rows again. Under FSDP
+    each projection's held block is gathered at its use (``fsdp.mm``).
+    Context-parallel decode (a ``cache_seq`` rule) runs without it.
     """
     x = tp.enter(x)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     nq, nkv = tp.local_heads(cfg)
-    q = (x @ p["wq"]).reshape(B, S, nq, hd)
+
+    def out_proj(out):
+        return tp.leave(fsdp.mm(out.reshape(B, S, nq * hd), p["wo"], cfg, "attn/wo"))
+    q = fsdp.mm(x, p["wq"], cfg, "attn/wq").reshape(B, S, nq, hd)
     if cross_kv is not None:
         if cfg.qk_norm:
             q = rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -277,9 +282,9 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
             out = decode_attention(q, k, v, k.shape[1])
         else:
             out = chunked_attention(q, k, v, causal=False)
-        return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
-    k = (x @ p["wk"]).reshape(B, S, nkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, nkv, hd)
+        return out_proj(out), cache
+    k = fsdp.mm(x, p["wk"], cfg, "attn/wk").reshape(B, S, nkv, hd)
+    v = fsdp.mm(x, p["wv"], cfg, "attn/wv").reshape(B, S, nkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -300,10 +305,10 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
             # prefill (from 0) attends over its own k, v, whole on each rank
             if S == 1:
                 out, _, _ = context_parallel.decode_attention_cp(q, kc, vc, k, v, idx)
-                return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
+                return out_proj(out), cache
             context_parallel.write_prefill(cache, k, v, idx)
             out = chunked_attention(q, k, v, causal=causal)
-            return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
+            return out_proj(out), cache
         if idx + S > kc.shape[1]:
             raise ValueError(f"cache of {kc.shape[1]} positions cannot take "
                              f"{S} tokens at {idx}")
@@ -311,10 +316,10 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
         vc[:, idx:idx + S] = v.to(vc.dtype)
         if S == 1:
             out = decode_attention(q, kc, vc, idx + 1)
-            return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
+            return out_proj(out), cache
         k, v, q_offset = kc[:, :idx + S], vc[:, :idx + S], idx
     out = chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
-    return tp.row_parallel(out.reshape(B, S, nq * hd), p["wo"]), cache
+    return out_proj(out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -343,12 +348,16 @@ def init_mlp(gen: torch.Generator, cfg, d_ff=None, new=None, keep=None):
 def mlp_fwd(p, cfg, x):
     """Under dense tensor parallelism wi and wg are the rank's column blocks
     and wo its row block: the stream enters whole (gathered under SP) and
-    the output is summed over the ranks (each rank's rows under SP)."""
+    the output is summed over the ranks (each rank's rows under SP). Under
+    FSDP each held block is gathered at its use (``fsdp.mm``)."""
     _check_act(cfg)
     x = tp.enter(x)
+
+    def proj(y, name):
+        return fsdp.mm(y, p[name], cfg, f"mlp/{name}")
     if cfg.act == "gelu":   # jax.nn.gelu(approximate=True)
-        return tp.row_parallel(F.gelu(x @ p["wi"], approximate="tanh"), p["wo"])
-    return tp.row_parallel(F.silu(x @ p["wg"]) * (x @ p["wi"]), p["wo"])
+        return tp.leave(proj(F.gelu(proj(x, "wi"), approximate="tanh"), "wo"))
+    return tp.leave(proj(F.silu(proj(x, "wg")) * proj(x, "wi"), "wo"))
 
 
 # ---------------------------------------------------------------------------
@@ -356,16 +365,16 @@ def mlp_fwd(p, cfg, x):
 # ---------------------------------------------------------------------------
 
 
-def _chunk_xent(h, w_out, y, m):
+def _chunk_xent(h, w_out, y, m, mm=torch.matmul):
     """Summed cross-entropy of one chunk and its weight; logits in f32."""
-    logits = (h @ w_out).float()                          # (B, c, V)
+    logits = mm(h, w_out).float()                         # (B, c, V)
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, y[..., None])[..., 0]
     return ((lse - ll) * m).sum(), m.sum()
 
 
 def chunked_softmax_xent(hidden, w_out, labels, *, chunk: int = 8192,
-                         mask=None, vocab: int | None = None):
+                         mask=None, vocab: int | None = None, mm=None):
     """Cross-entropy without materialising (tokens x vocab) logits.
 
     hidden: (B, S, d); w_out: (d, V); labels: (B, S) ints; mask optional
@@ -376,7 +385,9 @@ def chunked_softmax_xent(hidden, w_out, labels, *, chunk: int = 8192,
     ``jax.checkpoint`` per chunk does (``src/repro/models/layers.py:341``).
     ``vocab``: the global vocabulary; where ``w_out`` is a rank's block of
     it the head is vocab-parallel (``tensor_parallel.vocab_xent``), and
-    ``hidden`` must come through ``tensor_parallel.to_head``.
+    ``hidden`` must come through ``tensor_parallel.to_head``. ``mm``: the
+    product with ``w_out`` (default ``h @ w_out``; ``fsdp.matmul`` for a
+    held ``lm_head``, gathered in each chunk and its recompute).
     """
     B, S, _ = hidden.shape
     if mask is None:
@@ -384,8 +395,9 @@ def chunked_softmax_xent(hidden, w_out, labels, *, chunk: int = 8192,
     recompute = torch.is_grad_enabled() and (hidden.requires_grad
                                              or w_out.requires_grad)
     blk = None if vocab is None else tp.vocab_block(w_out, vocab)
-    fn = _chunk_xent if blk is None else \
-        (lambda h, w, y, m: tp.vocab_xent(h, w, y, m, blk))
+    mm = mm or torch.matmul
+    fn = (lambda h, w, y, m: _chunk_xent(h, w, y, m, mm)) if blk is None else \
+        (lambda h, w, y, m: tp.vocab_xent(h, w, y, m, blk, mm))
     loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, S, min(chunk, S)):

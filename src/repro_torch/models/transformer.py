@@ -42,7 +42,10 @@ for decode is not applied then: a cache holds the rank's heads over every
 position). Under a ``seq`` rule over the same axis (Megatron-SP) the
 residual stream between blocks is each rank's S/tp rows; the final hidden
 states are gathered whole along the sequence before the head, which is
-vocab-parallel.
+vocab-parallel. Under a ``w_embed`` rule (FSDP) a rank holds a block of
+each projection and of the head over ``data`` as well, gathered at its use
+(``distributed.fsdp``); where ``model`` does not divide the kv heads each
+rank reads them whole, and its caches hold the ones its query heads read.
 
 Training differentiates ``lm_loss`` with torch autograd. With ``cfg.remat``
 each block runs under ``torch.utils.checkpoint``, as the reference wraps
@@ -56,7 +59,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import embedding_ops
-from repro_torch.distributed import context_parallel, sharding
+from repro_torch.distributed import context_parallel, fsdp, sharding
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers, mamba, moe
 from repro_torch.tree import tree_map
@@ -225,10 +228,18 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
 def head_matrix(params, cfg):
     """(d, V) or, where the table or ``lm_head`` is a rank's vocab block,
     (d, V/n): the vocab-parallel head (``tensor_parallel.vocab_xent``,
-    ``head_logits``)."""
+    ``head_logits``); under FSDP the held block of ``lm_head``, which
+    ``head_mm`` gathers at its use."""
     if cfg.tie_embeddings:
         return params["embed"]["table"].T
     return params["lm_head"]
+
+
+def head_mm(cfg):
+    """The product with ``head_matrix``: ``fsdp.matmul`` for ``lm_head``
+    (the held block gathered at its use under FSDP), the plain product for
+    a head tied to the table."""
+    return torch.matmul if cfg.tie_embeddings else fsdp.matmul(cfg, "lm_head")
 
 
 def lm_loss(params, cfg, batch):
@@ -243,7 +254,8 @@ def lm_loss(params, cfg, batch):
     w = head_matrix(params, cfg)
     loss, count = layers.chunked_softmax_xent(
         tp.to_head(hidden, w, cfg.vocab_size), w, batch["labels"],
-        chunk=cfg.loss_chunk, mask=batch.get("loss_mask"), vocab=cfg.vocab_size)
+        chunk=cfg.loss_chunk, mask=batch.get("loss_mask"), vocab=cfg.vocab_size,
+        mm=head_mm(cfg))
     loss = loss / torch.clamp(_global_count(count), min=1.0)
     return loss if aux is None else loss + 0.01 * aux
 
@@ -266,7 +278,8 @@ def init_kv_cache(cfg, batch: int, max_seq: int, device):
     """Zeroed caches on ``device``, in the reference's tree for ``cfg``.
     Under a ``cache_seq`` rule an attention cache holds this rank's
     ``max_seq / n`` positions (context-parallel decode); under a ``heads``
-    rule its ``Hkv / tp`` kv heads over every position instead."""
+    rule the kv heads its query heads read (``tensor_parallel.local_heads``)
+    over every position instead."""
     _check_supported(cfg)
     L, dt = cfg.num_layers, cfg.activation_dtype
     kv = (batch, context_parallel.local_positions(max_seq), tp.local_heads(cfg)[1],
@@ -297,7 +310,8 @@ def prefill(params, cfg, tokens, caches, *, vision_embeds=None, positions3=None)
     hidden, caches, _ = forward_hidden(params, cfg, tokens, caches=caches,
                                        cache_index=0, vision_embeds=vision_embeds,
                                        positions3=positions3)
-    return tp.head_logits(hidden[:, -1], head_matrix(params, cfg), cfg.vocab_size), caches
+    return tp.head_logits(hidden[:, -1], head_matrix(params, cfg), cfg.vocab_size,
+                          head_mm(cfg)), caches
 
 
 def decode_step(params, cfg, tokens, pos: int, caches):
@@ -306,4 +320,5 @@ def decode_step(params, cfg, tokens, pos: int, caches):
     the reference's serving does (it passes no M-RoPE positions here)."""
     hidden, caches, _ = forward_hidden(params, cfg, tokens, caches=caches,
                                        cache_index=pos)
-    return tp.head_logits(hidden[:, -1], head_matrix(params, cfg), cfg.vocab_size), caches
+    return tp.head_logits(hidden[:, -1], head_matrix(params, cfg), cfg.vocab_size,
+                          head_mm(cfg)), caches

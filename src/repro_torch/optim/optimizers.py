@@ -224,24 +224,31 @@ def make_optimizer(name: str, lr: float, cfg=None) -> Optimizer:
 def _clip_scale(grads, max_norm: float, split=None):
     """(global f32 L2 norm of grads, the f32 scale that clips it).
 
-    ``split``: ``(sharded, psum)`` under tensor parallelism, ``sharded`` a
-    bool per leaf (in ``tree_leaves`` order) telling a rank's block of a
-    leaf from a leaf every rank holds whole, and ``psum`` the sum over the
-    ranks that hold the blocks. The squares of the blocks are summed over
-    them and those of the whole leaves are counted once, so every rank
-    clips by the one global norm (a norm of its own would clip each rank
-    by another scale, and the whole leaves would drift apart)."""
+    ``split``: ``(axes, psum)`` where a rank holds blocks of some leaves
+    (tensor parallelism, FSDP), ``axes`` a tuple per leaf (in
+    ``tree_leaves`` order) of the mesh axes its blocks lie over, ``()``
+    for a leaf every rank holds whole, and ``psum(x, axes)`` the sum over
+    the ranks of those axes. The squares of the blocks are summed over
+    their axes and those of the whole leaves are counted once, so every
+    rank clips by the one global norm (a norm of its own would clip each
+    rank by another scale, and the whole leaves would drift apart)."""
     def sq(g):
         return torch.sum(torch.square(g.float()))
     leaves = tree_leaves(grads)
     if split is None:
         norm = torch.sqrt(sum(sq(g) for g in leaves))
     else:
-        sharded, psum = split
+        keys, psum = split
         zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        blocks = sum((sq(g) for g, s in zip(leaves, sharded, strict=True) if s), zero)
-        whole = sum((sq(g) for g, s in zip(leaves, sharded, strict=True) if not s), zero)
-        norm = torch.sqrt(psum(blocks) + whole)
+        parts = {}
+        for g, k in zip(leaves, keys, strict=True):
+            if k:
+                parts[k] = parts.get(k, zero) + sq(g)
+        whole = sum((sq(g) for g, k in zip(leaves, keys, strict=True) if not k), zero)
+        blocks = zero
+        for k, part in parts.items():
+            blocks = blocks + psum(part, k)
+        norm = torch.sqrt(blocks + whole)
     return norm, torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
 
 
@@ -258,7 +265,7 @@ def global_norm_clip(grads, max_norm: float):
 def global_norm_clip_(grads, max_norm: float, split=None):
     """``global_norm_clip`` in place: scales each grad leaf with ``mul_``
     (the same bits as ``g * scale.to(g.dtype)``) and returns the norm.
-    ``split``: as ``_clip_scale``'s (tensor parallelism)."""
+    ``split``: as ``_clip_scale``'s (leaves held in blocks)."""
     norm, scale = _clip_scale(grads, max_norm, split)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))

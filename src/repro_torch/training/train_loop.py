@@ -42,16 +42,20 @@ the dense decoders, the other LMs raise) each rank is one process holding
 its part of the state: the tables' rows over the ``table_rows`` axes (an
 LM's token table over ``vocab``), the dense tier and its moments whole,
 or under a ``heads`` rule the dense decoder's column, row and vocab
-blocks (``distributed.tensor_parallel``), and its slice of every batch
-over the ``batch`` axes (``train`` splits each batch it draws with
+blocks (``distributed.tensor_parallel``), under a ``w_embed`` rule
+(FSDP) blocks over ``data`` as well (``distributed.fsdp``), the moments
+laid out like their params, and its slice of every batch over the
+``batch`` axes (``train`` splits each batch it draws with
 ``sharding.shard_batch``).
 A step then computes what the reference's step jitted with its state and
 batch shardings computes: the dense grads are summed over the
 data-parallel axes and divided by their size before the clip (a
 replicated leaf that saw only the rank's rows or heads is first summed
-over the TP axis; the clip sums the blocks' squares over it), so the
-norm is the global gradient's, and the loss reported is the mean over
-them; the sparse adjoint, its update and the relaxed correction run on
+over the TP axis; a leaf held in blocks over ``data`` arrives summed by
+its gather's backward and is only divided; the clip sums each leaf's
+blocks' squares over the axes they lie over and counts a whole leaf
+once), so the norm is the global gradient's, and the loss reported is
+the mean over them; the sparse adjoint, its update and the relaxed correction run on
 each rank's block (``core.relaxed``); a rule whose state spans a whole
 table (row-wise Adagrad's DLRM accumulator) sums its per-table terms over
 the blocks. The relaxed feed carries the rank's block-local flat ids, as
@@ -69,7 +73,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import relaxed as rx
 from repro_torch.core.checkpoint.manager import CheckpointManager
-from repro_torch.distributed import sharding, tensor_parallel
+from repro_torch.distributed import fsdp, sharding, tensor_parallel
 from repro_torch.kernels import ops
 from repro_torch.models.registry import get_api
 from repro_torch.optim import optimizers as opt
@@ -102,38 +106,62 @@ def _sum_(mesh, ax, leaves, n) -> None:
             g.copy_(part.view(g.shape))
 
 
-def sync_dense_(g_dense, loss):
+def _summed_over_data(cfg, path, g, ax, mesh) -> bool:
+    """Whether the grad of the leaf at ``path`` arrives summed over the
+    data-parallel axes ``ax``: a leaf held in blocks over them, whose
+    gather's backward reduce-scattered it (``distributed.fsdp``)."""
+    held = set(fsdp.held_dims(cfg, path, g.dim()).values())
+    want = {ax} if isinstance(ax, str) else set(ax)
+    want = {a for a in want if mesh.axis_size(a) > 1}
+    if held & want and not want <= held:
+        raise NotImplementedError(f"{path}: held in blocks over {sorted(held & want)} "
+                                  f"of the data-parallel axes {sorted(want)}")
+    return bool(held & want)
+
+
+def sync_dense_(g_dense, loss, cfg):
     """Under a sharding context, in place: the grads of the replicated
     leaves that saw only the rank's rows or heads under tensor parallelism
     (``tensor_parallel.partial_leaf``) summed over the TP axis; then each
     dense grad becomes the sum over the data-parallel axes divided by
     their size (one all-reduce per dtype), and the loss the mean over
-    them. Returns the loss."""
+    them. Returns the loss. A leaf of ``cfg``'s held in blocks over the
+    data-parallel axes (FSDP) arrives summed over them by its gather's
+    backward (``distributed.fsdp``) and is only divided."""
     ctx = sharding.current()
     if ctx is None:
         return loss
     mesh = ctx.mesh
-    part = [g for path, g in tree_items(g_dense) if tensor_parallel.partial_leaf(path)]
+    items = tree_items(g_dense)
+    part = [g for path, g in items if tensor_parallel.partial_leaf(path)]
     if part:
         _sum_(mesh, ctx.tp, part, 1)
     ax = ctx.axes("batch")
     dp = mesh.axis_size(ax)
     if dp == 1:
         return loss
-    _sum_(mesh, ax, tree_leaves(g_dense), dp)
+    done = [_summed_over_data(cfg, path, g, ax, mesh) for path, g in items]
+    _sum_(mesh, ax, [g for (_, g), d in zip(items, done, strict=True) if not d], dp)
+    for (_, g), d in zip(items, done, strict=True):
+        if d:
+            g.div_(dp)
     return mesh.all_reduce(loss, ax) / dp
 
 
-def clip_split(g_dense):
-    """``global_norm_clip_``'s ``split`` under tensor parallelism (None
-    without): which leaves are a rank's blocks, and their sum over the TP
-    axis."""
+def clip_split(g_dense, cfg):
+    """``global_norm_clip_``'s ``split`` where a rank holds blocks of some
+    of ``cfg``'s leaves (None otherwise): for each leaf the mesh axes its
+    blocks lie over (``()`` for a leaf held whole), and the sum over such
+    axes."""
     ctx = sharding.current()
-    if ctx is None or tensor_parallel.size() == 1:
+    if ctx is None:
         return None
-    sharded = [tensor_parallel.sharded_dim(path, g.dim()) is not None
-               for path, g in tree_items(g_dense)]
-    return sharded, (lambda x: ctx.mesh.all_reduce(x, ctx.tp))
+    names = ctx.mesh.axis_names
+    keys = [tuple(a for a in names if a in fsdp.held_dims(cfg, path, g.dim()).values())
+            for path, g in tree_items(g_dense)]
+    if not any(keys):
+        return None
+    return keys, (lambda x, axes: ctx.mesh.all_reduce(x, axes))
 
 
 def make_step_fns(cfg, train_cfg):
@@ -183,10 +211,10 @@ def make_step_fns(cfg, train_cfg):
         """In place: sums the fresh grads over the data-parallel axes under
         a mesh, clips them, then updates the dense params and the
         optimizer's moments. Returns (dense, opt state, norm, loss)."""
-        loss = sync_dense_(g_dense, loss)
+        loss = sync_dense_(g_dense, loss, cfg)
         if train_cfg.grad_clip:
             gnorm = opt.global_norm_clip_(g_dense, train_cfg.grad_clip,
-                                          clip_split(g_dense))
+                                          clip_split(g_dense, cfg))
         else:
             gnorm = torch.zeros(())
         if dense_opt.update_inplace is not None:

@@ -349,7 +349,8 @@ def _torch_rank(rank, world, device, model_parallel, inp_path, out_dir):
             grads = {"w": w}
             if kind == "f32+bf16":
                 grads["b"] = w[0].to(torch.bfloat16)
-            loss = train_loop.sync_dense_(grads, torch.tensor(mesh.coords["data"] + 1.0))
+            loss = train_loop.sync_dense_(grads, torch.tensor(mesh.coords["data"] + 1.0),
+                                          get_arch("dlrm-rm1", smoke=True).model)
             out[f"sync/{kind}"] = ({k: v.float().numpy() for k, v in grads.items()},
                                    float(loss))
     # an LM the port does not train under a mesh yet (the dense decoders

@@ -28,8 +28,10 @@ everything that needs more than one process, all started together:
 On the CPU the ranks' kernels are their plain versions (by the tensors'
 device), as everywhere in the port. Without the fixture: every id's
 ``ShardingProfile`` and ``SHAPES`` against the reference's, and the
-refusals (an fsdp profile, heads the mesh does not divide, the other
-families under a ``heads`` rule, a ``seq`` rule alone).
+refusals (query heads the mesh does not divide, qwen3-moe under its fsdp
+profile's rules, the other families under a ``heads`` rule, a ``seq``
+rule alone). FSDP and kv heads the mesh does not divide are
+``tests/test_torch_fsdp.py``'s.
 
 Tolerances, each set from the measured difference: losses within rtol
 2e-5 (``tests/test_relaxed.py``'s; measured 1.5e-7 from the reference's);
@@ -249,11 +251,11 @@ def _jax_cases(inputs):
 # -- the port at gloo ranks -----------------------------------------------------
 
 
-def _whole(mesh, state):
+def _whole(mesh, state, cfg):
     """(the dense tree gathered whole from the ranks' blocks, the token table
     gathered whole) as numpy, on every rank (under the context)."""
     from repro_torch.distributed.checkpoint import _whole_leaves
-    dense = interop.params_to_numpy(_whole_leaves(state["dense"]))
+    dense = interop.params_to_numpy(_whole_leaves(state["dense"], cfg))
     table = mesh.all_gather(state["embed"]["table"], "model", 0)
     return dense, table.numpy().copy()
 
@@ -304,7 +306,7 @@ def _rank_cases(mesh, inp, out_dir, layout, archs):
                          for k, v in mesh.stats().items()}
                 out[(arch, schedule)] = {"losses": np.asarray(losses),
                                          "norms": np.asarray(norms),
-                                         "whole": _whole(mesh, state),
+                                         "whole": _whole(mesh, state, cfg),
                                          "replicated": _replicated(state),
                                          "moved": moved}
     if layout != "1x2":
@@ -378,7 +380,7 @@ def _rank_cases(mesh, inp, out_dir, layout, archs):
             start_step=start, ckpt_manager=mgr2, device="cpu")
         mgr2.close()
         out["resumed"] = np.asarray(tail)
-        out["final_whole"] = _whole(mesh, rec_state)
+        out["final_whole"] = _whole(mesh, rec_state, cfg)
 
     # serving: prefill and NEW - 1 decode steps under the decode rules
     b = _bundle(SERVED)
@@ -769,17 +771,30 @@ def test_tied_head_over_a_vocab_block_serves_as_jax(runs):
         assert np.abs(got[TIED]["logits"] - ref["logits"]).max() <= LOGIT_TOL * scale
 
 
-@pytest.mark.parametrize("case", ["fsdp", "kv_heads", "rwkv6", "whisper", "seq_alone"])
+@pytest.mark.parametrize("case", ["query_heads", "moe_fsdp", "rwkv6", "whisper",
+                                  "seq_alone"])
 def test_what_the_port_does_not_lay_out_raises(case):
-    """``build_rules`` refuses an fsdp profile (granite-20b's) and heads the
-    model axis does not divide (granite's one kv head at the smoke size);
+    """``build_rules`` refuses query heads the model axis does not divide
+    (llama3.2-3b's 6 at the smoke size over 4 model ranks: the reference
+    shards the kv sequence there); qwen3-moe under its fsdp profile's rules,
     rwkv6-3b and whisper-base under a heads rule and a seq rule without one
     raise; each names ROADMAP item 10(c) or the missing rule."""
     mesh = pmesh.Mesh(pmesh.AXES, (1, 2), {"data": 0, "model": 0})
-    if case in ("fsdp", "kv_heads"):
-        b = get_arch("granite-20b", smoke=case == "kv_heads")
+    if case == "query_heads":
+        b = get_arch("llama3.2-3b", smoke=True)
         with pytest.raises(NotImplementedError, match=re.escape("10(c)")):
-            dryrun.build_rules(b, SHAPES["train_4k"], mesh)
+            dryrun.build_rules(b, SHAPES["train_4k"],
+                               pmesh.Mesh(pmesh.AXES, (1, 4), {"data": 0, "model": 0}))
+        return
+    if case == "moe_fsdp":
+        b = get_arch("qwen3-moe-235b-a22b", smoke=True)
+        mesh = pmesh.Mesh(pmesh.AXES, (2, 2), {"data": 0, "model": 0})
+        act, weights, _ = dryrun.build_rules(
+            get_arch("qwen3-moe-235b-a22b"), SHAPES["train_4k"], mesh)
+        assert weights == {"w_embed": "data"}
+        with sharding.use_sharding(mesh, {**act, **weights}), \
+                pytest.raises(NotImplementedError, match=re.escape("10(c)")):
+            train_loop.make_step_fns(b.model, _tc())
         return
     if case == "seq_alone":
         cfg = _bundle("tinyllama-1.1b").model
