@@ -358,7 +358,36 @@ Phases, each of which exits non-zero on failure:
      the gather on its (24576, 6144) vocab block, the duplicate combine,
      both updates and the logged update against their plain versions and
      times them beside their bounds.
-Phases 6 to 28 print their wall time. Phases 4, 8, 10, 12 and 16 also
+ 29. The MoE and mamba blocks under their models' own profiles: full-width
+     qwen3-moe-235b-a22b (1 of 94 layers), jamba-v0.1-52b (trained at 2
+     of 32 layers, a mamba layer with a dense FFN and one with MoE; served
+     at 8, one attention period) and arctic-480b (served at 1 of 35
+     layers; a trained layer would hold about 160 GB) at four gloo ranks
+     sharing this card, (data, model) = MM_MESH = (1, 4), under the rules
+     ``build_rules`` gives each profile (the experts, heads, jamba's SSD
+     heads and the sequence over model, ``w_embed`` over a data axis of
+     one rank). Rank 0 first runs each one-rank reference alone. Then
+     qwen3-moe at a global batch of 2 x 512: one strict step, 2 relaxed
+     steps into a mesh checkpoint (tier-E) whose writer crashes in step 1,
+     recovery at every rank bitwise the twin's state, one resumed step
+     bitwise the uninterrupted one; jamba one strict and one relaxed
+     step, bitwise equal; each rank's held elements exactly its blocks;
+     step 0's loss against the one-rank run within MM_LOSS0_RTOL, step 1's
+     within MM_LOSS_RTOL; each id served at batch 2, prompt 512, a prefill
+     and 2 decode steps under its decode rules, the logits on the rows
+     routed alike in every MoE layer within MM_LOGIT_TOL of the one-rank
+     run's, the (token, slot) pairs whose experts flipped at most
+     MM_FLIP_MAX of them, the prefill's first MoE input within
+     MM_MOE_INPUT_TOL; the 2 decode steps again from the one-rank
+     prefill's state (each rank its block of it), fed the one-rank
+     tokens, their logits within MM_LOGIT_TOL on the (row, step)s routed
+     alike, at least one of them; peak memory, step host ms and
+     collectives a rank. Rank 0 holds flash (16
+     query heads over 1 kv head of dim 128, with lse and backward, and the
+     prefill shape), the gather on its (37984, 4096) vocab block, the
+     duplicate combine, both updates and the logged update against their
+     plain versions and times them beside their bounds.
+Phases 6 to 29 print their wall time. Phases 4, 8, 10, 12 and 16 also
 require every scatter_update and gather_rows launch of the path on its
 16-byte route (su.wide_launches, gr.wide_launches), and phases 4, 6, 12,
 13, 16, 18 and 20 every scatter_update_logged launch
@@ -383,7 +412,7 @@ llama3.2-3b's training; phase 23's two served ids and their training;
 phase 24's rank 0: the gather on its shard in jamba's prefill and decode,
 flash in its prefill, the bag on its shard in rm1's forward; phase 25's
 rank 0: the bag, both updates on its block of rm1's rows and the
-checkpoint's gather there; phase 27's rank 0 and phase 28's: flash's
+checkpoint's gather there; phase 27's rank 0, phase 28's and 29's: flash's
 forward and backward at its heads in training and its forward in the
 prefill, the gather on its vocab block in training, serving and the
 checkpoint, the combine, both updates and the logged update on its
@@ -5128,8 +5157,8 @@ TP_STEPS = 2                  # strict steps, then relaxed ones, from the seed's
 TP_CRASH = 1                  # the writer crashes between step 1's COMMIT and apply
 CP_RULES = {"batch": None, "cache_seq": "model"}
 # Phase 27's gates, each set from the differences measured on an H100 80GB
-# HBM3 at 700 W against the one-rank run of the same steps: bf16 rounds a
-# row-parallel output on each rank before the f32 sum rounds it again (in
+# HBM3 at 700 W against the one-rank run of the same steps (when a rank
+# still rounded its row-parallel output to bf16 before the f32 sum; in
 # f32 the two-rank losses were the one-rank ones to the bit). The losses'
 # relative gap (measured 5.1e-4); step 0's gradient norm, taken before any
 # update (5.7e-4); each leaf's
@@ -5861,8 +5890,8 @@ FS_CRASH = 1                  # the writer crashes between step 1's COMMIT and a
 # Phase 28's gates against the one-rank run at the same depth, each set
 # from the differences measured on an H100 80GB HBM3 at 700 W (PERF.md
 # section 6; at 2 layers): step 0's loss, before any update
-# (measured 5.1e-6: the gathers move bits, a row-parallel output is
-# rounded on each rank before the sum); the later step's (3.5e-3: the
+# (measured 5.1e-6 when a rank rounded its row-parallel output before the
+# sum, 5.3e-6 with the partial in f32); the later step's (3.5e-3: the
 # gradients reduce-scattered in bf16 round otherwise than one rank's, and
 # AdamW's first step moves an element whose gradient is near zero by
 # about the learning rate either way); step 0's gradient norm (4.6e-5);
@@ -6184,7 +6213,7 @@ def fsdp_rank(rank, world, device, work, seed):
         batch0 = sharding.shard_batch(make_batches(cfg, FS_B, FS_S, device=device).next(0),
                                       mesh, rules["train"])
         block = state["embed"]["table"].clone() if writer else None
-        del state, mgr
+        del state, mgr, counted, inner       # the wrapper and the manager hold each other
         torch.cuda.empty_cache()
         t_rec = time.perf_counter()
         fresh = init_fn(params("train"))
@@ -6457,6 +6486,675 @@ def fsdp_report(ranks, spawn_s):
                 "flash_prefill": sv["parts"]["prefill"]["flash_attention_tc"],
                 "gather_serve_prefill": sv["parts"]["prefill"]["gather_rows"],
                 "gather_serve_decode": sv["parts"]["decode"]["gather_rows"]}
+    return launches, r0["timing"], r0["err"], out
+
+
+MM_MESH = (1, 4)              # (data, model): four gloo ranks sharing the card
+MM_QWEN, MM_ARCTIC, MM_JAMBA = "qwen3-moe-235b-a22b", "arctic-480b", "jamba-v0.1-52b"
+# the depths run, of 94, 35 and 32 layers: qwen3-moe's one layer trained
+# and served; jamba trained at 2 (a mamba layer with a dense FFN and one
+# with MoE) and served at 8 (one attention period: its caches need one);
+# arctic served at 1 (one layer trained would hold about 160 GB: 13.4e9
+# expert elements at 12 bytes with AdamW, so it trains on the CPU only)
+MM_LAYERS = {("train", MM_QWEN): 1, ("serve", MM_QWEN): 1, ("train", MM_JAMBA): 2,
+             ("serve", MM_JAMBA): 8, ("serve", MM_ARCTIC): 1}
+MM_B, MM_S = 2, 512           # the global training batch, one data group at (1, 4)
+MM_SERVE_B, MM_NEW = 2, 3     # serving: batch 2, prompt MM_S, a prefill and 2 decode steps
+MM_CRASH = 1                  # qwen3-moe's writer crashes between step 1's COMMIT and apply
+# Phase 29's gates against the one-rank run of the same weights, each
+# beside what an H100 80GB HBM3 at 700 W measured: step 0's loss (1.96e-6
+# qwen3-moe, 6.43e-6 jamba: each rank's row-parallel partial is f32 and
+# the sum is rounded once, the remaining gap the products' other
+# summation orders; with the partials widened and summed as TF32, jamba's
+# was 2.37e-5); qwen3-moe step 1's (3.39e-4: AdamW's first step
+# moves an element whose gradient is near zero by about the learning rate
+# either way); the served logits on the rows routed alike in every MoE
+# layer up to the first greedy token that differs, as a share of the
+# largest logit (qwen3-moe 5.71e-3)
+MM_LOSS0_RTOL = 1e-5
+MM_LOSS_RTOL = 1e-2
+MM_LOGIT_TOL = 1.5e-2
+# A row that routes alike is rare at prompt 512: one near tie in any of its
+# tokens' top-k flips a route (on the same card: jamba 104 of 8,224 (token,
+# slot) pairs, arctic 6 of 2,056, qwen3-moe 0), and a flip moves every
+# later logit of its row (jamba's by 8.4e-2 of the largest). So the
+# routing is held by the share of pairs that flipped, and what precedes
+# any routing by the prefill's input to the first MoE layer on every row,
+# as a share of its largest magnitude (phase 24's rule, 6.99e-3 there;
+# here 6.25e-3 qwen3-moe, 8.98e-3 jamba, 8.93e-3 arctic). The decode steps
+# are held on their own: run again from the one-rank prefill's state, cut
+# to each rank's heads and channels, and fed the one-rank tokens, their
+# logits on the (row, step)s routed alike within MM_LOGIT_TOL (5.71e-3,
+# 1.17e-2 and 6.13e-3; no pair flipped), so a flip in the prefill does not
+# hide a decode fault
+MM_FLIP_MAX = 0.05
+MM_MOE_INPUT_TOL = 2e-2
+
+
+def moe_mesh_model(arch, kind):
+    """``arch`` at full width, its depth cut to MM_LAYERS, under its own
+    profile: (bundle, cfg)."""
+    from repro_torch.configs import get_arch
+    full = get_arch(arch)
+    cfg = full.model.replace(num_layers=MM_LAYERS[(kind, arch)])
+    return dataclasses.replace(full, model=cfg), cfg
+
+
+def bits_digest(torch, tree):
+    """Two sums of each leaf's bit patterns (the second weighted by the
+    element's place): equal trees give equal digests, so two runs' states
+    are compared bitwise without a second copy of either on the card."""
+    from repro_torch.tree import tree_leaves
+    out = []
+    for x in tree_leaves(tree):
+        bits = x.detach().reshape(-1).view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                                            8: torch.int64}[x.element_size()])
+        s1 = s2 = 0
+        for i in range(0, bits.numel(), 1 << 26):
+            c = bits[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+            s1 += int(c.sum())
+            s2 += int((c * w).sum())
+        out.append((s1, s2))
+    return out
+
+
+def routing_alike(torch, a, b, steps, recorded=MM_NEW):
+    """Two serving runs' ``moe.recording`` records of ``recorded`` steps (a
+    prefill's MoE layers, then each decode step's; or decode steps alone)
+    compared over the first ``steps`` steps: (rows (B, steps) bool, row b
+    routed alike in every MoE layer of every step up to t; the (token,
+    slot) pairs whose sorted experts differ; the pairs compared)."""
+    n = len(a) // recorded
+    alike, flipped, pairs = [], 0, 0
+    for t in range(steps):
+        ok = None
+        for ra, rb in zip(a[t * n:(t + 1) * n], b[t * n:(t + 1) * n], strict=True):
+            ca, cb = ra["choice"].sort(-1).values, rb["choice"].sort(-1).values
+            flipped += int((ca != cb).sum())
+            pairs += ca.numel()
+            same = (ca == cb).all(-1).reshape(MM_SERVE_B, -1).all(-1).cpu()
+            ok = same if ok is None else ok & same
+        alike.append(ok if not alike else alike[-1] & ok)
+    return torch.stack(alike, 1), flipped, pairs
+
+
+def moe_mesh_rank(rank, world, device, work, seed):
+    """Phase 29, one rank of ``world`` gloo ranks sharing ``device``:
+    qwen3-moe, jamba and arctic at full width, their depths cut to
+    MM_LAYERS, under the rules the port's ``build_rules`` gives each
+    profile (fsdp, Megatron-SP) at (data, model) = MM_MESH: the experts
+    over model, heads and the sequence over model, jamba's SSD heads split
+    over model, ``w_embed`` over a data axis of one rank (FSDP's code runs,
+    moves no weight). Rank 0 first runs each one-rank reference alone
+    (qwen3-moe 2 strict steps and a generation, jamba 1 strict step at 2
+    layers and a generation at 8, arctic a generation), freeing each. Then
+    every rank: qwen3-moe 1 strict step, then MM_CRASH + 1 relaxed steps
+    into a mesh checkpoint (tier-E only) whose writer crashes in the
+    last, recovery at every rank, one resumed step; jamba 1 strict and 1
+    relaxed step; each id served under its decode rules. Rank 0 holds the
+    kernels at qwen3-moe's rank shapes against their plain versions and
+    times them. Writes ``work/rank{rank}.pt``."""
+    import torch
+
+    from repro_torch.configs.base import SHAPES, CheckpointConfig, TrainConfig
+    from repro_torch.data.lookahead import LookaheadIterator
+    from repro_torch.data.synthetic import make_batches
+    from repro_torch.distributed import fsdp, sharding
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.distributed.checkpoint import MeshCheckpoint, recover_on_mesh
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_api
+    from repro_torch.pool import FaultSchedule, InjectedCrash
+    from repro_torch.training import train_loop
+    from repro_torch.training.serve_loop import greedy_generate, make_serve_fns
+    from repro_torch.tree import tree_map, tree_map_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tc = TrainConfig(embed_learning_rate=0.05, seed=seed)
+    writer = rank == 0
+    mesh = make_local_mesh(model_parallel=MM_MESH[1], device=device)
+    models = {key: moe_mesh_model(key[1], key[0]) for key in MM_LAYERS}
+    rules = {}
+    for key, (bundle, _) in models.items():
+        act, weights, _ = dryrun.build_rules(
+            bundle, SHAPES["train_4k" if key[0] == "train" else "decode_32k"], mesh)
+        rules[key] = {**act, **weights}
+    out = {"device": str(device), "rules": {f"{k}/{a}": r for (k, a), r in rules.items()},
+           "runs": {}, "serve": {}, "coords": [mesh.coords["data"], mesh.coords["model"]]}
+    t_all = time.perf_counter()
+
+    def say(msg):
+        print(f"[moe-mesh] rank {rank}: {msg}", flush=True)
+
+    def params(key, sharded):
+        cfg = models[key][1]
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        kw = {"keep": sharding.keep_shard(mesh, rules[key])} if sharded else {}
+        p = get_api(cfg).init(gen, cfg, **kw)
+        torch.cuda.synchronize(device)
+        # the whole leaves drawn and cut go back to the card, not to this
+        # rank's cache: the four ranks share it
+        torch.cuda.empty_cache()
+        return p
+
+    def run(name, key, state, relaxed, n, start=0, mgr=None, on_step=None):
+        """``n`` steps from ``start``: losses, gradient norms, each step's
+        host ms and collectives, launches."""
+        cfg = models[key][1]
+        batches = LookaheadIterator(make_batches(cfg, MM_B, MM_S, device=device), cfg,
+                                    depth=n + 2, start_step=start)
+        rec = out["runs"][name] = {"losses": [], "norms": [], "step_ms": [], "moved": []}
+        torch.cuda.synchronize(device)
+        tp_counts(zero=True)
+        ctx = sharding.current()
+        mark = [time.perf_counter(), mesh.stats() if ctx else {}]
+
+        def on_metrics(k, m):
+            rec["losses"].append(float(m["loss"]))
+            rec["norms"].append(float(m["grad_norm"]))
+            if on_step is not None:
+                on_step(k, m)
+            torch.cuda.synchronize(device)
+            rec["step_ms"].append(1e3 * (time.perf_counter() - mark[0]))
+            if ctx is not None:
+                rec["moved"].append(stats_since(mesh, mark[1]))
+                mark[1] = mesh.stats()
+            mark[0] = time.perf_counter()
+        try:
+            train_loop.train(cfg, tc, batches, n, relaxed=relaxed, state=state,
+                             start_step=start, ckpt_manager=mgr, on_metrics=on_metrics)
+        finally:
+            rec["launches"] = tp_counts()
+
+    def generate(key, p):
+        cfg = models[key][1]
+        prompt = make_batches(cfg, MM_SERVE_B, MM_S, device=device).next(0)["tokens"]
+        parts = {}
+
+        @contextlib.contextmanager
+        def part(name):
+            before = tp_counts()
+            yield
+            parts[name] = {k: v - before[k] for k, v in tp_counts().items()}
+        with torch.no_grad(), moe.recording() as routed:
+            tp_counts(zero=True)
+            before = mesh.stats()
+            st = {}
+            toks = greedy_generate(cfg, p, prompt, MM_NEW, stats=st, part=part)
+            return {"tokens": toks, "logits": st["logits"], "routed": [
+                        {"choice": r["choice"]} for r in routed],
+                    "moe_input": routed[0]["x"].float(),
+                    "prefill_ms": 1e3 * st["prefill_s"],
+                    "decode_ms": 1e3 * st["decode_s"] / (MM_NEW - 1),
+                    "launches": tp_counts(), "parts": parts,
+                    "moved": stats_since(mesh, before)}
+
+    def prefilled(key, p):
+        """The one-rank prefill's caches of the served prompt, on the host."""
+        cfg = models[key][1]
+        prefill_step, _, init_cache = make_serve_fns(cfg)
+        prompt = make_batches(cfg, MM_SERVE_B, MM_S, device=device).next(0)["tokens"]
+        with torch.no_grad():
+            _, caches = prefill_step(p, {"tokens": prompt},
+                                     init_cache(MM_SERVE_B, MM_S + MM_NEW, device))
+        return tree_map(lambda a: a.cpu(), caches)
+
+    def forced(key, p, whole, tokens):
+        """The decode steps from the one-rank prefill's caches ``whole``
+        (each leaf cut to this rank's block of its SSD heads, channels or kv
+        heads), fed the one-rank run's greedy tokens: (logits (B, MM_NEW -
+        1, V) f32, each step's routing records). A decode step is so held
+        against one rank's from the same state, whatever the prefills'
+        routes did."""
+        cfg = models[key][1]
+        _, decode_step, init_cache = make_serve_fns(cfg)
+        n, r = mesh.axis_size("model"), mesh.axis_index("model")
+
+        def cut(path, local, a):
+            a = a.to(device, copy=True)           # the decode steps write the caches
+            for dim, (lo, wh) in enumerate(zip(local.shape, a.shape)):
+                if lo == wh:
+                    continue
+                if path.split("/")[-1] in ("k", "v") and tpm.kv_replicated(cfg):
+                    first = tpm.kv_cols(cfg).start // cfg.resolved_head_dim
+                elif wh == lo * n:
+                    first = r * lo
+                else:
+                    raise ValueError(f"{path}: a cache leaf {tuple(a.shape)} is no {n} "
+                                     f"blocks of {tuple(local.shape)}")
+                a = a.narrow(dim, first, lo)
+            return a.contiguous()
+        caches = tree_map_with_path(cut, init_cache(MM_SERVE_B, MM_S + MM_NEW, device),
+                                    whole)
+        tokens = tokens.to(device)
+        kept = []
+        with torch.no_grad(), moe.recording() as routed:
+            for t in range(MM_NEW - 1):
+                logits, caches = decode_step(p, tokens[:, t:t + 1], MM_S + t, caches)
+                kept.append(logits)
+        return torch.stack(kept, 1), [{"choice": x["choice"]} for x in routed]
+
+    def held(key, state):
+        """The elements this rank holds and those it should: every blocked
+        leaf's whole elements over the ranks of its held axes, every other
+        leaf whole."""
+        cfg = models[key][1]
+        have = want = 0
+
+        def one(path, x):
+            nonlocal have, want
+            have += x.numel()
+            dims = fsdp.held_dims(cfg, path, x.dim())
+            want += (math.prod(fsdp.whole_shape(cfg, path, x.dim())) //
+                     math.prod(mesh.sizes[a] for a in dims.values())) if dims else x.numel()
+        tree_map_with_path(one, state["dense"])
+        return {"params": have, "want_params": want,
+                "bytes": nbytes(state["dense"]) + nbytes(state["opt_dense"]),
+                "table": list(state["embed"]["table"].shape)}
+
+    def in_place(state):
+        return {"dense": state["dense"], "m": state["opt_dense"]["m"],
+                "v": state["opt_dense"]["v"], "table": state["embed"]["table"]}
+
+    # (a) the one-rank references, rank 0 alone, each freed before the next
+    one = {}
+    if writer:
+        t = time.perf_counter()
+        for key in MM_LAYERS:
+            torch.cuda.reset_peak_memory_stats(device)
+            cfg = models[key][1]
+            if key[0] == "train":
+                n = 2 if key[1] == MM_QWEN else 1
+                state = train_loop.make_step_fns(cfg, tc)[0](params(key, False))
+                run(f"one/{key[1]}", key, state, relaxed=False, n=n)
+                del state
+            else:
+                p = params(key, False)
+                one[key] = generate(key, p)
+                whole = prefilled(key, p)
+                one[key]["forced"] = forced(key, p, whole, one[key]["tokens"])
+                torch.save({"caches": whole, "tokens": one[key]["tokens"].cpu()},
+                           os.path.join(work, f"prefilled-{key[1]}.pt"))
+                del p, whole
+            out[f"one_peak_gb/{key[0]}/{key[1]}"] = \
+                torch.cuda.max_memory_allocated(device) / 1e9
+            torch.cuda.empty_cache()
+        out["one_s"] = time.perf_counter() - t
+        say(f"one-rank references in {out['one_s']:.1f}s")
+    mesh.barrier()
+    x = torch.ones((4, 4), dtype=torch.bfloat16, device=device)
+    mesh.reduce_scatter(mesh.all_gather(x, "model", 0), "model", 0)  # the group's first use
+    mesh.moved.clear()
+
+    # (b) qwen3-moe trained: one strict step; the relaxed steps through the
+    # mesh checkpoint, whose writer crashes in step MM_CRASH; recovery at
+    # every rank; one resumed step
+    t = time.perf_counter()
+    key = ("train", MM_QWEN)
+    cfg = models[key][1]
+    init_fn = train_loop.make_step_fns(cfg, tc)[0]
+    cc = CheckpointConfig(directory=os.path.join(work, "ckpt"), dense_interval=0,
+                          pool_backend="pmem", pool_compress="none")
+    with sharding.use_sharding(mesh, rules[key]):
+        torch.cuda.reset_peak_memory_stats(device)
+        state = init_fn(params(key, True))
+        out["held"] = held(key, state)
+        run("qwen_strict", key, state, relaxed=False, n=1)
+        out["runs"]["qwen_strict"]["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        strict = bits_digest(torch, in_place(state))
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        state = init_fn(params(key, True))
+        faults = FaultSchedule.crash_at("tier_e.between-commit-and-apply",
+                                        occurrence=MM_CRASH + 1)
+        mgr = MeshCheckpoint(cfg, cc, embed_init=state["embed"],
+                             faults=faults if writer else None)
+        out["ckpt_gathers"] = 0
+        inner = mgr.on_step
+
+        def counted(step, st, feed):
+            before = gr.launches
+            try:
+                return inner(step, st, feed)
+            finally:
+                out["ckpt_gathers"] += gr.launches - before
+        mgr.on_step = counted
+        twin = {}
+
+        def keep(k, _):
+            if k == MM_CRASH - 1:   # the twin after this step: its digest, the
+                # dense tier and moments on the host, the table block on the card
+                twin["digest"] = bits_digest(torch, in_place(state))
+                twin["dense"] = tree_map(lambda x: x.to("cpu", copy=True), {
+                    "dense": state["dense"], "m": state["opt_dense"]["m"],
+                    "v": state["opt_dense"]["v"]})
+                twin["table"] = state["embed"]["table"].clone()
+        out["crashed"] = False
+        try:
+            run("qwen_relaxed", key, state, relaxed=True, n=MM_CRASH + 1, mgr=mgr,
+                on_step=keep)
+        except InjectedCrash:
+            out["crashed"] = True
+            mgr.manager.pool.close()           # the writer's process death
+        out["runs"]["qwen_relaxed"]["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        out["relaxed_is_strict"] = twin["digest"] == strict
+        batch0 = sharding.shard_batch(make_batches(cfg, MM_B, MM_S, device=device).next(0),
+                                      mesh, rules[key])
+        block = state["embed"]["table"].clone() if writer else None
+        del state, mgr, counted, inner       # the wrapper and the manager hold each other
+        torch.cuda.empty_cache()
+        t_rec = time.perf_counter()
+        fresh = init_fn(params(key, True))
+        d = twin.pop("dense")
+        tree_map(lambda a, b: a.copy_(b), {"dense": fresh["dense"],
+                                           "m": fresh["opt_dense"]["m"],
+                                           "v": fresh["opt_dense"]["v"]}, d)
+        fresh["opt_dense"]["t"].fill_(MM_CRASH)
+        del d
+        state, start, rec = recover_on_mesh(cfg, cc.directory, fresh)
+        torch.cuda.synchronize(device)
+        out["recover_s"] = time.perf_counter() - t_rec
+        out["resume_at"] = start
+        out["recovered_bitwise"] = bits_digest(torch, in_place(state)) == twin["digest"] \
+            and torch.equal(state["embed"]["table"], twin.pop("table"))
+        if writer:
+            out["rec"] = [rec.mirror_step, rec.dense_step, rec.rolled_back]
+            rec.pool.close()
+        run("qwen_resumed", key, state, relaxed=True, n=1, start=start)
+        del state, fresh
+    torch.cuda.empty_cache()
+    out["qwen_train_s"] = time.perf_counter() - t
+    say(f"qwen3-moe: strict {out['runs']['qwen_strict']['losses']}, relaxed "
+        f"{out['runs']['qwen_relaxed']['losses']}, resumed {out['runs']['qwen_resumed']['losses']}")
+
+    # (c) jamba trained at 2 layers: one strict and one relaxed step
+    t = time.perf_counter()
+    key = ("train", MM_JAMBA)
+    cfg = models[key][1]
+    init_fn = train_loop.make_step_fns(cfg, tc)[0]
+    with sharding.use_sharding(mesh, rules[key]):
+        digests = {}
+        for name, relaxed in (("jamba_strict", False), ("jamba_relaxed", True)):
+            torch.cuda.reset_peak_memory_stats(device)
+            state = init_fn(params(key, True))
+            out.setdefault("held_jamba", held(key, state))
+            run(name, key, state, relaxed=relaxed, n=1)
+            out["runs"][name]["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+            digests[name] = bits_digest(torch, in_place(state))
+            del state
+            torch.cuda.empty_cache()
+        out["jamba_relaxed_is_strict"] = digests["jamba_strict"] == digests["jamba_relaxed"]
+    out["jamba_train_s"] = time.perf_counter() - t
+    say(f"jamba: strict {out['runs']['jamba_strict']['losses']}, relaxed "
+        f"{out['runs']['jamba_relaxed']['losses']}")
+
+    # (d) each id served under its decode rules; rank 0 against the one-rank
+    # run on the rows routed alike
+    for key in (k for k in MM_LAYERS if k[0] == "serve"):
+        t = time.perf_counter()
+        cfg = models[key][1]
+        with sharding.use_sharding(mesh, rules[key]):
+            torch.cuda.reset_peak_memory_stats(device)
+            if key[1] == MM_ARCTIC:      # ranks draw in turn: a whole expert leaf is 8.9 GB
+                for r in range(world):
+                    if r == rank:
+                        p = params(key, True)
+                    mesh.barrier()
+            else:
+                p = params(key, True)
+            got = generate(key, p)
+            peak = torch.cuda.max_memory_allocated(device) / 1e9
+            ref = torch.load(os.path.join(work, f"prefilled-{key[1]}.pt"))
+            got["forced"] = forced(key, p, ref["caches"], ref["tokens"])
+            del p, ref
+        torch.cuda.empty_cache()
+        sv = {k: v for k, v in got.items()
+              if k not in ("tokens", "logits", "routed", "moe_input", "forced")}
+        sv["peak_gb"] = peak
+        toks0 = mesh.broadcast(got["tokens"].clone(), mesh.axis_names, 0)
+        sv["tokens_as_rank0"] = bool(torch.equal(toks0, got["tokens"]))
+        if writer:
+            want = one.pop(key)
+            scale = want["logits"].abs().max().item()
+            same = got["tokens"] == want["tokens"]
+            cols = torch.nonzero(~same.all(dim=0)).flatten()
+            upto = int(cols[0]) + 1 if cols.numel() else MM_NEW
+            rows, flipped, pairs = routing_alike(torch, got["routed"], want["routed"], upto)
+            gap = (got["logits"][:, :upto] - want["logits"][:, :upto]).abs().amax(-1).cpu()
+            x_gap = (got["moe_input"] - want["moe_input"]).abs().max().item() \
+                / want["moe_input"].abs().max().item()
+            f_logits, f_routed = got["forced"]
+            w_logits, w_routed = want["forced"]
+            f_rows, f_flipped, f_pairs = routing_alike(torch, f_routed, w_routed,
+                                                       MM_NEW - 1, MM_NEW - 1)
+            f_gap = (f_logits - w_logits).abs().amax(-1).cpu()
+            sv.update(forced_flipped_pairs=f_flipped, forced_pairs=f_pairs,
+                      forced_rows_alike=int(f_rows.sum()), forced_rows=int(f_rows.numel()),
+                      forced_logit_share=(f_gap[f_rows].max().item() / scale)
+                      if f_rows.any() else float("inf"),
+                      forced_logit_share_all=f_gap.max().item() / scale)
+            sv.update(tokens_equal=int(same.sum()), tokens=int(same.numel()),
+                      compared_positions=upto, flipped_pairs=flipped, pairs=pairs,
+                      moe_input_share=x_gap,
+                      rows_alike=int(rows.sum()), rows=int(rows.numel()),
+                      logit_share=(gap[rows].max().item() / scale) if rows.any() else 0.0,
+                      logit_share_all=gap.max().item() / scale,
+                      one_prefill_ms=want["prefill_ms"], one_decode_ms=want["decode_ms"])
+        out["serve"][key[1]] = sv
+        out["serve"][key[1]]["s"] = time.perf_counter() - t
+        del got
+    say(f"served {[(a, out['serve'][a].get('tokens_equal')) for a in out['serve']]}")
+
+    # (e) rank 0: the kernels at qwen3-moe's rank shapes against their plain
+    # versions, timed
+    if writer:
+        t = time.perf_counter()
+        cfg = models[("train", MM_QWEN)][1]
+        serve_ids = {"prefill": make_batches(cfg, MM_SERVE_B, MM_S,
+                                             device=device).next(0)["tokens"],
+                     "decode": batch0["tokens"][:, 0]}
+        out["timing"], out["err"], out["shapes"] = tp_kernels(
+            torch, device, cfg, block, batch0, serve_ids, tag="[moe-mesh]", key="moe",
+            heads=(cfg.num_heads // MM_MESH[1], cfg.num_kv_heads // MM_MESH[1]),
+            train=(MM_B // MM_MESH[0], MM_S), serve=(MM_SERVE_B, MM_S))
+        out["kernels_s"] = time.perf_counter() - t
+        del block
+    mesh.barrier()
+    out["stats"] = mesh.stats()
+    out["rank_s"] = time.perf_counter() - t_all
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def moe_mesh_phase(torch, np, dev, tc):
+    """Phase 29: full-width qwen3-moe, jamba and arctic (cut in depth) under
+    their own profiles at four gloo ranks on this one card
+    (``moe_mesh_rank``), held against the one-rank runs. Returns (rank 0's
+    launches by path, its timings, its kernel errors, the metrics)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="moe-mesh-", dir=build)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        mesh.spawn(moe_mesh_rank, math.prod(MM_MESH), backend="gloo",
+                   device=f"cuda:{dev.index or 0}", args=(work, tc.seed), timeout=600)
+        spawn_s = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(math.prod(MM_MESH))]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return moe_mesh_report(ranks, spawn_s)
+
+
+def moe_mesh_report(ranks, spawn_s):
+    """Phase 29's results from its ranks: printed, held to the gates."""
+    tag, r0 = "[moe-mesh]", ranks[0]
+    runs = r0["runs"]
+    out = {"spawn_s": spawn_s, "mesh": list(MM_MESH),
+           "layers": {f"{k}/{a}": n for (k, a), n in MM_LAYERS.items()},
+           "rules": r0["rules"], "held": [r["held"] for r in ranks],
+           "held_jamba": [r["held_jamba"] for r in ranks],
+           "one_peak_gb": {k: v for k, v in r0.items() if k.startswith("one_peak_gb/")},
+           "seconds": {k: r0[k] for k in ("one_s", "qwen_train_s", "jamba_train_s",
+                                           "kernels_s", "rank_s")}}
+    print(f"{tag} four gloo ranks on {[r['device'] for r in ranks]}, (data, model) = "
+          f"{MM_MESH}, depths {out['layers']}; rules {r0['rules']}; spawn to the last "
+          f"rank's end {spawn_s:.1f}s; rank 0's parts (s) {out['seconds']}")
+    for r in ranks:
+        print(f"{tag} rank {r['coords']} holds qwen3-moe {r['held']} and jamba "
+              f"{r['held_jamba']} (params: elements held, and those its blocks should "
+              "hold; bytes: params and AdamW moments)")
+    one_q, one_j = runs[f"one/{MM_QWEN}"], runs[f"one/{MM_JAMBA}"]
+    q_losses = [r["runs"]["qwen_strict"]["losses"][:1] + r["runs"]["qwen_relaxed"]["losses"]
+                for r in ranks]
+    j_losses = [r["runs"]["jamba_strict"]["losses"] + r["runs"]["jamba_relaxed"]["losses"]
+                for r in ranks]
+    gaps0 = {name: max(abs(ls[0] - want["losses"][0]) / abs(want["losses"][0])
+                       for ls in ls_all)
+             for name, ls_all, want in (("qwen", q_losses, one_q), ("jamba", j_losses, one_j))}
+    loss0_gap = max(gaps0.values())
+    loss_gap = max(abs(ls[2] - one_q["losses"][1]) / abs(one_q["losses"][1])
+                   for ls in q_losses)
+    out.update(loss0_rel_gap=gaps0, loss1_rel_gap=loss_gap,
+               one_losses={"qwen": one_q["losses"], "jamba": one_j["losses"]},
+               one_step_ms={"qwen": one_q["step_ms"], "jamba": one_j["step_ms"]})
+    for name in ("qwen_strict", "qwen_relaxed", "qwen_resumed", "jamba_strict",
+                 "jamba_relaxed"):
+        rr = runs[name]
+        out[name] = {"losses": rr["losses"], "norms": rr["norms"],
+                     "step_ms": [r["runs"][name]["step_ms"] for r in ranks],
+                     "launches": [r["runs"][name]["launches"] for r in ranks],
+                     "moved_per_step": [r["runs"][name]["moved"] for r in ranks],
+                     "peak_gb": [r["runs"][name].get("peak_gb") for r in ranks]}
+        print(f"{tag} {name}: losses {rr['losses']}, gradient norms {rr['norms']}; "
+              f"step ms a rank {out[name]['step_ms']}; peak GB a rank {out[name]['peak_gb']}; "
+              f"launches a rank {out[name]['launches']}")
+        print(f"{tag} {name} rank 0's collectives a step: " + json.dumps(rr["moved"]))
+    print(f"{tag} one-rank references: qwen3-moe losses {one_q['losses']} step ms "
+          f"{one_q['step_ms']}, jamba {one_j['losses']} step ms {one_j['step_ms']}; peaks "
+          f"{out['one_peak_gb']}")
+    print(f"{tag} against the one-rank run: step 0's loss {gaps0} relative (gate "
+          f"{MM_LOSS0_RTOL}), qwen3-moe step 1's {loss_gap:.4g} (gate {MM_LOSS_RTOL}); "
+          f"relaxed == strict bitwise: qwen3-moe {[r['relaxed_is_strict'] for r in ranks]}, "
+          f"jamba {[r['jamba_relaxed_is_strict'] for r in ranks]}")
+    out.update(recover_s=[r["recover_s"] for r in ranks], rec=r0["rec"],
+               ckpt_gathers=[r["ckpt_gathers"] for r in ranks])
+    print(f"{tag} crash drill (qwen3-moe, tier-E only, one writer): crashed "
+          f"{[r['crashed'] for r in ranks]}, recovered {r0['rec']} in {out['recover_s']} s "
+          f"a rank, bitwise the twin's {[r['recovered_bitwise'] for r in ranks]}, resume at "
+          f"{[r['resume_at'] for r in ranks]}, the resumed step's loss "
+          f"{runs['qwen_resumed']['losses']} (the uninterrupted step's "
+          f"{runs['qwen_relaxed']['losses'][MM_CRASH:]})")
+    for arch, sv in r0["serve"].items():
+        out.setdefault("serve", {})[arch] = {
+            **{k: sv[k] for k in ("tokens_equal", "tokens", "compared_positions",
+                                  "flipped_pairs", "pairs", "moe_input_share",
+                                  "rows_alike", "rows", "logit_share",
+                                  "logit_share_all", "forced_flipped_pairs",
+                                  "forced_pairs", "forced_rows_alike", "forced_rows",
+                                  "forced_logit_share", "forced_logit_share_all",
+                                  "one_prefill_ms", "one_decode_ms",
+                                  "parts", "moved", "s")},
+            "prefill_ms": [r["serve"][arch]["prefill_ms"] for r in ranks],
+            "decode_ms": [r["serve"][arch]["decode_ms"] for r in ranks],
+            "peak_gb": [r["serve"][arch]["peak_gb"] for r in ranks]}
+        print(f"{tag} {arch} served B={MM_SERVE_B} prompt {MM_S} + {MM_NEW} tokens (no "
+              f"warm-up): prefill ms a rank {out['serve'][arch]['prefill_ms']} (one rank "
+              f"{sv['one_prefill_ms']:.2f}), decode ms a token {out['serve'][arch]['decode_ms']}"
+              f" (one rank {sv['one_decode_ms']:.2f}); tokens equal {sv['tokens_equal']} of "
+              f"{sv['tokens']}; routing: {sv['flipped_pairs']} of {sv['pairs']} (token, "
+              f"slot) pairs flipped over the first {sv['compared_positions']} positions "
+              f"(gate a share of {MM_FLIP_MAX}), rows routed alike {sv['rows_alike']} of "
+              f"{sv['rows']}; logits on those rows within {sv['logit_share']:.4g} of the "
+              f"largest (gate {MM_LOGIT_TOL}; every row {sv['logit_share_all']:.4g}); the "
+              f"prefill's first MoE input within {sv['moe_input_share']:.4g} of its largest "
+              f"(gate {MM_MOE_INPUT_TOL}); the {MM_NEW - 1} decode steps from the one-rank "
+              f"prefill's state fed its tokens: {sv['forced_flipped_pairs']} of "
+              f"{sv['forced_pairs']} pairs flipped, (row, step)s routed alike "
+              f"{sv['forced_rows_alike']} of {sv['forced_rows']}, their logits within "
+              f"{sv['forced_logit_share']:.4g} of the largest (gate {MM_LOGIT_TOL}; every "
+              f"(row, step) {sv['forced_logit_share_all']:.4g}); "
+              f"peak GB a rank {out['serve'][arch]['peak_gb']}; "
+              f"launches {sv['parts']}; rank 0's collectives {json.dumps(sv['moved'])}")
+    print(f"{tag} rank 0's shapes {r0['shapes']}; each rank's collectives in all "
+          + json.dumps([r["stats"] for r in ranks]))
+    print(f"{tag} the gates' readings, unrounded: " + json.dumps(
+        {"loss0_rel_gap": gaps0, "loss1_rel_gap": loss_gap,
+         "serve": {a: {k: v for k, v in sv.items() if k.endswith(("share", "share_all", "pairs"))}
+                   for a, sv in out["serve"].items()}}))
+    check(all(r["held"]["params"] == r["held"]["want_params"]
+              and r["held_jamba"]["params"] == r["held_jamba"]["want_params"] for r in ranks),
+          f"{tag} a rank holds other than its blocks: {[r['held'] for r in ranks]}")
+    every = [x for ls in q_losses + j_losses for x in ls]
+    check(all(math.isfinite(x) for x in every), f"{tag} a non-finite loss")
+    check(all(ls == q_losses[0] for ls in q_losses) and all(ls == j_losses[0]
+                                                            for ls in j_losses),
+          f"{tag} the ranks report different losses")
+    check(loss0_gap <= MM_LOSS0_RTOL, f"{tag} step 0's loss {loss0_gap:.4g} from the "
+          "one-rank run's")
+    check(loss_gap <= MM_LOSS_RTOL, f"{tag} step 1's loss {loss_gap:.4g} from the one-rank "
+          "run's")
+    check(all(r["relaxed_is_strict"] and r["jamba_relaxed_is_strict"] for r in ranks),
+          f"{tag} relaxed differs from strict")
+    check(r0["crashed"] and not any(r["crashed"] for r in ranks[1:]),
+          f"{tag} the writer did not crash alone at the scheduled step")
+    check(r0["rec"] == [MM_CRASH - 1, -1, True], f"{tag} recovered {r0['rec']}")
+    check(all(r["recovered_bitwise"] for r in ranks), f"{tag} a recovered state differs "
+          "from the twin's")
+    check(all(r["resume_at"] == MM_CRASH for r in ranks), f"{tag} resume step")
+    check(runs["qwen_resumed"]["losses"] == runs["qwen_relaxed"]["losses"][MM_CRASH:],
+          f"{tag} the resumed step's loss is not the uninterrupted step's")
+    for arch, sv in out["serve"].items():
+        check(all(r["serve"][arch]["tokens_as_rank0"] for r in ranks),
+              f"{tag} {arch}: the ranks served different tokens")
+        check(sv["logit_share"] <= MM_LOGIT_TOL,
+              f"{tag} {arch}: served logits beyond the gate on the rows routed alike")
+        check(sv["flipped_pairs"] <= MM_FLIP_MAX * sv["pairs"],
+              f"{tag} {arch}: {sv['flipped_pairs']} of {sv['pairs']} routes flipped")
+        check(sv["moe_input_share"] <= MM_MOE_INPUT_TOL,
+              f"{tag} {arch}: the prefill's first MoE input differs from the one-rank run's")
+        check(sv["forced_logit_share"] <= MM_LOGIT_TOL,
+              f"{tag} {arch}: the decode steps from the one-rank state beyond the gate on "
+              f"the (row, step)s routed alike ({sv['forced_rows_alike']} of "
+              f"{sv['forced_rows']})")
+        check(sv["parts"]["prefill"]["flash_attention_tc"] > 0
+              and sv["parts"]["prefill"]["gather_rows"] == 1
+              and sv["parts"]["decode"]["gather_rows"] == MM_NEW - 1,
+              f"{tag} {arch} serving: want flash and one gather in the prefill and one "
+              f"gather a decode step, got {sv['parts']}")
+    for name in ("qwen_strict", "qwen_relaxed", "jamba_strict", "jamba_relaxed"):
+        for r in ranks:
+            c = r["runs"][name]["launches"]
+            need = ("gather_rows", "embedding_bag", "scatter_update") \
+                + (("flash_attention_tc", "flash_attention_bwd") if "qwen" in name else ()) \
+                + (("scatter_update_logged",) if "relaxed" in name else ())
+            check(all(c[k] > 0 for k in need), f"{tag} {name}: a kernel of the path never "
+                  f"launched: {c}")
+    # the ranks hold the blocks of one copy of the table and send them (one
+    # gather a checkpointed step)
+    check(all(r["ckpt_gathers"] == MM_CRASH + 1 for r in ranks),
+          f"{tag} the checkpoint's gathers a rank {out['ckpt_gathers']}")
+    rl, sl = runs["qwen_relaxed"]["launches"], runs["qwen_strict"]["launches"]
+    sv = r0["serve"][MM_QWEN]["parts"]
+    launches = {"flash_lse": rl["flash_attention_tc"], "flash_bwd": rl["flash_attention_bwd"],
+                "gather": rl["gather_rows"], "bag": rl["embedding_bag"],
+                "update_f32": rl["scatter_update"], "update_bf16": sl["scatter_update"],
+                "logged": rl["scatter_update_logged"], "ckpt_gather": r0["ckpt_gathers"],
+                "flash_prefill": sv["prefill"]["flash_attention_tc"],
+                "gather_serve_prefill": sv["prefill"]["gather_rows"],
+                "gather_serve_decode": sv["decode"]["gather_rows"]}
     return launches, r0["timing"], r0["err"], out
 
 
@@ -6775,6 +7473,83 @@ def ckpt_sim_alone():
     check(not any(row_counts().values()), f"sim: a kernel launched: {row_counts()}")
     print(f"[sim] phase 26 wall time {time.perf_counter() - t0:.1f}s")
     print(f"[sim] phase 26: {json.dumps(out)}")
+
+
+def mesh_phases_alone(phases="27,28,29"):
+    """The mesh phases named (of 27, 28 and 29) alone, one after another,
+    from the repo's root: python3 -c "import chip_smoke;
+    chip_smoke.mesh_phases_alone('27,28')". Each prints its own lines, then
+    its metrics as one JSON line and its wall time; exits 1 if one
+    failed."""
+    import numpy as np
+    import torch
+    dev = start_on_card()
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+
+    t = time.perf_counter()
+    _build.build()
+    print(f"[alone] build {time.perf_counter() - t:.1f}s", flush=True)
+    mesh_lib.start_fork_server()
+    atexit.register(mesh_lib.stop_fork_server)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    fns = {"27": tp_phase, "28": fsdp_phase, "29": moe_mesh_phase}
+    failed = False
+    for name in phases.split(","):
+        t = time.perf_counter()
+        try:
+            out = fns[name](torch, np, dev, TrainConfig(embed_learning_rate=0.05))[-1]
+            print(f"[alone] phase {name} metrics " + json.dumps(out, default=str), flush=True)
+        except SystemExit as e:
+            failed = True
+            print(f"[alone] phase {name} FAILED ({e})", flush=True)
+        print(f"[alone] phase {name} wall time {time.perf_counter() - t:.1f}s", flush=True)
+    sys.exit(1 if failed else 0)
+
+
+def tf32_probe():
+    """A bf16 product widened to f32, as a row-parallel partial's backward
+    forms its products (``fsdp._Project``'s ``f32``), with TF32 on against
+    off: the largest
+    difference as a share of the largest element, and the median device ms
+    of each beside the bf16 product's; from the repo's root: python3 -c
+    "import chip_smoke; chip_smoke.tf32_probe()"."""
+    import torch
+    start_on_card()
+    from repro_torch.distributed import fsdp
+
+    def ms(f, n=20):
+        f()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(n):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            f()
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return sorted(ts)[n // 2]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    # tinyllama's attention wo at two ranks (B 1, S 1024: 1,024 rows),
+    # granite-20b's MLP wo at four, qwen3-moe's attention wo at four
+    for m, k, n in ((1024, 1024, 2048), (1024, 6144, 6144), (1024, 2048, 4096)):
+        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=g, device="cuda") / k ** 0.5).to(torch.bfloat16)
+        with fsdp._tf32(False):
+            want = x.float() @ w.float()
+            t_off = ms(lambda: x.float() @ w.float())
+        with fsdp._tf32(True):
+            got = x.float() @ w.float()
+            t_on = ms(lambda: x.float() @ w.float())
+        t_bf = ms(lambda: x @ w)
+        print(f"[tf32] ({m}, {k}) @ ({k}, {n}) bf16 widened to f32: TF32 on against off, "
+              f"largest difference {(got - want).abs().max().item():.4g} "
+              f"({(got - want).abs().max().item() / want.abs().max().item():.4g} of the "
+              f"largest); device ms off {t_off:.4f}, on {t_on:.4f}, the bf16 product "
+              f"(bf16 out) {t_bf:.4f}", flush=True)
 
 
 def main():
@@ -7286,6 +8061,15 @@ def main():
     fs_out["wall_s"] = time.perf_counter() - t0
     print(f"[fsdp] phase 28 wall time {fs_out['wall_s']:.1f}s")
 
+    # -- 29. qwen3-moe, jamba and arctic under their own profiles: four gloo ranks --
+    t0 = time.perf_counter()
+    mm_launches, mm_timing, mm_err, mm_out = moe_mesh_phase(torch, np, dev, tc)
+    timing.update(mm_timing)
+    for name, e in mm_err.items():
+        err[name] = max(err.get(name, 0.0), e)
+    mm_out["wall_s"] = time.perf_counter() - t0
+    print(f"[moe-mesh] phase 29 wall time {mm_out['wall_s']:.1f}s")
+
     # one entry per kernel and path: phase 4's counts for the training
     # kernels, run A's for the checkpoint's gather, the serving runs' parts
     # for the gather, flash attention and wkv6, phases 12's and 16's relaxed
@@ -7550,7 +8334,32 @@ def main():
             ("gather_rows", "granite-20b prefill (4 ranks, near-data vocab block)",
              "gather_fsdp_serve_prefill", fs_launches["gather_serve_prefill"], *gather_src),
             ("gather_rows", "granite-20b decode (4 ranks, near-data vocab block)",
-             "gather_fsdp_serve_decode", fs_launches["gather_serve_decode"], *gather_src)):
+             "gather_fsdp_serve_decode", fs_launches["gather_serve_decode"], *gather_src),
+            # phase 29: rank 0 of four, qwen3-moe-235b-a22b under its profile at (1, 4)
+            ("flash_attention_tc",
+             "qwen3-moe-235b-a22b train (4 ranks, TP + SP + EP, 16/1 heads)",
+             "flash_lse_moe", mm_launches["flash_lse"], *flash_tc_src),
+            ("flash_attention_bwd_tc",
+             "qwen3-moe-235b-a22b train (4 ranks, TP + SP + EP, 16/1 heads)",
+             "flash_bwd_moe", mm_launches["flash_bwd"], *bwd_tc_src),
+            ("gather_rows", "qwen3-moe-235b-a22b train (4 ranks, near-data vocab block)",
+             "gather_moe_lookup", mm_launches["gather"], *gather_src),
+            ("embedding_bag", "qwen3-moe-235b-a22b train (4 ranks, a rank's vocab block)",
+             "bag_combine_moe", mm_launches["bag"], *bag_src),
+            ("scatter_update", "qwen3-moe-235b-a22b train (4 ranks, the block's f32 scratch)",
+             "update_f32_moe", mm_launches["update_f32"], *update_src),
+            ("scatter_update", "qwen3-moe-235b-a22b train (strict, 4 ranks, the bf16 block)",
+             "update_bf16_moe", mm_launches["update_bf16"], *update_src),
+            ("scatter_update_logged", "qwen3-moe-235b-a22b train (4 ranks, the bf16 block)",
+             "update_logged_moe", mm_launches["logged"], *logged_src),
+            ("gather_rows", "qwen3-moe-235b-a22b checkpoint (4 ranks, one writer)",
+             "gather_moe_checkpoint", mm_launches["ckpt_gather"], *gather_src),
+            ("flash_attention_tc", "qwen3-moe-235b-a22b prefill (4 ranks, TP + EP, 16/1 heads)",
+             "flash_prefill_moe", mm_launches["flash_prefill"], *flash_tc_src),
+            ("gather_rows", "qwen3-moe-235b-a22b prefill (4 ranks, near-data vocab block)",
+             "gather_moe_serve_prefill", mm_launches["gather_serve_prefill"], *gather_src),
+            ("gather_rows", "qwen3-moe-235b-a22b decode (4 ranks, near-data vocab block)",
+             "gather_moe_serve_decode", mm_launches["gather_serve_decode"], *gather_src)):
         kernels.append({"name": name, "path": path, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err[name], **timing[main_shape]})
@@ -7569,6 +8378,7 @@ def main():
     print(f"[sim] phase 26: {json.dumps(sim_out)}")
     print(f"[tp] phase 27: {json.dumps(tp_out)}")
     print(f"[fsdp] phase 28: {json.dumps(fs_out)}")
+    print(f"[moe-mesh] phase 29: {json.dumps(mm_out)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,9 @@ class MoEConfig:
         return self.num_experts > 0
 
 
+MAMBA_HEAD_P = 64  # channels of an SSD head (models.mamba's scan)
+
+
 @dataclass(frozen=True)
 class MambaConfig:
     d_state: int = 16
@@ -43,6 +46,10 @@ class MambaConfig:
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        """The SSD heads of ``MAMBA_HEAD_P`` channels."""
+        return self.d_inner(d_model) // MAMBA_HEAD_P
 
 
 @dataclass(frozen=True)

@@ -27,8 +27,9 @@ table, so its table gradient, and its update U, cover every row: the
 trainer then updates every row, and the correction reads U's rows straight
 from the dense update (``prefetch_corrected`` with no scratch).
 
-Under a sharding context (DLRM and the dense decoders, under dense TP,
-Megatron-SP and FSDP; the other LMs raise, ROADMAP queue 1 item 10(c))
+Under a sharding context (DLRM and the decoders of arch type
+transformer, dense or MoE, and jamba, under dense TP, Megatron-SP and
+FSDP; the other LMs raise, ROADMAP queue 1 item 10(c))
 each rank holds its block of every
 table's rows over the ``table_rows`` axes (an LM: its block of the token
 table over ``vocab``), or the whole tables where nothing shards them, and
@@ -65,14 +66,20 @@ def check_trainable(cfg) -> None:
     if cfg.arch_type not in TRAINED:
         raise NotImplementedError(
             f"the port trains {TRAINED} so far, not {cfg.arch_type!r}")
-    if sharding.current() is None or cfg.arch_type == "dlrm":
+    ctx = sharding.current()
+    if ctx is None or cfg.arch_type == "dlrm":
         return
-    if not tensor_parallel.dense_decoder(cfg):
+    if not tensor_parallel.mesh_decoder(cfg):
         raise NotImplementedError(
             f"{cfg.name}: under a sharding context the port trains DLRM and the "
-            f"dense decoders; {cfg.arch_type}"
-            f"{' with MoE blocks' if 'moe' in cfg.ffn_types else ''} under a mesh "
-            "(the MoE and mamba blocks under TP and FSDP) is ROADMAP queue 1 item 10(c)")
+            f"decoders of arch type transformer (dense or MoE) and jamba; "
+            f"{cfg.arch_type} under a mesh is ROADMAP queue 1 item 10(c)")
+    if "moe" in cfg.ffn_types and ctx.mesh.axis_size("model") > 1 and ctx.tp != "model":
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE blocks train expert-parallel over model under a "
+            "heads rule over it (the reference's rules, launch.dryrun.build_rules), "
+            f"which these rules lack ({ctx.rules.get('heads')!r})")
+    tensor_parallel.check_supported(cfg)
 
 
 def _rows(cfg) -> int:

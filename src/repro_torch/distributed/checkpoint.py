@@ -1,5 +1,6 @@
 """Checkpointing and recovering a model trained under a mesh through one
-writer: DLRM, and the dense decoders with tensor parallelism and FSDP.
+writer: DLRM, and the decoders (dense, MoE, jamba) with tensor
+parallelism, expert parallelism and FSDP.
 
 The reference's checkpoint manager knows no mesh: it mirrors the global
 (T * R, d) tables (an LM's (V, d) token table) and logs the global batch's

@@ -31,7 +31,8 @@ def cache_axes(ctx=None):
     as a tuple (empty: no rule, or none of its axes in the mesh, or a
     ``heads`` rule: under dense tensor parallelism a cache holds the rank's
     kv heads over every position, where the reference's decode rules name
-    both, ROADMAP section 3)."""
+    both, ROADMAP section 3; jamba's ``context_parallel_decode`` profile
+    serves so too, its mamba states holding the rank's SSD heads)."""
     ctx = ctx or sharding.current()
     if ctx is None or ctx.tp is not None:
         return ()

@@ -23,13 +23,17 @@ that a rank never holds the whole model. Two kinds of leaf are held
 sharded (``held_spec``):
   * the islands' leaves (``ISLAND_LEAVES``: the token table's rows over
     ``vocab``, DLRM's table rows over ``table_rows``, the experts over
-    ``experts``), always;
-  * the dense decoder's projections and head (``TP_LEAVES``: ``wq|wk|wv|
-    wi|wg`` (embed, heads or ffn), ``wo`` (heads or ffn, embed),
-    ``lm_head`` (embed, vocab)), where the rules name ``heads`` (dense
-    tensor parallelism: the heads, ffn and vocab dimensions over
-    ``model``) or ``w_embed`` (FSDP: the embed dimension over ``data``
-    too), by the reference's spec: ``param_specs``' entry downgraded where
+    ``experts``, and their embed dimension over ``data`` under a
+    ``w_embed`` rule), always;
+  * the decoders' projections, the router and the head (``TP_LEAVES``:
+    ``wq|wk|wv|wi|wg`` (embed, heads or ffn), ``wo`` (heads or ffn,
+    embed), arctic's dense residual ``moe/dense/*`` likewise, ``router``
+    (embed, None), mamba's ``in_proj`` (embed, ffn), ``out_proj`` (ffn,
+    embed), ``bc_proj`` and ``dt_proj`` (ffn, None), ``lm_head`` (embed,
+    vocab)), where the rules name ``heads`` (dense tensor parallelism: the
+    heads, ffn and vocab dimensions over ``model``) or ``w_embed`` (FSDP:
+    the embed dimension over ``data`` too), by the reference's spec:
+    ``param_specs``' entry downgraded where
     the mesh does not divide it, as ``check_divisibility`` places it (XLA
     derives both from that placement in the reference;
     ``launch.dryrun.build_rules`` writes the rules). Granite's
@@ -202,11 +206,16 @@ DEFAULT_WEIGHT_RULES = {
 }
 
 # the leaves held sharded under every context: those the islands read
-ISLAND_LEAVES = (r"embed/table$", r"emb_tables$", r"moe/(wi|wg|wo)$")
-# the dense decoder's leaves held by their spec under a ``heads`` rule
-# (dense tensor parallelism) or a ``w_embed`` rule (FSDP): the same leaves
-# under either; its norms are held whole under both
-TP_LEAVES = (r"attn/(wq|wk|wv|wo)$", r"mlp/(wi|wg|wo)$", r"lm_head$")
+# (the experts over ``experts``, and under a ``w_embed`` rule their embed
+# dimension over its axis too)
+EXPERT_LEAVES = r"moe/(wi|wg|wo)$"
+ISLAND_LEAVES = (r"embed/table$", r"emb_tables$", EXPERT_LEAVES)
+# the decoders' leaves held by their spec under a ``heads`` rule (dense
+# tensor parallelism) or a ``w_embed`` rule (FSDP): the same leaves under
+# either; the norms, mamba's conv and per-head leaves are held whole under
+# both
+TP_LEAVES = (r"attn/(wq|wk|wv|wo)$", r"mlp/(wi|wg|wo)$", r"moe/dense/(wi|wg|wo)$",
+             r"moe/router$", r"mamba/(in_proj|out_proj|bc_proj|dt_proj)$", r"lm_head$")
 
 
 def tp_axis(rules: dict[str, Any] | None, mesh_axes) -> Optional[str]:
@@ -230,14 +239,25 @@ def fsdp_axis(rules: dict[str, Any] | None, mesh_axes) -> Optional[str]:
 
 
 def is_tp_leaf(path: str) -> bool:
-    """Whether the leaf at ``path`` is one of the dense decoder's
-    projections or its head (``TP_LEAVES``), which a rank holds by its
-    spec under a ``heads`` or a ``w_embed`` rule."""
+    """Whether the leaf at ``path`` is one of the decoders' projections,
+    the router or the head (``TP_LEAVES``), which a rank holds by its spec
+    under a ``heads`` or a ``w_embed`` rule."""
     return any(re.search(p, path) for p in TP_LEAVES)
 
 
+def is_expert_leaf(path: str) -> bool:
+    """Whether ``path`` is an expert stack (``EXPERT_LEAVES``)."""
+    return re.search(EXPERT_LEAVES, path) is not None
+
+
+def is_island_leaf(path: str) -> bool:
+    """Whether the leaf at ``path`` is held by its spec under every context
+    (``ISLAND_LEAVES``: the tables and the experts)."""
+    return any(re.search(p, path) for p in ISLAND_LEAVES)
+
+
 def blocks_dense(rules: dict[str, Any] | None, mesh_axes) -> bool:
-    """Whether ``rules`` hold the dense decoder's leaves by their spec: they
+    """Whether ``rules`` hold the decoders' leaves by their spec: they
     name ``heads`` or ``w_embed`` (an axis of the mesh)."""
     return tp_axis(rules, mesh_axes) is not None or fsdp_axis(rules, mesh_axes) is not None
 
@@ -317,7 +337,7 @@ def held_spec(path: str, shape, mesh, rules: dict[str, Any] | None = None) -> tu
             raise ValueError(f"dense tensor parallelism: {path} {tuple(shape)} does "
                              f"not split by {spec} over {mesh.sizes}")
         return held
-    if not any(re.search(p, path) for p in ISLAND_LEAVES):
+    if not is_island_leaf(path):
         return ()
     spec = spec_for(path, len(shape), rules, axes)
     return _divisible(tuple(shape), spec, mesh.sizes)

@@ -17,7 +17,10 @@ Hq/tp)`` read kv heads ``h // (Hq/Hkv)``, so its flash call sees plain GQA
 over them. A block then runs as Megatron's:
 
     column-parallel:  y_r = enter(x) @ W_r        (no collective forward)
-    row-parallel:     z   = row_parallel(y_r, V_r) = leave(y_r @ V_r)
+    row-parallel:     z   = fsdp.row_parallel(y_r, V_r) = leave(y_r @ V_r)
+
+where a 16-bit ``y_r @ V_r`` is formed in f32 and ``leave``'s sum is
+rounded once to 16 bits, as one rank's product rounds once.
 
 With a ``seq`` rule over the same axis (``ShardingContext.sp``, the
 reference's ``seq_shard_activations`` profile) the residual stream between
@@ -43,13 +46,24 @@ it, and the loss is the same on every rank.
 
 Which replicated leaves see only part of the work: under SP every norm
 (each sees its rank's rows), and under TP the q/k norms of qwen3's
-``qk_norm`` (each sees its rank's heads). Their gradients are partial
-sums over the TP axis (``partial_leaf``), which the trainer sums
-(``training.train_loop.sync_dense_``).
+``qk_norm`` (each sees its rank's heads), mamba's conv, gated norm and
+per-head leaves (its SSD heads) and the router (its experts). Their
+gradients are partial sums over the TP axis (``partial_leaf``), which the
+trainer sums (``training.train_loop.sync_dense_``).
 
-The dense decoders are the families this runs (arch type ``transformer``,
-no MoE block, an untied head); the rest raise under a ``heads`` or a
-``w_embed`` rule (``check_supported``), ROADMAP queue 1 item 10(c).
+The MoE block runs expert-parallel over the same ``model`` axis
+(``models.moe``). Jamba's mamba mixer runs ``nh / tp`` SSD heads a rank
+(``models.mamba``): its column-parallel ``in_proj`` takes the stream
+through ``enter``, its row-parallel ``bc_proj`` and ``dt_proj`` are
+summed over the ranks in f32 by ``psum`` (forward and backward: every
+rank's scan reads the whole B, C and its heads' dt), the gated norm's sum
+of squares likewise, and its row-parallel ``out_proj`` is closed by
+``leave``.
+
+The decoders of arch type ``transformer`` (dense and MoE) and ``jamba``
+with an untied head are the families this runs; the rest raise under a
+``heads`` or a ``w_embed`` rule (``check_supported``), ROADMAP queue 1
+item 10(c).
 """
 from __future__ import annotations
 
@@ -88,24 +102,34 @@ def seq_parallel() -> bool:
     return True
 
 
-def dense_decoder(cfg) -> bool:
-    """Whether ``cfg`` is a dense decoder: arch type ``transformer``, no MoE
-    block, an untied head (the LMs that run under a mesh so far)."""
-    return (cfg.arch_type == "transformer" and "moe" not in cfg.ffn_types
-            and not cfg.tie_embeddings)
+def mesh_decoder(cfg) -> bool:
+    """Whether ``cfg`` is a decoder that the port runs under dense tensor
+    parallelism and FSDP: arch type ``transformer`` (dense or MoE) or
+    ``jamba``, an untied head."""
+    return cfg.arch_type in ("transformer", "jamba") and not cfg.tie_embeddings
 
 
 def check_supported(cfg) -> None:
     """Raises under a ``heads`` or a ``w_embed`` rule for a model the port
-    does not yet run with dense tensor parallelism or FSDP."""
+    does not yet run with dense tensor parallelism or FSDP (ROADMAP queue 1
+    item 10(c)), and where the TP axis does not divide jamba's SSD heads (a
+    rank runs whole heads)."""
     ctx = sharding.current()
-    if ctx is not None and (ctx.tp is not None or ctx.fsdp is not None) \
-            and not dense_decoder(cfg):
+    if ctx is None or (ctx.tp is None and ctx.fsdp is None):
+        return
+    if not mesh_decoder(cfg):
         raise NotImplementedError(
             f"{cfg.name}: dense tensor parallelism and FSDP (a heads or a w_embed "
-            f"rule) run the dense decoders (arch type transformer, no MoE, an "
-            f"untied head); {cfg.arch_type}{' with MoE blocks' if 'moe' in cfg.ffn_types else ''}"
-            " under them is ROADMAP queue 1 item 10(c)")
+            f"rule) run the decoders of arch type transformer (dense or MoE) and "
+            f"jamba with an untied head; {cfg.arch_type}"
+            f"{' with a tied head' if cfg.tie_embeddings else ''} under them is "
+            "ROADMAP queue 1 item 10(c)")
+    n = size()
+    nh = cfg.mamba.num_heads(cfg.d_model)
+    if cfg.arch_type == "jamba" and nh % n:
+        raise NotImplementedError(
+            f"{cfg.name}: {nh} SSD heads do not split over {n} model ranks (a rank "
+            "runs whole heads of the scan)")
 
 
 def _mesh_ax():
@@ -127,15 +151,19 @@ class _Copy(torch.autograd.Function):
 
 
 class _Reduce(torch.autograd.Function):
-    """All-reduce forward, identity backward (Megatron's g)."""
+    """All-reduce forward, identity backward (Megatron's g). ``dtype``: the
+    sum rounded to it, and the gradient taken in it (the widening back is
+    exact)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, ax):
-        return mesh.all_reduce(x, ax)
+    def forward(ctx, x, mesh, ax, dtype=None):
+        ctx.wide = x.dtype
+        y = mesh.all_reduce(x, ax)
+        return y if dtype is None else y.to(dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g.to(ctx.wide), None, None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -152,16 +180,19 @@ class _Gather(torch.autograd.Function):
 
 
 class _ReduceScatter(torch.autograd.Function):
-    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+    """Reduce-scatter along ``dim`` forward, all-gather backward. ``dtype``:
+    the sum rounded to it, and the gradient gathered in it (the widening
+    back is exact)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, ax, dim):
-        ctx.mesh, ctx.ax, ctx.dim = mesh, ax, dim
-        return mesh.reduce_scatter(x, ax, dim)
+    def forward(ctx, x, mesh, ax, dim, dtype=None):
+        ctx.mesh, ctx.ax, ctx.dim, ctx.wide = mesh, ax, dim, x.dtype
+        y = mesh.reduce_scatter(x, ax, dim)
+        return y if dtype is None else y.to(dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.all_gather(g, ctx.ax, ctx.dim), None, None, None
+        return ctx.mesh.all_gather(g, ctx.ax, ctx.dim).to(ctx.wide), None, None, None, None
 
 
 class _Split(torch.autograd.Function):
@@ -183,8 +214,41 @@ class _Split(torch.autograd.Function):
         return ctx.mesh.all_gather(g.contiguous(), ctx.ax, ctx.dim), None, None, None
 
 
+class _Psum(torch.autograd.Function):
+    """All-reduce forward and backward: a sum of the ranks' partials whose
+    every rank feeds its own part of the work (mamba's B, C and dt, the
+    gated norm's sum of squares), so that the gradient of the sum is the
+    sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax):
+        ctx.mesh, ctx.ax = mesh, ax
+        return mesh.all_reduce(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.ax), None, None
+
+
 def copy(x, mesh, ax):
     return _Copy.apply(x, mesh, ax)
+
+
+def psum(x):
+    """``x`` summed over the TP axis, and its gradient too (``_Psum``);
+    ``x`` without tensor parallelism."""
+    if size() == 1:
+        return x
+    mesh, ax = _mesh_ax()
+    return _Psum.apply(x, mesh, ax)
+
+
+def rank() -> int:
+    """This rank's index along the TP axis (0 without one)."""
+    if size() == 1:
+        return 0
+    mesh, ax = _mesh_ax()
+    return mesh.axis_index(ax)
 
 
 def reduce(x, mesh, ax):
@@ -212,13 +276,16 @@ def enter(x):
     return gather(x, mesh, ax, _SEQ) if seq_parallel() else copy(x, mesh, ax)
 
 
-def leave(y):
+def leave(y, dtype=None):
     """A row-parallel projection's partial (B, S, d) summed over the ranks:
-    each rank's S/tp rows of it under SP, whole without."""
+    each rank's S/tp rows of it under SP, whole without; rounded to
+    ``dtype`` if given, its gradient then moved in ``dtype``."""
     if size() == 1:
-        return y
+        return y if dtype is None else y.to(dtype)
     mesh, ax = _mesh_ax()
-    return reduce_scatter(y, mesh, ax, _SEQ) if seq_parallel() else reduce(y, mesh, ax)
+    if seq_parallel():
+        return _ReduceScatter.apply(y, mesh, ax, _SEQ, dtype)
+    return _Reduce.apply(y, mesh, ax, dtype)
 
 
 def shard_stream(x):
@@ -342,13 +409,25 @@ def vocab_xent(h, w_out, y, m, blk, mm=torch.matmul):
     return ((lse - ll) * m).sum(), m.sum()
 
 
-_HEAD_NORMS = re.compile(r"(q_norm|k_norm)$")
+# the leaves held whole whose every use sees only the rank's part of the
+# work: the q/k norms (its heads), mamba's conv and per-channel or per-head
+# leaves (its SSD heads' channels), the router (its experts' gates)
+_PARTIAL = re.compile(r"(q_norm|k_norm|moe/router"
+                      r"|mamba/(?:conv_w|conv_b|norm_w|dt_bias|a_log|d_skip))$")
 
 
 def partial_leaf(path: str) -> bool:
     """Whether the gradient of the dense leaf at ``path`` is a partial sum
-    over the TP axis: a replicated leaf that sees only the rank's rows (every
-    norm under SP) or heads (q/k norms)."""
-    if axis() is None or size() == 1 or sharding.is_tp_leaf(path):
+    over the TP axis: a leaf held whole over it that sees only the rank's
+    rows (every norm of the stream under SP), heads (q/k norms), SSD heads
+    (mamba's conv, ``norm_w``, ``dt_bias``, ``a_log``, ``d_skip``) or
+    experts (the router: the gates' part; the load-balancing term's part
+    is whole on every rank, and ``models.moe`` counts it once over the
+    ranks)."""
+    if axis() is None or size() == 1:
         return False
-    return seq_parallel() or bool(_HEAD_NORMS.search(path))
+    if _PARTIAL.search(path):
+        return True
+    if sharding.is_tp_leaf(path) or sharding.is_island_leaf(path):
+        return False
+    return seq_parallel()

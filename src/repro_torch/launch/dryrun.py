@@ -10,10 +10,14 @@ Megatron-SP profile (``ShardingProfile.seq_shard_activations``), for
 decode the cache's sequence over ``model`` (batch > 1) or over every axis
 (batch 1), and under an ``fsdp`` profile the weight rule ``w_embed`` over
 ``data`` (ZeRO-3: the weights' ``embed`` dimension over ``data`` as well
-as their heads or ffn dimension over ``model``). Under these rules the
-port runs the dense decoders with dense tensor parallelism
-(``distributed.tensor_parallel``; ``heads`` turns it on) and FSDP
-(``distributed.fsdp``; ``w_embed`` turns it on). A context takes both
+as their heads or ffn dimension over ``model``; the experts' embed
+dimension too, beside the experts over ``model``). Under these rules the
+port runs the decoders of arch type transformer, dense and MoE, and jamba
+with dense tensor parallelism (``distributed.tensor_parallel``; ``heads``
+turns it on; the experts over the same axis, jamba's SSD heads split
+over it) and FSDP (``distributed.fsdp``; ``w_embed`` turns it on): the
+profiles of qwen3-moe-235b-a22b, arctic-480b and jamba-v0.1-52b (fsdp,
+Megatron-SP) are exactly what their models run under. A context takes both
 dicts as one: ``use_sharding(mesh, {**act_rules, **weight_rules})``.
 
 Where ``model`` does not divide the kv heads (granite-20b's one) the

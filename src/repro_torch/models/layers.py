@@ -272,7 +272,7 @@ def attention_fwd(p, cfg, x, positions, *, causal: bool = True, cache=None,
     nq, nkv = tp.local_heads(cfg)
 
     def out_proj(out):
-        return tp.leave(fsdp.mm(out.reshape(B, S, nq * hd), p["wo"], cfg, "attn/wo"))
+        return fsdp.row_parallel(out.reshape(B, S, nq * hd), p["wo"], cfg, "attn/wo")
     q = fsdp.mm(x, p["wq"], cfg, "attn/wq").reshape(B, S, nq, hd)
     if cross_kv is not None:
         if cfg.qk_norm:
@@ -356,8 +356,10 @@ def mlp_fwd(p, cfg, x):
     def proj(y, name):
         return fsdp.mm(y, p[name], cfg, f"mlp/{name}")
     if cfg.act == "gelu":   # jax.nn.gelu(approximate=True)
-        return tp.leave(proj(F.gelu(proj(x, "wi"), approximate="tanh"), "wo"))
-    return tp.leave(proj(F.silu(proj(x, "wg")) * proj(x, "wi"), "wo"))
+        y = F.gelu(proj(x, "wi"), approximate="tanh")
+    else:
+        y = F.silu(proj(x, "wg")) * proj(x, "wi")
+    return fsdp.row_parallel(y, p["wo"], cfg, "mlp/wo")
 
 
 # ---------------------------------------------------------------------------

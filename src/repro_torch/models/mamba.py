@@ -22,30 +22,38 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import MAMBA_HEAD_P as HEAD_P  # channels per SSD head
+from repro_torch.distributed import fsdp
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers
 
-HEAD_P = 64  # channels per SSD head
 CHUNK = 128  # the SSD scan's chunk (the largest divisor of S up to it)
 
 
-def init_mamba(gen: torch.Generator, cfg, new=None):
+def init_mamba(gen: torch.Generator, cfg, new=None, keep=None):
+    """The mixer's params. ``keep``: as ``layers.dense_init``'s (a rank's
+    blocks of the four projections under a ``heads`` or ``w_embed``
+    rule)."""
     d = cfg.d_model
     di = cfg.mamba.d_inner(d)
     ds, dc = cfg.mamba.d_state, cfg.mamba.d_conv
-    nh = di // HEAD_P
+    nh = cfg.mamba.num_heads(d)
     dt, f32 = cfg.activation_dtype, torch.float32
     new = new or layers.fresh(gen.device)
-    p = {"in_proj": layers.dense_init(gen, d, 2 * di, dt, new),
+
+    def proj(name, a, b):
+        return layers.dense_init(gen, a, b, dt, new, keep, f"mamba/{name}")
+    p = {"in_proj": proj("in_proj", d, 2 * di),
          "conv_w": layers.uniform_init(gen, (dc, di), math.sqrt(1.0 / dc), dt, new),
          "conv_b": new((di,), dt).zero_(),
-         "bc_proj": layers.dense_init(gen, di, 2 * ds, dt, new),      # B, C
-         "dt_proj": layers.dense_init(gen, di, nh, dt, new)}          # per-head dt
+         "bc_proj": proj("bc_proj", di, 2 * ds),                      # B, C
+         "dt_proj": proj("dt_proj", di, nh)}                          # per-head dt
     # dt = softplus(dt_bias) drawn from U(0.001, 0.1): the inverse softplus
     p["dt_bias"] = new((nh,), f32).uniform_(0.001, 0.1, generator=gen).expm1_().log_()
     p["a_log"] = new((nh,), f32).copy_(
         torch.log(torch.arange(1, nh + 1, dtype=f32, device=gen.device)))
     p["d_skip"] = layers.ones(gen, (nh,), f32, new)
-    p["out_proj"] = layers.dense_init(gen, di, d, dt, new)
+    p["out_proj"] = proj("out_proj", di, d)
     p["norm_w"] = layers.ones(gen, (di,), dt, new)
     return p
 
@@ -115,64 +123,103 @@ def _ssd_chunked(xh, dt, a, B_, C_, chunk: int):
     return (y_in + y_cross).reshape(Bb, S, H, P), h
 
 
+def _rms_norm(y, w, eps: float, di: int):
+    """``layers.rms_norm`` over the whole ``di`` channels where ``y`` holds
+    this rank's ``di / tp`` of them: the sum of squares summed over the TP
+    axis in f32 (``tensor_parallel.psum``)."""
+    if tp.size() == 1:
+        return layers.rms_norm(y, w, eps)
+    yf = y.float()
+    ss = tp.psum((yf * yf).sum(dim=-1, keepdim=True))
+    return (yf * torch.rsqrt(ss / di + eps) * w.float()).to(y.dtype)
+
+
 def mamba_fwd(p, cfg, x, *, state=None, cache_index=None):
     """x: (B, S, d). state: dict(h (B, H, N, P) f32, conv (B, K-1, di)),
     written in place: a decode step (S = 1) advances it, a prefill (S > 1,
     ``cache_index`` 0 or None) leaves its final state there.
 
+    Under dense tensor parallelism (``distributed.tensor_parallel``; the
+    reference's layout, ``src/repro/models/mamba.py:106-155`` under its
+    rules) a rank runs ``nh / tp`` SSD heads, its ``di / tp`` channels:
+    ``x`` enters whole (gathered along the sequence under SP), ``in_proj``
+    projects the rank's channels of ``xi`` and of ``z``
+    (``fsdp.in_proj_cols``), the conv and the per-head leaves are its
+    slices, ``bc_proj`` and ``dt_proj`` are row-parallel, their f32
+    partials summed over the ranks and rounded once to the activations'
+    dtype before the scan (B and C whole, dt then cut to the rank's
+    heads), the gated norm sums its squares over the ranks, and
+    ``out_proj`` is row-parallel (``fsdp.row_parallel``). The state holds the
+    rank's heads and channels: h (B, H / tp, N, P), conv (B, K-1, di / tp).
+
     Returns (out (B, S, d), state).
     """
+    x = tp.enter(x)
     B, S, d = x.shape
     di = cfg.mamba.d_inner(d)
-    nh = di // HEAD_P
-    K = cfg.mamba.d_conv
+    nh = cfg.mamba.num_heads(d)
+    ds, K = cfg.mamba.d_state, cfg.mamba.d_conv
+    n, r = tp.size(), tp.rank()
+    di_l, nh_l = di // n, nh // n
+    ch, hs = slice(r * di_l, (r + 1) * di_l), slice(r * nh_l, (r + 1) * nh_l)
     decode = state is not None and S == 1
     if state is not None and not decode and (cache_index or 0) > 0:
         raise ValueError(
             f"a mamba prefill of {S} tokens at cache_index {cache_index}: the "
             "chunked scan starts from a zero state, so it cannot continue a "
             "filled one (prefill once, at 0, then decode one token a step)")
-    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)                     # (B,S,di) each
+    xi, z = fsdp.mm(x, p["in_proj"], cfg, "mamba/in_proj").chunk(2, dim=-1)  # (B,S,di_l)
+    conv_w, conv_b = p["conv_w"][:, ch], p["conv_b"][ch]
 
     if decode:
         # rolling conv window over the raw in_proj activations
-        win = torch.cat([state["conv"], xi], dim=1)                 # (B,K,di)
-        xc = F.silu(_taps(win, p["conv_w"], p["conv_b"], 1))       # (B,1,di)
+        win = torch.cat([state["conv"], xi], dim=1)                 # (B,K,di_l)
+        xc = F.silu(_taps(win, conv_w, conv_b, 1))                  # (B,1,di_l)
         new_conv = win[:, 1:]
     else:
-        xc = F.silu(_conv1d_causal(xi, p["conv_w"], p["conv_b"]))
+        xc = F.silu(_conv1d_causal(xi, conv_w, conv_b))
         if S >= K - 1:
             new_conv = xi[:, S - (K - 1):]
         else:
             new_conv = F.pad(xi, (0, 0, K - 1 - S, 0))
 
-    B_, C_ = (xc @ p["bc_proj"]).float().chunk(2, dim=-1)          # (B,S,N)
-    dtv = (xc @ p["dt_proj"]).float() + p["dt_bias"]
+    # B, C and dt: each rank's partial products in f32, summed over the
+    # ranks and rounded once to the activations' dtype, as one rank's
+    # product is, before the f32 scan
+    bcdt = tp.psum(torch.cat([fsdp.mm(xc, p[name], cfg, f"mamba/{name}", f32=True)
+                              for name in ("bc_proj", "dt_proj")], dim=-1))
+    bcdt = bcdt.to(xc.dtype).float()
+    B_, C_ = bcdt[..., :2 * ds].chunk(2, dim=-1)                    # (B,S,N)
+    dtv = bcdt[..., 2 * ds:][..., hs] + p["dt_bias"][hs]
     dt = torch.logaddexp(dtv, torch.zeros((), dtype=dtv.dtype, device=dtv.device))
-    a = -torch.exp(p["a_log"])                                      # (H,) < 0
-    xh = xc.reshape(B, S, nh, HEAD_P)
+    a = -torch.exp(p["a_log"][hs])                                  # (H_l,) < 0
+    xh = xc.reshape(B, S, nh_l, HEAD_P)
 
     if decode:
-        dec = torch.exp(dt[:, 0] * a[None, :])                      # (B,H)
+        dec = torch.exp(dt[:, 0] * a[None, :])                      # (B,H_l)
         upd = torch.einsum("bm,bhp->bhmp", B_[:, 0],
                            (xh[:, 0] * dt[:, 0, :, None]).float())
         h = state["h"] * dec[..., None, None] + upd
-        y = torch.einsum("bm,bhmp->bhp", C_[:, 0], h).reshape(B, 1, di)
+        y = torch.einsum("bm,bhmp->bhp", C_[:, 0], h).reshape(B, 1, di_l)
     else:
         y, h = _ssd_chunked(xh.float(), dt, a, B_, C_, CHUNK)
-        y = y.reshape(B, S, di)
+        y = y.reshape(B, S, di_l)
     if state is not None:
         state["h"].copy_(h)
         state["conv"].copy_(new_conv)
-    y = y + xc.float() * p["d_skip"].repeat_interleave(HEAD_P)[None, None, :]
+    y = y + xc.float() * p["d_skip"][hs].repeat_interleave(HEAD_P)[None, None, :]
     y = y.to(x.dtype) * F.silu(z)
-    y = layers.rms_norm(y, p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"], state
+    y = _rms_norm(y, p["norm_w"][ch], cfg.norm_eps, di)
+    return fsdp.row_parallel(y, p["out_proj"], cfg, "mamba/out_proj"), state
 
 
 def init_mamba_state(cfg, batch: int, device):
+    """A zeroed state; under dense tensor parallelism the rank's SSD heads
+    and channels (the reference's decode layout, H and di over
+    ``model``)."""
     d = cfg.d_model
-    di = cfg.mamba.d_inner(d)
+    n = tp.size()
+    di = cfg.mamba.d_inner(d) // n
     nh = di // HEAD_P
     return {"h": torch.zeros((batch, nh, cfg.mamba.d_state, HEAD_P),
                              dtype=torch.float32, device=device),

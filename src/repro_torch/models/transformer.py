@@ -34,12 +34,15 @@ caches they were given.
 reference does (``src/repro/models/transformer.py:205``); a stack with no
 MoE block adds nothing.
 
-Under a sharding context whose rules name ``heads`` the dense decoders run
+Under a sharding context whose rules name ``heads`` the decoders run
 with dense tensor parallelism (``distributed.tensor_parallel``): each
 rank holds its column, row and vocab blocks of the projections and the
 head, and its kv heads in the caches (the reference's ``cache_seq`` rule
 for decode is not applied then: a cache holds the rank's heads over every
-position). Under a ``seq`` rule over the same axis (Megatron-SP) the
+position); the MoE blocks run expert-parallel over the same axis
+(``models.moe``) and arctic's dense residual as a tensor-parallel MLP;
+jamba's mamba mixers run the rank's SSD heads, their states holding those
+heads and channels (``models.mamba``). Under a ``seq`` rule over the same axis (Megatron-SP) the
 residual stream between blocks is each rank's S/tp rows; the final hidden
 states are gathered whole along the sequence before the head, which is
 vocab-parallel. Under a ``w_embed`` rule (FSDP) a rank holds a block of
@@ -85,7 +88,7 @@ def _init_block(gen: torch.Generator, cfg, layer_type: str, ffn_type: str,
     if layer_type == "attn":
         p["attn"] = layers.init_attention(gen, cfg, new, keep)
     else:
-        p["mamba"] = mamba.init_mamba(gen, cfg, new)
+        p["mamba"] = mamba.init_mamba(gen, cfg, new, keep)
     if ffn_type == "moe":
         p["moe"] = moe.init_moe(gen, cfg, new, keep)
     else:
@@ -129,9 +132,9 @@ def init_lm(gen: torch.Generator, cfg, keep=None):
 
 
 def _block_fwd(p, cfg, layer_type, ffn_type, x, positions, positions3=None,
-               cache=None, cache_index=None):
+               cache=None, cache_index=None, local_batch=False):
     """One block. Returns (x, aux): aux is the MoE's load-balancing term, or
-    None after a dense FFN."""
+    None after a dense FFN. ``local_batch``: as ``forward_hidden``'s."""
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     if layer_type == "attn":
         o, _ = layers.attention_fwd(p["attn"], cfg, h, positions, causal=True,
@@ -143,7 +146,7 @@ def _block_fwd(p, cfg, layer_type, ffn_type, x, positions, positions3=None,
     x = x + o
     h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
     if ffn_type == "moe":
-        o, aux = moe.moe_fwd(p["moe"], cfg, h)
+        o, aux = moe.moe_fwd(p["moe"], cfg, h, local_batch)
         return x + o, aux
     return x + layers.mlp_fwd(p["mlp"], cfg, h), None
 
@@ -176,7 +179,8 @@ def _walk(params, cfg, caches):
 
 
 def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
-                   vision_embeds=None, positions3=None, embed_rows=None):
+                   vision_embeds=None, positions3=None, embed_rows=None,
+                   local_batch=False):
     """tokens: (B, S) -> (hidden (B, S, d), caches, aux).
 
     The token embedding goes through the row-gather kernel, unless
@@ -189,7 +193,11 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
 
     Under SP the rows are cut to the rank's S/tp after the lookup (the
     gradient of ``embed_rows`` comes back whole) and the hidden states
-    returned are gathered whole again.
+    returned are gathered whole again. ``local_batch``: under a sharding
+    context, ``tokens`` are this rank's data group's part of the batch (the
+    trainer's split), which the MoE blocks route as their group's and
+    whose load-balancing term they take over the global batch; serving
+    hands every rank the whole batch.
     """
     _check_supported(cfg)
     tp.check_supported(cfg)
@@ -210,7 +218,8 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
 
     def recomputed(bp, x, lt, ft):
         with sharding.restore(ctx):
-            return _block_fwd(bp, cfg, lt, ft, x, positions, positions3)
+            return _block_fwd(bp, cfg, lt, ft, x, positions, positions3,
+                              local_batch=local_batch)
     total_aux = None
     for bp, lt, ft, cache in _walk(params, cfg, caches):
         if remat:
@@ -218,7 +227,7 @@ def forward_hidden(params, cfg, tokens, *, caches=None, cache_index=None,
                 recomputed, bp, x, lt, ft, use_reentrant=False)
         else:
             x, aux = _block_fwd(bp, cfg, lt, ft, x, positions, positions3, cache,
-                                cache_index)
+                                cache_index, local_batch)
         if aux is not None:
             total_aux = aux if total_aux is None else total_aux + aux
     h = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -250,7 +259,8 @@ def lm_loss(params, cfg, batch):
     hidden, _, aux = forward_hidden(params, cfg, batch["tokens"],
                                     vision_embeds=batch.get("vision_embeds"),
                                     positions3=batch.get("positions3"),
-                                    embed_rows=batch.get("embed_rows"))
+                                    embed_rows=batch.get("embed_rows"),
+                                    local_batch=True)
     w = head_matrix(params, cfg)
     loss, count = layers.chunked_softmax_xent(
         tp.to_head(hidden, w, cfg.vocab_size), w, batch["labels"],
@@ -279,8 +289,9 @@ def init_kv_cache(cfg, batch: int, max_seq: int, device):
     Under a ``cache_seq`` rule an attention cache holds this rank's
     ``max_seq / n`` positions (context-parallel decode); under a ``heads``
     rule the kv heads its query heads read (``tensor_parallel.local_heads``)
-    over every position instead."""
+    over every position instead, and a mamba state its SSD heads."""
     _check_supported(cfg)
+    tp.check_supported(cfg)
     L, dt = cfg.num_layers, cfg.activation_dtype
     kv = (batch, context_parallel.local_positions(max_seq), tp.local_heads(cfg)[1],
           cfg.resolved_head_dim)

@@ -7,8 +7,9 @@ waits for the card to read it; the next token stays on the card.
 
 Under a sharding context every rank runs the same loop on the same
 prompt: the models read the context (the near-data lookup, dense tensor
-parallelism with each rank's kv heads in its caches, or context-parallel
-decode), and each rank gets the whole logits and tokens.
+parallelism with each rank's kv heads and jamba's SSD heads in its
+caches, expert parallelism, or context-parallel decode), and each rank
+gets the whole logits and tokens.
 
 A request's extras ride in its batch: qwen2-vl's ``vision_embeds`` and
 ``positions3`` go to the prefill (its decode steps use plain rope, as the

@@ -38,10 +38,11 @@ that needs an earlier state clones it. At full width no second copy of
 the dense tier or its moments is ever held.
 
 Under a sharding context (``distributed.sharding.use_sharding``; DLRM and
-the dense decoders, the other LMs raise) each rank is one process holding
-its part of the state: the tables' rows over the ``table_rows`` axes (an
-LM's token table over ``vocab``), the dense tier and its moments whole,
-or under a ``heads`` rule the dense decoder's column, row and vocab
+the decoders of arch type transformer, dense or MoE, and jamba, the other
+LMs raise) each rank is one process holding its part of the state: the
+tables' rows over the ``table_rows`` axes (an LM's token table over
+``vocab``), the experts over ``experts``, the dense tier and its moments
+whole, or under a ``heads`` rule the decoders' column, row and vocab
 blocks (``distributed.tensor_parallel``), under a ``w_embed`` rule
 (FSDP) blocks over ``data`` as well (``distributed.fsdp``), the moments
 laid out like their params, and its slice of every batch over the

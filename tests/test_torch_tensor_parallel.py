@@ -28,9 +28,9 @@ everything that needs more than one process, all started together:
 On the CPU the ranks' kernels are their plain versions (by the tensors'
 device), as everywhere in the port. Without the fixture: every id's
 ``ShardingProfile`` and ``SHAPES`` against the reference's, and the
-refusals (query heads the mesh does not divide, qwen3-moe under its fsdp
-profile's rules, the other families under a ``heads`` rule, a ``seq``
-rule alone). FSDP and kv heads the mesh does not divide are
+refusals (query heads the mesh does not divide, jamba's SSD heads that the
+mesh does not divide under its fsdp profile's rules, the other families
+under a ``heads`` rule, a ``seq`` rule alone). FSDP and kv heads the mesh does not divide are
 ``tests/test_torch_fsdp.py``'s.
 
 Tolerances, each set from the measured difference: losses within rtol
@@ -776,9 +776,11 @@ def test_tied_head_over_a_vocab_block_serves_as_jax(runs):
 def test_what_the_port_does_not_lay_out_raises(case):
     """``build_rules`` refuses query heads the model axis does not divide
     (llama3.2-3b's 6 at the smoke size over 4 model ranks: the reference
-    shards the kv sequence there); qwen3-moe under its fsdp profile's rules,
-    rwkv6-3b and whisper-base under a heads rule and a seq rule without one
-    raise; each names ROADMAP item 10(c) or the missing rule."""
+    shards the kv sequence there); jamba under its fsdp profile's rules at
+    (1, 4), whose 2 SSD heads at the smoke size do not split over 4 model
+    ranks, rwkv6-3b and whisper-base under a heads rule and a seq rule
+    without one raise; each names ROADMAP item 10(c), the SSD heads or the
+    missing rule."""
     mesh = pmesh.Mesh(pmesh.AXES, (1, 2), {"data": 0, "model": 0})
     if case == "query_heads":
         b = get_arch("llama3.2-3b", smoke=True)
@@ -787,13 +789,13 @@ def test_what_the_port_does_not_lay_out_raises(case):
                                pmesh.Mesh(pmesh.AXES, (1, 4), {"data": 0, "model": 0}))
         return
     if case == "moe_fsdp":
-        b = get_arch("qwen3-moe-235b-a22b", smoke=True)
-        mesh = pmesh.Mesh(pmesh.AXES, (2, 2), {"data": 0, "model": 0})
+        b = get_arch("jamba-v0.1-52b", smoke=True)
+        mesh = pmesh.Mesh(pmesh.AXES, (1, 4), {"data": 0, "model": 0})
         act, weights, _ = dryrun.build_rules(
-            get_arch("qwen3-moe-235b-a22b"), SHAPES["train_4k"], mesh)
+            get_arch("jamba-v0.1-52b"), SHAPES["train_4k"], mesh)
         assert weights == {"w_embed": "data"}
         with sharding.use_sharding(mesh, {**act, **weights}), \
-                pytest.raises(NotImplementedError, match=re.escape("10(c)")):
+                pytest.raises(NotImplementedError, match="SSD heads do not split"):
             train_loop.make_step_fns(b.model, _tc())
         return
     if case == "seq_alone":
